@@ -4,21 +4,30 @@
 
 1. Prints the card (nvidia-smi name and power limit) and the torch/CUDA
    versions, and builds every CUDA kernel of the port with nvcc.
-2. Holds each kernel against its plain PyTorch version on the card at the
-   shapes the grid_raw_tpu eval path gives it (per 1024-ray chunk), and
-   times kernel, plain version and, where one exists, a PyTorch call that
-   computes the same function (CUDA events, median of 15 after warm-up).
-   Then checks the cases that path does not reach (ragged N, skip layers,
-   truncated and masked grids).
+2. Holds each forward kernel against its plain PyTorch version on the card
+   at the shapes the grid_raw_tpu eval path gives it (per 1024-ray chunk),
+   and each backward kernel against its plain backward at the shapes one
+   training microbatch gives it (512 rays per modality), and times kernel,
+   plain version and, where one exists, a PyTorch call that computes the
+   same function (CUDA events, median of 15 after warm-up). Then checks
+   the cases those paths do not reach (ragged N, skip layers, truncated
+   and masked grids).
 3. Renders one eval view of every modality of a raw 5-modality synthetic
    scene (256 x 256, 10 views) through RawEvaluator at full grid_raw_tpu
    width with seeded random weights, scores it, checks that the render went
-   through every kernel (launch counts), and renders one chunk again on the
-   CPU through the plain versions for comparison.
+   through every forward kernel (launch counts), and renders one chunk
+   again on the CPU through the plain versions for comparison.
+4. Trains grid_raw_tpu at the bench geometry on the same scene: 2048 rays
+   per modality in 4 microbatches of 512, sampled on the card; 2 warm-up
+   steps, then 5 timed steps. Checks finite losses, finite gradients, that
+   the parameters moved and that every step went through all six kernel
+   entries (launch counts), prints train rays/s, profiles one step, and
+   compares one 64-ray-per-modality microbatch's loss and gradients with
+   the same microbatch through the plain versions on the CPU.
 
-Prints one {"kernels": [...]} line, and last the {"ok": true, "device":
-...} line. Exits non-zero, printing no result, when a phase fails or no
-card is present.
+Prints one {"kernels": [...]} line (launches from the training run), and
+last the {"ok": true, "device": ...} line. Exits non-zero, printing no
+result, when a phase fails or no card is present.
 """
 
 import json
@@ -28,6 +37,7 @@ import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
 H100_BYTES = 3.35e12  # HBM3 bandwidth, H100 SXM data sheet
@@ -88,8 +98,6 @@ def random_chain(gen, dims, dev):
 
 def check_fused_chain(gen, dev):
     """K1 at the five chain shapes of one 1024-ray chunk."""
-    import torch.nn.functional as F
-
     from multimodalstudio_tpu_torch.ops.kernels.fused_mlp import fused_chain, fused_chain_plain
 
     shapes = [  # (name, N, dims, activation)
@@ -206,6 +214,179 @@ def check_slot_chain(gen, dev, gspec):
                 flops=flops, bytes=nbytes(pos, table, mask, ws, bs, out), err=err)
 
 
+def chain_flops(n, dims):
+    return 2.0 * n * sum(a * b for a, b in dims)
+
+
+def check_fused_chain_bwd(gen, dev):
+    """K1's backward at the five chain shapes of one training microbatch
+    (512 rays per modality: 2560 rays x 64 samples, 16 background samples,
+    one modality's rays through each polarization head)."""
+    from multimodalstudio_tpu_torch.ops.kernels.fused_mlp import _launch_bwd, fused_chain_bwd_plain
+
+    shapes = [  # (name, N, dims)
+        ("radiance trunk", 163840, [(285, 256), (256, 256), (256, 256)]),
+        ("polarization head", 32768, [(256, 256), (256, 256), (256, 3)]),
+        ("background base", 40960, [(39, 256), (256, 256), (256, 256), (256, 256)]),
+        ("background head", 40960, [(283, 128), (128, 128), (128, 128), (128, 128)]),
+        ("background polarization head", 8192, [(128, 256), (256, 256), (256, 3)]),
+    ]
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, bytes=0.0, err=0.0)
+    for name, n, dims in shapes:
+        ws, bs = random_chain(gen, dims, dev)
+        x = (torch.rand(n, dims[0][0], generator=gen, device=dev) * 2 - 1).to(torch.bfloat16)
+        gy = torch.randn(n, dims[-1][1], generator=gen, device=dev).to(torch.bfloat16)
+        out = _launch_bwd(x, gy, ws, bs, (), "ReLU", 100.0)
+        ref = fused_chain_bwd_plain(x, gy, ws, bs, activation="ReLU")
+        torch.cuda.synchronize()
+        err = 0.0
+        for part, a, b in (("gx", [out[0]], [ref[0]]), ("gW", out[1], ref[1]), ("gb", out[2], ref[2])):
+            a = torch.cat([t.float().reshape(-1) for t in a])
+            b = torch.cat([t.float().reshape(-1) for t in b])
+            rel = rel_l2(a, b)
+            err = max(err, float((a - b).abs().max()))
+            print(f"  K1 bwd {name}: N={n} {part} rel_l2={rel:.3e} (tolerance rel_l2 <= 1e-2)")
+            if not (rel <= 1e-2 and torch.isfinite(a).all()):
+                fail(f"fused_chain backward disagrees with its plain version at {name} ({part})")
+        wb = [w.t().contiguous().to(torch.bfloat16).requires_grad_(True) for w in ws]
+        bb = [b.to(torch.bfloat16).requires_grad_(True) for b in bs]
+        xl = x.clone().requires_grad_(True)
+        h = xl
+        for l, (w, b) in enumerate(zip(wb, bb)):
+            h = F.linear(h, w, b)
+            if l < len(wb) - 1:
+                h = torch.relu(h)
+
+        def library():
+            return torch.autograd.grad(h, [xl, *wb, *bb], gy, retain_graph=True)
+
+        tot["ms"] += time_ms(lambda: _launch_bwd(x, gy, ws, bs, (), "ReLU", 100.0))
+        tot["plain_ms"] += time_ms(lambda: fused_chain_bwd_plain(x, gy, ws, bs, activation="ReLU"))
+        tot["library_ms"] += time_ms(library)
+        # forward recompute of the hidden layers, then gW and gh of every layer
+        tot["flops"] += chain_flops(n, dims[:-1]) + 2 * chain_flops(n, dims)
+        tot["bytes"] += nbytes(x, gy, ws, bs, out[0], out[1], out[2])
+        tot["err"] = max(tot["err"], err)
+    return tot
+
+
+def _compare_grads(what, out, ref, tol=1e-2):
+    """rel-L2 of d_pos, d_table, gW and gb; returns the largest abs error."""
+    err = 0.0
+    for part, a, b in (("d_pos", [out[0]], [ref[0]]), ("d_table", [out[1]], [ref[1]]),
+                       ("gW", out[2], ref[2]), ("gb", out[3], ref[3])):
+        a = torch.cat([t.float().reshape(-1) for t in a])
+        b = torch.cat([t.float().reshape(-1) for t in b])
+        rel = rel_l2(a, b)
+        err = max(err, float((a - b).abs().max()))
+        print(f"  {what} {part}: rel_l2={rel:.3e} (tolerance rel_l2 <= {tol:g})")
+        if not (rel <= tol and torch.isfinite(a).all()):
+            fail(f"{what} disagrees with its plain version on {part}")
+    return err
+
+
+def _compare_outputs(what, names, out, ref, tol=1e-2):
+    """rel-L2 of each named forward output or residual; returns the largest
+    abs error."""
+    err = 0.0
+    for name, a, b in zip(names, out, ref):
+        a, b = a.float(), b.float()
+        rel = rel_l2(a, b)
+        err = max(err, float((a - b).abs().max()))
+        print(f"  {what} {name}: rel_l2={rel:.3e} (tolerance rel_l2 <= {tol:g})")
+        if not (rel <= tol and torch.isfinite(a).all()):
+            fail(f"{what} disagrees with its plain version on {name}")
+    return err
+
+
+def check_slot_value_bwd(gen, dev, gspec):
+    """K2's training forward and its backward at one training microbatch's
+    curvature taps: N=81920 (16 strided samples x 2 taps x 2560 rays), all 6
+    levels, 3 active. The forward's sdf and residual zs are held against the
+    plain forward's; each backward reads its own forward's residuals."""
+    from multimodalstudio_tpu_torch.ops.kernels.slot_fused import (
+        _launch,
+        _launch_value_bwd,
+        _value_fwd_plain,
+        pe_scales,
+        slot_sdf_value_bwd_plain,
+    )
+
+    table, ws, bs = slot_inputs(gen, dev, gspec)
+    n = 81920
+    pos = torch.rand(n, 3, generator=gen, device=dev) * 2.2 - 1.1
+    mask = (torch.arange(gspec.out_dim, device=dev) < 3 * gspec.feats).float()
+    pe = pe_scales(6, 0.0, 5.0)
+    fwd = (pos, table, ws, bs, gspec, gspec.num_levels, 1.0, pe, "SoftplusQuad", 100.0, mask)
+    sdf, _, _, zs, _, _ = _launch(*fwd, False, resid=True)
+    sdf_p, zs_p = _value_fwd_plain(*fwd)
+    fwd_err = _compare_outputs(f"K2 training fwd N={n}", ("sdf", "zs"), (sdf, zs), (sdf_p, zs_p))
+    gsdf = torch.randn(n, generator=gen, device=dev)
+    args = (*fwd, zs, gsdf)
+    plain_kw = dict(SLOT_KW, level_mask=mask)
+    out = _launch_value_bwd(*args)
+    ref = slot_sdf_value_bwd_plain(pos, table, ws, bs, gspec, zs_p, gsdf, **plain_kw)
+    torch.cuda.synchronize()
+    err = _compare_grads(f"K2 bwd N={n}", out, ref)
+    # the last layer's cotangent is sdf's column only
+    dims = [(51, 128), (128, 128), (128, 1)]
+    return dict(ms=time_ms(lambda: _launch_value_bwd(*args)),
+                plain_ms=time_ms(lambda: slot_sdf_value_bwd_plain(
+                    pos, table, ws, bs, gspec, zs_p, gsdf, **plain_kw)),
+                flops=2 * chain_flops(n, dims),
+                bytes=nbytes(pos, table, mask, ws, bs, zs, gsdf, out[0], out[1], out[2], out[3]),
+                err=err, fwd_err=fwd_err)
+
+
+def check_slot_chain_bwd(gen, dev, gspec):
+    """K3's training forward and its backward at one training microbatch's
+    render samples: N=163840, all 6 levels, 3 active, cotangents on sdf, geo
+    and grad. The forward's sdf, geo, grad and residuals zs, ss and adj are
+    held against the plain forward's; each backward reads its own forward's
+    residuals."""
+    from multimodalstudio_tpu_torch.ops.kernels.slot_fused import (
+        _chain_fwd_plain,
+        _launch,
+        _launch_chain_bwd,
+        pe_scales,
+        slot_sdf_chain_bwd_plain,
+    )
+
+    table, ws, bs = slot_inputs(gen, dev, gspec)
+    n = 163840
+    pos = torch.rand(n, 3, generator=gen, device=dev) * 2.2 - 1.1
+    mask = (torch.arange(gspec.out_dim, device=dev) < 3 * gspec.feats).float()
+    pe = pe_scales(6, 0.0, 5.0)
+    fwd = (pos, table, ws, bs, gspec, 1.0, pe, "SoftplusQuad", 100.0, mask)
+    out_k = _launch(*fwd[:5], gspec.num_levels, *fwd[5:], True, resid=True)
+    outs_p, (zs_p, ss_p, adj_p) = _chain_fwd_plain(*fwd)
+    fwd_err = _compare_outputs(f"K3 training fwd N={n}", ("sdf", "geo", "grad", "zs", "ss", "adj"),
+                           out_k, (*outs_p, zs_p, ss_p, adj_p))
+    zs, ss, adj = out_k[3:]
+    gsdf = torch.randn(n, generator=gen, device=dev)
+    ggeo = (0.1 * torch.randn(n, 256, generator=gen, device=dev)).to(torch.bfloat16)
+    g3 = torch.randn(n, 3, generator=gen, device=dev)
+    args = (*fwd, zs, ss, adj, gsdf, ggeo, g3)
+    plain_kw = dict(SLOT_KW, level_mask=mask)
+    out = _launch_chain_bwd(*args)
+    ref = slot_sdf_chain_bwd_plain(pos, table, ws, bs, gspec, zs_p, ss_p, adj_p, gsdf, ggeo, g3,
+                                   **plain_kw)
+    torch.cuda.synchronize()
+    err = _compare_grads(f"K3 bwd N={n}", out, ref)
+    hidden = [(51, 128), (128, 128)]
+    dims = hidden + [(128, 257)]
+    # ga-forward (gW and mq of the hidden layers, the last layer's column
+    # sums), then gW and gh of every layer
+    flops = 2 * chain_flops(n, hidden) + 2.0 * n * 128 + 2 * chain_flops(n, dims)
+    return dict(ms=time_ms(lambda: _launch_chain_bwd(*args)),
+                plain_ms=time_ms(lambda: slot_sdf_chain_bwd_plain(
+                    pos, table, ws, bs, gspec, zs_p, ss_p, adj_p, gsdf, ggeo, g3, **plain_kw)),
+                flops=flops,
+                bytes=nbytes(pos, table, mask, ws, bs, zs, ss, adj, gsdf, ggeo, g3, out[0],
+                             out[1], out[2], out[3]),
+                err=err, fwd_err=fwd_err)
+
+
 def check_edge_cases(gen, dev, gspec) -> None:
     """Cases the main path does not give the kernels: a ragged N, a skip
     layer, the None activation, level truncation with a partial mask."""
@@ -248,6 +429,71 @@ def check_edge_cases(gen, dev, gspec) -> None:
               "(tolerance rel_l2 <= 1e-2)")
         if not rel <= 1e-2:
             fail(f"fused_slot_sdf_chain disagrees with its plain version on {name} (masked)")
+    check_edge_cases_bwd(gen, dev, gspec, n)
+
+
+def check_edge_cases_bwd(gen, dev, gspec, n) -> None:
+    """The backwards off the training shapes: a ragged N, a skip layer and
+    the None activation (K1), a truncated grid with a partial mask (K2),
+    and K3 with ReLU (no act'' injections)."""
+    from multimodalstudio_tpu_torch.ops.kernels.fused_mlp import _launch_bwd, fused_chain_bwd_plain
+    from multimodalstudio_tpu_torch.ops.kernels.slot_fused import (
+        _chain_fwd_plain,
+        _launch,
+        _launch_chain_bwd,
+        _launch_value_bwd,
+        _value_fwd_plain,
+        pe_scales,
+        slot_sdf_chain_bwd_plain,
+        slot_sdf_value_bwd_plain,
+    )
+
+    chains = (("SoftplusQuad", (2,), [(39, 128), (128, 128), (167, 128), (128, 17)]),
+              ("None", (), [(39, 128), (128, 5)]))
+    for act, skip, dims in chains:
+        ws, bs = random_chain(gen, dims, dev)
+        x = torch.rand(n, 39, generator=gen, device=dev) * 2 - 1
+        gy = torch.randn(n, dims[-1][1], generator=gen, device=dev)
+        out = _launch_bwd(x, gy, ws, bs, skip, act, 100.0)
+        ref = fused_chain_bwd_plain(x, gy, ws, bs, skip=skip, activation=act)
+        for part, a, b in (("gx", [out[0]], [ref[0]]), ("gW", out[1], ref[1]), ("gb", out[2], ref[2])):
+            rel = rel_l2(torch.cat([t.float().reshape(-1) for t in a]),
+                         torch.cat([t.float().reshape(-1) for t in b]))
+            print(f"  K1 bwd {act} skip={skip} N={n} {part}: rel_l2={rel:.3e} "
+                  "(tolerance rel_l2 <= 1e-2)")
+            if not rel <= 1e-2:
+                fail(f"fused_chain backward disagrees with its plain version ({act}, skip {skip})")
+    table, ws, bs = slot_inputs(gen, dev, gspec)
+    pos = torch.rand(n, 3, generator=gen, device=dev) * 2.2 - 1.1
+    pe = pe_scales(6, 0.0, 5.0)
+    feats = gspec.feats
+    mask = (torch.arange(3 * feats, device=dev) < 2 * feats).float()
+    fwd = (pos, table, ws, bs, gspec, 3, 1.0, pe, "SoftplusQuad", 100.0, mask)
+    sdf, _, _, zs, _, _ = _launch(*fwd, False, resid=True)
+    sdf_p, zs_p = _value_fwd_plain(*fwd)
+    _compare_outputs(f"K2 training fwd 3 levels, 2 active, N={n}", ("sdf", "zs"), (sdf, zs),
+                     (sdf_p, zs_p))
+    gsdf = torch.randn(n, generator=gen, device=dev)
+    out = _launch_value_bwd(*fwd, zs, gsdf)
+    ref = slot_sdf_value_bwd_plain(pos, table, ws, bs, gspec, zs_p, gsdf, **SLOT_KW,
+                                   level_mask=mask, num_levels=3)
+    _compare_grads(f"K2 bwd 3 levels, 2 active, N={n}", out, ref)
+    rows = int(gspec.level_offsets[2])
+    if float(out[1][rows:].abs().max()) != 0.0:
+        fail("K2 backward wrote table gradient into inactive levels")
+    mask = torch.ones(gspec.out_dim, device=dev)
+    kw = dict(SLOT_KW, activation="ReLU")
+    fwd = (pos, table, ws, bs, gspec, 1.0, pe, "ReLU", 100.0, mask)
+    out_k = _launch(*fwd[:5], gspec.num_levels, *fwd[5:], True, resid=True)
+    outs_p, (zs_p, ss_p, adj_p) = _chain_fwd_plain(*fwd)
+    _compare_outputs(f"K3 training fwd ReLU N={n}", ("sdf", "geo", "grad", "zs", "ss", "adj"),
+                     out_k, (*outs_p, zs_p, ss_p, adj_p))
+    ggeo = torch.randn(n, 256, generator=gen, device=dev).to(torch.bfloat16)
+    g3 = torch.randn(n, 3, generator=gen, device=dev)
+    out = _launch_chain_bwd(*fwd, *out_k[3:], gsdf, ggeo, g3)
+    ref = slot_sdf_chain_bwd_plain(pos, table, ws, bs, gspec, zs_p, ss_p, adj_p, gsdf, ggeo, g3,
+                                   **kw, level_mask=mask)
+    _compare_grads(f"K3 bwd ReLU N={n}", out, ref)
 
 
 def run_slice(dev, card):
@@ -300,8 +546,9 @@ def run_slice(dev, card):
         print(f"  {mod}: {f[mod].shape} " + " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
         if not all(np.isfinite(v) for v in metrics.values()):
             fail(f"non-finite metrics for {mod}")
-    want = {"fused_chain": 5 * chunks, "fused_slot_sdf_value": 4 * chunks,
-            "fused_slot_sdf_chain": chunks}
+    want = {"fused_chain": 5 * chunks, "fused_chain_bwd": 0, "fused_slot_sdf_value": 4 * chunks,
+            "fused_slot_sdf_value_bwd": 0, "fused_slot_sdf_chain": chunks,
+            "fused_slot_sdf_chain_bwd": 0}
     print(f"  launches {launches}, expected {want} for {chunks} chunks")
     if launches != want:
         fail("the render did not go through every kernel as often as expected")
@@ -331,32 +578,167 @@ def run_slice(dev, card):
     # importance samples can move with bf16 noise between the two, so loose
     if not worst <= 5e-2:
         fail("the card's render disagrees with the CPU plain render (rel_l2 > 5e-2)")
-    profile_render(evaluator, state, dataset, 1e3 * seconds / len(frames))
+    profile_device(lambda: evaluator.render_view(state, dataset, "rgb", 0), "one rgb view",
+                   1e3 * seconds / len(frames))
     return launches, n_rays / seconds
 
 
-def profile_render(evaluator, state, dataset, view_ms: float) -> None:
-    """Device time by kernel over one rgb view render (torch.profiler), and
-    the share of the render's wall time the card was busy, under the
-    profiler and against an unprofiled view's mean time `view_ms`."""
+def profile_device(fn, label: str, ref_ms: float, top: int = 12) -> None:
+    """Device time by kernel over one call of fn (torch.profiler), and the
+    share of its wall time the card was busy, under the profiler and
+    against an unprofiled call's time `ref_ms`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        evaluator.render_view(state, dataset, "rgb", 0)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only: a CPU op's device time repeats its kernels'
     rows = [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(r[0] for r in rows)
-    print(f"  profile of one rgb view: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
-          f"({100 * busy_ms / wall_ms:.1f}%; {100 * busy_ms / view_ms:.1f}% of an unprofiled "
-          f"view's {view_ms:.2f} ms), {sum(r[1] for r in rows)} device ops")
-    for ms, count, key in sorted(rows, reverse=True)[:12]:
+    print(f"  profile of {label}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}%; {100 * busy_ms / ref_ms:.1f}% of an unprofiled "
+          f"call's {ref_ms:.2f} ms), {sum(r[1] for r in rows)} device ops")
+    for ms, count, key in sorted(rows, reverse=True)[:top]:
         print(f"    {ms:9.3f} ms {count:6d}x {key[:90]}")
+
+
+PER_MICROBATCH = {  # kernel launches of one training microbatch (derived in PERF.md)
+    "fused_chain": 5, "fused_chain_bwd": 5,  # trunk, polarization head, background x3
+    "fused_slot_sdf_value": 5, "fused_slot_sdf_value_bwd": 1,  # sampler x4, taps
+    "fused_slot_sdf_chain": 1, "fused_slot_sdf_chain_bwd": 1,
+}
+
+
+def _param_groups(named):
+    """Parameter names grouped by module: the table, the variance, each MLP."""
+    groups = {}
+    for k in named:
+        parts = k.split(".")
+        g = ("table" if parts[-1] == "table" else "variance" if parts[0] == "variance"
+             else ".".join(p for p in parts[:-1] if not p.startswith("layer_")))
+        groups.setdefault(g, []).append(k)
+    return groups
+
+
+def run_training(dev, card):
+    """Train grid_raw_tpu at the bench geometry through train_steps and
+    check losses, gradients, parameter motion and launch counts; then hold
+    one small microbatch on the card against the plain versions on the CPU."""
+    import dataclasses
+
+    from multimodalstudio_tpu_torch.cameras.camera_optimizer import init_camera_poses
+    from multimodalstudio_tpu_torch.configs.methods import FIVE_MODALITIES, method_configs
+    from multimodalstudio_tpu_torch.data.device_cache import build_device_cache, sample_pixel_batch
+    from multimodalstudio_tpu_torch.data.synthetic import make_synthetic_dataset
+    from multimodalstudio_tpu_torch.engine import train as T
+    from multimodalstudio_tpu_torch.models.model import MMSModel
+    from multimodalstudio_tpu_torch.ops.kernels import build
+
+    cfg = method_configs()["grid_raw_tpu"]
+    cfg = dataclasses.replace(cfg, modalities=FIVE_MODALITIES)
+    dm = cfg.datamanager
+    if (dm.num_rays_per_modality, dm.microbatch_rays, cfg.max_num_iterations) != (2048, 512, 100000):
+        fail("grid_raw_tpu no longer has the bench geometry")
+    microbatches = dm.num_rays_per_modality // dm.microbatch_rays
+    dataset = make_synthetic_dataset(FIVE_MODALITIES, num_views=10, height=256, width=256,
+                                     raw=True, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model = MMSModel(cfg.model, device=dev).init(gen)
+    num_cameras = {m: dataset.data[m].cameras.camera_to_worlds.shape[0] for m in FIVE_MODALITIES}
+    poses = init_camera_poses(dm.camera_optimizer, FIVE_MODALITIES, num_cameras, device=dev)
+    state = T.init_train_state(cfg, model, poses)
+    cache = build_device_cache(dataset, device=dev)
+    cams = {m: dataset.data[m].cameras for m in FIVE_MODALITIES}
+    train_steps = T.make_train_steps(cfg, model, cams)
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+
+    def check(aux, step):
+        bad = [k for k, v in aux["losses"].items() if not torch.isfinite(torch.as_tensor(v)).all()]
+        if bad:
+            fail(f"non-finite losses {bad} at step {step}")
+        if aux["metrics"]["grads_finite"] != 1.0:
+            fail(f"non-finite gradient at step {step}")
+
+    t0 = time.perf_counter()
+    for _ in range(2):  # warm-up
+        state, aux = train_steps(state, cache, gen, 1)
+        check(aux, state.step)
+    torch.cuda.synchronize()
+    print(f"  warm-up: 2 steps in {time.perf_counter() - t0:.2f} s")
+    steps = 5
+    build.reset_launch_counts()
+    step_s = []
+    for _ in range(steps):
+        t1 = time.perf_counter()
+        state, aux = train_steps(state, cache, gen, 1)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+        check(aux, state.step)
+        print(f"  step {state.step}: {step_s[-1] * 1e3:.1f} ms " + " ".join(
+            f"{k}={float(v):.5g}" for k, v in sorted(aux["losses"].items())))
+    seconds = sum(step_s)
+    launches = {name: info.launches for name, info in build.KERNELS.items()}
+    want = {name: k * microbatches * steps for name, k in PER_MICROBATCH.items()}
+    print(f"  launches {launches}, expected {want} ({microbatches} microbatches x {steps} steps)")
+    if launches != want:
+        fail("the training steps did not go through every kernel as often as expected")
+    moved = [k for k, p in model.named_parameters() if not torch.equal(p, before[k])]
+    print(f"  {len(moved)} of {len(before)} parameter tensors moved in {state.step} steps; "
+          f"update count {state.opt_state.count}")
+    if len(moved) < len(before) or state.opt_state.count != state.step:
+        fail("the parameters did not all move")
+    rays = dm.num_rays_per_modality * len(FIVE_MODALITIES) * steps
+    rays_per_s = rays / seconds
+    print(f"  trained {rays} rays in {seconds:.3f} s: {rays_per_s:.1f} rays/s (train, grid_raw_tpu,"
+          f" 5 modalities, 2048 rays per modality in {microbatches} microbatches, {card})")
+    profile_device(lambda: train_steps(state, cache, gen, 1), "one training step",
+                   1e3 * seconds / steps, top=20)
+
+    # one 64-ray microbatch on the card and through the plain versions on the CPU
+    small = dataclasses.replace(cfg, datamanager=dataclasses.replace(
+        dm, num_rays_per_modality=64, microbatch_rays=0))
+    batch = sample_pixel_batch(cache, gen, 64, FIVE_MODALITIES)
+    sched = T.make_schedules(small, state.step)
+    gpu = T.batch_loss_and_grads(small, model, cams, state.camera_poses, batch, state.step, sched)
+    cpu_model = MMSModel(cfg.model, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu_cams = {m: dataclasses.replace(c, **{k: getattr(c, k).cpu() for k in
+                                             ("fx", "fy", "cx", "cy", "camera_to_worlds")})
+                for m, c in cams.items()}
+    cpu_poses = {m: p.detach().cpu().requires_grad_(True) for m, p in state.camera_poses.items()}
+    cpu_batch = {m: dataclasses.replace(b, **{f.name: getattr(b, f.name).cpu()
+                                              for f in dataclasses.fields(b)})
+                 for m, b in batch.items()}
+    cpu = T.batch_loss_and_grads(small, cpu_model, cpu_cams, cpu_poses, cpu_batch, state.step,
+                                 sched)
+    # loose: importance samples move with bf16 noise, and the card's sums
+    # run in other orders (atomics) than the CPU's
+    rel = abs(float(gpu[0]) - float(cpu[0])) / abs(float(cpu[0]))
+    print(f"  microbatch vs CPU plain: total loss {float(gpu[0]):.6g} vs {float(cpu[0]):.6g} "
+          f"(rel {rel:.3e}, tolerance 2e-2)")
+    worst = rel if rel <= 2e-2 else float("inf")
+    fields_g, fields_c = gpu[3]["fields"], cpu[3]["fields"]
+    groups = _param_groups(fields_c)
+    groups["camera_poses"] = None
+    for name, keys in groups.items():
+        if keys is None:
+            a = torch.cat([g.reshape(-1).cpu() for g in gpu[3]["camera_poses"].values()])
+            b = torch.cat([g.reshape(-1) for g in cpu[3]["camera_poses"].values()])
+        else:
+            a = torch.cat([fields_g[k].reshape(-1).cpu() for k in keys])
+            b = torch.cat([fields_c[k].reshape(-1) for k in keys])
+        r = rel_l2(a, b)
+        print(f"  microbatch vs CPU plain: gradient of {name} rel_l2={r:.3e} (tolerance 1e-1)")
+        if not (r <= 1e-1 and torch.isfinite(a).all()):
+            worst = float("inf")
+    if worst == float("inf"):
+        fail("the card's training microbatch disagrees with the CPU plain versions")
+    return launches, rays_per_s
 
 
 def main() -> None:
@@ -376,16 +758,24 @@ def main() -> None:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     gspec = SlotGridSpec(num_levels=6, min_res=16, max_res=512, rows_per_level=4096,
                          layout="cell", feats=2, table_dtype="bf16")
-    print("kernel checks (per 1024-ray chunk):")
+    print("kernel checks (forward: per 1024-ray eval chunk; backward: per 512-ray training "
+          "microbatch):")
     results = {
         "fused_chain": check_fused_chain(gen, dev),
         "fused_slot_sdf_value": check_slot_value(gen, dev, gspec),
         "fused_slot_sdf_chain": check_slot_chain(gen, dev, gspec),
+        "fused_chain_bwd": check_fused_chain_bwd(gen, dev),
+        "fused_slot_sdf_value_bwd": check_slot_value_bwd(gen, dev, gspec),
+        "fused_slot_sdf_chain_bwd": check_slot_chain_bwd(gen, dev, gspec),
     }
-    print("kernel checks off the main path's shapes:")
+    for name in ("fused_slot_sdf_value", "fused_slot_sdf_chain"):  # the training forwards' errors
+        results[name]["err"] = max(results[name]["err"], results[name + "_bwd"].pop("fwd_err"))
+    print("kernel checks off the main paths' shapes:")
     check_edge_cases(gen, dev, gspec)
     print("render:")
-    launches, rays_per_s = run_slice(dev, card)
+    _, rays_per_s = run_slice(dev, card)
+    print("training:")
+    launches, train_rays_per_s = run_training(dev, card)
 
     entries = []
     for name, r in results.items():
@@ -398,6 +788,7 @@ def main() -> None:
             "library_ms": r.get("library_ms"),
         })
     print(f"eval rays/s {rays_per_s:.1f} ({card})")
+    print(f"train rays/s {train_rays_per_s:.1f} ({card})")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,6 +1,7 @@
 """Per-modality camera pose corrections (JAX reference:
 cameras/camera_optimizer.py). Pose deltas are [K, 6] tangents per
-modality; the exp map turns them into [N, 3, 4] transforms."""
+modality, trainable leaves of their own optimizer group; the exp map turns
+them into [N, 3, 4] transforms."""
 
 from __future__ import annotations
 
@@ -29,11 +30,13 @@ class CameraOptimizerSpec:
 def init_camera_poses(
     spec: CameraOptimizerSpec, modalities, num_cameras: Dict[str, int], device="cpu"
 ) -> Dict[str, torch.Tensor]:
-    """Zero tangents per modality ([1, 6] when shared)."""
+    """Zero tangents per modality ([1, 6] when shared), as leaves that
+    require grad."""
     if spec.mode == "off":
         return {}
     return {
-        mod: torch.zeros((1 if spec.shared_optimization else num_cameras[mod], 6), device=device)
+        mod: torch.zeros((1 if spec.shared_optimization else num_cameras[mod], 6), device=device,
+                         requires_grad=True)
         for mod in modalities
     }
 
@@ -54,7 +57,10 @@ def camera_opt_transform(
     spec: CameraOptimizerSpec, camera_poses: Dict[str, torch.Tensor], mod: str,
     camera_indices: torch.Tensor,
 ) -> Optional[torch.Tensor]:
-    """The modality's pose correction, or None when it has no tangents."""
+    """The modality's pose correction, or None when it has no tangents; no
+    gradient reaches the tangents of a modality excluded from optimization
+    (camera_optimizer.py:57-67)."""
     if spec.mode == "off" or mod not in camera_poses:
         return None
-    return tangent_transform(spec, camera_poses[mod], camera_indices)
+    mat = tangent_transform(spec, camera_poses[mod], camera_indices)
+    return mat if spec.optimize(mod) else mat.detach()

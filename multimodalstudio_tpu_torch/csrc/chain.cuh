@@ -1,4 +1,5 @@
-// Shared pieces of the fused dense-chain kernels (fused_mlp.cu, slot_fused.cu).
+// Shared pieces of the fused dense-chain kernels (fused_mlp.cu, slot_fused.cu,
+// slot_fused_bwd.cu).
 //
 // A CTA owns a tile of 64 samples. Activations live in shared memory as
 // bf16 [64, ld] row-major; each layer is a 64 x N x K product on the tensor
@@ -42,9 +43,20 @@ __device__ __forceinline__ float act_df(int act, float z, float a) {
   return 1.f;
 }
 
+// act'' (nonzero only for SoftplusQuad: 1 / (2a) on |z| < a)
+__device__ __forceinline__ float act_ddf(int act, float z, float a) {
+  if (act == ACT_SOFTPLUS_QUAD) return fabsf(z) < a ? 0.5f / a : 0.f;
+  return 0.f;
+}
+
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
+
+__device__ __forceinline__ float bf(bf16 x) { return __bfloat162float(x); }
+
+constexpr float SKIP_SCALE = 0.70710678118654752f;  // 1 / sqrt(2)
+constexpr size_t MAX_SMEM = 232448;                 // per block on sm_90
 
 // Geometry of one chain: padded (multiple of 16) per-layer widths and the
 // element offsets of each layer in the packed weight / bias buffers.
@@ -139,7 +151,7 @@ __device__ __forceinline__ bf16* run_hidden_layers(const Chain& C, const bf16* _
                                                    const float* __restrict__ bpack, bf16* buf0,
                                                    bf16* buf1, int lds, const bf16* x0, int ldx0,
                                                    bf16* zs, int ldz, float* stage) {
-  const float skip_scale = 0.70710678118654752f;
+  const float skip_scale = SKIP_SCALE;
   bf16* in = buf0;
   bf16* out = buf1;
   const int lane = threadIdx.x & 31;
@@ -172,6 +184,65 @@ __device__ __forceinline__ bf16* run_hidden_layers(const Chain& C, const bf16* _
     out = t;
   }
   return in;
+}
+
+// gW[m, n] += A^T B summed over the tile's 64 rows: A and B are shared bf16
+// [64, lda] / [64, ldb] (m and n columns used, multiples of 16); gW is a
+// global f32 row-major matrix with row length ldw. The blocks of the grid
+// run in any order, so each warp adds its finished 16 x 16 tiles with
+// atomics (the sum's order changes from run to run).
+__device__ __forceinline__ void mma_atb64_atomic(const bf16* A, int lda, int m, const bf16* B,
+                                                 int ldb, int n, float* gW, int ldw,
+                                                 float* stage) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* st = stage + warp * 256;
+  const int tn = n / 16;
+  for (int t = warp; t < (m / 16) * tn; t += NWARPS) {
+    const int mt = t / tn, nt = t % tn;
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+    wmma::fill_fragment(acc, 0.f);
+#pragma unroll
+    for (int k = 0; k < TILE_M / 16; ++k) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
+      wmma::load_matrix_sync(a, A + k * 16 * lda + mt * 16, lda);
+      wmma::load_matrix_sync(b, B + k * 16 * ldb + nt * 16, ldb);
+      wmma::mma_sync(acc, a, b, acc);
+    }
+    wmma::store_matrix_sync(st, acc, 16, wmma::mem_row_major);
+    __syncwarp();
+    for (int i = lane; i < 256; i += 32) {
+      const float v = st[i];
+      if (v != 0.f) atomicAdd(gW + (long long)(mt * 16 + (i >> 4)) * ldw + nt * 16 + (i & 15), v);
+    }
+    __syncwarp();
+  }
+}
+
+// Column sums of a warp's epilogue tiles into gb. Inside an mma_tile64
+// epilogue each lane owns column c0 + (lane & 15) of every 16 x 16 tile;
+// call add(part) with the lane's partial sum for the tile at rows r0: the
+// two half-warps are combined and, after the last row tile, lanes 0-15 add
+// their column's total to gb[c0 + lane].
+struct ColSum {
+  float acc = 0.f;
+  __device__ __forceinline__ void add(float part, int r0, int c0, float* gb) {
+    part += __shfl_xor_sync(0xffffffffu, part, 16);
+    acc += part;
+    if (r0 == TILE_M - 16) {
+      if ((threadIdx.x & 31) < 16 && acc != 0.f) atomicAdd(gb + c0 + (threadIdx.x & 15), acc);
+      acc = 0.f;
+    }
+  }
+};
+
+// gb[c] += sum of the tile's rows of a shared bf16 matrix M [64, ldm], c < n
+__device__ __forceinline__ void colsum_bf16(const bf16* M, int ldm, int n, float* gb) {
+  for (int c = threadIdx.x; c < n; c += NTHREADS) {
+    float s = 0.f;
+    for (int r = 0; r < TILE_M; ++r) s += bf(M[r * ldm + c]);
+    if (s != 0.f) atomicAdd(gb + c, s);
+  }
 }
 
 }  // namespace mms

@@ -28,7 +28,7 @@ class SingleVariance(nn.Module):
     def __init__(self, init_val: float = 0.3, device=None):
         super().__init__()
         self.init_val = init_val
-        self.s = nn.Parameter(torch.full((1,), init_val, device=device), requires_grad=False)
+        self.s = nn.Parameter(torch.full((1,), init_val, device=device))
 
     @torch.no_grad()
     def init_params(self, gen: torch.Generator) -> None:
@@ -56,9 +56,7 @@ class SlotGridEncoding(nn.Module):
     def __init__(self, spec: SlotGridSpec, device=None):
         super().__init__()
         self.spec = spec
-        self.table = nn.Parameter(
-            torch.zeros((spec.total_rows, LANE), device=device), requires_grad=False
-        )
+        self.table = nn.Parameter(torch.zeros((spec.total_rows, LANE), device=device))
 
     @torch.no_grad()
     def init_params(self, gen: torch.Generator) -> None:

@@ -66,13 +66,15 @@ class WNDense(nn.Module):
         super().__init__()
         self.use_weight_norm = use_weight_norm
         self.dtype = dtype
-        self.kernel = nn.Parameter(torch.zeros(in_dim, features, device=device), requires_grad=False)
-        self.bias = nn.Parameter(torch.zeros(features, device=device), requires_grad=False)
+        self.kernel = nn.Parameter(torch.zeros(in_dim, features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
         if use_weight_norm:
-            self.g = nn.Parameter(torch.ones(features, device=device), requires_grad=False)
+            self.g = nn.Parameter(torch.ones(features, device=device))
 
     def weights(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Effective (weight-norm applied) (w [in, out], b [out])."""
+        """Effective (weight-norm applied) (w [in, out], b [out]), recomputed
+        per call so that autograd carries gW back to kernel and g, as JAX
+        differentiates effective_mlp_weights."""
         if not self.use_weight_norm:
             return self.kernel, self.bias
         norm = torch.linalg.vector_norm(self.kernel, dim=0, keepdim=True)

@@ -1,4 +1,5 @@
-"""The multimodal NeuS model, eval forward (JAX reference: models/model.py).
+"""The multimodal NeuS model, eval and training forward (JAX reference:
+models/model.py).
 
 Shared SDF geometry, a shared radiance trunk with per-modality heads, and a
 NeRF background, rendered for a flat ray batch with the hit mask carried
@@ -8,6 +9,10 @@ slot kernels: sampler queries through K2 (value only, the first
 features and d sdf/dx). The MLP chains of the trunk, the polarization
 heads and the background run as K1 (fields/mlp.py).
 
+In training the kernels run as autograd Functions with CUDA backwards,
+and the curvature loss's hessian proxy comes from SDF taps through K2 with
+gradient (curvature_hessian_taps).
+
 The module tree mirrors the reference's params tree, so every state-dict
 key is the dotted flax path (convert.py).
 """
@@ -15,6 +20,7 @@ key is the dotted flax path (convert.py).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -144,6 +150,30 @@ class ScheduleState:
     numerical_delta: float
 
 
+TETRAHEDRON = ((1.0, -1.0, -1.0), (-1.0, -1.0, 1.0), (-1.0, 1.0, -1.0), (1.0, 1.0, 1.0))
+
+
+def curvature_hessian_taps(sdf_fn, tap_pos, base_sdf, delta: float, n_taps: int):
+    """Numerical hessian-trace proxy for the curvature loss (model.py:196-226).
+
+    n_taps=4: the tetrahedron taps, sum_i k_i k_i^T = 4I. n_taps=2: the
+    antipodal pair +-k_j with k_j cycling through the tetrahedron
+    directions by sample index (j = index % 4). Returns the [..., 3]
+    per-axis stack the curvature loss reads (hxx replicated, / 3)."""
+    d = delta / math.sqrt(3.0)
+    k = torch.tensor(TETRAHEDRON, dtype=tap_pos.dtype, device=tap_pos.device)
+    if n_taps == 2:
+        kj = k[torch.arange(tap_pos.shape[-2], device=tap_pos.device) % 4]  # [S, 3]
+        taps = torch.stack([tap_pos + kj * d, tap_pos - kj * d], dim=-2)
+        hxx = (sdf_fn(taps).sum(-1) - 2.0 * base_sdf) / delta**2
+    elif n_taps == 4:
+        taps = tap_pos[..., None, :] + k * d
+        hxx = (sdf_fn(taps).sum(-1) / 2.0 - 2.0 * base_sdf) / delta**2
+    else:
+        raise ValueError("curvature_taps must be 2 or 4")
+    return torch.stack([hxx, hxx, hxx], dim=-1) / 3.0
+
+
 def _head_module(spec: HeadSpec, in_dim: int, channels: int, device):
     if spec.polarization:
         return PolarizationHead(spec.mlp, in_dim, device=device)
@@ -151,9 +181,9 @@ def _head_module(spec: HeadSpec, in_dim: int, channels: int, device):
 
 
 class MMSModel(nn.Module):
-    """Eval-time renderer of the multimodal NeuS model. `device` defaults to
-    the card and raises without one; pass device="cpu" for the plain
-    versions of the kernels."""
+    """The multimodal NeuS model: eval renderer and training forward.
+    `device` defaults to the card and raises without one; pass device="cpu"
+    for the plain versions of the kernels."""
 
     def __init__(self, spec: ModelSpec, device="cuda"):
         super().__init__()
@@ -235,25 +265,38 @@ class MMSModel(nn.Module):
         )
         return sdf.reshape(positions.shape[:-1])
 
-    def sdf_gradients(self, positions: torch.Tensor, schedules: ScheduleState):
-        """(sdf [...], geo [..., G] bf16, d sdf/dx [..., 3]) through K3."""
-        if self.spec.surface.use_numerical_gradients:
+    def sdf_gradients(self, positions: torch.Tensor, schedules: ScheduleState, train: bool = False):
+        """(sdf [...], geo [..., G] bf16, d sdf/dx [..., 3], hessians) through
+        K3; in training with compute_hessian, hessians [..., S_tap, 3] come
+        from the curvature taps through K2 (model.py:654-669), else None."""
+        spec = self.spec.surface
+        if spec.use_numerical_gradients:
             raise NotImplementedError("numerical SDF gradients are not ported")
         grid_mlp = self._slot_grid()
-        enc = self.spec.surface.surface_field.field.grid.encoding
+        enc = spec.surface_field.field.grid.encoding
         args, kw = self._slot_kwargs(grid_mlp)
         sdf, geo, grad = fused_slot_sdf_chain(
             positions.reshape(-1, 3), *args, **kw,
             level_mask=grid_mlp.feature_grid.level_mask(schedules.active_level, enc.num_levels),
         )
         lead = positions.shape[:-1]
-        return sdf.reshape(lead), geo.reshape(*lead, -1), grad.reshape(positions.shape)
+        sdf, geo, grad = sdf.reshape(lead), geo.reshape(*lead, -1), grad.reshape(positions.shape)
+        hessians = None
+        if train and spec.compute_hessian:
+            tap_pos, tap_sdf = positions, sdf
+            if spec.curvature_tap_stride > 1 and positions.dim() >= 3:
+                tap_pos = positions[..., :: spec.curvature_tap_stride, :]
+                tap_sdf = sdf[..., :: spec.curvature_tap_stride]
+            hessians = curvature_hessian_taps(
+                lambda q: self.sdf_only(q, schedules.active_level), tap_pos, tap_sdf,
+                schedules.numerical_delta, spec.curvature_taps,
+            )
+        return sdf, geo, grad, hessians
 
     def inv_s(self) -> torch.Tensor:
         return self.variance()[0]
 
     # --------------------------------------------------------------- forward
-    @torch.no_grad()
     def forward(
         self,
         rays: RayBundle,
@@ -261,13 +304,21 @@ class MMSModel(nn.Module):
         schedules: ScheduleState,
         train: bool = False,
         aligned: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> Dict[str, torch.Tensor]:
-        """Render a flat ray batch (eval). `segments` is the static
-        (modality, num_rays) split of the batch; with `aligned` every head
-        renders every ray. Returns per-modality radiance, normals, depth,
-        accumulation and the hit mask."""
-        if train:
-            raise NotImplementedError("the training forward is not ported yet")
+        """Render a flat ray batch. `segments` is the static (modality,
+        num_rays) split of the batch; with `aligned` every head renders
+        every ray. Returns per-modality radiance, normals, depth,
+        accumulation and the hit mask, and in training also gradients,
+        hessians and inv_s (model.py:829-832). Eval runs under no_grad;
+        training draws the samplers' jitter from `generator` (none: no
+        jitter)."""
+        if not train:
+            with torch.no_grad():
+                return self._render(rays, segments, schedules, False, aligned, None)
+        return self._render(rays, segments, schedules, True, aligned, generator)
+
+    def _render(self, rays, segments, schedules, train, aligned, generator):
         spec = self.spec
         if spec.collider_type != "sphere":
             raise NotImplementedError("only the sphere collider is ported")
@@ -277,18 +328,21 @@ class MMSModel(nn.Module):
         samples = neus_sampling(
             collided,
             lambda pos: self.sdf_only(pos, schedules.active_level, spec.surface.sampler_levels),
-            spec.ray_sampler,
+            spec.ray_sampler, generator, train,
         )
         background = None
         if spec.use_background:
             bg_rays = background_bounds(rays, mask, spec.scene_radius)
-            bg_samples = spaced_sampling(bg_rays, spec.background_ray_sampler)
+            bg_samples = spaced_sampling(bg_rays, spec.background_ray_sampler,
+                                         generator=generator, train=train)
             background = self._background_forward(bg_samples, segments, aligned)
 
-        sdf, geo, gradients = self.sdf_gradients(samples.start_positions(), schedules)
+        sdf, geo, gradients, hessians = self.sdf_gradients(
+            samples.start_positions(), schedules, train)
         norm = torch.linalg.vector_norm(gradients, dim=-1, keepdim=True)
         normals = gradients / norm.clamp_min(1e-12)
-        weights = neus_weights(samples, sdf, gradients, self.inv_s(), schedules.cos_anneal_ratio)
+        inv_s = self.inv_s()
+        weights = neus_weights(samples, sdf, gradients, inv_s, schedules.cos_anneal_ratio)
         radiance = self._radiance_forward(samples, normals, geo, segments, aligned)
 
         outputs: Dict[str, torch.Tensor] = {}
@@ -305,6 +359,10 @@ class MMSModel(nn.Module):
         outputs["depth"] = m * depth
         outputs["accumulation"] = m * acc
         outputs["mask"] = mask
+        if train:
+            outputs["gradients"] = gradients
+            outputs["hessians"] = hessians
+            outputs["inv_s"] = 1.0 / inv_s
         return outputs
 
     def _iter_segments(self, segments, aligned):
@@ -349,7 +407,7 @@ class MMSModel(nn.Module):
         if spec.contraction_order is not None:
             pos = scene_contraction(pos, spec.contraction_order)
         dirs = samples.directions[:, None, :].expand(n, s, 3).reshape(-1, 3)
-        nrm = normals.reshape(-1, 3)
+        nrm = normals.reshape(-1, 3).detach()  # stop_gradient (model.py:866)
         n_dot_v = (nrm * -dirs).sum(-1, keepdim=True)
         extras = [geo.reshape(-1, geo.shape[-1]).float()]
         if spec.use_n_dot_v:

@@ -1,6 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Each library under `csrc/` is one .cu source with a plain C interface,
+Each library under `csrc/` is one .cu source with a plain C interface
+(fused_mlp: K1 forward and backward; slot_fused: K2/K3 forward;
+slot_fused_bwd: K2/K3 backward),
 compiled by nvcc for sm_90a into `build/torch_kernels/` at the repository
 root and loaded with ctypes. The library name carries a hash of every file
 in `csrc/`, so an edited source rebuilds and a stale library is never
@@ -25,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-LIBRARIES = ("fused_mlp", "slot_fused")
+LIBRARIES = ("fused_mlp", "slot_fused", "slot_fused_bwd")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # no multiply-add contraction: the kernels reproduce the reference's

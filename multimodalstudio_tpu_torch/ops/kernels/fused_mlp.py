@@ -1,10 +1,15 @@
-"""Fused dense chain (MLP) forward: kernel K1 and its plain version.
+"""Fused dense chain (MLP): kernel K1, forward and backward, and their
+plain versions.
 
 `fused_chain` runs a whole MLP layer chain for a tile of samples on the
 card in one CUDA kernel (csrc/fused_mlp.cu), so activations between layers
 never touch device memory. It replaces the Pallas TPU kernel
 multimodalstudio_tpu/ops/pallas/fused_mlp.py::_fwd_kernel (:265), reached
-through `fused_chain` (:1080), in its forward mode without tangents.
+through `fused_chain` (:1080), in its forward mode without tangents. With
+grad enabled it runs as an autograd Function whose backward is the second
+CUDA kernel of the file, replacing _bwd_kernel (:607, via chain_bwd :904):
+it recomputes the forward per tile, keeping the bf16 pre-activations in
+shared memory, and runs the reverse sweep there.
 
 Arithmetic (the JAX kernel's cast points, chain_reference :1263-1302):
 inputs and weights bf16, products accumulated in f32 plus an f32 bias,
@@ -12,8 +17,14 @@ the hidden activation evaluated in f32 and rounded to bf16, a skip layer's
 input concat(h, x0) * 1/sqrt(2) rounded to bf16, and the last layer's z
 rounded to bf16 for y.
 
+Backward cast points (_bwd_kernel :645-789): the cotangent gy arrives in
+bf16; the hidden inputs of layer l are recomputed as bf16(act(z)) from the
+bf16-stored z; gz = gh * act'(z) is rounded to bf16 before both products
+(gW = hin^T gz, gh = gz W^T); gb sums the unrounded f32 gz; gx is bf16.
+
 Bound on an H100 at the slice's widths: about 2 * N * sum(din * dout)
-flops against 2 * N * (din + dout) bytes of input and output, far above
+flops (6 * N * sum(din * dout) for the backward, forward recompute
+included) against 2 * N * (din + dout) bytes of input and output, far above
 the card's ridge of ~295 flop/byte, so the tensor-core rate bounds it.
 """
 
@@ -33,6 +44,11 @@ KERNEL = build.register(
     "fused_chain",
     source="multimodalstudio_tpu_torch/csrc/fused_mlp.cu",
     replaces="multimodalstudio_tpu/ops/pallas/fused_mlp.py:265",
+)
+BWD_KERNEL = build.register(
+    "fused_chain_bwd",
+    source="multimodalstudio_tpu_torch/csrc/fused_mlp.cu",
+    replaces="multimodalstudio_tpu/ops/pallas/fused_mlp.py:607",
 )
 
 
@@ -99,6 +115,53 @@ def fused_chain_plain(
     return y if t is None else (y, t.to(torch.bfloat16))
 
 
+def fused_chain_bwd_plain(
+    x: torch.Tensor,
+    gy: torch.Tensor,
+    weights: Sequence[torch.Tensor],
+    biases: Sequence[torch.Tensor],
+    *,
+    skip: Tuple[int, ...] = (),
+    activation: str = "ReLU",
+    beta: float = 100.0,
+):
+    """Plain PyTorch version of K1's backward (_bwd_kernel :607-791).
+
+    x [N, D_in], gy [N, D_out] (rounded to bf16). Returns gx [N, D_in] bf16,
+    gW[l] [din_l, dout_l] f32 and gb[l] [dout_l] f32."""
+    f, df = act_pair(activation, beta)
+    n_layers = len(weights)
+    hidden = weights[0].shape[1]
+    x0 = bf16_round(x.float())
+    wb = [bf16_round(w.float()) for w in weights]
+    h, zs = x0, []
+    for l in range(n_layers - 1):
+        if l in skip:
+            h = bf16_round(torch.cat([h, x0], dim=-1) * SKIP_SCALE)
+        z = h @ wb[l] + biases[l].float()
+        zs.append(bf16_round(z))
+        h = bf16_round(f(z))
+    gh = bf16_round(gy.float())
+    gx0 = torch.zeros_like(x0)
+    gws: List[torch.Tensor] = [None] * n_layers
+    gbs: List[torch.Tensor] = [None] * n_layers
+    for l in reversed(range(n_layers)):
+        gz = gh if l == n_layers - 1 else gh * df(zs[l])
+        gzb = bf16_round(gz)
+        hin = x0 if l == 0 else bf16_round(f(zs[l - 1]))
+        if l in skip:
+            hin = bf16_round(torch.cat([hin, x0], dim=-1) * SKIP_SCALE)
+        gws[l] = hin.T @ gzb
+        gbs[l] = gz.sum(0)
+        ghp = gzb @ wb[l].T
+        if l in skip:
+            gh = ghp[:, :hidden] * SKIP_SCALE
+            gx0 = gx0 + ghp[:, hidden:] * SKIP_SCALE
+        else:
+            gh = ghp
+    return (gh + gx0).to(torch.bfloat16), gws, gbs
+
+
 def rup16(n: int) -> int:
     return (n + 15) // 16 * 16
 
@@ -153,36 +216,36 @@ def pack_chain(
     return torch.cat(ws).to(torch.bfloat16).contiguous(), torch.cat(bs).contiguous()
 
 
-def fused_chain(
-    x: torch.Tensor,
-    weights: Sequence[torch.Tensor],
-    biases: Sequence[torch.Tensor],
-    *,
-    skip: Tuple[int, ...] = (),
-    activation: str = "ReLU",
-    beta: float = 100.0,
-    tangents: Optional[torch.Tensor] = None,
-):
-    """Run the fused dense chain; y [N, D_out] bf16 before the output
-    activation. A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel (forward tangents raise there until the training
-    slice brings the tangent kernel)."""
-    if x.device.type == "cpu":
-        return fused_chain_plain(
-            x, weights, biases, skip=skip, activation=activation, beta=beta, tangents=tangents
-        )
+def unpack_grads(gw: torch.Tensor, gb: torch.Tensor, weights, in_dims, out_dims, hidden, skip):
+    """Per-layer gW [din_l, dout_l] and gb [dout_l] out of the packed,
+    padded f32 gradient buffers (the layout of pack_chain)."""
+    gws, gbs = [], []
+    wo = bo = 0
+    for l, w in enumerate(weights):
+        g = gw[wo : wo + in_dims[l] * out_dims[l]].view(in_dims[l], out_dims[l])
+        if l in skip:
+            g = torch.cat([g[:hidden], g[hidden : w.shape[0]]], dim=0)
+        gws.append(g[: w.shape[0], : w.shape[1]])
+        gbs.append(gb[bo : bo + w.shape[1]])
+        wo += in_dims[l] * out_dims[l]
+        bo += out_dims[l]
+    return gws, gbs
+
+
+def _check_card(x: torch.Tensor, activation: str, n_layers: int) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"fused_chain: unsupported device {x.device}")
-    if tangents is not None:
-        raise NotImplementedError("fused_chain: forward tangents have no CUDA kernel yet")
     if activation not in ACTIVATIONS:
         raise ValueError(f"unsupported fused activation {activation}")
-    skip = tuple(sorted(skip))
+    if n_layers > 8:
+        raise ValueError("fused_chain: at most 8 layers")
+
+
+def _launch_fwd(x, weights, biases, skip, activation, beta):
+    _check_card(x, activation, len(weights))
     n, d_in = x.shape
     d_out = weights[-1].shape[1]
     in_dims, out_dims, p0, hidden = chain_geometry(d_in, weights, skip)
-    if len(weights) > 8:
-        raise ValueError("fused_chain: at most 8 layers")
     wpack, bpack = pack_chain(weights, biases, in_dims, out_dims, hidden, skip)
     xb = x.to(torch.bfloat16).contiguous()
     y = torch.empty((n, d_out), dtype=torch.bfloat16, device=x.device)
@@ -201,3 +264,96 @@ def fused_chain(
     build.check(status, "fused_chain")
     KERNEL.launches += 1
     return y
+
+
+def _launch_bwd(x, gy, weights, biases, skip, activation, beta):
+    """K1's backward kernel: (gx bf16, gW list f32, gb list f32)."""
+    _check_card(x, activation, len(weights))
+    if 0 in skip:
+        raise ValueError("fused_chain: layer 0 cannot be a skip layer")
+    n, d_in = x.shape
+    d_out = weights[-1].shape[1]
+    in_dims, out_dims, p0, hidden = chain_geometry(d_in, weights, skip)
+    wpack, bpack = pack_chain(weights, biases, in_dims, out_dims, hidden, skip)
+    xb = x.to(torch.bfloat16).contiguous()
+    gyb = gy.to(torch.bfloat16).contiguous()
+    gx = torch.empty((n, d_in), dtype=torch.bfloat16, device=x.device)
+    gw = torch.zeros(sum(a * b for a, b in zip(in_dims, out_dims)), device=x.device)
+    gb = torch.zeros(sum(out_dims), device=x.device)
+    if n:
+        fn = build.function(
+            "fused_mlp", "mms_fused_chain_bwd", "ptr", "int", "ptr", "ptr", "ptr", "ptr", "ptr",
+            "ptr", "int", "int", "int", "ptr", "ptr", "int", "int", "int", "int", "float", "ptr",
+        )
+        status = fn(
+            build.ptr(xb), d_in, build.ptr(gyb), build.ptr(wpack), build.ptr(bpack),
+            build.ptr(gx), build.ptr(gw), build.ptr(gb), d_out, n, len(weights),
+            build.int_array(in_dims), build.int_array(out_dims), sum(1 << l for l in skip),
+            hidden, p0, ACTIVATIONS[activation], 2.0 / beta, build.stream_of(x),
+        )
+        build.check(status, "fused_chain backward")
+        BWD_KERNEL.launches += 1
+    gws, gbs = unpack_grads(gw, gb, weights, in_dims, out_dims, hidden, skip)
+    return gx, gws, gbs
+
+
+def _forward(x, weights, biases, skip, activation, beta):
+    """The forward without tangents: the plain version for a CPU tensor,
+    the kernel for any other (which raises off a card)."""
+    if x.device.type == "cpu":
+        return fused_chain_plain(x, weights, biases, skip=skip, activation=activation, beta=beta)
+    return _launch_fwd(x, weights, biases, skip, activation, beta)
+
+
+class _FusedChain(torch.autograd.Function):
+    """K1 with its backward; saves only x and the parameters, as chain_fwd
+    (:901-902) does, and recomputes the forward in the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, cfg, x, *params):
+        n_layers = len(params) // 2
+        ctx.cfg = cfg
+        ctx.save_for_backward(x, *params)
+        return _forward(x, params[:n_layers], params[n_layers:], *cfg)
+
+    @staticmethod
+    def backward(ctx, gy):
+        skip, activation, beta = ctx.cfg
+        x, *params = ctx.saved_tensors
+        n_layers = len(params) // 2
+        ws, bs = params[:n_layers], params[n_layers:]
+        gy = gy.to(torch.bfloat16)  # chain_bwd :907
+        if x.device.type == "cpu":
+            gx, gws, gbs = fused_chain_bwd_plain(
+                x, gy, ws, bs, skip=skip, activation=activation, beta=beta
+            )
+        else:
+            gx, gws, gbs = _launch_bwd(x, gy, ws, bs, skip, activation, beta)
+        return (None, gx.to(x.dtype), *gws, *gbs)
+
+
+def fused_chain(
+    x: torch.Tensor,
+    weights: Sequence[torch.Tensor],
+    biases: Sequence[torch.Tensor],
+    *,
+    skip: Tuple[int, ...] = (),
+    activation: str = "ReLU",
+    beta: float = 100.0,
+    tangents: Optional[torch.Tensor] = None,
+):
+    """Run the fused dense chain; y [N, D_out] bf16 before the output
+    activation. A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel (forward tangents raise there: their kernel belongs
+    to the mlp_raw_tpu slice). With grad enabled the chain is
+    differentiable through K1's backward."""
+    skip = tuple(sorted(skip))
+    if tangents is not None:
+        if x.device.type != "cpu":
+            raise NotImplementedError("fused_chain: forward tangents have no CUDA kernel yet")
+        return fused_chain_plain(
+            x, weights, biases, skip=skip, activation=activation, beta=beta, tangents=tangents
+        )
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *weights, *biases)):
+        return _FusedChain.apply((skip, activation, beta), x, *weights, *biases)
+    return _forward(x, weights, biases, skip, activation, beta)

@@ -128,18 +128,17 @@ def make_table_init(spec: SlotGridSpec):
     return init
 
 
-def slot_geometry(x: torch.Tensor, spec: SlotGridSpec, num_levels: Optional[int] = None):
-    """Cell-layout entry indices and trilerp weights (slot_grid.py:212-319).
+def cell_factors(x: torch.Tensor, spec: SlotGridSpec, num_levels: Optional[int] = None):
+    """Cell-layout entry indices and per-axis trilerp factors.
 
     x [N, 3] in [0, 1]. Returns idx [N, K] int64 ABSOLUTE entry indices
-    (level row offset * P + entry), w [N, K*8] f32 (column l*8 + p, corner
-    offset bits p = dx + 2 dy + 4 dz) and dw [N, 3*K*8] f32 with column
-    t*K*8 + c = d w[:, c] / d x[:, t]. The hash runs in int64 masked to 32
-    bits, the uint32 arithmetic of the reference."""
+    (level row offset * P + entry) and wa, dwa, ddwa [N, K, 8, 3]: for
+    corner p (offset bits p = dx + 2 dy + 4 dz) and axis t, the factor
+    (bit ? s : 1 - s) and its first and second derivatives in x_t (the
+    resolution chain rule included; slot_fused.py::_geom_weights)."""
     if spec.layout != "cell":
         raise NotImplementedError("only the cell layout is ported")
     k = spec.num_levels if num_levels is None else min(num_levels, spec.num_levels)
-    n = x.shape[0]
     dev = x.device
     res = spec.resolutions[:k]
     resf = torch.as_tensor(res.astype(np.float32), device=dev)
@@ -149,9 +148,11 @@ def slot_geometry(x: torch.Tensor, spec: SlotGridSpec, num_levels: Optional[int]
     if spec.interpolation == "Smoothstep":
         s = t * t * (3.0 - 2.0 * t)
         ds = 6.0 * t * (1.0 - t) * resf[None, :, None]
+        dds = (6.0 - 12.0 * t) * resf[None, :, None] * resf[None, :, None]
     elif spec.interpolation == "Linear":
         s = t
         ds = resf[None, :, None].expand_as(t)
+        dds = torch.zeros_like(t)
     else:
         raise ValueError(f"unknown interpolation {spec.interpolation}")
     resi = torch.as_tensor(res.astype(np.int64), device=dev)
@@ -171,7 +172,20 @@ def slot_geometry(x: torch.Tensor, spec: SlotGridSpec, num_levels: Optional[int]
                         dtype=x.dtype, device=dev)  # [8, 3]
     s4 = s[:, :, None, :]
     wa = bits * s4 + (1.0 - bits) * (1.0 - s4)  # [N, K, 8, 3]
-    dwa = (2.0 * bits - 1.0) * ds[:, :, None, :]
+    sgn = 2.0 * bits - 1.0
+    return idx, wa, sgn * ds[:, :, None, :], sgn * dds[:, :, None, :]
+
+
+def slot_geometry(x: torch.Tensor, spec: SlotGridSpec, num_levels: Optional[int] = None):
+    """Cell-layout entry indices and trilerp weights (slot_grid.py:212-319).
+
+    x [N, 3] in [0, 1]. Returns idx [N, K] int64 ABSOLUTE entry indices
+    (level row offset * P + entry), w [N, K*8] f32 (column l*8 + p, corner
+    offset bits p = dx + 2 dy + 4 dz) and dw [N, 3*K*8] f32 with column
+    t*K*8 + c = d w[:, c] / d x[:, t]. The hash runs in int64 masked to 32
+    bits, the uint32 arithmetic of the reference."""
+    idx, wa, dwa, _ = cell_factors(x, spec, num_levels)
+    n, k = idx.shape
     w = (wa[..., 0] * wa[..., 1] * wa[..., 2]).reshape(n, k * NSLOT)
     dw = torch.cat(
         [

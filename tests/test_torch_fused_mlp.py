@@ -6,17 +6,27 @@ numpy inputs. Both round to bf16 at the same points and accumulate in f32,
 so they differ only by summation order: an f32 sum in another order flips
 an occasional bf16 rounding of an activation, which moves y by about one
 bf16 ulp there. Tolerance: rel-L2 <= 1e-2 on the bf16 output.
+
+The plain backward is held against jax.vjp of the Pallas chain (its
+custom VJP runs _bwd_kernel): gx, every gW and gb. Measured rel-L2 is
+0 to 1.2e-7 (the same cast points, the same products); tolerance 1e-3, for
+a bf16 rounding of gz that another summation order may flip.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from multimodalstudio_tpu.ops.pallas.fused_mlp import chain_reference
 from multimodalstudio_tpu.ops.pallas.fused_mlp import fused_chain as jax_fused_chain
-from multimodalstudio_tpu_torch.ops.kernels.fused_mlp import fused_chain, fused_chain_plain
+from multimodalstudio_tpu_torch.ops.kernels.fused_mlp import (
+    fused_chain,
+    fused_chain_bwd_plain,
+    fused_chain_plain,
+)
 
 torch.set_num_threads(1)
 
@@ -92,3 +102,52 @@ def test_plain_tangents_match_reference():
     )
     assert rel_l2(to_np(y), to_np(ref_y)) <= BF16_REL
     assert rel_l2(to_np(t), to_np(ref_t)) <= BF16_REL
+
+
+BWD_REL = 1e-3
+
+
+def _torch(x, ws, bs, grad=False):
+    return (torch.tensor(x, requires_grad=grad), [torch.tensor(w, requires_grad=grad) for w in ws],
+            [torch.tensor(b, requires_grad=grad) for b in bs])
+
+
+@pytest.mark.parametrize(
+    "activation,skip,n_layers",
+    [("ReLU", (), 3), ("SoftplusQuad", (), 3), ("None", (), 2), ("ReLU", (4,), 6)],
+)
+def test_plain_backward_matches_jax_vjp(activation, skip, n_layers):
+    x, ws, bs = make_chain(5, 39, 128, 65, n_layers, skip, 29)
+    gy = np.random.default_rng(6).normal(size=(29, 65)).astype(np.float32)
+
+    def f(x, ws, bs):
+        return jax_fused_chain(x, ws, bs, skip=skip, activation=activation).astype(jnp.float32)
+
+    _, vjp = jax.vjp(f, jnp.asarray(x), [jnp.asarray(w) for w in ws],
+                     [jnp.asarray(b) for b in bs])
+    rgx, rgw, rgb = vjp(jnp.asarray(gy))
+    tx, tw, tb = _torch(x, ws, bs)
+    gx, gw, gb = fused_chain_bwd_plain(tx, torch.from_numpy(gy), tw, tb, skip=skip,
+                                       activation=activation)
+    assert gx.dtype == torch.bfloat16 and tuple(gx.shape) == x.shape
+    assert rel_l2(to_np(gx), rgx) <= BWD_REL
+    for l in range(n_layers):
+        assert gw[l].dtype == torch.float32 and tuple(gw[l].shape) == ws[l].shape
+        assert rel_l2(gw[l].numpy(), rgw[l]) <= BWD_REL, l
+        assert rel_l2(gb[l].numpy(), rgb[l]) <= BWD_REL, l
+
+
+def test_autograd_through_the_chain_uses_the_plain_backward():
+    """With grad enabled, fused_chain's Function casts gy to bf16 and
+    returns the plain backward's gradients (gx in the input's dtype)."""
+    x, ws, bs = make_chain(7, 39, 128, 17, 3, (), 29)
+    gy = np.random.default_rng(8).normal(size=(29, 17)).astype(np.float32)
+    tx, tw, tb = _torch(x, ws, bs, grad=True)
+    y = fused_chain(tx, tw, tb, activation="SoftplusQuad")
+    (y.float() * torch.from_numpy(gy)).sum().backward()
+    gx, gw, gb = fused_chain_bwd_plain(*_torch(x, ws, bs)[:1], torch.from_numpy(gy),
+                                       *_torch(x, ws, bs)[1:], activation="SoftplusQuad")
+    assert tx.grad.dtype == torch.float32
+    assert torch.equal(tx.grad, gx.float())
+    for l in range(3):
+        assert torch.equal(tw[l].grad, gw[l]) and torch.equal(tb[l].grad, gb[l])

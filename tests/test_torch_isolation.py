@@ -40,6 +40,8 @@ def test_port_and_chip_smoke_import_no_jax():
     probe = json.loads(out.stdout.strip().splitlines()[-1])
     assert "multimodalstudio_tpu_torch.models.model" in probe["imported"]
     assert "multimodalstudio_tpu_torch.ops.kernels.slot_fused" in probe["imported"]
+    assert "multimodalstudio_tpu_torch.engine.train" in probe["imported"]
+    assert "multimodalstudio_tpu_torch.data.device_cache" in probe["imported"]
     # exact names: the port's own package shares the JAX package's prefix
     leaked = [m for m in probe["modules"]
               if any(m == f or m.startswith(f + ".") for f in FORBIDDEN)]
@@ -88,3 +90,38 @@ def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
         with pytest.raises(ValueError, match="unsupported device"):
             fn(pos, table, ws, bs, spec, **kw)
 
+
+
+def test_differentiable_kernels_and_backward_launchers_refuse_other_devices():
+    """With grad the wrappers go through their autograd Functions, and the
+    backward launchers (what a CUDA tensor's backward calls) take only
+    card tensors: nothing but a CPU tensor reaches a plain version."""
+    ws = [torch.empty(16, 16, device="meta", requires_grad=True),
+          torch.empty(16, 4, device="meta", requires_grad=True)]
+    bs = [torch.empty(16, device="meta", requires_grad=True),
+          torch.empty(4, device="meta", requires_grad=True)]
+    x = torch.empty(8, 16, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_mlp.fused_chain(x, ws, bs)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_mlp._launch_bwd(x, torch.empty(8, 4, device="meta"), ws, bs, (), "ReLU", 100.0)
+    spec = slot_grid.SlotGridSpec(num_levels=2, min_res=4, max_res=8, rows_per_level=64,
+                                  layout="cell", feats=2, table_dtype="bf16")
+    pos = torch.empty(8, 3, device="meta", requires_grad=True)
+    table = torch.empty(spec.total_rows, 128, device="meta")
+    kw = dict(radius=1.0, num_frequencies=2, min_freq_exp=0.0, max_freq_exp=1.0)
+    for fn in (slot_fused.fused_slot_sdf_value, slot_fused.fused_slot_sdf_chain):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(pos, table, ws, bs, spec, **kw)
+    pe = slot_fused.pe_scales(2, 0.0, 1.0)
+    mask = torch.ones(4, device="meta")
+    z = torch.empty(1, 8, 16, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        slot_fused._launch_value_bwd(pos, table, ws, bs, spec, 2, 1.0, pe, "ReLU", 100.0, mask,
+                                     z, torch.empty(8, device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        slot_fused._launch_chain_bwd(pos, table, ws, bs, spec, 1.0, pe, "ReLU", 100.0, mask, z,
+                                     z, torch.empty(8, 19, device="meta"),
+                                     torch.empty(8, device="meta"),
+                                     torch.empty(8, 3, device="meta"),
+                                     torch.empty(8, 3, device="meta"))
