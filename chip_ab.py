@@ -1,0 +1,61 @@
+"""Run chip_smoke.py's kernel checks for one or more checkouts of the port on
+one card, each checkout in a process of its own, in the order given.
+
+    python3 chip_ab.py TREE [TREE ...] [--checks NAME[,NAME...]]
+
+TREE is a directory that holds a checkout (the repository root is "."). For
+a paired comparison of two commits unpack the other one into a directory
+that .gitignore lists (git archive) and give parent, change, change,
+parent. Each tree builds its own kernels, seeds a CUDA generator with 0 and
+calls the named check functions of its own chip_smoke.py in turn (default:
+the six grid_raw_tpu kernel checks), which print their agreement with the
+plain versions; then one line `AB <tree> {"<check>": ms, ...}` with each
+check's kernel time (CUDA events, median of 15). Needs one card.
+"""
+
+import argparse
+import subprocess
+import sys
+
+DEFAULT_CHECKS = ("check_fused_chain,check_slot_value,check_slot_chain,check_fused_chain_bwd,"
+                  "check_slot_value_bwd,check_slot_chain_bwd")
+
+CODE = r'''
+import inspect, json, sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as c
+from multimodalstudio_tpu_torch.device import set_reference_precision
+from multimodalstudio_tpu_torch.ops.kernels import build
+from multimodalstudio_tpu_torch.ops.kernels.slot_grid import SlotGridSpec
+set_reference_precision()
+print(f"built kernels in {build.build_all():.1f} s", flush=True)
+dev = torch.device("cuda")
+gen = torch.Generator(device=dev).manual_seed(0)
+gspec = SlotGridSpec(num_levels=6, min_res=16, max_res=512, rows_per_level=4096, layout="cell",
+                     feats=2, table_dtype="bf16")
+out = {}
+for name in sys.argv[2].split(","):
+    fn = getattr(c, name)
+    args = (gen, dev, gspec) if "gspec" in inspect.signature(fn).parameters else (gen, dev)
+    r = fn(*args)
+    if isinstance(r, dict):
+        out[name] = round(r["ms"], 4)
+print("AB", sys.argv[1], json.dumps(out), flush=True)
+'''
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("trees", nargs="+")
+    ap.add_argument("--checks", default=DEFAULT_CHECKS)
+    args = ap.parse_args()
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip())
+    for tree in args.trees:
+        r = subprocess.run([sys.executable, "-c", CODE, tree, args.checks], cwd=tree)
+        if r.returncode:
+            sys.exit(r.returncode)
+
+
+if __name__ == "__main__":
+    main()

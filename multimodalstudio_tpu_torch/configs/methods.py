@@ -1,5 +1,5 @@
 """Method registry (JAX reference: configs/methods.py). The port registers
-the methods it can run: the flagship `grid_raw_tpu`."""
+the methods it can run: the flagship `grid_raw_tpu` and `mlp_raw_tpu`."""
 
 from __future__ import annotations
 
@@ -162,6 +162,42 @@ def _grid_config(modalities=FIVE_MODALITIES) -> TrainerConfig:
     )
 
 
+def _mlp_config() -> TrainerConfig:
+    """`mlp`: 8x256 MLP fields with a skip at layer 4, autograd SDF
+    gradients, no curvature loss (the base of mlp_raw_tpu)."""
+    base = _grid_config()
+    surface = SurfaceModelSpec(
+        surface_field=SDFFieldSpec(
+            field=FieldComponentSpec(
+                mlp=MLPSpec(num_layers=8, hidden_dim=256, activation="Softplus",
+                            activation_beta=100.0, out_activation="None", skip_connections=(4,),
+                            geometric_init=True, weight_norm=True),
+                grid=None,
+            ),
+            use_position_encoding=True,
+            position_encoding=NeRFEncodingSpec(6, 0.0, 5.0, True),
+        ),
+        use_numerical_gradients=False,
+        compute_hessian=False,
+    )
+    radiance = dataclasses.replace(
+        base.model.radiance,
+        radiance_field=RadianceFieldSpec(
+            base_field=FieldComponentSpec(
+                mlp=MLPSpec(num_layers=8, hidden_dim=256, activation="ReLU", out_activation="ReLU",
+                            skip_connections=(4,), weight_norm=True),
+                grid=None,
+            )
+        ),
+    )
+    model = dataclasses.replace(base.model, surface=surface, radiance=radiance)
+    losses = dataclasses.replace(
+        base.loss_manager,
+        geometry=GeometryLossSpec(eikonal_loss="MSE", eikonal_weight=0.1, curvature_loss=None),
+    )
+    return dataclasses.replace(base, method_name="mlp", model=model, loss_manager=losses)
+
+
 def _raw(config: TrainerConfig, name: str) -> TrainerConfig:
     """Raw (mosaicked) variant."""
     return dataclasses.replace(
@@ -208,5 +244,25 @@ def _grid_raw_tpu() -> TrainerConfig:
     return apply_fused_mlp(apply_mixed_precision(cfg))
 
 
+def _mlp_raw_tpu() -> TrainerConfig:
+    """mlp_raw with bf16 MLPs, 512-ray microbatches, the SoftplusQuad SDF
+    activation and every eligible MLP as a fused chain: the SDF surface
+    through K4 (sdf, geo and d sdf/dx), its sampler queries and the other
+    MLPs through K1."""
+    dc = dataclasses
+    base = _raw(_mlp_config(), "mlp_raw_tpu")
+    sf = base.model.surface.surface_field
+    surface = dc.replace(
+        base.model.surface,
+        surface_field=dc.replace(
+            sf, field=dc.replace(sf.field, mlp=dc.replace(sf.field.mlp, activation="SoftplusQuad"))),
+    )
+    cfg = dc.replace(
+        base, model=dc.replace(base.model, surface=surface, remat=False), mixed_precision=True,
+        matmul_precision="default", datamanager=dc.replace(base.datamanager, microbatch_rays=512),
+    )
+    return apply_fused_mlp(apply_mixed_precision(cfg))
+
+
 def method_configs() -> Dict[str, TrainerConfig]:
-    return {"grid_raw_tpu": _grid_raw_tpu()}
+    return {"grid_raw_tpu": _grid_raw_tpu(), "mlp_raw_tpu": _mlp_raw_tpu()}

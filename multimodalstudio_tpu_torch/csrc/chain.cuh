@@ -1,5 +1,5 @@
 // Shared pieces of the fused dense-chain kernels (fused_mlp.cu, slot_fused.cu,
-// slot_fused_bwd.cu).
+// slot_fused_bwd.cu, sdf_chain.cu).
 //
 // A CTA owns a tile of 64 samples. Activations live in shared memory as
 // bf16 [64, ld] row-major; each layer is a 64 x N x K product on the tensor
@@ -9,6 +9,14 @@
 // B fragment for the 4 row tiles of the CTA, so each CTA reads every
 // weight once per layer. Finished 16x16 accumulator tiles are staged
 // through a per-warp float scratch and handed to an epilogue functor.
+//
+// Each 16-deep k-step is accumulated from zero and added to the running f32
+// sum with an IEEE add (add_partial), instead of carrying the whole sum
+// through the tensor cores, whose internal additions are not IEEE
+// round-to-nearest. In one call on an H100 (chip_ab.py, PERF.md), K4's
+// backward (8 x 256, N = 163,840) agreed with its plain version to rel-L2
+// 4.6e-3 / 6.4e-3 / 7.8e-3 (d pos / gW / gb) this way and to 7.0e-3 /
+// 9.8e-3 / 1.2e-2 the other way, at about the same kernel times.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -58,6 +66,18 @@ __device__ __forceinline__ float bf(bf16 x) { return __bfloat162float(x); }
 constexpr float SKIP_SCALE = 0.70710678118654752f;  // 1 / sqrt(2)
 constexpr size_t MAX_SMEM = 232448;                 // per block on sm_90
 
+using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+
+// acc += a @ b, the k-step summed from zero and added with IEEE adds
+template <class FA, class FB>
+__device__ __forceinline__ void add_partial(Acc& acc, const FA& a, const FB& b) {
+  Acc part;
+  wmma::fill_fragment(part, 0.f);
+  wmma::mma_sync(part, a, b, part);
+#pragma unroll
+  for (int e = 0; e < part.num_elements; ++e) acc.x[e] += part.x[e];
+}
+
 // Geometry of one chain: padded (multiple of 16) per-layer widths and the
 // element offsets of each layer in the packed weight / bias buffers.
 struct Chain {
@@ -95,6 +115,27 @@ inline int fill_chain(Chain& c, int n_layers, const int* in_dims, const int* out
   return 0;
 }
 
+// Grid of a persistent kernel (one whose CTAs walk tiles blockIdx.x,
+// blockIdx.x + gridDim.x, ...): as many CTAs as fit on the card at once, at
+// most max_ctas (the slabs of scratch the caller allocated) and at most one
+// per 64-sample tile of n.
+inline cudaError_t persistent_grid(const void* kernel, size_t smem, int n, int max_ctas,
+                                   int* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NTHREADS, smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (n + TILE_M - 1) / TILE_M;
+  int g = (per_sm > 0 ? per_sm : 1) * sms;
+  if (g > max_ctas) g = max_ctas;
+  if (g > tiles) g = tiles;
+  *grid = g > 0 ? g : 1;
+  return cudaSuccess;
+}
+
 // C[64, ncols] = A[64, kdim] @ B. A: shared bf16 row-major (lda). B: global
 // bf16; row-major [kdim, ncols] with ldb when !B_T, or the transpose of a
 // row-major [ncols, kdim] matrix (ldb = its row length) when B_T. For each
@@ -107,7 +148,7 @@ __device__ __forceinline__ void mma_tile64(const bf16* A, int lda, int kdim, con
   const int warp = threadIdx.x >> 5;
   float* st = stage + warp * 256;  // this warp's 16x16 f32 staging tile
   for (int nt = warp; nt < ncols / 16; nt += NWARPS) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
+    Acc acc[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) wmma::fill_fragment(acc[i], 0.f);
     for (int kt = 0; kt < kdim / 16; ++kt) {
@@ -118,7 +159,7 @@ __device__ __forceinline__ void mma_tile64(const bf16* A, int lda, int kdim, con
         for (int i = 0; i < 4; ++i) {
           wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
           wmma::load_matrix_sync(a, A + i * 16 * lda + kt * 16, lda);
-          wmma::mma_sync(acc[i], a, b, acc[i]);
+          add_partial(acc[i], a, b);
         }
       } else {
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
@@ -127,7 +168,7 @@ __device__ __forceinline__ void mma_tile64(const bf16* A, int lda, int kdim, con
         for (int i = 0; i < 4; ++i) {
           wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
           wmma::load_matrix_sync(a, A + i * 16 * lda + kt * 16, lda);
-          wmma::mma_sync(acc[i], a, b, acc[i]);
+          add_partial(acc[i], a, b);
         }
       }
     }
@@ -146,7 +187,8 @@ __device__ __forceinline__ void mma_tile64(const bf16* A, int lda, int kdim, con
 // gets concat(h, x0) * (1/sqrt(2)) rounded to bf16 (fused_mlp.py:284-291);
 // x0 must then stay readable in `x0` (row stride ldx0). When zs != nullptr
 // the bf16 pre-activations of layer l go to zs + l * 64 * ldz. Returns the
-// buffer holding the last hidden activation (the last layer's input).
+// buffer holding the last hidden activation (the last layer's input). zs and
+// x0 may point into shared memory or into a CTA's slab of device scratch.
 __device__ __forceinline__ bf16* run_hidden_layers(const Chain& C, const bf16* __restrict__ wpack,
                                                    const float* __restrict__ bpack, bf16* buf0,
                                                    bf16* buf1, int lds, const bf16* x0, int ldx0,
@@ -186,8 +228,9 @@ __device__ __forceinline__ bf16* run_hidden_layers(const Chain& C, const bf16* _
   return in;
 }
 
-// gW[m, n] += A^T B summed over the tile's 64 rows: A and B are shared bf16
-// [64, lda] / [64, ldb] (m and n columns used, multiples of 16); gW is a
+// gW[m, n] += A^T B summed over the tile's 64 rows: A and B are bf16
+// [64, lda] / [64, ldb] in shared memory or a CTA's scratch slab (m and n
+// columns used, multiples of 16, 32-byte aligned rows); gW is a
 // global f32 row-major matrix with row length ldw. The blocks of the grid
 // run in any order, so each warp adds its finished 16 x 16 tiles with
 // atomics (the sum's order changes from run to run).
@@ -199,7 +242,7 @@ __device__ __forceinline__ void mma_atb64_atomic(const bf16* A, int lda, int m, 
   const int tn = n / 16;
   for (int t = warp; t < (m / 16) * tn; t += NWARPS) {
     const int mt = t / tn, nt = t % tn;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+    Acc acc;
     wmma::fill_fragment(acc, 0.f);
 #pragma unroll
     for (int k = 0; k < TILE_M / 16; ++k) {
@@ -207,7 +250,7 @@ __device__ __forceinline__ void mma_atb64_atomic(const bf16* A, int lda, int m, 
       wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
       wmma::load_matrix_sync(a, A + k * 16 * lda + mt * 16, lda);
       wmma::load_matrix_sync(b, B + k * 16 * ldb + nt * 16, ldb);
-      wmma::mma_sync(acc, a, b, acc);
+      add_partial(acc, a, b);
     }
     wmma::store_matrix_sync(st, acc, 16, wmma::mem_row_major);
     __syncwarp();

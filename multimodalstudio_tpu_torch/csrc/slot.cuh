@@ -3,12 +3,11 @@
 // the front end that builds a tile's chain input x0 = [pos, sin, cos, grid, 0].
 #pragma once
 
-#include "chain.cuh"
+#include "enc.cuh"
 
 namespace mms {
 
-constexpr int MAXLV = 8;   // max grid levels
-constexpr int MAXPE = 16;  // max NeRF-encoding frequencies
+constexpr int MAXLV = 8;  // max grid levels
 
 struct SlotParams {
   int levels;    // active levels K (<= the table's levels)
@@ -145,23 +144,11 @@ __device__ __forceinline__ void slot_front(const SlotParams& P, int p0, const fl
     }
   }
   const int grid_end = P.pw + P.levels * P.feats;
-  const int F = P.pe_freqs;
   for (int i = threadIdx.x; i < TILE_M * p0; i += NTHREADS) {
     const int r = i / p0, c = i % p0;
     if (c >= P.pw && c < grid_end) continue;
     float v = 0.f;
-    if (c < P.pw && row0 + r < n) {
-      const float* pr = pos + (row0 + r) * 3;
-      if (c < 3) {
-        v = pr[c];
-      } else if (c < 3 + 3 * F) {
-        const int k = c - 3;
-        v = sinf(pr[k / F] * P.pe_scale[k % F]);
-      } else {
-        const int k = c - 3 - 3 * F;
-        v = cosf(pr[k / F] * P.pe_scale[k % F]);
-      }
-    }
+    if (c < P.pw && row0 + r < n) v = pe_col(pos + (row0 + r) * 3, P.pe_freqs, P.pe_scale, c);
     buf[r * lds + c] = __float2bfloat16(v);
   }
   __syncthreads();

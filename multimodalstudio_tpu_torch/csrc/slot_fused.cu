@@ -115,7 +115,6 @@ slot_sdf_kernel(const float* __restrict__ pos, int n, const bf16* __restrict__ t
   __syncthreads();
 
   // d sdf / d x = J_enc^T adj[:, :pw] + sum comp * bf16(dw_k) * bf16(adj_grid * mask)
-  const int F = P.pe_freqs;
   if (threadIdx.x < TILE_M && row0 + threadIdx.x < n) {
     const int r = threadIdx.x;
     const float* a = sAdj + r * C.p0;
@@ -123,15 +122,7 @@ slot_sdf_kernel(const float* __restrict__ pos, int n, const bf16* __restrict__ t
     load_pos(pos, n, row0 + r, p);
     float g[3];
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      float acc = 0.f;
-      for (int i = 0; i < F; ++i) {
-        const float s = P.pe_scale[i];
-        const float sc = p[k] * s;
-        acc += a[3 + k * F + i] * (cosf(sc) * s) + a[3 + 3 * F + k * F + i] * (-sinf(sc) * s);
-      }
-      g[k] = a[k] + acc;
-    }
+    for (int k = 0; k < 3; ++k) g[k] = pe_jt(a, p, P.pe_freqs, P.pe_scale, k);
     const float cs = 1.f / (2.f * P.radius);
     float gg[3] = {0.f, 0.f, 0.f};
     for (int l = 0; l < P.levels; ++l) {

@@ -109,14 +109,7 @@ __device__ __forceinline__ void reverse_sweep(const Chain& C, const bf16* wpack,
 // J_enc^T a for the PE columns of a (fused_mlp.py::_enc_jt), component k
 __device__ __forceinline__ float enc_jt(const SlotParams& P, const float* a, const float p[3],
                                         int k) {
-  const int F = P.pe_freqs;
-  float acc = 0.f;
-  for (int i = 0; i < F; ++i) {
-    const float s = P.pe_scale[i];
-    const float sc = p[k] * s;
-    acc += a[3 + k * F + i] * (cosf(sc) * s) + a[3 + 3 * F + k * F + i] * (-sinf(sc) * s);
-  }
-  return a[k] + acc;
+  return pe_jt(a, p, P.pe_freqs, P.pe_scale, k);
 }
 
 __device__ __forceinline__ float clip_gate(const SlotParams& P, float p) {
@@ -255,14 +248,9 @@ slot_chain_bwd_kernel(const float* __restrict__ pos, int n, const bf16* __restri
       const float* g3 = g3_in + (row0 + r) * 3;
       if (c < 3) {
         v = g3[c];
-      } else if (c < 3 + 3 * FP) {
-        const int k = c - 3, d = k / FP;
-        const float s = P.pe_scale[k % FP];
-        v = g3[d] * round_bf16(cosf(pr[d] * s) * s);
       } else {
-        const int k = c - 3 - 3 * FP, d = k / FP;
-        const float s = P.pe_scale[k % FP];
-        v = g3[d] * round_bf16(-sinf(pr[d] * s) * s);
+        const int d = (c - 3) % (3 * FP) / FP;
+        v = g3[d] * pe_tangent(pr, FP, P.pe_scale, c);
       }
     }
     Q[r * lds + c] = __float2bfloat16(v);
@@ -419,12 +407,7 @@ slot_chain_bwd_kernel(const float* __restrict__ pos, int n, const bf16* __restri
     const float* a = adj + (row0 + r) * adj_width;
 #pragma unroll
     for (int t = 0; t < 3; ++t) {
-      float sec = 0.f;
-      for (int i = 0; i < FP; ++i) {
-        const float s = P.pe_scale[i];
-        const float sc = p[t] * s;
-        sec += a[3 + t * FP + i] * (-sinf(sc) * s * s) + a[3 + 3 * FP + t * FP + i] * (-cosf(sc) * s * s);
-      }
+      const float sec = pe_hess(a, p, FP, P.pe_scale, t);
       float gs = 0.f;
       for (int l = 0; l < K; ++l) gs += sGp[(r * K + l) * 3 + t];
       const float g3 = g3_in[(row0 + r) * 3 + t];

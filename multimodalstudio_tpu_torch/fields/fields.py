@@ -66,14 +66,23 @@ class SDFFieldSpec:
 
 
 class SDFField(nn.Module):
-    """SDF + geometric feature from positions; the models evaluate it
-    through the fused slot kernels (models/model.py)."""
+    """SDF + geometric feature from positions (JAX fields/fields.py:69-89). A slot-grid
+    field is evaluated only through the fused slot kernels
+    (models/model.py); a grid-less one through forward: the position
+    encoding, then the MLP (a K1 chain when fused)."""
 
     def __init__(self, spec: SDFFieldSpec, device=None):
         super().__init__()
         self.spec = spec
         in_dim = spec.position_encoding.out_dim(3) if spec.use_position_encoding else 3
         self.field = FieldComponent(spec.field, in_dim, 1 + spec.geo_feature_dim, device=device)
+
+    def forward(self, x: torch.Tensor):
+        """positions [..., 3] -> (sdf [..., 1], geo [..., G]), float32."""
+        spec = self.spec
+        inp = spec.position_encoding.apply(x) if spec.use_position_encoding else x
+        out = self.field(inp)
+        return out[..., :1], out[..., 1:]
 
 
 @dataclasses.dataclass(frozen=True)

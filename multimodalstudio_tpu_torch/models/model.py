@@ -6,8 +6,11 @@ NeRF background, rendered for a flat ray batch with the hit mask carried
 as a float vector. On the slot-grid methods the SDF goes through the fused
 slot kernels: sampler queries through K2 (value only, the first
 `sampler_levels` levels), render samples through K3 (sdf, geometric
-features and d sdf/dx). The MLP chains of the trunk, the polarization
-heads and the background run as K1 (fields/mlp.py).
+features and d sdf/dx). On the grid-less methods (mlp_raw_tpu) sampler
+queries run the SDF field (position encoding, then a K1 chain) and render
+samples K4 (encoding, chain and d sdf/dx in one kernel). The MLP chains of
+the trunk, the polarization heads and the background run as K1
+(fields/mlp.py).
 
 In training the kernels run as autograd Functions with CUDA backwards,
 and the curvature loss's hessian proxy comes from SDF taps through K2 with
@@ -56,6 +59,7 @@ from multimodalstudio_tpu_torch.models.samplers import (
 )
 from multimodalstudio_tpu_torch.models.volume_rendering import neus_weights
 from multimodalstudio_tpu_torch.ops.encodings import sh_encoding_dense
+from multimodalstudio_tpu_torch.ops.kernels.sdf_chain import fused_sdf_chain
 from multimodalstudio_tpu_torch.ops.kernels.slot_fused import (
     fused_slot_sdf_chain,
     fused_slot_sdf_value,
@@ -254,7 +258,13 @@ class MMSModel(nn.Module):
         )
 
     def sdf_only(self, positions: torch.Tensor, active_level, max_level: Optional[int] = None):
-        """SDF values [...] at positions [..., 3] through K2."""
+        """SDF values [...] at positions [..., 3]: through K2 on a slot grid,
+        else through the SDF field (model.py:317-322, sdf_geo :300-315)."""
+        if self.spec.surface.surface_field.field.grid is None:
+            flat = positions.reshape(-1, 3)
+            if self.spec.surface.contraction_order is not None:
+                flat = scene_contraction(flat, self.spec.surface.contraction_order)
+            return self.surface_field(flat)[0].reshape(positions.shape[:-1])
         grid_mlp = self._slot_grid()
         enc = self.spec.surface.surface_field.field.grid.encoding
         k = enc.num_levels if max_level is None else min(int(max_level), enc.num_levels)
@@ -265,13 +275,42 @@ class MMSModel(nn.Module):
         )
         return sdf.reshape(positions.shape[:-1])
 
+    def _fused_sdf_gradients(self, positions: torch.Tensor, train: bool):
+        """The grid-less surface through K4 (model.py:432-476): (sdf, geo
+        bf16, d sdf/dx, None)."""
+        spec = self.spec.surface
+        fspec = spec.surface_field
+        mspec, pspec = fspec.field.mlp, fspec.position_encoding
+        if not (can_fuse(mspec) and mspec.out_activation in (None, "None")
+                and not (train and spec.compute_hessian)):
+            raise NotImplementedError(
+                "the jacfwd SDF gradients of an unfused surface MLP (model.py:505-533) are not "
+                "ported")
+        if (spec.contraction_order is not None or not fspec.use_position_encoding
+                or not pspec.include_input):
+            raise NotImplementedError(
+                "the generic fused SDF gradients with outside tangents (model.py:477-503) are "
+                "not ported")
+        ws, bs = self.surface_field.field.mlp.effective_weights()
+        sdf, geo, grad = fused_sdf_chain(
+            positions.reshape(-1, 3), ws, bs, num_frequencies=pspec.num_frequencies,
+            min_freq_exp=pspec.min_freq_exp, max_freq_exp=pspec.max_freq_exp,
+            skip=mspec.skip_connections, activation=mspec.activation, beta=mspec.activation_beta,
+        )
+        lead = positions.shape[:-1]
+        # geo stays bf16 into the radiance trunk (model.py:471-474)
+        return sdf.reshape(lead), geo.reshape(*lead, -1), grad.reshape(positions.shape), None
+
     def sdf_gradients(self, positions: torch.Tensor, schedules: ScheduleState, train: bool = False):
-        """(sdf [...], geo [..., G] bf16, d sdf/dx [..., 3], hessians) through
-        K3; in training with compute_hessian, hessians [..., S_tap, 3] come
-        from the curvature taps through K2 (model.py:654-669), else None."""
+        """(sdf [...], geo [..., G] bf16, d sdf/dx [..., 3], hessians): through
+        K3 on a slot grid, through K4 on a grid-less surface. In training with
+        compute_hessian, hessians [..., S_tap, 3] come from the curvature taps
+        through K2 (model.py:654-669), else None."""
         spec = self.spec.surface
         if spec.use_numerical_gradients:
             raise NotImplementedError("numerical SDF gradients are not ported")
+        if spec.surface_field.field.grid is None:
+            return self._fused_sdf_gradients(positions, train)
         grid_mlp = self._slot_grid()
         enc = spec.surface_field.field.grid.encoding
         args, kw = self._slot_kwargs(grid_mlp)

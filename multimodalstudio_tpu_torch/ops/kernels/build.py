@@ -2,7 +2,7 @@
 
 Each library under `csrc/` is one .cu source with a plain C interface
 (fused_mlp: K1 forward and backward; slot_fused: K2/K3 forward;
-slot_fused_bwd: K2/K3 backward),
+slot_fused_bwd: K2/K3 backward; sdf_chain: K4 forward and backward),
 compiled by nvcc for sm_90a into `build/torch_kernels/` at the repository
 root and loaded with ctypes. The library name carries a hash of every file
 in `csrc/`, so an edited source rebuilds and a stale library is never
@@ -27,7 +27,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-LIBRARIES = ("fused_mlp", "slot_fused", "slot_fused_bwd")
+LIBRARIES = ("fused_mlp", "slot_fused", "slot_fused_bwd", "sdf_chain")
+TILE_M = 64  # samples per CTA tile of every kernel (csrc/chain.cuh)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # no multiply-add contraction: the kernels reproduce the reference's
@@ -140,13 +141,23 @@ def load(name: str) -> ctypes.CDLL:
 _CTYPES = {"ptr": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_float}
 
 
-def function(library: str, name: str, *argtypes: str):
+def function(library: str, name: str, *argtypes: str, restype=ctypes.c_int):
     """A C entry point of one library with its argument types declared
-    ("ptr", "int" or "float" each); every entry point returns cudaError_t."""
+    ("ptr", "int" or "float" each); launch entry points return cudaError_t."""
     fn = getattr(load(library), name)
     fn.argtypes = [_CTYPES[t] for t in argtypes]
-    fn.restype = ctypes.c_int
+    fn.restype = restype
     return fn
+
+
+def persistent_scratch(library: str, slab_fn: str, slab_args, dev: torch.device, n: int):
+    """(scratch, max_ctas) for a persistent kernel: one bf16 slab per CTA,
+    slab_fn(*slab_args) elements each, for at most two CTAs per SM and one
+    per 64-sample tile of n."""
+    slab = function(library, slab_fn, *["int"] * len(slab_args), restype=ctypes.c_longlong)
+    ctas = max(1, min(-(-n // TILE_M), 2 * torch.cuda.get_device_properties(dev).multi_processor_count))
+    scratch = torch.empty(ctas * int(slab(*slab_args)), dtype=torch.bfloat16, device=dev)
+    return scratch, ctas
 
 
 def check(status: int, what: str) -> None:

@@ -8,8 +8,9 @@ multimodalstudio_tpu/ops/pallas/fused_mlp.py::_fwd_kernel (:265), reached
 through `fused_chain` (:1080), in its forward mode without tangents. With
 grad enabled it runs as an autograd Function whose backward is the second
 CUDA kernel of the file, replacing _bwd_kernel (:607, via chain_bwd :904):
-it recomputes the forward per tile, keeping the bf16 pre-activations in
-shared memory, and runs the reverse sweep there.
+it recomputes the forward per tile, keeping the bf16 pre-activations in a
+per-CTA slab of device scratch (an 8-layer 256-wide chain's stack does not
+fit in shared memory beside the activations), and runs the reverse sweep.
 
 Arithmetic (the JAX kernel's cast points, chain_reference :1263-1302):
 inputs and weights bf16, products accumulated in f32 plus an f32 bias,
@@ -77,6 +78,128 @@ def act_pair(activation: str, beta: float):
     raise ValueError(f"unsupported fused activation {activation}")
 
 
+def ddf_of(activation: str, beta: float):
+    """act'' of the hidden activation, or None where it is 0 everywhere
+    (fused_mlp.py::_act_triple): SoftplusQuad's is 1/(2a) on |z| < a."""
+    if activation != "SoftplusQuad":
+        return None
+    a = 2.0 / beta
+    return lambda z: torch.where(z.abs() < a, torch.full_like(z, 0.5 / a), torch.zeros_like(z))
+
+
+# The plain chain pieces the kernels' plain versions share, at the kernels'
+# cast points (chain_reference :1263-1302, _adj_sweep :327-359, _bwd_kernel
+# :645-789). x0 is the chain input as bf16 values in f32; a skip layer's
+# weight rows are [h (hidden) | x0].
+
+
+def layer_input(l: int, x0: torch.Tensor, h: torch.Tensor, skip) -> torch.Tensor:
+    """Layer l's input from the previous layer's bf16 output h (x0 for
+    layer 0): concat(h, x0) / sqrt(2) rounded to bf16 at a skip layer."""
+    if l in skip:
+        return bf16_round(torch.cat([h, x0], dim=-1) * SKIP_SCALE)
+    return h
+
+
+def chain_forward(x0, weights, biases, skip, activation, beta):
+    """(the last layer's z [N, D_out] in f32, the bf16-rounded hidden
+    pre-activations z_0..z_{L-2})."""
+    f, _ = act_pair(activation, beta)
+    h, zs = x0, []
+    for l in range(len(weights) - 1):
+        z = layer_input(l, x0, h, skip) @ bf16_round(weights[l].float()) + biases[l].float()
+        zs.append(bf16_round(z))
+        h = bf16_round(f(z))
+    hin = layer_input(len(weights) - 1, x0, h, skip)
+    return hin @ bf16_round(weights[-1].float()) + biases[-1].float(), zs
+
+
+def adjoint_sweep(x0, zs, weights, skip, activation, beta):
+    """One reverse sweep from output column 0: v = e_0; s = bf16(v) W_l^T,
+    a skip layer's s split into its x0 part (scaled, added to adj) and its h
+    part (scaled); v = s * act'(z_{l-1}). Returns (adj = d y_0 / d x0
+    [N, D_in] f32, the h part of s of each layer l >= 1 as ss[l-1],
+    bf16-rounded)."""
+    _, df = act_pair(activation, beta)
+    d_in = x0.shape[1]
+    v = x0.new_zeros(x0.shape[0], weights[-1].shape[1])
+    v[:, 0] = 1.0
+    adj = 0.0
+    ss: List[torch.Tensor] = [None] * (len(weights) - 1)
+    for l in reversed(range(len(weights))):
+        s = bf16_round(v) @ bf16_round(weights[l].float()).T
+        if l in skip:
+            hw = weights[l].shape[0] - d_in
+            adj = adj + s[:, hw:] * SKIP_SCALE
+            s = s[:, :hw] * SKIP_SCALE
+        if l == 0:
+            adj = adj + s
+        else:
+            ss[l - 1] = bf16_round(s)
+            v = s * df(zs[l - 1].float())
+    return adj, ss
+
+
+def ga_forward(ga, zs, ss, weights, skip, activation, beta):
+    """The forward chain of the adjoint's cotangent ga [N, D_in] f32 in a
+    reverse-over-reverse backward (_bwd_adj_kernel :489-524): qin_0 = ga, ga
+    re-injected at a skip like x0; v_l = s_l * act'(z_l) (e_0 at the last
+    layer); gW_l = bf16(qin_l)^T bf16(v_l); m = bf16(qin_l) W_l;
+    e_l = bf16(m * s_l * act''(z_l)); q = m * act'(z_l). zs, ss: the bf16
+    pre-activations and adjoint rows. Returns (gW list, the injections e_l
+    or None where act'' is 0)."""
+    _, df = act_pair(activation, beta)
+    ddf = ddf_of(activation, beta)
+    zs, ss = [z.float() for z in zs], [s.float() for s in ss]
+    n_layers, n = len(weights), ga.shape[0]
+    q, gws, inject = ga, [], []
+    for l in range(n_layers):
+        qb = bf16_round(torch.cat([q, ga], dim=-1) * SKIP_SCALE if l in skip else q)
+        if l == n_layers - 1:
+            v = qb.new_zeros(n, weights[l].shape[1])
+            v[:, 0] = 1.0
+        else:
+            v = ss[l] * df(zs[l])
+        gws.append(qb.T @ bf16_round(v))
+        if l < n_layers - 1:
+            m = qb @ bf16_round(weights[l].float())
+            if ddf is not None:
+                inject.append(bf16_round(m * ss[l] * ddf(zs[l])))
+            q = m * df(zs[l])
+    return gws, (inject if ddf is not None else None)
+
+
+def reverse_sweep(x0, zs, gy, weights, skip, activation, beta, inject=None, gw_extra=None):
+    """The chain's reverse sweep from the last layer's cotangent gy (f32):
+    gz_{L-1} = gy; gz_l = gh * act'(z_l) (+ inject[l]); gW_l = hin_l^T
+    bf16(gz_l) (+ gw_extra[l]); gb_l = sum of the f32 gz_l; gh = bf16(gz_l)
+    W_l^T, a skip layer's x0 part added to gx0. zs: the bf16 hidden
+    pre-activations. Returns (cotangent of x0 [N, D_in] f32, gW list, gb
+    list)."""
+    f, df = act_pair(activation, beta)
+    zs = [z.float() for z in zs]
+    n_layers, d_in = len(weights), x0.shape[1]
+    gws: List[torch.Tensor] = [None] * n_layers
+    gbs: List[torch.Tensor] = [None] * n_layers
+    gh, gx0 = gy, torch.zeros_like(x0)
+    for l in reversed(range(n_layers)):
+        gz = gh if l == n_layers - 1 else gh * df(zs[l])
+        if inject is not None and l < n_layers - 1:
+            gz = gz + inject[l]
+        gzb = bf16_round(gz)
+        hin = layer_input(l, x0, x0 if l == 0 else bf16_round(f(zs[l - 1])), skip)
+        gws[l] = hin.T @ gzb if gw_extra is None else gw_extra[l] + hin.T @ gzb
+        gbs[l] = gz.sum(0)
+        ghp = gzb @ bf16_round(weights[l].float()).T
+        if l in skip:
+            hw = weights[l].shape[0] - d_in
+            gh = ghp[:, :hw] * SKIP_SCALE
+            gx0 = gx0 + ghp[:, hw:] * SKIP_SCALE
+        else:
+            gh = ghp
+    return gh + gx0, gws, gbs
+
+
 def fused_chain_plain(
     x: torch.Tensor,
     weights: Sequence[torch.Tensor],
@@ -129,37 +252,11 @@ def fused_chain_bwd_plain(
 
     x [N, D_in], gy [N, D_out] (rounded to bf16). Returns gx [N, D_in] bf16,
     gW[l] [din_l, dout_l] f32 and gb[l] [dout_l] f32."""
-    f, df = act_pair(activation, beta)
-    n_layers = len(weights)
-    hidden = weights[0].shape[1]
+    skip = tuple(sorted(skip))
     x0 = bf16_round(x.float())
-    wb = [bf16_round(w.float()) for w in weights]
-    h, zs = x0, []
-    for l in range(n_layers - 1):
-        if l in skip:
-            h = bf16_round(torch.cat([h, x0], dim=-1) * SKIP_SCALE)
-        z = h @ wb[l] + biases[l].float()
-        zs.append(bf16_round(z))
-        h = bf16_round(f(z))
-    gh = bf16_round(gy.float())
-    gx0 = torch.zeros_like(x0)
-    gws: List[torch.Tensor] = [None] * n_layers
-    gbs: List[torch.Tensor] = [None] * n_layers
-    for l in reversed(range(n_layers)):
-        gz = gh if l == n_layers - 1 else gh * df(zs[l])
-        gzb = bf16_round(gz)
-        hin = x0 if l == 0 else bf16_round(f(zs[l - 1]))
-        if l in skip:
-            hin = bf16_round(torch.cat([hin, x0], dim=-1) * SKIP_SCALE)
-        gws[l] = hin.T @ gzb
-        gbs[l] = gz.sum(0)
-        ghp = gzb @ wb[l].T
-        if l in skip:
-            gh = ghp[:, :hidden] * SKIP_SCALE
-            gx0 = gx0 + ghp[:, hidden:] * SKIP_SCALE
-        else:
-            gh = ghp
-    return (gh + gx0).to(torch.bfloat16), gws, gbs
+    _, zs = chain_forward(x0, weights, biases, skip, activation, beta)
+    gx, gws, gbs = reverse_sweep(x0, zs, bf16_round(gy.float()), weights, skip, activation, beta)
+    return gx.to(torch.bfloat16), gws, gbs
 
 
 def rup16(n: int) -> int:
@@ -281,15 +378,19 @@ def _launch_bwd(x, gy, weights, biases, skip, activation, beta):
     gw = torch.zeros(sum(a * b for a, b in zip(in_dims, out_dims)), device=x.device)
     gb = torch.zeros(sum(out_dims), device=x.device)
     if n:
+        scratch, ctas = build.persistent_scratch(
+            "fused_mlp", "mms_fused_chain_bwd_slab", (len(weights), hidden, p0), x.device, n)
         fn = build.function(
             "fused_mlp", "mms_fused_chain_bwd", "ptr", "int", "ptr", "ptr", "ptr", "ptr", "ptr",
             "ptr", "int", "int", "int", "ptr", "ptr", "int", "int", "int", "int", "float", "ptr",
+            "int", "ptr",
         )
         status = fn(
             build.ptr(xb), d_in, build.ptr(gyb), build.ptr(wpack), build.ptr(bpack),
             build.ptr(gx), build.ptr(gw), build.ptr(gb), d_out, n, len(weights),
             build.int_array(in_dims), build.int_array(out_dims), sum(1 << l for l in skip),
-            hidden, p0, ACTIVATIONS[activation], 2.0 / beta, build.stream_of(x),
+            hidden, p0, ACTIVATIONS[activation], 2.0 / beta, build.ptr(scratch), ctas,
+            build.stream_of(x),
         )
         build.check(status, "fused_chain backward")
         BWD_KERNEL.launches += 1

@@ -1,0 +1,259 @@
+"""Fused NeRF encoding + MLP chain + spatial gradient: kernel K4 in adjoint
+mode, forward and backward, and their plain versions.
+
+`fused_sdf_chain` takes raw positions [N, 3] and returns (sdf [N] f32, geo
+[N, D_out-1] bf16, grad [N, 3] f32 = d sdf / d positions) of a grid-less
+SDF MLP whose input is the NeRF encoding with the raw input included. On
+the card it is one CUDA kernel (csrc/sdf_chain.cu): the encoding, the
+chain and one reverse (adjoint) sweep of the chain from the sdf channel,
+replacing the Pallas TPU kernel
+multimodalstudio_tpu/ops/pallas/fused_mlp.py::_fwd_adj_kernel (:362),
+reached through fused_sdf_chain (:1145, mode="adjoint", built by
+_build_adj_chain :930). With grad enabled it runs as an autograd Function
+that saves only the positions and the parameters, as chain_fwd (:1004)
+does; its backward is the second kernel of the file, replacing
+_bwd_adj_kernel (:410): reverse over reverse, recomputing the primal and
+adjoint stacks per tile.
+
+Arithmetic (the reference's cast points, _fwd_adj_kernel :374-404):
+encoding [x, sin(x_d s_i), cos(x_d s_i)] in f32 rounded to bf16 (cos
+computed directly); the chain as K1's (bf16 inputs and weights, f32
+accumulation and bias, act in f32 rounded to bf16, a skip layer's input
+concat(h, x0) / sqrt(2) rounded to bf16) with the hidden pre-activations
+stored in bf16; the last layer f32, sdf its column 0 and geo the next
+columns rounded to bf16; the adjoint sweep s = bf16(v) W^T with a skip
+layer's s split into its h part (scaled, times act'(z), into v) and its x0
+part (scaled, into adj); grad = J_enc^T adj in f32.
+
+Backward (_bwd_adj_kernel :453-602): the cotangent of grad, g3, becomes
+the adjoint's cotangent ga = sum_k g3_k bf16(t0_k) through the encoding's
+basis tangents; a forward chain of ga (re-injected at a skip) gives the
+adjoint path's weight gradients qin^T v and the act'' injections
+e_l = bf16(m * s * act''(z)); the standard reverse sweep from [gsdf, ggeo]
+adds them; d pos = J_enc^T (gh + gx0) + g3_k <adj, enc''_k>.
+
+`mode="jvp"` (3 forward tangents through K1's tangent mode, :1209-1211)
+has no port yet and raises.
+
+Bound on an H100 at the mlp_raw_tpu widths (8 x 256, skip at 4): two
+chain-sized products forward (primal and adjoint) and about six backward,
+2 * N * sum(din * dout) flops each, against 12 + 4 + 512 + 12 bytes per
+sample of positions and outputs: the tensor cores bound both.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+
+from multimodalstudio_tpu_torch.ops.kernels import build
+from multimodalstudio_tpu_torch.ops.kernels.fused_mlp import (
+    ACTIVATIONS,
+    adjoint_sweep,
+    bf16_round,
+    chain_forward,
+    chain_geometry,
+    ga_forward,
+    pack_chain,
+    reverse_sweep,
+    unpack_grads,
+)
+from multimodalstudio_tpu_torch.ops.kernels.slot_fused import PEncoding, pe_scales
+
+KERNEL = build.register(
+    "fused_sdf_chain",
+    source="multimodalstudio_tpu_torch/csrc/sdf_chain.cu",
+    replaces="multimodalstudio_tpu/ops/pallas/fused_mlp.py:362",
+)
+BWD_KERNEL = build.register(
+    "fused_sdf_chain_bwd",
+    source="multimodalstudio_tpu_torch/csrc/sdf_chain.cu",
+    replaces="multimodalstudio_tpu/ops/pallas/fused_mlp.py:410",
+)
+
+
+def _check(weights, skip, activation, mode):
+    if mode != "adjoint":
+        if mode == "jvp":
+            raise NotImplementedError(
+                "fused_sdf_chain: jvp mode needs K1's forward-tangent mode, which has no port yet")
+        raise ValueError(f"unknown fused_sdf_chain mode {mode}")
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"unsupported fused activation {activation}")
+    if len(weights) < 2 or 0 in skip:
+        raise ValueError("fused_sdf_chain takes chains of 2 or more layers with no skip at layer 0")
+
+
+def fused_sdf_chain_plain(positions, weights, biases, *, num_frequencies, min_freq_exp,
+                          max_freq_exp, skip=(), activation="SoftplusQuad", beta=100.0):
+    """Plain PyTorch version of K4's forward (_fwd_adj_kernel :362-404):
+    (sdf [N] f32, geo [N, D_out-1] bf16, grad [N, 3] f32)."""
+    skip = tuple(sorted(skip))
+    enc = PEncoding(positions.float(), pe_scales(num_frequencies, min_freq_exp, max_freq_exp))
+    y, zs = chain_forward(enc.x0, weights, biases, skip, activation, beta)
+    adj, _ = adjoint_sweep(enc.x0, zs, weights, skip, activation, beta)
+    return y[:, 0], y[:, 1:].to(torch.bfloat16), enc.jt(adj)
+
+
+def fused_sdf_chain_bwd_plain(positions, weights, biases, gsdf, ggeo, g3, *, num_frequencies,
+                              min_freq_exp, max_freq_exp, skip=(), activation="SoftplusQuad",
+                              beta=100.0):
+    """Plain PyTorch version of K4's backward (_bwd_adj_kernel :410-602),
+    written out at its cast points: cotangents gsdf [N], ggeo [N, D_out-1]
+    (rounded to bf16) and g3 [N, 3] in; returns (d_pos [N, 3] f32, gW list
+    f32, gb list f32)."""
+    skip = tuple(sorted(skip))
+    enc = PEncoding(positions.float(), pe_scales(num_frequencies, min_freq_exp, max_freq_exp))
+    _, zs = chain_forward(enc.x0, weights, biases, skip, activation, beta)
+    adj, ss = adjoint_sweep(enc.x0, zs, weights, skip, activation, beta)
+    # the cotangent of grad rides the encoding's basis tangents onto adj
+    # (:479); its forward chain gives the adjoint path's gW and the act''
+    # injections of the standard reverse sweep (:489-575)
+    g3 = g3.float()
+    gwd, inject = ga_forward(enc.tangent_cotangent(g3), zs, ss, weights, skip, activation, beta)
+    gy = torch.cat([gsdf.float()[:, None], bf16_round(ggeo.float())], dim=-1)
+    ghin, gws, gbs = reverse_sweep(enc.x0, zs, gy, weights, skip, activation, beta,
+                                   inject=inject, gw_extra=gwd)
+    # d pos: the encoding's Jacobian transpose and its Hessian term (:577-599)
+    return enc.jt(ghin) + g3 * enc.hess(adj), gws, gbs
+
+
+class _CardArgs:
+    """The packed operands and geometry arguments both K4 entry points take
+    first; `keep` holds the tensors the pointers refer to."""
+
+    def __init__(self, positions, weights, biases, skip, activation, beta, pe):
+        if positions.device.type != "cuda":
+            raise ValueError(f"fused_sdf_chain: unsupported device {positions.device}")
+        if len(weights) > 8:
+            raise ValueError("fused_sdf_chain: at most 8 layers")
+        self.n = positions.shape[0]
+        d_in = 3 + 6 * len(pe)
+        self.in_dims, self.out_dims, p0, self.hidden = chain_geometry(d_in, weights, skip)
+        wpack, bpack = pack_chain(weights, biases, self.in_dims, self.out_dims, self.hidden, skip)
+        pos = positions.float().contiguous()
+        self.keep = (pos, wpack, bpack)
+        self.args = [
+            build.ptr(pos), self.n, build.ptr(wpack), build.ptr(bpack), len(weights),
+            build.int_array(self.in_dims), build.int_array(self.out_dims),
+            sum(1 << l for l in skip), self.hidden, p0, ACTIVATIONS[activation], 2.0 / beta,
+            len(pe), build.float_array(pe),
+        ]
+        self.stream = build.stream_of(pos)
+
+    def scratch(self, backward: bool):
+        return build.persistent_scratch(
+            "sdf_chain", "mms_sdf_chain_slab", (len(self.in_dims), self.hidden, int(backward)),
+            self.keep[0].device, self.n)
+
+
+_COMMON_TYPES = ("ptr", "int", "ptr", "ptr", "int", "ptr", "ptr", "int", "int", "int", "int",
+                 "float", "int", "ptr")
+
+
+def _launch_fwd(positions, weights, biases, skip, activation, beta, pe):
+    """K4's forward kernel: (sdf, geo, grad)."""
+    ca = _CardArgs(positions, weights, biases, skip, activation, beta, pe)
+    dev, n = positions.device, ca.n
+    geo_width = weights[-1].shape[1] - 1
+    sdf = torch.empty(n, dtype=torch.float32, device=dev)
+    geo = torch.empty((n, geo_width), dtype=torch.bfloat16, device=dev)
+    grad = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    if n:
+        scratch, ctas = ca.scratch(backward=False)
+        fn = build.function("sdf_chain", "mms_sdf_chain_fwd", *_COMMON_TYPES, "ptr", "ptr", "int",
+                            "ptr", "ptr", "int", "ptr")
+        status = fn(*ca.args, build.ptr(sdf), build.ptr(geo), geo_width, build.ptr(grad),
+                    build.ptr(scratch), ctas, ca.stream)
+        build.check(status, "fused_sdf_chain")
+        KERNEL.launches += 1
+    return sdf, geo, grad
+
+
+def _launch_bwd(positions, weights, biases, skip, activation, beta, pe, gsdf, ggeo, g3):
+    """K4's backward kernel: (d_pos, gW list, gb list)."""
+    ca = _CardArgs(positions, weights, biases, skip, activation, beta, pe)
+    dev = positions.device
+    d_pos = torch.empty((ca.n, 3), dtype=torch.float32, device=dev)
+    gw = torch.zeros(sum(a * b for a, b in zip(ca.in_dims, ca.out_dims)), device=dev)
+    gb = torch.zeros(sum(ca.out_dims), device=dev)
+    if ca.n:
+        scratch, ctas = ca.scratch(backward=True)
+        fn = build.function("sdf_chain", "mms_sdf_chain_bwd", *_COMMON_TYPES, "ptr", "ptr", "int",
+                            "ptr", "ptr", "ptr", "ptr", "ptr", "int", "ptr")
+        cot = (gsdf.float().contiguous(), ggeo.to(torch.bfloat16).contiguous(),
+               g3.float().contiguous())
+        status = fn(*ca.args, build.ptr(cot[0]), build.ptr(cot[1]), ggeo.shape[1],
+                    build.ptr(cot[2]), build.ptr(d_pos), build.ptr(gw), build.ptr(gb),
+                    build.ptr(scratch), ctas, ca.stream)
+        build.check(status, "fused_sdf_chain backward")
+        BWD_KERNEL.launches += 1
+    gws, gbs = unpack_grads(gw, gb, weights, ca.in_dims, ca.out_dims, ca.hidden, skip)
+    return d_pos, gws, gbs
+
+
+class _SdfChain(torch.autograd.Function):
+    """K4 with its backward (chain_fwd / chain_bwd :1004-1022): saves the
+    positions and parameters only; the backward recomputes per tile."""
+
+    @staticmethod
+    def forward(ctx, cfg, positions, *params):
+        kw, pe = cfg
+        ws, bs = params[: len(params) // 2], params[len(params) // 2 :]
+        ctx.cfg = cfg
+        ctx.save_for_backward(positions, *params)
+        return _forward(positions, ws, bs, kw, pe)
+
+    @staticmethod
+    def backward(ctx, gsdf, ggeo, g3):
+        kw, pe = ctx.cfg
+        positions, *params = ctx.saved_tensors
+        ws, bs = params[: len(params) // 2], params[len(params) // 2 :]
+        ggeo = ggeo.to(torch.bfloat16)  # chain_bwd :1012
+        if positions.device.type == "cpu":
+            d_pos, gws, gbs = fused_sdf_chain_bwd_plain(positions, ws, bs, gsdf, ggeo, g3, **kw)
+        else:
+            d_pos, gws, gbs = _launch_bwd(positions, ws, bs, kw["skip"], kw["activation"],
+                                          kw["beta"], pe, gsdf, ggeo, g3)
+        return (None, d_pos.to(positions.dtype), *gws, *gbs)
+
+
+def _forward(positions, weights, biases, kw, pe):
+    """The plain version for a CPU tensor, the kernel for any other (which
+    raises off a card)."""
+    if positions.device.type == "cpu":
+        return fused_sdf_chain_plain(positions, weights, biases, **kw)
+    return _launch_fwd(positions, weights, biases, kw["skip"], kw["activation"], kw["beta"], pe)
+
+
+def fused_sdf_chain(
+    positions: torch.Tensor,
+    weights: Sequence[torch.Tensor],
+    biases: Sequence[torch.Tensor],
+    *,
+    num_frequencies: int,
+    min_freq_exp: float,
+    max_freq_exp: float,
+    skip: Tuple[int, ...] = (),
+    activation: str = "SoftplusQuad",
+    beta: float = 100.0,
+    tangent_out_channel: int = 0,
+    mode: str = "adjoint",
+):
+    """(sdf [N] f32, geo [N, D_out-1] bf16, grad [N, 3] f32 = d sdf / d
+    positions) at raw positions [N, 3] (K4). weights[l] [din_l, dout_l] are
+    the effective (weight-norm applied) matrices of a chain whose input is
+    the NeRF encoding with the raw input (3 + 6F columns). With grad
+    enabled, differentiable (second order through grad) in positions,
+    weights and biases through K4's backward."""
+    if tangent_out_channel != 0:
+        raise ValueError("fused_sdf_chain: the sdf channel is column 0")
+    skip = tuple(sorted(skip))
+    _check(weights, skip, activation, mode)
+    kw = dict(num_frequencies=num_frequencies, min_freq_exp=min_freq_exp,
+              max_freq_exp=max_freq_exp, skip=skip, activation=activation, beta=beta)
+    pe = pe_scales(num_frequencies, min_freq_exp, max_freq_exp)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (positions, *weights, *biases)):
+        return _SdfChain.apply((kw, pe), positions, *weights, *biases)
+    return _forward(positions, weights, biases, kw, pe)

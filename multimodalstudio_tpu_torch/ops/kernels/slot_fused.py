@@ -57,10 +57,13 @@ import torch
 from multimodalstudio_tpu_torch.ops.kernels import build
 from multimodalstudio_tpu_torch.ops.kernels.fused_mlp import (
     ACTIVATIONS,
-    act_pair,
+    adjoint_sweep,
     bf16_round,
+    chain_forward,
     chain_geometry,
+    ga_forward,
     pack_chain,
+    reverse_sweep,
     unpack_grads,
 )
 from multimodalstudio_tpu_torch.ops.kernels.slot_grid import LANE, NSLOT, SlotGridSpec, cell_factors
@@ -111,19 +114,50 @@ def _mask(level_mask: Optional[torch.Tensor], width: int, like: torch.Tensor) ->
     return level_mask.float().reshape(width).contiguous()
 
 
-def ddf_of(activation: str, beta: float):
-    """act'' of the hidden activation, or None where it is 0 everywhere
-    (fused_mlp.py::_act_triple): SoftplusQuad's is 1/(2a) on |z| < a."""
-    if activation != "SoftplusQuad":
-        return None
-    a = 2.0 / beta
-    return lambda z: torch.where(z.abs() < a, torch.full_like(z, 0.5 / a), torch.zeros_like(z))
+class PEncoding:
+    """The NeRF encoding of positions [N, 3] as the fused kernels compute it
+    (fused_mlp.py:181-260): x0 = bf16([x, sin(x_d s_i), cos(x_d s_i)]),
+    d-major, cos computed directly; its Jacobian transpose, its Hessian
+    diagonal and the cotangent its bf16 basis tangents carry."""
+
+    def __init__(self, positions: torch.Tensor, scales):
+        n = positions.shape[0]
+        self.scale = torch.as_tensor(scales, device=positions.device)
+        self.scaled = positions[:, :, None] * self.scale  # [N, 3, F]
+        flat = self.scaled.reshape(n, -1)
+        self.x0 = bf16_round(torch.cat([positions, torch.sin(flat), torch.cos(flat)], dim=-1))
+
+    def _parts(self, a):
+        n, f = a.shape[0], self.scale.shape[0]
+        return a[:, 3 : 3 + 3 * f].reshape(n, 3, f), a[:, 3 + 3 * f : 3 + 6 * f].reshape(n, 3, f)
+
+    def jt(self, a: torch.Tensor) -> torch.Tensor:
+        """J_enc^T a [N, 3] for an encoding-level cotangent a (_enc_jt)."""
+        gs, gc = self._parts(a)
+        s = self.scale
+        return a[:, :3] + (gs * (torch.cos(self.scaled) * s)
+                           + gc * (-torch.sin(self.scaled) * s)).sum(-1)
+
+    def hess(self, a: torch.Tensor) -> torch.Tensor:
+        """<a, d^2 enc / d x_k^2> [N, 3] (enc'' = -s^2 enc)."""
+        gs, gc = self._parts(a)
+        s = self.scale
+        return (gs * (-torch.sin(self.scaled) * s * s)
+                + gc * (-torch.cos(self.scaled) * s * s)).sum(-1)
+
+    def tangent_cotangent(self, g3: torch.Tensor) -> torch.Tensor:
+        """sum_k g3_k bf16(t0_k) [N, 3+6F]: the cotangent g3 of d/dx carried
+        onto the encoding through its bf16 basis tangents."""
+        n, s = g3.shape[0], self.scale
+        g = g3[:, :, None]
+        return torch.cat([g3, (g * bf16_round(torch.cos(self.scaled) * s)).reshape(n, -1),
+                          (g * bf16_round(-torch.sin(self.scaled) * s)).reshape(n, -1)], dim=-1)
 
 
 class _Front:
     """The plain front end of one sample batch: cell geometry (idx, per-axis
     trilerp factors, clip gate), the bf16 corner values T [N, k, F, 8], the
-    bf16 trilerp weights wb [N, k, 8], the PE arguments [N, 3, F_pe] and the
+    bf16 trilerp weights wb [N, k, 8], the position encoding pe and the
     chain input x0 [N, 3+6F_pe + num_levels*F] (bf16 values in f32)."""
 
     def __init__(self, pos, table, gspec, k, radius, mask, pe):
@@ -138,42 +172,19 @@ class _Front:
         self.wb = bf16_round(wa[..., 0] * wa[..., 1] * wa[..., 2])
         encg = bf16_round(bf16_round(self.T * self.wb[:, :, None, :]).sum(-1)
                           * mask.reshape(1, k, feats))
-        self.scale = torch.as_tensor(pe, device=pos.device)
-        self.scaled = pos[:, :, None] * self.scale  # [N, 3, F_pe], d-major columns
-        flat = self.scaled.reshape(n, -1)
+        self.pe = PEncoding(pos, pe)
         pad = (gspec.num_levels - k) * feats
-        self.x0 = bf16_round(torch.cat(
-            [pos, torch.sin(flat), torch.cos(flat), encg.reshape(n, k * feats), pos.new_zeros(n, pad)],
-            dim=-1,
-        ))
+        self.x0 = torch.cat([self.pe.x0, encg.reshape(n, k * feats), pos.new_zeros(n, pad)], dim=-1)
 
     def axis_factor(self, t: int) -> torch.Tensor:
         """D_t = dwa_t * wa_u * wa_v [N, k, 8]: d w / d g_t."""
         u, v = (t + 1) % 3, (t + 2) % 3
         return self.dwa[..., t] * self.wa[..., u] * self.wa[..., v]
 
-    def enc_jt(self, a: torch.Tensor) -> torch.Tensor:
-        """J_enc^T a [N, 3] for the PE columns a [N, 3+6F_pe]
-        (fused_mlp.py::_enc_jt)."""
-        n, fp = a.shape[0], self.scale.shape[0]
-        gs = a[:, 3 : 3 + 3 * fp].reshape(n, 3, fp)
-        gc = a[:, 3 + 3 * fp : 3 + 6 * fp].reshape(n, 3, fp)
-        return a[:, :3] + (gs * (torch.cos(self.scaled) * self.scale)
-                           + gc * (-torch.sin(self.scaled) * self.scale)).sum(-1)
-
 
 def _chain(x0, weights, biases, activation, beta):
     """Plain chain forward: (last layer z in f32, bf16-rounded hidden z's)."""
-    f, _ = act_pair(activation, beta)
-    h, zs = x0, []
-    for l, (w, b) in enumerate(zip(weights, biases)):
-        z = h @ bf16_round(w) + b.float()
-        if l < len(weights) - 1:
-            zs.append(bf16_round(z))
-            h = bf16_round(f(z))
-        else:
-            h = z
-    return h, zs
+    return chain_forward(x0, weights, biases, (), activation, beta)
 
 
 def _levels(gspec: SlotGridSpec, num_levels) -> int:
@@ -217,20 +228,9 @@ def _chain_fwd_plain(positions, table, weights, biases, gspec, radius, pe, activ
     pos = positions.float()
     front = _Front(pos, table, gspec, k, radius, mask, pe)
     y, zs = _chain(front.x0, weights, biases, activation, beta)
-    _, df = act_pair(activation, beta)
-
-    # adjoint sweep: v = e_0; s = bf16(v) W_l^T; v = s * act'(z_{l-1});
-    # the rows s of layers l >= 1 are the backward's residual ss[l-1]
-    v = torch.zeros_like(y)
-    v[:, 0] = 1.0
-    ss = [None] * (len(weights) - 1)
-    for l in reversed(range(len(weights))):
-        s = bf16_round(v) @ bf16_round(weights[l]).T
-        if l == 0:
-            adj = s
-        else:
-            ss[l - 1] = bf16_round(s)
-            v = s * df(zs[l - 1])
+    # the rows s of layers l >= 1 of the adjoint sweep are the backward's
+    # residual ss[l-1]
+    adj, ss = adjoint_sweep(front.x0, zs, weights, (), activation, beta)
 
     # grid part: sum comp * bf16(dw_k / 2r) * bf16(adj_grid * mask) (slot_fused.py:445-458)
     pw = 3 + 6 * len(pe)
@@ -238,7 +238,7 @@ def _chain_fwd_plain(positions, table, weights, biases, gspec, radius, pe, activ
     cs = 1.0 / (2.0 * radius)
     grid = [(front.T * bf16_round(front.axis_factor(t) * cs)[:, :, None, :] * a[..., None])
             .sum(dim=(1, 2, 3)) for t in range(3)]
-    grad = front.enc_jt(adj) + torch.stack(grid, -1)
+    grad = front.pe.jt(adj) + torch.stack(grid, -1)
     residuals = (_stack(zs, y), _stack(ss, y), adj.contiguous())
     return (y[:, 0], y[:, 1:].to(torch.bfloat16), grad), residuals
 
@@ -255,30 +255,6 @@ def slot_sdf_chain_plain(
     mask = _mask(level_mask, gspec.num_levels * gspec.feats, positions)
     return _chain_fwd_plain(positions, table, weights, biases, gspec, radius, pe, activation,
                             beta, mask)[0]
-
-
-def _reverse_sweep(x0, zs, gy, weights, activation, beta, inject=None, gw_extra=None):
-    """gz_{L-1} = gy; gz_l = gh * act'(z_l) (+ inject[l]); gW_l = hin_l^T
-    bf16(gz_l) (+ gw_extra[l]); gh = bf16(gz_l) W_l^T. Returns (cotangent
-    of x0 [N, D_in] f32, gW list, gb list)."""
-    f, df = act_pair(activation, beta)
-    n_layers = len(weights)
-    zsl = [z.float() for z in zs]
-    gws, gbs = [None] * n_layers, [None] * n_layers
-    gh = gy
-    for l in reversed(range(n_layers)):
-        if l == n_layers - 1:
-            gz = gh
-        else:
-            gz = gh * df(zsl[l])
-            if inject is not None:
-                gz = gz + inject[l]
-        gzb = bf16_round(gz)
-        hin = x0 if l == 0 else bf16_round(f(zsl[l - 1]))
-        gws[l] = hin.T @ gzb if gw_extra is None else gw_extra[l] + hin.T @ gzb
-        gbs[l] = gz.sum(0)
-        gh = gzb @ bf16_round(weights[l].float()).T
-    return gh, gws, gbs
 
 
 def _scatter_table(table, gspec, idx, d_comp):
@@ -306,7 +282,7 @@ def slot_sdf_value_bwd_plain(
     front = _Front(positions.float(), table, gspec, k, radius, mask, pe)
     gy = front.x0.new_zeros(n, weights[-1].shape[1])
     gy[:, 0] = gsdf.float()
-    ghin, gws, gbs = _reverse_sweep(front.x0, zs, gy, weights, activation, beta)
+    ghin, gws, gbs = reverse_sweep(front.x0, zs, gy, weights, (), activation, beta)
 
     pw = 3 + 6 * len(pe)
     gt0 = bf16_round(ghin[:, pw : pw + k * feats].reshape(n, k, feats) * mask)
@@ -314,7 +290,7 @@ def slot_sdf_value_bwd_plain(
     d_w = bf16_round(front.T * gt0[..., None]).sum(2)  # [N, k, 8]
     cs = 1.0 / (2.0 * radius)
     gpos = torch.stack([(d_w * front.axis_factor(t)).sum((1, 2)) for t in range(3)], -1)
-    d_pos = front.enc_jt(ghin[:, :pw]) + gpos * (front.gate * cs)
+    d_pos = front.pe.jt(ghin) + gpos * (front.gate * cs)
     return d_pos, d_table, gws, gbs
 
 
@@ -332,24 +308,16 @@ def slot_sdf_chain_bwd_plain(
     k, feats = gspec.num_levels, gspec.feats
     kf = k * feats
     pe = pe_scales(num_frequencies, min_freq_exp, max_freq_exp)
-    fp = len(pe)
-    pw = 3 + 6 * fp
+    pw = 3 + 6 * len(pe)
     mask = _mask(level_mask, kf, positions).reshape(k, feats)
     n = positions.shape[0]
-    n_layers = len(weights)
     front = _Front(positions.float(), table, gspec, k, radius, mask, pe)
-    _, df = act_pair(activation, beta)
-    ddf = ddf_of(activation, beta)
     cs = 1.0 / (2.0 * radius)
     g3 = g3.float()
     T = front.T
 
     # ga = cotangent of adj (:586-601): the PE tangents and the grid tangents
-    dsin = torch.cos(front.scaled) * front.scale  # [N, 3, F_pe]
-    dcos = -torch.sin(front.scaled) * front.scale
-    g3c = g3[:, :, None]
-    ga_pe = torch.cat([g3, (g3c * bf16_round(dsin)).reshape(n, -1),
-                       (g3c * bf16_round(dcos)).reshape(n, -1)], dim=-1)
+    ga_pe = front.pe.tangent_cotangent(g3)
     D = [front.axis_factor(t) for t in range(3)]
     dwsum = g3[:, 0, None, None] * (D[0] * cs)
     dwsum = dwsum + g3[:, 1, None, None] * (D[1] * cs)
@@ -361,29 +329,12 @@ def slot_sdf_chain_bwd_plain(
     dd0 = bf16_round(T * gc0[..., None]).sum(2)  # [N, k, 8]
     ga = torch.cat([ga_pe, ga_g.reshape(n, kf), ga_pe.new_zeros(n, adj.shape[1] - pw - kf)], -1)
 
-    # ga-forward chain (:603-638): adjoint-path weight gradients and the
-    # act'' injections e_l
-    zsl = [z.float() for z in zs]
-    ssl = [s.float() for s in ss]
-    q, gwd, inject = ga, [], []
-    for l in range(n_layers):
-        qb = bf16_round(q)
-        if l == n_layers - 1:
-            v = qb.new_zeros(n, weights[l].shape[1])
-            v[:, 0] = 1.0
-        else:
-            v = ssl[l] * df(zsl[l])
-        gwd.append(qb.T @ bf16_round(v))
-        if l < n_layers - 1:
-            mq = qb @ bf16_round(weights[l].float())
-            if ddf is not None:
-                inject.append(bf16_round(mq * ssl[l] * ddf(zsl[l])))
-            q = mq * df(zsl[l])
-
-    # standard reverse sweep with the injections (:648-694)
+    # ga-forward chain (:603-638), then the standard reverse sweep with its
+    # act'' injections (:648-694)
+    gwd, inject = ga_forward(ga, zs, ss, weights, (), activation, beta)
     gy = torch.cat([gsdf.float()[:, None], ggeo.float()], dim=-1)
-    ghin, gws, gbs = _reverse_sweep(front.x0, zs, gy, weights, activation, beta,
-                                    inject=inject if ddf is not None else None, gw_extra=gwd)
+    ghin, gws, gbs = reverse_sweep(front.x0, zs, gy, weights, (), activation, beta,
+                                   inject=inject, gw_extra=gwd)
 
     # grid slice of the input cotangent -> table scatter (:696-708)
     gt0 = bf16_round(ghin[:, pw : pw + kf].reshape(n, k, feats) * mask)
@@ -393,11 +344,7 @@ def slot_sdf_chain_bwd_plain(
 
     # position cotangent (:710-735): PE Jacobian transpose, the PE Hessian
     # term weighted by g3, and the second-order trilerp fold
-    a_s = adj[:, 3 : 3 + 3 * fp].reshape(n, 3, fp)
-    a_c = adj[:, 3 + 3 * fp : pw].reshape(n, 3, fp)
-    d2sin = -torch.sin(front.scaled) * front.scale * front.scale
-    d2cos = -torch.cos(front.scaled) * front.scale * front.scale
-    sec = g3 * (a_s * d2sin + a_c * d2cos).sum(-1)
+    sec = g3 * front.pe.hess(adj)
     wa, dwa, ddwa = front.wa, front.dwa, front.ddwa
     cols = []
     for t in range(3):
@@ -411,7 +358,7 @@ def slot_sdf_chain_bwd_plain(
             acc = acc + cs * ((g3[:, kk, None, None] * dd0) * dD)
         cols.append(acc.sum((1, 2)))
     gpos = torch.stack(cols, -1) * (front.gate * cs)
-    d_pos = front.enc_jt(ghin[:, :pw]) + sec + gpos
+    d_pos = front.pe.jt(ghin) + sec + gpos
     return d_pos, d_table, gws, gbs
 
 

@@ -114,7 +114,9 @@ def _torch(x, ws, bs, grad=False):
 
 @pytest.mark.parametrize(
     "activation,skip,n_layers",
-    [("ReLU", (), 3), ("SoftplusQuad", (), 3), ("None", (), 2), ("ReLU", (4,), 6)],
+    # the last case has the depth and skip of the mlp_raw_tpu radiance trunk
+    [("ReLU", (), 3), ("SoftplusQuad", (), 3), ("None", (), 2), ("ReLU", (4,), 6),
+     ("ReLU", (4,), 8)],
 )
 def test_plain_backward_matches_jax_vjp(activation, skip, n_layers):
     x, ws, bs = make_chain(5, 39, 128, 65, n_layers, skip, 29)

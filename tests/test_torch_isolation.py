@@ -16,7 +16,7 @@ from multimodalstudio_tpu_torch.configs.methods import method_configs
 from multimodalstudio_tpu_torch.data.synthetic import make_synthetic_dataset
 from multimodalstudio_tpu_torch.engine.evaluator import Evaluator, RawEvaluator
 from multimodalstudio_tpu_torch.models.model import MMSModel
-from multimodalstudio_tpu_torch.ops.kernels import fused_mlp, slot_fused, slot_grid
+from multimodalstudio_tpu_torch.ops.kernels import fused_mlp, sdf_chain, slot_fused, slot_grid
 
 torch.set_num_threads(1)
 
@@ -40,6 +40,7 @@ def test_port_and_chip_smoke_import_no_jax():
     probe = json.loads(out.stdout.strip().splitlines()[-1])
     assert "multimodalstudio_tpu_torch.models.model" in probe["imported"]
     assert "multimodalstudio_tpu_torch.ops.kernels.slot_fused" in probe["imported"]
+    assert "multimodalstudio_tpu_torch.ops.kernels.sdf_chain" in probe["imported"]
     assert "multimodalstudio_tpu_torch.engine.train" in probe["imported"]
     assert "multimodalstudio_tpu_torch.data.device_cache" in probe["imported"]
     # exact names: the port's own package shares the JAX package's prefix
@@ -60,8 +61,9 @@ def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
         assert '"ok"' not in out.stdout
 
 
-def test_entry_points_raise_without_a_card(monkeypatch):
-    cfg = method_configs()["grid_raw_tpu"]
+@pytest.mark.parametrize("method", ["grid_raw_tpu", "mlp_raw_tpu"])
+def test_entry_points_raise_without_a_card(monkeypatch, method):
+    cfg = method_configs()[method]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         MMSModel(cfg.model)
@@ -89,7 +91,20 @@ def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
     for fn in (slot_fused.fused_slot_sdf_value, slot_fused.fused_slot_sdf_chain):
         with pytest.raises(ValueError, match="unsupported device"):
             fn(pos, table, ws, bs, spec, **kw)
+    sws, sbs = _sdf_chain_params(requires_grad=False)
+    with pytest.raises(ValueError, match="unsupported device"):
+        sdf_chain.fused_sdf_chain(pos, sws, sbs, **SDF_KW)
 
+
+SDF_KW = dict(num_frequencies=2, min_freq_exp=0.0, max_freq_exp=1.0, skip=(1,))
+
+
+def _sdf_chain_params(requires_grad):
+    """An SDF chain on 3 + 6 * 2 = 15 encoded inputs, skip at layer 1."""
+    dims = [(15, 16), (31, 16), (16, 5)]
+    ws = [torch.empty(*d, device="meta", requires_grad=requires_grad) for d in dims]
+    bs = [torch.empty(d[1], device="meta", requires_grad=requires_grad) for d in dims]
+    return ws, bs
 
 
 def test_differentiable_kernels_and_backward_launchers_refuse_other_devices():
@@ -125,3 +140,10 @@ def test_differentiable_kernels_and_backward_launchers_refuse_other_devices():
                                      torch.empty(8, device="meta"),
                                      torch.empty(8, 3, device="meta"),
                                      torch.empty(8, 3, device="meta"))
+    sws, sbs = _sdf_chain_params(requires_grad=True)
+    with pytest.raises(ValueError, match="unsupported device"):
+        sdf_chain.fused_sdf_chain(pos, sws, sbs, **SDF_KW)
+    with pytest.raises(ValueError, match="unsupported device"):
+        sdf_chain._launch_bwd(pos, sws, sbs, (1,), "SoftplusQuad", 100.0, pe,
+                              torch.empty(8, device="meta"), torch.empty(8, 4, device="meta"),
+                              torch.empty(8, 3, device="meta"))

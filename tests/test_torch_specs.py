@@ -13,13 +13,24 @@ torch.set_num_threads(1)
 
 
 def test_port_registers_the_methods_it_runs():
-    assert set(tmethods.method_configs()) == {"grid_raw_tpu"}
+    assert set(tmethods.method_configs()) == {"grid_raw_tpu", "mlp_raw_tpu"}
 
 
 def test_grid_raw_tpu_equals_reference_leaf_by_leaf():
     j = jmethods.method_configs()["grid_raw_tpu"]
     t = tmethods.method_configs()["grid_raw_tpu"]
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
+
+
+def test_mlp_raw_tpu_equals_reference_leaf_by_leaf():
+    j = jmethods.method_configs()["mlp_raw_tpu"]
+    t = tmethods.method_configs()["mlp_raw_tpu"]
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+
+
+def test_mlp_base_config_equals_reference():
+    # the 8x256 MLP base that mlp_raw_tpu is derived from
+    assert dataclasses.asdict(tmethods._mlp_config()) == dataclasses.asdict(jmethods._mlp_config())
 
 
 def test_grid_base_config_equals_reference():
