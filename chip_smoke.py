@@ -10,11 +10,15 @@
    microbatch gives it (512 rays per modality), and times kernel, plain
    version and a PyTorch call (or composition) that computes the same
    function, where one exists (CUDA events, median of 15 after warm-up):
-   K1-K3 at the grid_raw_tpu shapes, K4 at the mlp_raw_tpu ones, and K1 at
-   the 8-layer mlp_raw_tpu chains. Then checks the cases those paths do not
+   K1-K3 at the grid_raw_tpu shapes, K4 at the mlp_raw_tpu ones, K1 at the
+   8-layer mlp_raw_tpu chains, and K6 and K5 at the shapes of grid_raw_tpu
+   without its position encoding. Then checks the cases those paths do not
    reach (ragged N, skip layers, ReLU, truncated and masked grids).
-3. For grid_raw_tpu, then mlp_raw_tpu, at full width with seeded random
-   weights on a raw 5-modality synthetic scene (256 x 256, 10 views):
+3. For grid_raw_tpu, mlp_raw_tpu and grid_raw_tpu with
+   model.surface.surface_field.use_position_encoding = False (through
+   load_config's overrides: its SDF runs the slot-grid lookup K6 and the
+   chain adjoint K5), at full width with seeded random weights on a raw
+   5-modality synthetic scene (256 x 256, 10 views):
    renders one eval view of every modality through RawEvaluator, scores it,
    checks that the render went through its forward kernels (exact launch
    counts) and renders one chunk again on the CPU through the plain
@@ -42,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
+H100_F32_FLOPS = 67e12  # float32 outside the tensor cores, H100 SXM data sheet
 H100_BYTES = 3.35e12  # HBM3 bandwidth, H100 SXM data sheet
 SEED = 0
 REPS = 15
@@ -76,8 +81,8 @@ def time_ms(fn) -> float:
     return statistics.median(times)
 
 
-def bound(flops: float, n_bytes: float):
-    t_ops, t_bytes = flops / H100_BF16_FLOPS * 1e3, n_bytes / H100_BYTES * 1e3
+def bound(flops: float, n_bytes: float, peak: float = H100_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak * 1e3, n_bytes / H100_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -500,43 +505,60 @@ TRUNK_DIMS = [(285, 256), (256, 256), (256, 256), (256, 256), (541, 256), (256, 
 
 
 def sdf_flops(n, dims, backward=False):
-    """Tensor-core flops of K4: forward = primal chain + adjoint sweep;
-    backward = primal (hidden layers) and adjoint recompute, the ga-forward
-    chain (gW and m of the hidden layers, the last layer's column sums),
-    gW and gh of every layer."""
-    if not backward:
-        return 2 * chain_flops(n, dims)
+    """Tensor-core flops of K4 and K5: forward = primal chain + adjoint
+    sweep through the hidden layers and layer 0 (the last layer's adjoint
+    product is a column of W, v being one-hot: no products); backward =
+    primal and adjoint recompute (hidden layers), the ga-forward chain (gW
+    and m of the hidden layers, the last layer's column sums), gW and gh of
+    every layer."""
     hidden = dims[:-1]
-    return (chain_flops(n, hidden) + chain_flops(n, dims) + 2 * chain_flops(n, hidden)
+    if not backward:
+        return chain_flops(n, dims) + chain_flops(n, hidden)
+    return (2 * chain_flops(n, hidden) + 2 * chain_flops(n, hidden)
             + 2.0 * n * dims[-1][0] + 2 * chain_flops(n, dims))
 
 
-def sdf_library(pos, ws, bs, kw, create_graph=False):
-    """One PyTorch composition computing K4's function: the NeRF encoding,
-    the bf16 F.linear chain (cuBLAS) and torch.autograd.grad for d sdf/dx.
-    Returns (fn, leaves): fn() -> (sdf, geo, grad)."""
-    from multimodalstudio_tpu_torch.ops.encodings import nerf_encoding
-
-    a = 2.0 / kw["beta"]
+def adjoint_library(x, ws, bs, skip=(), beta=100.0, encode=None, create_graph=False):
+    """One PyTorch composition computing the adjoint chains' function: the
+    chain input (encode(x), or x), the bf16 F.linear chain (cuBLAS) with
+    SoftplusQuad, and torch.autograd.grad for d y_0 / d x. Returns (fn,
+    leaves): fn() -> (y bf16, d y_0 / d x)."""
+    a = 2.0 / beta
     wb = [w.t().contiguous().to(torch.bfloat16).requires_grad_(create_graph) for w in ws]
     bb = [b.to(torch.bfloat16).requires_grad_(create_graph) for b in bs]
-    p = pos.detach().clone().requires_grad_(True)
+    p = x.detach().clone() if encode else x.detach().to(torch.bfloat16)
+    p.requires_grad_(True)
 
     def fn():
-        x = nerf_encoding(p, kw["num_frequencies"], kw["min_freq_exp"], kw["max_freq_exp"])
-        x = x.to(torch.bfloat16)
-        h = x
+        x0 = (encode(p) if encode else p).to(torch.bfloat16)
+        h = x0
         for l, (w, b) in enumerate(zip(wb, bb)):
-            if l in kw["skip"]:
-                h = torch.cat([h, x], dim=-1) * (2.0 ** -0.5)
+            if l in skip:
+                h = torch.cat([h, x0], dim=-1) * (2.0 ** -0.5)
             h = F.linear(h, w, b)
             if l < len(wb) - 1:
                 h = torch.where(h.abs() < a, (h + a) * (h + a) * (0.25 / a), torch.relu(h))
-        sdf = h[:, 0].float()
-        grad = torch.autograd.grad(sdf.sum(), p, create_graph=create_graph)[0]
-        return sdf, h[:, 1:], grad
+        return h, torch.autograd.grad(h[:, 0].float().sum(), p, create_graph=create_graph)[0]
 
     return fn, [p, *wb, *bb]
+
+
+def sdf_library(pos, ws, bs, kw, create_graph=False):
+    """K4's function as one PyTorch composition: adjoint_library on the NeRF
+    encoding of the positions. Returns (fn, leaves): fn() -> (sdf, geo,
+    grad)."""
+    from multimodalstudio_tpu_torch.ops.encodings import nerf_encoding
+
+    def encode(p):
+        return nerf_encoding(p, kw["num_frequencies"], kw["min_freq_exp"], kw["max_freq_exp"])
+
+    chain, leaves = adjoint_library(pos, ws, bs, kw["skip"], kw["beta"], encode, create_graph)
+
+    def fn():
+        h, grad = chain()
+        return h[:, 0].float(), h[:, 1:], grad
+
+    return fn, leaves
 
 
 def check_sdf_chain(gen, dev):
@@ -698,31 +720,285 @@ def check_mlp_chains(gen, dev):
     return res
 
 
+# grid_raw_tpu's slot grid without its position encoding: the SDF head takes
+# [xyz, 6 levels x F = 2] into 128 -> 128 -> 257 SoftplusQuad
+NOPE_DIMS = [(15, 128), (128, 128), (128, 257)]
+
+
+def _lookup_library(table, idx, w, dw, feats):
+    """One PyTorch composition computing K6's function (bf16 table): the
+    table cast to bf16, a gather of each sample's entry per level, and an
+    einsum with the bf16 trilerp weights (and their derivatives)."""
+    n, k = idx.shape
+    tb = table.to(torch.bfloat16).reshape(-1, 8 * feats)
+    T = tb[idx].reshape(n, k, feats, 8)
+    enc = torch.einsum("nkfp,nkp->nkf", T, w.to(torch.bfloat16).reshape(n, k, 8))
+    if dw is None:
+        return enc
+    return enc, torch.einsum("nkfp,ntkp->ntkf", T, dw.to(torch.bfloat16).reshape(n, 3, k, 8))
+
+
+def lookup_inputs(gen, dev, gspec, n, k):
+    from multimodalstudio_tpu_torch.ops.kernels.slot_grid import CLIP_HI, slot_geometry
+
+    table = slot_inputs(gen, dev, gspec)[0]
+    x = (torch.rand(n, 3, generator=gen, device=dev) * 1.1 - 0.05).clamp(0.0, CLIP_HI)
+    return (table, *slot_geometry(x, gspec, k))
+
+
+def lookup_flops(n, k, feats, tangents):
+    """f32 multiply-adds of K6's forward: 8 corners per feature, per output."""
+    return 2.0 * 8 * n * k * feats * (4 if tangents else 1)
+
+
+def lookup_bytes(gspec, table, idx, *tensors):
+    """Bytes K6 must move: the table rows of the levels idx reads, a 4-byte
+    entry index per sample and level, and the given tensors."""
+    k = idx.shape[1]
+    rows = gspec.total_rows if k >= gspec.num_levels else int(gspec.level_offsets[k])
+    return rows * table.shape[1] * table.element_size() + 4 * idx.numel() + nbytes(*tensors)
+
+
+def check_slot_grid_lookup(gen, dev, gspec):
+    """K6's forward at one training microbatch's render samples (N=163840,
+    6 levels, with tangents) and the sampler's queries (4 levels, without),
+    and timed over one 1024-ray eval chunk: 4 sampler queries (32768 + 3 x
+    8192 samples, 4 levels) and 65536 render samples with tangents."""
+    from multimodalstudio_tpu_torch.ops.kernels.slot_grid import _lookup, slot_lookup_plain
+
+    feats = gspec.feats
+    err = 0.0
+    for n, k, tang in ((163840, gspec.num_levels, True), (163840, 4, False)):
+        table, idx, w, dw = lookup_inputs(gen, dev, gspec, n, k)
+        dw = dw if tang else None
+        out = _lookup(table, idx, w, dw, feats, True)
+        ref = slot_lookup_plain(table, idx, w, dw, feats=feats, bf16=True)
+        names = ("enc", "tenc") if tang else ("enc",)
+        err = max(err, _compare_outputs(f"K6 fwd N={n} {k} levels", names,
+                                        out if tang else (out,), ref if tang else (ref,)))
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, bytes=0.0, err=err,
+               peak=H100_F32_FLOPS)
+    for n, k, tang, count in ((32768, 4, False, 1), (8192, 4, False, 3),
+                              (65536, gspec.num_levels, True, 1)):
+        table, idx, w, dw = lookup_inputs(gen, dev, gspec, n, k)
+        dw = dw if tang else None
+        out = _lookup(table, idx, w, dw, feats, True)
+        tot["ms"] += count * time_ms(lambda: _lookup(table, idx, w, dw, feats, True))
+        tot["plain_ms"] += count * time_ms(
+            lambda: slot_lookup_plain(table, idx, w, dw, feats=feats, bf16=True))
+        tot["library_ms"] += count * time_ms(lambda: _lookup_library(table, idx, w, dw, feats))
+        tot["flops"] += count * lookup_flops(n, k, feats, tang)
+        tot["bytes"] += count * lookup_bytes(gspec, table, idx, w, *([dw] if tang else []), out)
+    return tot
+
+
+def check_slot_grid_lookup_bwd(gen, dev, gspec):
+    """K6's backward at one training microbatch: the render samples
+    (N=163840, 6 levels, with tangents) and the curvature taps (N=81920, 6
+    levels, without), cotangents on the first 3 levels only (3 active). The
+    tolerance's scale: the plain backward against itself with w and dw
+    moved by 1e-6 (relative), since d_table is summed by atomics."""
+    from multimodalstudio_tpu_torch.ops.kernels.slot_grid import _launch_bwd, slot_lookup_bwd_plain
+
+    feats, k = gspec.feats, gspec.num_levels
+    mask = (torch.arange(k * feats, device=dev) < 3 * feats).float()
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, bytes=0.0, err=0.0,
+               peak=H100_F32_FLOPS)
+    for n, tang in ((163840, True), (81920, False)):
+        table, idx, w, dw = lookup_inputs(gen, dev, gspec, n, k)
+        dw = dw if tang else None
+        genc = torch.randn(n, k * feats, generator=gen, device=dev) * mask
+        gtenc = (torch.randn(n, 3, k * feats, generator=gen, device=dev) * mask).reshape(n, -1)
+        gtenc = gtenc if tang else None
+        args = (table, idx, w, dw, genc, gtenc, feats, True)
+        got = _launch_bwd(*args)
+        want = slot_lookup_bwd_plain(table, idx, w, dw, genc, gtenc, feats=feats, bf16=True)
+        torch.cuda.synchronize()
+        names = ("d_table", "d_w", "d_dw") if tang else ("d_table", "d_w")
+        what = f"K6 bwd N={n}" + (" with tangents" if tang else "")
+        tot["err"] = max(tot["err"], _compare_grads(what, names, got, want))
+        moved = [t * (1 + 1e-6 * torch.randn(t.shape, generator=gen, device=dev))
+                 if t is not None else None for t in (w, dw)]
+        _compare_grads(what + ", plain vs plain with w, dw moved by 1e-6", names, want,
+                       slot_lookup_bwd_plain(table, idx, *moved, genc, gtenc, feats=feats,
+                                             bf16=True), tol=float("inf"))
+        tl = table.clone().requires_grad_(True)
+        wl = w.clone().requires_grad_(True)
+        dwl = dw.clone().requires_grad_(True) if tang else None
+        outs = _lookup_library(tl, idx, wl, dwl, feats)
+        leaves = [tl, wl] + ([dwl] if tang else [])
+        cot = [genc.to(torch.bfloat16).reshape(n, k, feats)]
+        if tang:
+            outs = list(outs)
+            cot.append(gtenc.to(torch.bfloat16).reshape(n, 3, k, feats))
+        else:
+            outs = [outs]
+
+        def library():
+            return torch.autograd.grad(outs, leaves, cot, retain_graph=True)
+
+        tot["ms"] += time_ms(lambda: _launch_bwd(*args))
+        tot["plain_ms"] += time_ms(lambda: slot_lookup_bwd_plain(
+            table, idx, w, dw, genc, gtenc, feats=feats, bf16=True))
+        tot["library_ms"] += time_ms(library)
+        # d_w and d_dw: a product per corner, feature and output; u: 2 (4) per lane
+        tot["flops"] += lookup_flops(n, k, feats, tang) * 2
+        tot["bytes"] += lookup_bytes(gspec, table, idx, w, genc, got[0], got[1],
+                                     *([dw, gtenc, got[2]] if tang else []))
+    return tot
+
+
+def check_chain_adjoint(gen, dev):
+    """K5's forward at one 1024-ray eval chunk's render samples (N=65536)
+    and one training microbatch's (N=163840), on the 15 -> 128 -> 128 -> 257
+    SoftplusQuad chain."""
+    from multimodalstudio_tpu_torch.ops.kernels.sdf_chain import (
+        fused_chain_adjoint,
+        fused_chain_adjoint_plain,
+    )
+
+    ws, bs = random_chain(gen, NOPE_DIMS, dev)
+    err = 0.0
+    for n in (163840, 65536):
+        x = torch.rand(n, 15, generator=gen, device=dev) * 2 - 1
+        with torch.no_grad():
+            out = fused_chain_adjoint(x, ws, bs)
+            ref = fused_chain_adjoint_plain(x, ws, bs)
+        torch.cuda.synchronize()
+        err = max(err, _compare_outputs(f"K5 fwd N={n}", ("y", "adj"), out, ref))
+    library, _ = adjoint_library(x, ws, bs)
+    with torch.no_grad():
+        ms = time_ms(lambda: fused_chain_adjoint(x, ws, bs))
+        plain_ms = time_ms(lambda: fused_chain_adjoint_plain(x, ws, bs))
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=time_ms(library),
+                flops=sdf_flops(n, NOPE_DIMS), bytes=nbytes(x, ws, bs, out), err=err)
+
+
+def check_chain_adjoint_bwd(gen, dev):
+    """K5's backward at one training microbatch's render samples: N=163840,
+    cotangents on y (bf16) and adj."""
+    from multimodalstudio_tpu_torch.ops.kernels.sdf_chain import (
+        _launch_adj_bwd,
+        fused_chain_adjoint_bwd_plain,
+    )
+
+    n = 163840
+    ws, bs = random_chain(gen, NOPE_DIMS, dev)
+    x = torch.rand(n, 15, generator=gen, device=dev) * 2 - 1
+    gy = (0.1 * torch.randn(n, 257, generator=gen, device=dev)).to(torch.bfloat16)
+    ga = torch.randn(n, 15, generator=gen, device=dev)
+    kargs = (x, ws, bs, (), "SoftplusQuad", 100.0, 0, gy, ga)
+    got = _launch_adj_bwd(*kargs)
+    want = fused_chain_adjoint_bwd_plain(x, ws, bs, gy, ga)
+    torch.cuda.synchronize()
+    err = _compare_grads(f"K5 bwd N={n}", CHAIN_GRADS, got, want)
+    moved = [b * (1 + 1e-6 * torch.randn(b.shape, generator=gen, device=dev)) for b in bs]
+    _compare_grads(f"K5 bwd N={n}, plain vs plain with biases moved by 1e-6", CHAIN_GRADS, want,
+                   fused_chain_adjoint_bwd_plain(x, ws, moved, gy, ga), tol=float("inf"))
+    fn, leaves = adjoint_library(x, ws, bs, create_graph=True)
+    outs = fn()
+
+    def library():
+        return torch.autograd.grad(outs, leaves, (gy, ga.to(torch.bfloat16)), retain_graph=True)
+
+    return dict(ms=time_ms(lambda: _launch_adj_bwd(*kargs)),
+                plain_ms=time_ms(lambda: fused_chain_adjoint_bwd_plain(x, ws, bs, gy, ga)),
+                library_ms=time_ms(library), flops=sdf_flops(n, NOPE_DIMS, backward=True),
+                bytes=nbytes(x, ws, bs, gy, ga, got[0], got[1], got[2]), err=err)
+
+
+def check_nope_edges(gen, dev, gspec) -> None:
+    """K6 and K5 off the main path's shapes: a ragged N; K6 on 3 levels
+    without tangents and on all with; K5 with a skip layer at channel 1."""
+    from multimodalstudio_tpu_torch.ops.kernels.sdf_chain import (
+        _launch_adj_bwd,
+        fused_chain_adjoint,
+        fused_chain_adjoint_bwd_plain,
+        fused_chain_adjoint_plain,
+    )
+    from multimodalstudio_tpu_torch.ops.kernels.slot_grid import (
+        _launch_bwd,
+        _lookup,
+        slot_lookup_bwd_plain,
+        slot_lookup_plain,
+    )
+
+    n, feats = 1000, gspec.feats
+    for k, tang in ((3, False), (gspec.num_levels, True)):
+        table, idx, w, dw = lookup_inputs(gen, dev, gspec, n, k)
+        dw = dw if tang else None
+        names = ("enc", "tenc") if tang else ("enc",)
+        out = _lookup(table, idx, w, dw, feats, True)
+        ref = slot_lookup_plain(table, idx, w, dw, feats=feats, bf16=True)
+        _compare_outputs(f"K6 fwd {k} levels N={n}", names, out if tang else (out,),
+                         ref if tang else (ref,))
+        genc = torch.randn(n, k * feats, generator=gen, device=dev)
+        gtenc = torch.randn(n, 3 * k * feats, generator=gen, device=dev) if tang else None
+        _compare_grads(f"K6 bwd {k} levels N={n}", ("d_table", "d_w", "d_dw")[:len(names) + 1],
+                       _launch_bwd(table, idx, w, dw, genc, gtenc, feats, True),
+                       slot_lookup_bwd_plain(table, idx, w, dw, genc, gtenc, feats=feats,
+                                             bf16=True))
+    dims = [(15, 128), (128, 128), (143, 128), (128, 33)]
+    ws, bs = random_chain(gen, dims, dev)
+    kw = dict(skip=(2,), activation="SoftplusQuad", beta=100.0, channel=1)
+    x = torch.rand(n, 15, generator=gen, device=dev) * 2 - 1
+    with torch.no_grad():
+        _compare_outputs(f"K5 skip=(2,) channel 1 N={n}", ("y", "adj"),
+                         fused_chain_adjoint(x, ws, bs, **kw), fused_chain_adjoint_plain(x, ws, bs, **kw))
+    gy = torch.randn(n, 33, generator=gen, device=dev).to(torch.bfloat16)
+    ga = torch.randn(n, 15, generator=gen, device=dev)
+    _compare_grads(f"K5 bwd skip=(2,) channel 1 N={n}", CHAIN_GRADS,
+                   _launch_adj_bwd(x, ws, bs, (2,), "SoftplusQuad", 100.0, 1, gy, ga),
+                   fused_chain_adjoint_bwd_plain(x, ws, bs, gy, ga, **kw))
+
+
 PER_CHUNK = {  # kernel launches of one 1024-ray eval chunk (derived in PERF.md)
     # trunk, polarization head, background x3; sampler x4; render samples
     "grid_raw_tpu": {"fused_chain": 5, "fused_slot_sdf_value": 4, "fused_slot_sdf_chain": 1},
     # sampler x4 and the five chains above through K1; render samples through K4
     "mlp_raw_tpu": {"fused_chain": 9, "fused_sdf_chain": 1},
+    # sampler x4 through K6 (4 levels) and the K1 head, the five chains above
+    # through K1; render samples through K6 with tangents and K5
+    "grid_raw_tpu without PE": {"fused_chain": 9, "slot_grid_lookup": 5, "fused_chain_adjoint": 1},
 }
+
+NO_PE = {"model": {"surface": {"surface_field": {"use_position_encoding": False}}}}
+CONFIGS = {  # label: (registered method, load_config overrides)
+    "grid_raw_tpu": ("grid_raw_tpu", None),
+    "mlp_raw_tpu": ("mlp_raw_tpu", None),
+    "grid_raw_tpu without PE": ("grid_raw_tpu", NO_PE),
+}
+
+
+def load(label):
+    """The config of one label, five modalities, through load_config."""
+    import dataclasses
+
+    from multimodalstudio_tpu_torch.configs.config import load_config
+    from multimodalstudio_tpu_torch.configs.methods import FIVE_MODALITIES
+
+    method, overrides = CONFIGS[label]
+    cfg = load_config(method=method, overrides=overrides)
+    return dataclasses.replace(cfg, modalities=FIVE_MODALITIES)
 
 
 def run_slice(dev, card, method):
     """Render one eval view of every modality through the port's
-    RawEvaluator and check outputs, launch counts and a CPU re-render."""
+    RawEvaluator and check outputs, launch counts and a CPU re-render.
+    `method` is a label of CONFIGS."""
     import dataclasses
 
     import numpy as np
 
     from multimodalstudio_tpu_torch.cameras.camera_optimizer import init_camera_poses
-    from multimodalstudio_tpu_torch.configs.methods import FIVE_MODALITIES, method_configs
+    from multimodalstudio_tpu_torch.configs.methods import FIVE_MODALITIES
     from multimodalstudio_tpu_torch.data.synthetic import make_synthetic_dataset
     from multimodalstudio_tpu_torch.engine.evaluator import RawEvaluator
     from multimodalstudio_tpu_torch.engine.train import TrainState
     from multimodalstudio_tpu_torch.models.model import MMSModel
     from multimodalstudio_tpu_torch.ops.kernels import build
 
-    cfg = method_configs()[method]
-    cfg = dataclasses.replace(cfg, modalities=FIVE_MODALITIES)
+    cfg = load(method)
     dataset = make_synthetic_dataset(FIVE_MODALITIES, num_views=10, height=256, width=256,
                                      raw=True, device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -826,6 +1102,13 @@ PER_MICROBATCH = {  # kernel launches of one training microbatch (derived in PER
         "fused_chain": 9, "fused_chain_bwd": 5,
         "fused_sdf_chain": 1, "fused_sdf_chain_bwd": 1,
     },
+    "grid_raw_tpu without PE": {
+        # K1: the SDF head of the sampler x4 (no grad) and of the taps, trunk,
+        # polarization head, background x3; K6: sampler x4, taps, render samples
+        "fused_chain": 10, "fused_chain_bwd": 6,
+        "slot_grid_lookup": 6, "slot_grid_lookup_bwd": 2,
+        "fused_chain_adjoint": 1, "fused_chain_adjoint_bwd": 1,
+    },
 }
 
 
@@ -835,7 +1118,7 @@ PER_MICROBATCH = {  # kernel launches of one training microbatch (derived in PER
 # through the 8-layer SoftplusQuad SDF, and the CPU run moves by ~1e-1 when
 # its parameters move by 1e-5 (printed beside each group), so its limit is
 # 3e-1; every other group, and grid_raw_tpu's poses, keep 1e-1.
-POSE_TOL = {"grid_raw_tpu": 1e-1, "mlp_raw_tpu": 3e-1}
+POSE_TOL = {"grid_raw_tpu": 1e-1, "mlp_raw_tpu": 3e-1, "grid_raw_tpu without PE": 1e-1}
 
 
 def _param_groups(named):
@@ -850,21 +1133,21 @@ def _param_groups(named):
 
 
 def run_training(dev, card, method, steps=5):
-    """Train `method` at the bench geometry through train_steps and check
-    losses, gradients, parameter motion and launch counts; then hold one
-    small microbatch on the card against the plain versions on the CPU."""
+    """Train `method` (a label of CONFIGS) at the bench geometry through
+    train_steps and check losses, gradients, parameter motion and launch
+    counts; then hold one small microbatch on the card against the plain
+    versions on the CPU."""
     import dataclasses
 
     from multimodalstudio_tpu_torch.cameras.camera_optimizer import init_camera_poses
-    from multimodalstudio_tpu_torch.configs.methods import FIVE_MODALITIES, method_configs
+    from multimodalstudio_tpu_torch.configs.methods import FIVE_MODALITIES
     from multimodalstudio_tpu_torch.data.device_cache import build_device_cache, sample_pixel_batch
     from multimodalstudio_tpu_torch.data.synthetic import make_synthetic_dataset
     from multimodalstudio_tpu_torch.engine import train as T
     from multimodalstudio_tpu_torch.models.model import MMSModel
     from multimodalstudio_tpu_torch.ops.kernels import build
 
-    cfg = method_configs()[method]
-    cfg = dataclasses.replace(cfg, modalities=FIVE_MODALITIES)
+    cfg = load(method)
     dm = cfg.datamanager
     if (dm.num_rays_per_modality, dm.microbatch_rays, cfg.max_num_iterations) != (2048, 512, 100000):
         fail(f"{method} no longer has the bench geometry")
@@ -1013,10 +1296,19 @@ def main() -> None:
         results[name]["err"] = max(results[name]["err"], results[name + "_bwd"].pop("fwd_err"))
     print("kernel checks at the mlp_raw_tpu chains of K1:")
     phase("K1 at mlp_raw_tpu widths", check_mlp_chains, gen, dev)
+    print("kernel checks of K6 and K5 (grid_raw_tpu without PE; forward: per 1024-ray eval "
+          "chunk; backward: per 512-ray training microbatch):")
+    results.update(phase("K6 and K5", lambda: {
+        "slot_grid_lookup": check_slot_grid_lookup(gen, dev, gspec),
+        "slot_grid_lookup_bwd": check_slot_grid_lookup_bwd(gen, dev, gspec),
+        "fused_chain_adjoint": check_chain_adjoint(gen, dev),
+        "fused_chain_adjoint_bwd": check_chain_adjoint_bwd(gen, dev),
+    }))
     print("kernel checks off the main paths' shapes:")
-    phase("edge cases", lambda: (check_edge_cases(gen, dev, gspec), check_sdf_chain_edges(gen, dev)))
+    phase("edge cases", lambda: (check_edge_cases(gen, dev, gspec), check_sdf_chain_edges(gen, dev),
+                                 check_nope_edges(gen, dev, gspec)))
     rays_per_s, train_rays_per_s, launches = {}, {}, {}
-    for method in ("grid_raw_tpu", "mlp_raw_tpu"):
+    for method in CONFIGS:
         print(f"render ({method}):")
         _, rays_per_s[method] = phase(f"render {method}", run_slice, dev, card, method)
         print(f"training ({method}):")
@@ -1027,7 +1319,7 @@ def main() -> None:
     entries = []
     for name, r in results.items():
         info = build.KERNELS[name]
-        b_ms, b_by = bound(r["flops"], r["bytes"])
+        b_ms, b_by = bound(r["flops"], r["bytes"], r.get("peak", H100_BF16_FLOPS))
         entries.append({
             "name": name, "route": "cuda", "source": info.source, "replaces": info.replaces,
             "launches": launches[name], "max_abs_err": r["err"], "ms": r["ms"],

@@ -1,11 +1,12 @@
 """Top-level configuration tree (JAX reference: configs/config.py): frozen
-dataclass specs, with the transforms that opt every MLP into bf16 compute
-and into the fused chain kernel."""
+dataclass specs, the transforms that opt every MLP into bf16 compute and
+into the fused chain kernel, and `load_config` (a registered method with
+leaf overrides from a YAML file or a dict)."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 from multimodalstudio_tpu_torch.cameras.camera_optimizer import CameraOptimizerSpec
 from multimodalstudio_tpu_torch.engine.losses import LossManagerSpec
@@ -123,3 +124,54 @@ def apply_mixed_precision(config: TrainerConfig) -> TrainerConfig:
 def apply_fused_mlp(config: TrainerConfig) -> TrainerConfig:
     """Every eligible MLP runs as the fused chain kernel (fields/mlp.py::can_fuse)."""
     return _replace_mlps(config, fused=True)
+
+
+def _apply_overrides(obj: Any, overrides: Dict[str, Any]) -> Any:
+    """Recursively apply leaf overrides onto a frozen dataclass tree
+    (config.py:161-187): dict values recurse into matching dataclass fields,
+    a dict onto any other field becomes a tuple of pairs, a list becomes a
+    tuple where the field holds one; leaves replace values."""
+    if not dataclasses.is_dataclass(obj):
+        return overrides
+    updates = {}
+    for key, value in overrides.items():
+        if not hasattr(obj, key):
+            raise KeyError(f"unknown config key: {key} on {type(obj).__name__}")
+        current = getattr(obj, key)
+        if isinstance(value, dict) and dataclasses.is_dataclass(current):
+            updates[key] = _apply_overrides(current, value)
+        elif isinstance(value, dict):
+            updates[key] = tuple((k, tuple(v) if isinstance(v, list) else v)
+                                 for k, v in value.items())
+        elif isinstance(value, list):
+            updates[key] = tuple(value) if isinstance(current, tuple) else value
+        else:
+            updates[key] = value
+    return dataclasses.replace(obj, **updates)
+
+
+def load_config(conf_path: Optional[str] = None, method: Optional[str] = None,
+                overrides: Optional[Dict[str, Any]] = None) -> TrainerConfig:
+    """A registered method's TrainerConfig with leaf overrides
+    (config.py:225-251): a YAML file's `method` key selects the method
+    (unless `method` is given) and its other keys override leaves, then
+    `overrides` does. PyYAML is imported only when a path is given."""
+    from multimodalstudio_tpu_torch.configs.methods import method_configs
+
+    yaml_conf: Dict[str, Any] = {}
+    if conf_path is not None:
+        import yaml
+
+        with open(conf_path) as f:
+            yaml_conf = yaml.safe_load(f) or {}
+    method = method or yaml_conf.pop("method", "grid")
+    yaml_conf.pop("method", None)
+    configs = method_configs()
+    if method not in configs:
+        raise KeyError(f"method {method!r} is not ported; the port registers {sorted(configs)}")
+    config = configs[method]
+    if yaml_conf:
+        config = _apply_overrides(config, yaml_conf)
+    if overrides:
+        config = _apply_overrides(config, overrides)
+    return config

@@ -48,12 +48,12 @@ class FieldComponent(nn.Module):
         else:
             self.grid_mlp = FeatureGridAndMLP(spec.grid, spec.mlp, in_dim, output_dim, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.spec.grid is not None:
-            raise NotImplementedError(
-                "a grid field component evaluates only through the fused slot kernels"
-            )
-        return self.mlp(x)
+    def forward(self, x: torch.Tensor, active_level=None, max_level=None) -> torch.Tensor:
+        """The MLP, or the grid + MLP head at the coarse-to-fine level
+        active_level with the levels past max_level dropped (JAX :52-57)."""
+        if self.spec.grid is None:
+            return self.mlp(x)
+        return self.grid_mlp(x, active_level, max_level)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,10 +66,11 @@ class SDFFieldSpec:
 
 
 class SDFField(nn.Module):
-    """SDF + geometric feature from positions (JAX fields/fields.py:69-89). A slot-grid
-    field is evaluated only through the fused slot kernels
-    (models/model.py); a grid-less one through forward: the position
-    encoding, then the MLP (a K1 chain when fused)."""
+    """SDF + geometric feature from positions (JAX fields/fields.py:69-89):
+    the position encoding (if on), then the field component (the MLP, a K1
+    chain when fused; or the slot grid through K6 and the MLP head). The
+    fused slot kernels (models/model.py) evaluate a slot-grid field with an
+    input-including encoding in one kernel instead."""
 
     def __init__(self, spec: SDFFieldSpec, device=None):
         super().__init__()
@@ -77,11 +78,11 @@ class SDFField(nn.Module):
         in_dim = spec.position_encoding.out_dim(3) if spec.use_position_encoding else 3
         self.field = FieldComponent(spec.field, in_dim, 1 + spec.geo_feature_dim, device=device)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, active_level=None, max_level=None):
         """positions [..., 3] -> (sdf [..., 1], geo [..., G]), float32."""
         spec = self.spec
         inp = spec.position_encoding.apply(x) if spec.use_position_encoding else x
-        out = self.field(inp)
+        out = self.field(inp, active_level, max_level)
         return out[..., :1], out[..., 1:]
 
 

@@ -3,18 +3,23 @@ models/model.py).
 
 Shared SDF geometry, a shared radiance trunk with per-modality heads, and a
 NeRF background, rendered for a flat ray batch with the hit mask carried
-as a float vector. On the slot-grid methods the SDF goes through the fused
-slot kernels: sampler queries through K2 (value only, the first
-`sampler_levels` levels), render samples through K3 (sdf, geometric
-features and d sdf/dx). On the grid-less methods (mlp_raw_tpu) sampler
-queries run the SDF field (position encoding, then a K1 chain) and render
-samples K4 (encoding, chain and d sdf/dx in one kernel). The MLP chains of
-the trunk, the polarization heads and the background run as K1
-(fields/mlp.py).
+as a float vector. On a slot-grid surface whose position encoding includes
+the input (grid_raw_tpu) the SDF goes through the fused slot kernels:
+sampler queries through K2 (value only, the first `sampler_levels`
+levels), render samples through K3 (sdf, geometric features and d sdf/dx).
+Without a position encoding (or with one that leaves the input out), the
+sampler queries run the SDF field (the slot-grid lookup K6, then the K1
+head) and the render samples the two-kernel composition: K6 with its
+spatial tangents, K5 (the chain and d sdf / d input from one reverse
+sweep), and the tangents contracted outside. On the grid-less methods
+(mlp_raw_tpu) sampler queries run the SDF field (position encoding, then a
+K1 chain) and render samples K4 (encoding, chain and d sdf/dx in one
+kernel). The MLP chains of the trunk, the polarization heads and the
+background run as K1 (fields/mlp.py).
 
 In training the kernels run as autograd Functions with CUDA backwards,
-and the curvature loss's hessian proxy comes from SDF taps through K2 with
-gradient (curvature_hessian_taps).
+and the curvature loss's hessian proxy comes from SDF taps through the
+SDF value route with gradient (curvature_hessian_taps).
 
 The module tree mirrors the reference's params tree, so every state-dict
 key is the dotted flax path (convert.py).
@@ -59,7 +64,7 @@ from multimodalstudio_tpu_torch.models.samplers import (
 )
 from multimodalstudio_tpu_torch.models.volume_rendering import neus_weights
 from multimodalstudio_tpu_torch.ops.encodings import sh_encoding_dense
-from multimodalstudio_tpu_torch.ops.kernels.sdf_chain import fused_sdf_chain
+from multimodalstudio_tpu_torch.ops.kernels.sdf_chain import fused_chain_adjoint, fused_sdf_chain
 from multimodalstudio_tpu_torch.ops.kernels.slot_fused import (
     fused_slot_sdf_chain,
     fused_slot_sdf_value,
@@ -228,27 +233,29 @@ class MMSModel(nn.Module):
         return self
 
     # ----------------------------------------------------------- SDF queries
-    def _slot_grid(self):
-        fspec = self.spec.surface.surface_field
+    def _fused_slot(self) -> bool:
+        """The surface is a slot grid whose MLP runs fused with no output
+        activation and no contraction (the slot branch of sdf_gradients,
+        model.py:411-422)."""
+        spec = self.spec.surface
+        fspec = spec.surface_field
         grid = fspec.field.grid
-        ok = (
-            grid is not None
-            and isinstance(grid.encoding, SlotGridSpec)
-            and can_fuse(fspec.field.mlp)
-            and fspec.field.mlp.out_activation in (None, "None")
-            and self.spec.surface.contraction_order is None
-            and fspec.use_position_encoding
-            and fspec.position_encoding.include_input
-        )
-        if not ok:
-            raise NotImplementedError(
-                "only the fused slot-grid surface (grid_raw_tpu) is ported"
-            )
-        return self.surface_field.field.grid_mlp
+        return (grid is not None and isinstance(grid.encoding, SlotGridSpec)
+                and can_fuse(fspec.field.mlp) and fspec.field.mlp.out_activation in (None, "None")
+                and spec.contraction_order is None)
 
-    def _slot_kwargs(self, grid_mlp):
+    def _slot_value_ok(self) -> bool:
+        """Sampler and tap SDF queries take the fused value kernel K2
+        (model.py:324-337): the fused slot surface with an input-including
+        position encoding."""
+        fspec = self.spec.surface.surface_field
+        return (self._fused_slot() and fspec.use_position_encoding
+                and fspec.position_encoding.include_input)
+
+    def _slot_kwargs(self):
         fspec = self.spec.surface.surface_field
         mspec, pspec = fspec.field.mlp, fspec.position_encoding
+        grid_mlp = self.surface_field.field.grid_mlp
         ws, bs = grid_mlp.mlp_head.effective_weights()
         return (grid_mlp.feature_grid.encoding.table, ws, bs, fspec.field.grid.encoding), dict(
             radius=fspec.field.grid.radius, num_frequencies=pspec.num_frequencies,
@@ -257,21 +264,29 @@ class MMSModel(nn.Module):
             beta=mspec.activation_beta,
         )
 
+    def _level_mask(self, active_level, num_levels: int):
+        return self.surface_field.field.grid_mlp.feature_grid.level_mask(active_level, num_levels)
+
+    def sdf_geo(self, positions: torch.Tensor, active_level, max_level: Optional[int] = None):
+        """(sdf [...], geo [..., G]) at positions [..., 3] through the SDF
+        field, after the surface contraction (model.py:300-315)."""
+        flat = positions.reshape(-1, 3)
+        if self.spec.surface.contraction_order is not None:
+            flat = scene_contraction(flat, self.spec.surface.contraction_order)
+        sdf, geo = self.surface_field(flat, active_level, max_level)
+        return sdf.reshape(positions.shape[:-1]), geo.reshape(*positions.shape[:-1], -1)
+
     def sdf_only(self, positions: torch.Tensor, active_level, max_level: Optional[int] = None):
-        """SDF values [...] at positions [..., 3]: through K2 on a slot grid,
-        else through the SDF field (model.py:317-322, sdf_geo :300-315)."""
-        if self.spec.surface.surface_field.field.grid is None:
-            flat = positions.reshape(-1, 3)
-            if self.spec.surface.contraction_order is not None:
-                flat = scene_contraction(flat, self.spec.surface.contraction_order)
-            return self.surface_field(flat)[0].reshape(positions.shape[:-1])
-        grid_mlp = self._slot_grid()
+        """SDF values [...] at positions [..., 3]: through K2 where
+        _slot_value_ok, else through the SDF field (model.py:317-322)."""
+        if not self._slot_value_ok():
+            return self.sdf_geo(positions, active_level, max_level)[0]
         enc = self.spec.surface.surface_field.field.grid.encoding
         k = enc.num_levels if max_level is None else min(int(max_level), enc.num_levels)
-        args, kw = self._slot_kwargs(grid_mlp)
+        args, kw = self._slot_kwargs()
         sdf = fused_slot_sdf_value(
             positions.reshape(-1, 3), *args, **kw,
-            level_mask=grid_mlp.feature_grid.level_mask(active_level, k), num_levels=k,
+            level_mask=self._level_mask(active_level, k), num_levels=k,
         )
         return sdf.reshape(positions.shape[:-1])
 
@@ -301,23 +316,63 @@ class MMSModel(nn.Module):
         # geo stays bf16 into the radiance trunk (model.py:471-474)
         return sdf.reshape(lead), geo.reshape(*lead, -1), grad.reshape(positions.shape), None
 
+    def _slot_composition(self, flat: torch.Tensor, active_level):
+        """The two-kernel composition (model.py:612-652) for a slot surface
+        without an input-including position encoding: K6 with its spatial
+        tangents, the chain input [xyz, PE, grid] with its tangents, K5 for
+        (y, adj = d sdf / d input), and d sdf/dx = <adj, tangents> outside
+        the kernels. Returns (sdf, geo f32, grad [N, 3])."""
+        fspec = self.spec.surface.surface_field
+        mspec, pspec = fspec.field.mlp, fspec.position_encoding
+        grid_mlp = self.surface_field.field.grid_mlp
+        enc_g, tenc_g = grid_mlp.feature_grid(flat, active_level, with_tangents=True)
+        n = flat.shape[0]
+        eye = torch.eye(3, dtype=flat.dtype, device=flat.device)
+        parts, tparts = [flat], [eye[:, None, :].expand(3, n, 3)]
+        if fspec.use_position_encoding:
+            # without the input: with it the fused K3 route runs
+            tangs = []
+            for k in range(3):
+                primal_pe, t = torch.func.jvp(pspec.apply, (flat,), (eye[k].expand_as(flat),))
+                tangs.append(t)
+            parts.append(primal_pe)
+            tparts.append(torch.stack(tangs))
+        parts.append(enc_g)
+        tparts.append(tenc_g)
+        ws, bs = grid_mlp.mlp_head.effective_weights()
+        y, adj = fused_chain_adjoint(torch.cat(parts, -1), ws, bs, skip=mspec.skip_connections,
+                                     activation=mspec.activation, beta=mspec.activation_beta,
+                                     channel=0)
+        grad = (adj[None] * torch.cat(tparts, -1).float()).sum(-1)  # [3, N]
+        y = y.float()
+        return y[:, 0], y[:, 1:], grad.T
+
     def sdf_gradients(self, positions: torch.Tensor, schedules: ScheduleState, train: bool = False):
-        """(sdf [...], geo [..., G] bf16, d sdf/dx [..., 3], hessians): through
-        K3 on a slot grid, through K4 on a grid-less surface. In training with
-        compute_hessian, hessians [..., S_tap, 3] come from the curvature taps
-        through K2 (model.py:654-669), else None."""
+        """(sdf [...], geo [..., G], d sdf/dx [..., 3], hessians). On a slot
+        surface (model.py:547-669): through K3 (geo bf16) with an
+        input-including position encoding, else through the K6 + K5
+        composition (geo f32); on a grid-less surface through K4 (geo bf16).
+        In training with compute_hessian, hessians [..., S_tap, 3] come from
+        the curvature taps through sdf_only, else None."""
         spec = self.spec.surface
         if spec.use_numerical_gradients:
             raise NotImplementedError("numerical SDF gradients are not ported")
-        if spec.surface_field.field.grid is None:
+        grid = spec.surface_field.field.grid
+        if grid is None:
             return self._fused_sdf_gradients(positions, train)
-        grid_mlp = self._slot_grid()
-        enc = spec.surface_field.field.grid.encoding
-        args, kw = self._slot_kwargs(grid_mlp)
-        sdf, geo, grad = fused_slot_sdf_chain(
-            positions.reshape(-1, 3), *args, **kw,
-            level_mask=grid_mlp.feature_grid.level_mask(schedules.active_level, enc.num_levels),
-        )
+        if not self._fused_slot():
+            raise ValueError(
+                "slot-grid analytic SDF gradients need fused MLPs "
+                "(set mlp.fused=True, dtype=bfloat16) or numerical taps")
+        flat = positions.reshape(-1, 3)
+        if self._slot_value_ok():
+            args, kw = self._slot_kwargs()
+            sdf, geo, grad = fused_slot_sdf_chain(
+                flat, *args, **kw,
+                level_mask=self._level_mask(schedules.active_level, grid.encoding.num_levels),
+            )
+        else:
+            sdf, geo, grad = self._slot_composition(flat, schedules.active_level)
         lead = positions.shape[:-1]
         sdf, geo, grad = sdf.reshape(lead), geo.reshape(*lead, -1), grad.reshape(positions.shape)
         hessians = None

@@ -2,7 +2,8 @@
 
 Each library under `csrc/` is one .cu source with a plain C interface
 (fused_mlp: K1 forward and backward; slot_fused: K2/K3 forward;
-slot_fused_bwd: K2/K3 backward; sdf_chain: K4 forward and backward),
+slot_fused_bwd: K2/K3 backward; sdf_chain: K4 and K5 forward and backward;
+slot_grid: K6 forward and backward),
 compiled by nvcc for sm_90a into `build/torch_kernels/` at the repository
 root and loaded with ctypes. The library name carries a hash of every file
 in `csrc/`, so an edited source rebuilds and a stale library is never
@@ -27,7 +28,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-LIBRARIES = ("fused_mlp", "slot_fused", "slot_fused_bwd", "sdf_chain")
+LIBRARIES = ("fused_mlp", "slot_fused", "slot_fused_bwd", "sdf_chain", "slot_grid")
 TILE_M = 64  # samples per CTA tile of every kernel (csrc/chain.cuh)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -166,8 +167,10 @@ def check(status: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {status}")
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t) -> ctypes.c_void_p:
+    """A tensor's device pointer, or a null pointer for None (an optional
+    operand)."""
+    return ctypes.c_void_p(0 if t is None else t.data_ptr())
 
 
 def stream_of(t: torch.Tensor) -> ctypes.c_void_p:

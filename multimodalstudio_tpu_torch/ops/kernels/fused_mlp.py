@@ -114,16 +114,16 @@ def chain_forward(x0, weights, biases, skip, activation, beta):
     return hin @ bf16_round(weights[-1].float()) + biases[-1].float(), zs
 
 
-def adjoint_sweep(x0, zs, weights, skip, activation, beta):
-    """One reverse sweep from output column 0: v = e_0; s = bf16(v) W_l^T,
+def adjoint_sweep(x0, zs, weights, skip, activation, beta, channel=0):
+    """One reverse sweep from output column `channel`: v = e_c; s = bf16(v) W_l^T,
     a skip layer's s split into its x0 part (scaled, added to adj) and its h
-    part (scaled); v = s * act'(z_{l-1}). Returns (adj = d y_0 / d x0
+    part (scaled); v = s * act'(z_{l-1}). Returns (adj = d y_c / d x0
     [N, D_in] f32, the h part of s of each layer l >= 1 as ss[l-1],
     bf16-rounded)."""
     _, df = act_pair(activation, beta)
     d_in = x0.shape[1]
     v = x0.new_zeros(x0.shape[0], weights[-1].shape[1])
-    v[:, 0] = 1.0
+    v[:, channel] = 1.0
     adj = 0.0
     ss: List[torch.Tensor] = [None] * (len(weights) - 1)
     for l in reversed(range(len(weights))):
@@ -140,10 +140,10 @@ def adjoint_sweep(x0, zs, weights, skip, activation, beta):
     return adj, ss
 
 
-def ga_forward(ga, zs, ss, weights, skip, activation, beta):
+def ga_forward(ga, zs, ss, weights, skip, activation, beta, channel=0):
     """The forward chain of the adjoint's cotangent ga [N, D_in] f32 in a
     reverse-over-reverse backward (_bwd_adj_kernel :489-524): qin_0 = ga, ga
-    re-injected at a skip like x0; v_l = s_l * act'(z_l) (e_0 at the last
+    re-injected at a skip like x0; v_l = s_l * act'(z_l) (e_c at the last
     layer); gW_l = bf16(qin_l)^T bf16(v_l); m = bf16(qin_l) W_l;
     e_l = bf16(m * s_l * act''(z_l)); q = m * act'(z_l). zs, ss: the bf16
     pre-activations and adjoint rows. Returns (gW list, the injections e_l
@@ -157,7 +157,7 @@ def ga_forward(ga, zs, ss, weights, skip, activation, beta):
         qb = bf16_round(torch.cat([q, ga], dim=-1) * SKIP_SCALE if l in skip else q)
         if l == n_layers - 1:
             v = qb.new_zeros(n, weights[l].shape[1])
-            v[:, 0] = 1.0
+            v[:, channel] = 1.0
         else:
             v = ss[l] * df(zs[l])
         gws.append(qb.T @ bf16_round(v))

@@ -66,9 +66,13 @@ from multimodalstudio_tpu_torch.ops.kernels.fused_mlp import (
     reverse_sweep,
     unpack_grads,
 )
-from multimodalstudio_tpu_torch.ops.kernels.slot_grid import LANE, NSLOT, SlotGridSpec, cell_factors
-
-CLIP_HI = float(np.float32(1.0 - 1e-6))
+from multimodalstudio_tpu_torch.ops.kernels.slot_grid import (
+    CLIP_HI,
+    LANE,
+    NSLOT,
+    SlotGridSpec,
+    cell_factors,
+)
 
 VALUE_KERNEL = build.register(
     "fused_slot_sdf_value",
@@ -413,7 +417,7 @@ def _launch(positions, table, weights, biases, gspec, k, radius, pe, activation,
     and grad without `with_grad` and the backward's residuals without
     `resid` are None (ss and adj come with the gradient only)."""
     ca = _CardArgs(positions, table, weights, biases, gspec, k, radius, pe, activation, beta, mask)
-    dev, n, null = positions.device, ca.n, build.ctypes.c_void_p(0)
+    dev, n = positions.device, ca.n
     d_out = weights[-1].shape[1]
     sdf = torch.empty(n, dtype=torch.float32, device=dev)
     geo = grad = zs = ss = adj = None
@@ -428,9 +432,9 @@ def _launch(positions, table, weights, biases, gspec, k, radius, pe, activation,
     if n:
         fn = build.function("slot_fused", "mms_slot_sdf_fwd", *_COMMON_TYPES,
                             "ptr", "ptr", "int", "ptr", "int", "ptr", "ptr", "ptr", "int", "ptr")
-        opt = lambda t: null if t is None else build.ptr(t)  # noqa: E731
-        status = fn(*ca.args, build.ptr(sdf), opt(geo), d_out - 1, opt(grad), int(with_grad),
-                    opt(zs), opt(ss), opt(adj), ca.d_in, ca.stream)
+        status = fn(*ca.args, build.ptr(sdf), build.ptr(geo), d_out - 1, build.ptr(grad),
+                    int(with_grad), build.ptr(zs), build.ptr(ss), build.ptr(adj), ca.d_in,
+                    ca.stream)
         build.check(status, "fused slot sdf")
         (CHAIN_KERNEL if with_grad else VALUE_KERNEL).launches += 1
     return sdf, geo, grad, zs, ss, adj

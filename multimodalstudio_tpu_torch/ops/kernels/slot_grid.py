@@ -9,8 +9,38 @@ cell coordinate; physical row = level offset + (entry >> log2 P), group =
 entry & (P - 1).
 
 `slot_geometry` is the plain version of the geometry that the fused slot
-kernels compute in-kernel (slot_fused.py). The lookup kernel K6
-(slot_grid_lookup) is not ported yet.
+kernels compute in-kernel (slot_fused.py); it is plain tensor code, so
+autograd carries position gradients (second order included) through its
+trilerp weights w and their derivatives dw.
+
+`slot_grid_lookup` is kernel K6: from (table, idx, w[, dw]) it gathers each
+sample's entry per level and returns the encoding enc [N, K*F] (and its
+spatial tangents, lane-folded [N, 3*K*F] inside the op). On the card it is
+the CUDA kernel pair of csrc/slot_grid.cu, replacing the Pallas TPU
+kernels multimodalstudio_tpu/ops/pallas/slot_grid.py::_fwd_kernel (:415)
+and _bwd_kernel (:536), reached through slot_grid_lookup (:890) and
+_lookup_fn's custom VJP (:768-884). The TPU gathers rows by one-hot
+matrix products and keeps the gathered rows `comp` [N, K*128] f32 as the
+backward's residual; the card gathers the sample's 8F values directly, in
+the forward and again in the backward, and keeps no residual. The
+backward returns d_table (a scatter-add by f32 atomics, whose order
+changes from run to run), d_w [N, K*8] and d_dw [N, 3*K*8].
+
+Cast points of the bf16-table mode (_fwd_kernel :509-523, _bwd_kernel
+:578-629): enc = sum_p bf16(bf16(T) * bf16(w_p)) and tenc_t the same with
+bf16(dw_t), the 8-corner sum in f32; backward gt = bf16(genc), gtk =
+bf16(gtenc_t); d_w[p] = sum_f bf16(bf16(T) * gt), d_dw the same with gtk;
+u = gt * bf16(w) + sum_t gtk * bf16(dw_t) in f32, rounded to bf16 before
+the f32 scatter-sum into d_table. Only the sample's own entry (its 8F
+lanes) receives anything. The f32 table runs the same arithmetic without
+the roundings (the TPU's hi/lo split reaches f32 to about 2^-16). The
+vertex layout has no port and raises.
+
+Bound on an H100: per (sample, level) the forward reads 8 + 24 f32
+weights, an index and 8F table values (L2-resident: 1.5 MB at the
+flagship size) and writes 4F floats; about 8F multiply-adds per output:
+the bytes bound it. The backward adds F + 3F cotangents, writes 32 f32
+weight cotangents and 8F atomics.
 """
 
 from __future__ import annotations
@@ -21,10 +51,24 @@ from typing import Optional
 import numpy as np
 import torch
 
+from multimodalstudio_tpu_torch.ops.kernels import build
+
 LANE = 128
 NSLOT = 8
 FEAT = LANE // NSLOT  # 16 features per vertex
 PRIMES = (1, 2654435761, 805459861)
+CLIP_HI = float(np.float32(1.0 - 1e-6))  # grid coordinates are clamped to [0, CLIP_HI]
+
+KERNEL = build.register(
+    "slot_grid_lookup",
+    source="multimodalstudio_tpu_torch/csrc/slot_grid.cu",
+    replaces="multimodalstudio_tpu/ops/pallas/slot_grid.py:415",
+)
+BWD_KERNEL = build.register(
+    "slot_grid_lookup_bwd",
+    source="multimodalstudio_tpu_torch/csrc/slot_grid.cu",
+    replaces="multimodalstudio_tpu/ops/pallas/slot_grid.py:536",
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,3 +240,163 @@ def slot_geometry(x: torch.Tensor, spec: SlotGridSpec, num_levels: Optional[int]
         dim=-1,
     )
     return idx, w, dw
+
+
+# ------------------------------------------------------------ K6: the lookup
+
+
+def _round(x: torch.Tensor, bf16: bool) -> torch.Tensor:
+    return x.to(torch.bfloat16).float() if bf16 else x
+
+
+def _gather(table, idx, feats, bf16):
+    """The corner values T [N, k, F, 8] of each sample's entry per level
+    (lane f * 8 + p of the entry), rounded to bf16 in bf16-table mode."""
+    n, k = idx.shape
+    entries = _round(table.float(), bf16).reshape(-1, NSLOT * feats)  # one row per entry
+    return entries[idx].reshape(n, k, feats, NSLOT)
+
+
+def slot_lookup_plain(table, idx, w, dw, *, feats: int, bf16: bool):
+    """Plain PyTorch version of K6's forward (_fwd_kernel :415-523): idx
+    [N, k] absolute entry indices, w [N, k*8], dw [N, 3*k*8] or None.
+    Returns enc [N, k*F] f32 and, with dw, tenc [N, 3*k*F] f32 (column
+    t*k*F + l*F + f)."""
+    n, k = idx.shape
+    T = _gather(table, idx, feats, bf16)
+    wb = _round(w.float(), bf16).reshape(n, k, 1, NSLOT)
+    enc = _round(T * wb, bf16).sum(-1).reshape(n, k * feats)
+    if dw is None:
+        return enc
+    dwb = _round(dw.float(), bf16).reshape(n, 3, k, 1, NSLOT)
+    tenc = _round(T[:, None] * dwb, bf16).sum(-1).reshape(n, 3 * k * feats)
+    return enc, tenc
+
+
+def slot_lookup_bwd_plain(table, idx, w, dw, genc, gtenc, *, feats: int, bf16: bool):
+    """Plain PyTorch version of K6's backward (_bwd_kernel :536-629) at its
+    cast points: cotangents genc [N, k*F] (and gtenc [N, 3*k*F] with dw) in;
+    returns (d_table [rows, 128] f32, d_w [N, k*8] f32, d_dw [N, 3*k*8] f32
+    or None)."""
+    n, k = idx.shape
+    T = _gather(table, idx, feats, bf16)
+    gt = _round(genc.float(), bf16).reshape(n, k, feats, 1)
+    d_w = _round(T * gt, bf16).sum(2).reshape(n, k * NSLOT)
+    u = gt * _round(w.float(), bf16).reshape(n, k, 1, NSLOT)  # [N, k, F, 8]
+    d_dw = None
+    if dw is not None:
+        gtk = _round(gtenc.float(), bf16).reshape(n, 3, k, feats, 1)
+        dwb = _round(dw.float(), bf16).reshape(n, 3, k, 1, NSLOT)
+        d_dw = _round(T[:, None] * gtk, bf16).sum(3).reshape(n, 3 * k * NSLOT)
+        for t in range(3):
+            u = u + gtk[:, t] * dwb[:, t]
+    width = NSLOT * feats
+    d = torch.zeros(table.shape[0] * (LANE // width), width, device=table.device)
+    d.index_add_(0, idx.reshape(-1), _round(u, bf16).reshape(-1, width))
+    return d.reshape(table.shape), d_w, d_dw
+
+
+def _f32(t):
+    return None if t is None else t.float().contiguous()
+
+
+def _launch_fwd(table, idx, w, dw, feats, bf16):
+    """K6's forward kernel: enc (and tenc with dw)."""
+    if idx.device.type != "cuda":
+        raise ValueError(f"slot_grid_lookup: unsupported device {idx.device}")
+    n, k = idx.shape
+    tbl, ix, wc, dwc = _f32(table), idx.long().contiguous(), _f32(w), _f32(dw)
+    enc = torch.empty((n, k * feats), dtype=torch.float32, device=idx.device)
+    tenc = None if dw is None else torch.empty((n, 3 * k * feats), dtype=torch.float32,
+                                               device=idx.device)
+    if n:
+        fn = build.function("slot_grid", "mms_slot_lookup_fwd", "ptr", "ptr", "ptr", "ptr", "int",
+                            "int", "int", "int", "ptr", "ptr", "ptr")
+        status = fn(build.ptr(tbl), build.ptr(ix), build.ptr(wc), build.ptr(dwc), n, k, feats,
+                    int(bf16), build.ptr(enc), build.ptr(tenc), build.stream_of(ix))
+        build.check(status, "slot_grid_lookup")
+        KERNEL.launches += 1
+    return enc if dw is None else (enc, tenc)
+
+
+def _launch_bwd(table, idx, w, dw, genc, gtenc, feats, bf16):
+    """K6's backward kernel: (d_table, d_w, d_dw or None)."""
+    if idx.device.type != "cuda":
+        raise ValueError(f"slot_grid_lookup: unsupported device {idx.device}")
+    n, k = idx.shape
+    dev = idx.device
+    tbl, ix, wc, dwc = _f32(table), idx.long().contiguous(), _f32(w), _f32(dw)
+    ge, gte = _f32(genc), _f32(gtenc if dw is not None else None)
+    d_table = torch.zeros(table.shape, dtype=torch.float32, device=dev)
+    d_w = torch.empty((n, k * NSLOT), dtype=torch.float32, device=dev)
+    d_dw = None if dw is None else torch.empty((n, 3 * k * NSLOT), dtype=torch.float32, device=dev)
+    if n:
+        fn = build.function("slot_grid", "mms_slot_lookup_bwd", "ptr", "ptr", "ptr", "ptr", "ptr",
+                            "ptr", "int", "int", "int", "int", "ptr", "ptr", "ptr", "ptr")
+        status = fn(build.ptr(tbl), build.ptr(ix), build.ptr(wc), build.ptr(dwc), build.ptr(ge),
+                    build.ptr(gte), n, k, feats, int(bf16), build.ptr(d_table), build.ptr(d_w),
+                    build.ptr(d_dw), build.stream_of(ix))
+        build.check(status, "slot_grid_lookup backward")
+        BWD_KERNEL.launches += 1
+    return d_table, d_w, d_dw
+
+
+def _lookup(table, idx, w, dw, feats, bf16):
+    """The plain version for a CPU tensor, the kernel for any other (which
+    raises off a card)."""
+    if idx.device.type == "cpu":
+        return slot_lookup_plain(table, idx, w, dw, feats=feats, bf16=bf16)
+    return _launch_fwd(table, idx, w, dw, feats, bf16)
+
+
+class _Lookup(torch.autograd.Function):
+    """K6 with its backward (_lookup_fn's op_fwd / op_bwd :813-841): saves
+    (table, idx, w, dw), not the gathered rows; idx has no cotangent."""
+
+    @staticmethod
+    def forward(ctx, cfg, table, idx, w, dw):
+        ctx.cfg = cfg
+        ctx.save_for_backward(table, idx, w, dw)
+        return _lookup(table, idx, w, dw, *cfg)
+
+    @staticmethod
+    def backward(ctx, genc, gtenc=None):
+        feats, bf16 = ctx.cfg
+        table, idx, w, dw = ctx.saved_tensors
+        if idx.device.type == "cpu":
+            d_table, d_w, d_dw = slot_lookup_bwd_plain(table, idx, w, dw, genc, gtenc,
+                                                       feats=feats, bf16=bf16)
+        else:
+            d_table, d_w, d_dw = _launch_bwd(table, idx, w, dw, genc, gtenc, feats, bf16)
+        return None, d_table.to(table.dtype), None, d_w.to(w.dtype), (
+            None if d_dw is None else d_dw.to(dw.dtype))
+
+
+def slot_grid_lookup(table: torch.Tensor, x: torch.Tensor, spec: SlotGridSpec,
+                     num_levels: Optional[int] = None, with_tangents: bool = False):
+    """Slot-grid encoding enc [N, spec.out_dim] of x [N, 3] in [0, 1]
+    (zero columns for the levels past num_levels), and with_tangents its
+    spatial tangents tenc [3, N, spec.out_dim] = d enc / d x. Differentiable
+    in the table (K6's backward) and in x (autograd through the geometry's
+    w and dw, second order included)."""
+    k = spec.num_levels if num_levels is None else min(num_levels, spec.num_levels)
+    n, feats = x.shape[0], spec.feats
+    idx, w, dw = slot_geometry(x, spec, k)  # raises for the vertex layout
+    if not with_tangents:
+        dw = None
+    cfg = (feats, spec.table_dtype == "bf16")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (table, x)):
+        out = _Lookup.apply(cfg, table, idx, w, dw)
+    else:
+        out = _lookup(table, idx, w, dw, *cfg)
+    enc, tenc = (out, None) if dw is None else out
+    pad = (spec.num_levels - k) * feats
+    if pad:
+        enc = torch.nn.functional.pad(enc, (0, pad))
+    if tenc is None:
+        return enc
+    # unfold the lane-folded tangents outside the op (slot_grid.py:933-939)
+    tenc = tenc.reshape(n, 3, k * feats).permute(1, 0, 2)
+    if pad:
+        tenc = torch.nn.functional.pad(tenc, (0, pad))
+    return enc, tenc

@@ -41,6 +41,8 @@ def test_port_and_chip_smoke_import_no_jax():
     assert "multimodalstudio_tpu_torch.models.model" in probe["imported"]
     assert "multimodalstudio_tpu_torch.ops.kernels.slot_fused" in probe["imported"]
     assert "multimodalstudio_tpu_torch.ops.kernels.sdf_chain" in probe["imported"]
+    assert "multimodalstudio_tpu_torch.ops.kernels.slot_grid" in probe["imported"]
+    assert "multimodalstudio_tpu_torch.configs.config" in probe["imported"]
     assert "multimodalstudio_tpu_torch.engine.train" in probe["imported"]
     assert "multimodalstudio_tpu_torch.data.device_cache" in probe["imported"]
     # exact names: the port's own package shares the JAX package's prefix
@@ -94,6 +96,11 @@ def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
     sws, sbs = _sdf_chain_params(requires_grad=False)
     with pytest.raises(ValueError, match="unsupported device"):
         sdf_chain.fused_sdf_chain(pos, sws, sbs, **SDF_KW)
+    with pytest.raises(ValueError, match="unsupported device"):
+        sdf_chain.fused_chain_adjoint(torch.empty(8, 15, device="meta"), sws, sbs, skip=(1,))
+    for tangents in (False, True):
+        with pytest.raises(ValueError, match="unsupported device"):
+            slot_grid.slot_grid_lookup(table, pos, spec, with_tangents=tangents)
 
 
 SDF_KW = dict(num_frequencies=2, min_freq_exp=0.0, max_freq_exp=1.0, skip=(1,))
@@ -147,3 +154,17 @@ def test_differentiable_kernels_and_backward_launchers_refuse_other_devices():
         sdf_chain._launch_bwd(pos, sws, sbs, (1,), "SoftplusQuad", 100.0, pe,
                               torch.empty(8, device="meta"), torch.empty(8, 4, device="meta"),
                               torch.empty(8, 3, device="meta"))
+    x5 = torch.empty(8, 15, device="meta", requires_grad=True)
+    with pytest.raises(ValueError, match="unsupported device"):
+        sdf_chain.fused_chain_adjoint(x5, sws, sbs, skip=(1,))
+    with pytest.raises(ValueError, match="unsupported device"):
+        sdf_chain._launch_adj_bwd(x5, sws, sbs, (1,), "SoftplusQuad", 100.0, 0,
+                                  torch.empty(8, 5, device="meta"), torch.empty(8, 15, device="meta"))
+    table = torch.empty(spec.total_rows, 128, device="meta", requires_grad=True)
+    with pytest.raises(ValueError, match="unsupported device"):
+        slot_grid.slot_grid_lookup(table, pos, spec, with_tangents=True)
+    idx = torch.zeros(8, 2, dtype=torch.long, device="meta")
+    w, dw = torch.empty(8, 16, device="meta"), torch.empty(8, 48, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        slot_grid._launch_bwd(table, idx, w, dw, torch.empty(8, 4, device="meta"),
+                              torch.empty(8, 12, device="meta"), 2, True)
