@@ -11,14 +11,18 @@
    version and a PyTorch call (or composition) that computes the same
    function, where one exists (CUDA events, median of 15 after warm-up):
    K1-K3 at the grid_raw_tpu shapes, K4 at the mlp_raw_tpu ones, K1 at the
-   8-layer mlp_raw_tpu chains, and K6 and K5 at the shapes of grid_raw_tpu
-   without its position encoding. Then checks the cases those paths do not
-   reach (ragged N, skip layers, ReLU, truncated and masked grids).
-3. For grid_raw_tpu, mlp_raw_tpu and grid_raw_tpu with
+   8-layer mlp_raw_tpu chains, K6 and K5 at the shapes of grid_raw_tpu
+   without its position encoding, and K1t and K4j (the forward-tangent
+   chains) at the mlp_raw_tpu SDF chain's. Then checks the cases those
+   paths do not reach (ragged N, skip layers, ReLU, truncated and masked
+   grids, one or two tangents, the full tangent output).
+3. For grid_raw_tpu, mlp_raw_tpu, grid_raw_tpu with
    model.surface.surface_field.use_position_encoding = False (through
    load_config's overrides: its SDF runs the slot-grid lookup K6 and the
-   chain adjoint K5), at full width with seeded random weights on a raw
-   5-modality synthetic scene (256 x 256, 10 views):
+   chain adjoint K5), mlp_raw_tpu with model.surface.contraction_order =
+   inf (its render samples run K1t) and mlp_raw_tpu with
+   MMS_SDF_CHAIN_MODE=jvp (K4j), at full width with seeded random weights
+   on a raw 5-modality synthetic scene (256 x 256, 10 views):
    renders one eval view of every modality through RawEvaluator, scores it,
    checks that the render went through its forward kernels (exact launch
    counts) and renders one chunk again on the CPU through the plain
@@ -28,15 +32,19 @@
    and the exact launches of every step, prints train rays/s, profiles one
    step, and compares one 64-ray-per-modality microbatch's loss and
    gradients with the same microbatch through the plain versions on the
-   CPU.
+   CPU. On the contraction path it also holds the K1t route against the K4
+   route of mlp_raw_tpu on one microbatch's render samples inside the unit
+   cube, where the contraction is the identity.
 
 Prints each phase's seconds, one {"kernels": [...]} line (launches summed
-over the two training runs, each counted from 0), and last the
-{"ok": true, "device": ...} line. Exits non-zero, printing no result, when
-a phase fails or no card is present.
+over the training runs, each counted from 0), each path's rays/s, step
+time and busy share, and last the {"ok": true, "device": ...} line. Exits
+non-zero, printing no result, when a phase fails or no card is present.
 """
 
+import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -518,26 +526,38 @@ def sdf_flops(n, dims, backward=False):
             + 2.0 * n * dims[-1][0] + 2 * chain_flops(n, dims))
 
 
+def linear_chain(x0, wb, bb, skip=(), activation="SoftplusQuad", beta=100.0):
+    """The bf16 F.linear chain (cuBLAS) of the library compositions: wb, bb
+    the transposed bf16 weights and the bf16 biases, a skip layer's input
+    concat(h, x0) / sqrt(2)."""
+    a = 2.0 / beta
+    h = x0
+    for l, (w, b) in enumerate(zip(wb, bb)):
+        if l in skip:
+            h = torch.cat([h, x0], dim=-1) * (2.0 ** -0.5)
+        h = F.linear(h, w, b)
+        if l < len(wb) - 1:
+            h = (torch.relu(h) if activation == "ReLU" else
+                 torch.where(h.abs() < a, (h + a) * (h + a) * (0.25 / a), torch.relu(h)))
+    return h
+
+
+def bf16_leaves(ws, bs, requires_grad):
+    return ([w.t().contiguous().to(torch.bfloat16).requires_grad_(requires_grad) for w in ws],
+            [b.to(torch.bfloat16).requires_grad_(requires_grad) for b in bs])
+
+
 def adjoint_library(x, ws, bs, skip=(), beta=100.0, encode=None, create_graph=False):
     """One PyTorch composition computing the adjoint chains' function: the
-    chain input (encode(x), or x), the bf16 F.linear chain (cuBLAS) with
-    SoftplusQuad, and torch.autograd.grad for d y_0 / d x. Returns (fn,
-    leaves): fn() -> (y bf16, d y_0 / d x)."""
-    a = 2.0 / beta
-    wb = [w.t().contiguous().to(torch.bfloat16).requires_grad_(create_graph) for w in ws]
-    bb = [b.to(torch.bfloat16).requires_grad_(create_graph) for b in bs]
+    chain input (encode(x), or x), linear_chain with SoftplusQuad, and
+    torch.autograd.grad for d y_0 / d x. Returns (fn, leaves): fn() -> (y
+    bf16, d y_0 / d x)."""
+    wb, bb = bf16_leaves(ws, bs, create_graph)
     p = x.detach().clone() if encode else x.detach().to(torch.bfloat16)
     p.requires_grad_(True)
 
     def fn():
-        x0 = (encode(p) if encode else p).to(torch.bfloat16)
-        h = x0
-        for l, (w, b) in enumerate(zip(wb, bb)):
-            if l in skip:
-                h = torch.cat([h, x0], dim=-1) * (2.0 ** -0.5)
-            h = F.linear(h, w, b)
-            if l < len(wb) - 1:
-                h = torch.where(h.abs() < a, (h + a) * (h + a) * (0.25 / a), torch.relu(h))
+        h = linear_chain((encode(p) if encode else p).to(torch.bfloat16), wb, bb, skip, beta=beta)
         return h, torch.autograd.grad(h[:, 0].float().sum(), p, create_graph=create_graph)[0]
 
     return fn, [p, *wb, *bb]
@@ -718,6 +738,289 @@ def check_mlp_chains(gen, dev):
     print(f"  K1 bwd mlp_raw_tpu trunk N={n}: {res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms, "
           f"library {res['library_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
     return res
+
+
+# ---------------------------------------------------------------- K1t and K4j
+
+TANGENT_GRADS = ("gx", "gtx", "gW", "gb")  # what K1t's backward returns
+
+
+def tangent_flops(n, dims, k, t_in, t_out, backward=False):
+    """Tensor-core flops of K1t and K4j: the primal chain, and each of the
+    k tangents' chains through the hidden layers with their layer-0 product
+    over the t_in input columns a tangent carries (K1t: all; K4j: the 1 + 2F
+    nonzero columns of a basis tangent, whose own values cost no product)
+    and only column c of the last layer (2 n din). Backward: the recompute
+    of the hidden layers (primal and tangents), gW and gh of every primal
+    layer and of the tangents' hidden layers, the tangents' gW at layer 0
+    over t_in columns and gh over the t_out columns read (K1t's gtx: all;
+    K4j's Hessian term: the 2F derivative columns of the coordinate), and
+    the last layer's column c (gW and gh)."""
+    h, last_in = dims[0][1], dims[-1][0]
+    mid = chain_flops(n, dims[1:-1])
+    fwd_tangents = k * (mid + 2.0 * n * t_in * h)
+    if not backward:
+        return chain_flops(n, dims) + fwd_tangents + k * 2.0 * n * last_in
+    return (chain_flops(n, dims[:-1]) + fwd_tangents + 2 * chain_flops(n, dims)
+            + k * (2 * mid + 2.0 * n * (t_in + t_out) * h + 2 * 2.0 * n * last_in))
+
+
+def contraction_inputs(gen, dev, n):
+    """The K1t chain input of n render samples on the contraction path:
+    positions uniform in [-1.1, 1.1]^3, x = PE(contract(p)) and its
+    tangents along the 3 axes (torch.func.jvp, as models/model.py takes
+    them)."""
+    from multimodalstudio_tpu_torch.ops.encodings import nerf_encoding
+    from multimodalstudio_tpu_torch.ops.math import scene_contraction
+
+    pos = torch.rand(n, 3, generator=gen, device=dev) * 2.2 - 1.1
+
+    def enc(p):
+        return nerf_encoding(scene_contraction(p, float("inf")), 6, 0.0, 5.0)
+
+    eye = torch.eye(3, device=dev)
+    pairs = [torch.func.jvp(enc, (pos,), (eye[k].expand_as(pos),)) for k in range(3)]
+    return pairs[0][0], torch.stack([t for _, t in pairs])
+
+
+def tangent_library(x, tx, ws, bs, skip=(), activation="SoftplusQuad", beta=100.0, encode=None,
+                    create_graph=False):
+    """One PyTorch composition computing the tangent chains' function:
+    torch.func.jvp of the bf16 F.linear chain (cuBLAS) along each tangent,
+    vmapped over the tangents (K4j: encode(x) in front and the 3 axes as
+    tangents). Returns (fn, leaves): fn() -> (y bf16, d y_0 / d t [N, K])."""
+    wb, bb = bf16_leaves(ws, bs, create_graph)
+    p = (x.detach().clone() if encode else x.detach().to(torch.bfloat16)).requires_grad_(create_graph)
+    if encode:
+        eye = torch.eye(3, device=x.device)
+        tp = eye[:, None, :].expand(3, *x.shape)
+        leaves = [p, *wb, *bb]
+    else:
+        tp = tx.detach().to(torch.bfloat16).requires_grad_(create_graph)
+        leaves = [p, tp, *wb, *bb]
+
+    def chain(q):
+        return linear_chain((encode(q) if encode else q).to(torch.bfloat16), wb, bb, skip,
+                            activation, beta)
+
+    def fn():
+        y, ty = torch.func.vmap(lambda t: torch.func.jvp(chain, (p,), (t,)))(tp)
+        return y[0], ty[:, :, 0].T.float()
+
+    return fn, leaves
+
+
+def _plain_conditioning(what, names, plain, args, bs, kw, gen, dev, ref):
+    """Print how far the plain version moves with its biases moved by 1e-6
+    (relative): the scale of the tolerance, as another f32 summation order
+    moves z."""
+    moved = [b * (1 + 1e-6 * torch.randn(b.shape, generator=gen, device=dev)) for b in bs]
+    _compare_grads(f"{what}, plain vs plain with biases moved by 1e-6", names, ref,
+                   plain(*args(moved), **kw), tol=float("inf"))
+
+
+TANGENT_KW = dict(skip=(4,), activation="SoftplusQuad", beta=100.0, tangent_out_channel=0)
+
+
+def check_chain_tangents(gen, dev):
+    """K1t's forward at one 1024-ray eval chunk's render samples on the
+    contraction path (N=65536, the 8 x 256 SDF chain, 3 tangents, the sdf
+    channel's tangents out), and at one training microbatch's (N=163840)."""
+    from multimodalstudio_tpu_torch.ops.kernels.fused_mlp import fused_chain, fused_chain_plain
+
+    ws, bs = random_chain(gen, SDF_DIMS, dev)
+    err = 0.0
+    for n in (163840, 65536):
+        x, tx = contraction_inputs(gen, dev, n)
+        with torch.no_grad():
+            out = fused_chain(x, ws, bs, tangents=tx, **TANGENT_KW)
+            ref = fused_chain_plain(x, ws, bs, tangents=tx, **TANGENT_KW)
+        torch.cuda.synchronize()
+        err = max(err, _compare_outputs(f"K1t fwd N={n}", ("y", "ty"), out, ref))
+    _plain_conditioning(f"K1t fwd N={n}", ("y", "ty"), fused_chain_plain,
+                        lambda b: (x, ws, b), bs, dict(TANGENT_KW, tangents=tx), gen, dev, ref)
+    library, _ = tangent_library(x, tx, ws, bs, skip=(4,))
+    with torch.no_grad():
+        ms = time_ms(lambda: fused_chain(x, ws, bs, tangents=tx, **TANGENT_KW))
+        plain_ms = time_ms(lambda: fused_chain_plain(x, ws, bs, tangents=tx, **TANGENT_KW))
+        library_ms = time_ms(library)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                flops=tangent_flops(n, SDF_DIMS, 3, 39, 39), bytes=nbytes(x, tx, ws, bs, out),
+                err=err)
+
+
+def check_chain_tangents_bwd(gen, dev):
+    """K1t's backward at one training microbatch's render samples on the
+    contraction path: N=163840, cotangents on y (bf16) and the sdf
+    channel's tangents (f32)."""
+    from multimodalstudio_tpu_torch.ops.kernels.fused_mlp import (
+        _launch_tangent_bwd,
+        fused_chain_tangent_bwd_plain,
+    )
+
+    n = 163840
+    ws, bs = random_chain(gen, SDF_DIMS, dev)
+    x, tx = contraction_inputs(gen, dev, n)
+    gy = (0.1 * torch.randn(n, 257, generator=gen, device=dev)).to(torch.bfloat16)
+    gty = torch.randn(n, 3, generator=gen, device=dev)
+    kargs = (x, tx, gy, gty, ws, bs, (4,), "SoftplusQuad", 100.0, 0)
+    plain_kw = dict(skip=(4,), activation="SoftplusQuad", tangent_out_channel=0)
+    got = _launch_tangent_bwd(*kargs)
+    want = fused_chain_tangent_bwd_plain(x, tx, gy, gty, ws, bs, **plain_kw)
+    torch.cuda.synchronize()
+    err = _compare_grads(f"K1t bwd N={n}", TANGENT_GRADS, got, want)
+    _plain_conditioning(f"K1t bwd N={n}", TANGENT_GRADS, fused_chain_tangent_bwd_plain,
+                        lambda b: (x, tx, gy, gty, ws, b), bs, plain_kw, gen, dev, want)
+    fn, leaves = tangent_library(x, tx, ws, bs, skip=(4,), create_graph=True)
+    outs = fn()
+
+    def library():
+        return torch.autograd.grad(outs, leaves, (gy, gty), retain_graph=True)
+
+    return dict(ms=time_ms(lambda: _launch_tangent_bwd(*kargs)),
+                plain_ms=time_ms(lambda: fused_chain_tangent_bwd_plain(
+                    x, tx, gy, gty, ws, bs, **plain_kw)),
+                library_ms=time_ms(library),
+                flops=tangent_flops(n, SDF_DIMS, 3, 39, 39, backward=True),
+                bytes=nbytes(x, tx, gy, gty, ws, bs, got[0], got[1], got[2], got[3]), err=err)
+
+
+def sdf_encode(kw):
+    from multimodalstudio_tpu_torch.ops.encodings import nerf_encoding
+
+    return lambda p: nerf_encoding(p, kw["num_frequencies"], kw["min_freq_exp"],
+                                   kw["max_freq_exp"])
+
+
+def check_sdf_chain_jvp(gen, dev):
+    """K4j's forward at one 1024-ray eval chunk's render samples (N=65536)
+    and one training microbatch's (N=163840), on the mlp_raw_tpu SDF
+    chain."""
+    from multimodalstudio_tpu_torch.ops.kernels.sdf_chain import (
+        fused_sdf_chain,
+        fused_sdf_chain_jvp_plain,
+    )
+
+    ws, bs = random_chain(gen, SDF_DIMS, dev)
+    err = 0.0
+    for n in (163840, 65536):
+        pos = torch.rand(n, 3, generator=gen, device=dev) * 2.2 - 1.1
+        with torch.no_grad():
+            out = fused_sdf_chain(pos, ws, bs, mode="jvp", **SDF_KW)
+            ref = fused_sdf_chain_jvp_plain(pos, ws, bs, **SDF_KW)
+        torch.cuda.synchronize()
+        err = max(err, _compare_outputs(f"K4j fwd N={n}", ("sdf", "geo", "grad"), out, ref))
+    _plain_conditioning(f"K4j fwd N={n}", ("sdf", "geo", "grad"), fused_sdf_chain_jvp_plain,
+                        lambda b: (pos, ws, b), bs, SDF_KW, gen, dev, ref)
+    chain, _ = tangent_library(pos, None, ws, bs, skip=(4,), encode=sdf_encode(SDF_KW))
+
+    def library():
+        y, grad = chain()
+        return y[:, 0].float(), y[:, 1:], grad
+
+    with torch.no_grad():
+        ms = time_ms(lambda: fused_sdf_chain(pos, ws, bs, mode="jvp", **SDF_KW))
+        plain_ms = time_ms(lambda: fused_sdf_chain_jvp_plain(pos, ws, bs, **SDF_KW))
+        library_ms = time_ms(library)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                flops=tangent_flops(n, SDF_DIMS, 3, 13, 12), bytes=nbytes(pos, ws, bs, out),
+                err=err)
+
+
+def check_sdf_chain_jvp_bwd(gen, dev):
+    """K4j's backward at one training microbatch's render samples:
+    N=163840, cotangents on sdf, geo and grad."""
+    from multimodalstudio_tpu_torch.ops.kernels.sdf_chain import (
+        _launch_jvp_bwd,
+        fused_sdf_chain_jvp_bwd_plain,
+        pe_scales,
+    )
+
+    n = 163840
+    ws, bs = random_chain(gen, SDF_DIMS, dev)
+    pos = torch.rand(n, 3, generator=gen, device=dev) * 2.2 - 1.1
+    gsdf = torch.randn(n, generator=gen, device=dev)
+    ggeo = (0.1 * torch.randn(n, 256, generator=gen, device=dev)).to(torch.bfloat16)
+    g3 = torch.randn(n, 3, generator=gen, device=dev)
+    kargs = (pos, ws, bs, SDF_KW["skip"], SDF_KW["activation"], SDF_KW["beta"],
+             pe_scales(6, 0.0, 5.0), gsdf, ggeo, g3)
+    got = _launch_jvp_bwd(*kargs)
+    want = fused_sdf_chain_jvp_bwd_plain(pos, ws, bs, gsdf, ggeo, g3, **SDF_KW)
+    torch.cuda.synchronize()
+    err = _compare_grads(f"K4j bwd N={n}", CHAIN_GRADS, got, want)
+    _plain_conditioning(f"K4j bwd N={n}", CHAIN_GRADS, fused_sdf_chain_jvp_bwd_plain,
+                        lambda b: (pos, ws, b, gsdf, ggeo, g3), bs, SDF_KW, gen, dev, want)
+    chain, leaves = tangent_library(pos, None, ws, bs, skip=(4,), encode=sdf_encode(SDF_KW),
+                                    create_graph=True)
+    y, grad = chain()
+    outs = (y[:, 0].float(), y[:, 1:], grad)
+
+    def library():
+        return torch.autograd.grad(outs, leaves, (gsdf, ggeo, g3), retain_graph=True)
+
+    return dict(ms=time_ms(lambda: _launch_jvp_bwd(*kargs)),
+                plain_ms=time_ms(lambda: fused_sdf_chain_jvp_bwd_plain(pos, ws, bs, gsdf, ggeo,
+                                                                       g3, **SDF_KW)),
+                library_ms=time_ms(library),
+                flops=tangent_flops(n, SDF_DIMS, 3, 13, 12, backward=True),
+                bytes=nbytes(pos, ws, bs, gsdf, ggeo, g3, got[0], got[1], got[2]), err=err)
+
+
+def check_tangent_edges(gen, dev) -> None:
+    """K1t and K4j off the main path's shapes: a ragged N; a short chain with
+    a skip and the full ty [K, N, D_out] bf16; ReLU (no act'' term) with one
+    tangent (32-sample tiles) and with two (16-sample tiles, 16 idle rows)
+    at channel 1; K4j with ReLU and the skip at the last layer; forward and
+    backward."""
+    from multimodalstudio_tpu_torch.ops.kernels.fused_mlp import (
+        _launch_tangent_bwd,
+        fused_chain,
+        fused_chain_plain,
+        fused_chain_tangent_bwd_plain,
+    )
+    from multimodalstudio_tpu_torch.ops.kernels.sdf_chain import (
+        _launch_jvp_bwd,
+        fused_sdf_chain,
+        fused_sdf_chain_jvp_bwd_plain,
+        fused_sdf_chain_jvp_plain,
+        pe_scales,
+    )
+
+    n = 1000
+    cases = (("SoftplusQuad", (2,), [(39, 128), (128, 128), (167, 128), (128, 17)], 3, None),
+             ("ReLU", (), [(39, 128), (128, 33)], 1, 1),
+             ("ReLU", (), [(39, 128), (128, 128), (128, 33)], 2, 1))
+    for act, skip, dims, k, channel in cases:
+        ws, bs = random_chain(gen, dims, dev)
+        x = torch.rand(n, 39, generator=gen, device=dev) * 2 - 1
+        tx = torch.randn(k, n, 39, generator=gen, device=dev)
+        kw = dict(skip=skip, activation=act, beta=100.0, tangent_out_channel=channel)
+        what = f"K1t {act} skip={skip} K={k} channel={channel} N={n}"
+        with torch.no_grad():
+            _compare_outputs(what, ("y", "ty"), fused_chain(x, ws, bs, tangents=tx, **kw),
+                             fused_chain_plain(x, ws, bs, tangents=tx, **kw))
+        gy = torch.randn(n, dims[-1][1], generator=gen, device=dev).to(torch.bfloat16)
+        gty = (torch.randn(n, k, generator=gen, device=dev) if channel is not None else
+               torch.randn(k, n, dims[-1][1], generator=gen, device=dev).to(torch.bfloat16))
+        _compare_grads(what + " bwd", TANGENT_GRADS,
+                       _launch_tangent_bwd(x, tx, gy, gty, ws, bs, skip, act, 100.0, channel),
+                       fused_chain_tangent_bwd_plain(x, tx, gy, gty, ws, bs, skip=skip,
+                                                     activation=act, tangent_out_channel=channel))
+    dims = [(39, 128), (128, 128), (128, 128), (167, 33)]
+    kw = dict(SDF_KW, skip=(3,), activation="ReLU")
+    ws, bs = random_chain(gen, dims, dev)
+    pos = torch.rand(n, 3, generator=gen, device=dev) * 2.2 - 1.1
+    what = f"K4j ReLU skip=(3,) N={n}"
+    with torch.no_grad():
+        _compare_outputs(what, ("sdf", "geo", "grad"), fused_sdf_chain(pos, ws, bs, mode="jvp", **kw),
+                         fused_sdf_chain_jvp_plain(pos, ws, bs, **kw))
+    gsdf = torch.randn(n, generator=gen, device=dev)
+    ggeo = torch.randn(n, 32, generator=gen, device=dev).to(torch.bfloat16)
+    g3 = torch.randn(n, 3, generator=gen, device=dev)
+    _compare_grads(what + " bwd", CHAIN_GRADS,
+                   _launch_jvp_bwd(pos, ws, bs, (3,), "ReLU", 100.0, pe_scales(6, 0.0, 5.0), gsdf,
+                                   ggeo, g3),
+                   fused_sdf_chain_jvp_bwd_plain(pos, ws, bs, gsdf, ggeo, g3, **kw))
 
 
 # grid_raw_tpu's slot grid without its position encoding: the SDF head takes
@@ -960,13 +1263,19 @@ PER_CHUNK = {  # kernel launches of one 1024-ray eval chunk (derived in PERF.md)
     # sampler x4 through K6 (4 levels) and the K1 head, the five chains above
     # through K1; render samples through K6 with tangents and K5
     "grid_raw_tpu without PE": {"fused_chain": 9, "slot_grid_lookup": 5, "fused_chain_adjoint": 1},
+    # as mlp_raw_tpu, the render samples through K1t (contraction) or K4j (jvp mode)
+    "mlp_raw_tpu with contraction": {"fused_chain": 9, "fused_chain_tangents": 1},
+    "mlp_raw_tpu in jvp mode": {"fused_chain": 9, "fused_sdf_chain_jvp": 1},
 }
 
 NO_PE = {"model": {"surface": {"surface_field": {"use_position_encoding": False}}}}
-CONFIGS = {  # label: (registered method, load_config overrides)
-    "grid_raw_tpu": ("grid_raw_tpu", None),
-    "mlp_raw_tpu": ("mlp_raw_tpu", None),
-    "grid_raw_tpu without PE": ("grid_raw_tpu", NO_PE),
+CONTRACTION = {"model": {"surface": {"contraction_order": float("inf")}}}
+CONFIGS = {  # label: (registered method, load_config overrides, environment of its phases)
+    "grid_raw_tpu": ("grid_raw_tpu", None, {}),
+    "mlp_raw_tpu": ("mlp_raw_tpu", None, {}),
+    "grid_raw_tpu without PE": ("grid_raw_tpu", NO_PE, {}),
+    "mlp_raw_tpu with contraction": ("mlp_raw_tpu", CONTRACTION, {}),
+    "mlp_raw_tpu in jvp mode": ("mlp_raw_tpu", None, {"MMS_SDF_CHAIN_MODE": "jvp"}),
 }
 
 
@@ -977,9 +1286,25 @@ def load(label):
     from multimodalstudio_tpu_torch.configs.config import load_config
     from multimodalstudio_tpu_torch.configs.methods import FIVE_MODALITIES
 
-    method, overrides = CONFIGS[label]
+    method, overrides, _ = CONFIGS[label]
     cfg = load_config(method=method, overrides=overrides)
     return dataclasses.replace(cfg, modalities=FIVE_MODALITIES)
+
+
+@contextlib.contextmanager
+def config_env(label):
+    """The environment of one label's phases, restored afterwards."""
+    env = CONFIGS[label][2]
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def run_slice(dev, card, method):
@@ -1067,10 +1392,10 @@ def run_slice(dev, card, method):
     return launches, n_rays / seconds
 
 
-def profile_device(fn, label: str, ref_ms: float, top: int = 12) -> None:
+def profile_device(fn, label: str, ref_ms: float, top: int = 12) -> float:
     """Device time by kernel over one call of fn (torch.profiler), and the
     share of its wall time the card was busy, under the profiler and
-    against an unprofiled call's time `ref_ms`."""
+    against an unprofiled call's time `ref_ms`; returns the latter share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1089,6 +1414,7 @@ def profile_device(fn, label: str, ref_ms: float, top: int = 12) -> None:
           f"call's {ref_ms:.2f} ms), {sum(r[1] for r in rows)} device ops")
     for ms, count, key in sorted(rows, reverse=True)[:top]:
         print(f"    {ms:9.3f} ms {count:6d}x {key[:90]}")
+    return busy_ms / ref_ms
 
 
 PER_MICROBATCH = {  # kernel launches of one training microbatch (derived in PERF.md)
@@ -1109,6 +1435,15 @@ PER_MICROBATCH = {  # kernel launches of one training microbatch (derived in PER
         "slot_grid_lookup": 6, "slot_grid_lookup_bwd": 2,
         "fused_chain_adjoint": 1, "fused_chain_adjoint_bwd": 1,
     },
+    # as mlp_raw_tpu, the render samples through K1t or K4j in place of K4
+    "mlp_raw_tpu with contraction": {
+        "fused_chain": 9, "fused_chain_bwd": 5,
+        "fused_chain_tangents": 1, "fused_chain_tangents_bwd": 1,
+    },
+    "mlp_raw_tpu in jvp mode": {
+        "fused_chain": 9, "fused_chain_bwd": 5,
+        "fused_sdf_chain_jvp": 1, "fused_sdf_chain_jvp_bwd": 1,
+    },
 }
 
 
@@ -1117,8 +1452,10 @@ PER_MICROBATCH = {  # kernel launches of one training microbatch (derived in PER
 # terms. On mlp_raw_tpu these carry the eikonal loss's second derivatives
 # through the 8-layer SoftplusQuad SDF, and the CPU run moves by ~1e-1 when
 # its parameters move by 1e-5 (printed beside each group), so its limit is
-# 3e-1; every other group, and grid_raw_tpu's poses, keep 1e-1.
-POSE_TOL = {"grid_raw_tpu": 1e-1, "mlp_raw_tpu": 3e-1, "grid_raw_tpu without PE": 1e-1}
+# 3e-1, as on its contraction and jvp-mode variants; every other group, and
+# grid_raw_tpu's poses, keep 1e-1.
+POSE_TOL = {"grid_raw_tpu": 1e-1, "mlp_raw_tpu": 3e-1, "grid_raw_tpu without PE": 1e-1,
+            "mlp_raw_tpu with contraction": 3e-1, "mlp_raw_tpu in jvp mode": 3e-1}
 
 
 def _param_groups(named):
@@ -1203,8 +1540,12 @@ def run_training(dev, card, method, steps=5):
     rays_per_s = rays / seconds
     print(f"  trained {rays} rays in {seconds:.3f} s: {rays_per_s:.1f} rays/s (train, {method},"
           f" 5 modalities, 2048 rays per modality in {microbatches} microbatches, {card})")
-    profile_device(lambda: train_steps(state, cache, gen, 1), "one training step",
-                   1e3 * seconds / steps, top=20)
+    busy = profile_device(lambda: train_steps(state, cache, gen, 1), "one training step",
+                          1e3 * seconds / steps, top=20)
+    stats = dict(launches=launches, rays_per_s=rays_per_s, step_ms=1e3 * seconds / steps,
+                 busy=busy)
+    if CONFIGS[method][1] == CONTRACTION:
+        cross_check_k4(cfg, model, cams, state, cache, gen, dev)
 
     # one 64-ray microbatch on the card and through the plain versions on the CPU
     small = dataclasses.replace(cfg, datamanager=dataclasses.replace(
@@ -1253,7 +1594,55 @@ def run_training(dev, card, method, steps=5):
             worst = float("inf")
     if worst == float("inf"):
         fail("the card's training microbatch disagrees with the CPU plain versions")
-    return launches, rays_per_s
+    return stats
+
+
+def cross_check_k4(cfg, model, cams, state, cache, gen, dev) -> None:
+    """The contraction route (K1t) against the K4 route of mlp_raw_tpu with
+    the same parameters, on one training microbatch's render samples inside
+    the unit cube, where the L-inf contraction is the identity, so both
+    compute the same function (rel-L2 <= 5e-2). The samples of rays that hit
+    the radius-1 collider sphere lie inside it; those of rays that miss it
+    may not."""
+    import dataclasses
+
+    from multimodalstudio_tpu_torch.configs.methods import FIVE_MODALITIES
+    from multimodalstudio_tpu_torch.data.device_cache import sample_pixel_batch
+    from multimodalstudio_tpu_torch.engine import train as T
+    from multimodalstudio_tpu_torch.models.model import MMSModel
+
+    dm = cfg.datamanager
+    one = dataclasses.replace(cfg, datamanager=dataclasses.replace(
+        dm, num_rays_per_modality=dm.microbatch_rays, microbatch_rays=0))
+    sched = T.make_schedules(one, state.step)
+    batch = sample_pixel_batch(cache, gen, dm.microbatch_rays, FIVE_MODALITIES)
+    captured = []
+    route = model.sdf_gradients
+
+    def capture(pos, *args, **kw):
+        captured.append(pos.detach())
+        return route(pos, *args, **kw)
+
+    model.sdf_gradients = capture
+    try:
+        T.batch_loss_and_grads(one, model, cams, state.camera_poses, batch, state.step, sched)
+    finally:
+        del model.sdf_gradients
+    pos = captured[0]
+    k4 = MMSModel(load("mlp_raw_tpu").model, device=dev)
+    k4.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        got = model.sdf_gradients(pos, sched, train=True)
+        ref = k4.sdf_gradients(pos, sched, train=True)
+    inside = pos.abs().amax(-1) < 1.0
+    print(f"  contraction route vs K4 route on the {int(inside.sum())} of {inside.numel()} render "
+          "samples of one training microbatch inside the unit cube:")
+    for name, a, b, tol in (("sdf", got[0], ref[0], 5e-2), ("geo", got[1], ref[1], None),
+                            ("grad", got[2], ref[2], 5e-2)):
+        rel = rel_l2(a[inside].float(), b[inside].float())
+        print(f"    {name}: rel_l2={rel:.3e}" + (f" (tolerance {tol:g})" if tol else ""))
+        if tol and not (rel <= tol and torch.isfinite(a).all()):
+            fail(f"the contraction route's {name} disagrees with the K4 route")
 
 
 def main() -> None:
@@ -1307,13 +1696,25 @@ def main() -> None:
     print("kernel checks off the main paths' shapes:")
     phase("edge cases", lambda: (check_edge_cases(gen, dev, gspec), check_sdf_chain_edges(gen, dev),
                                  check_nope_edges(gen, dev, gspec)))
-    rays_per_s, train_rays_per_s, launches = {}, {}, {}
+    # the tangent phases draw from `gen` last: the earlier phases' inputs do not depend on them
+    print("kernel checks of K1t and K4j (mlp_raw_tpu with contraction and in jvp mode; forward: "
+          "per 1024-ray eval chunk; backward: per 512-ray training microbatch):")
+    results.update(phase("K1t and K4j", lambda: {
+        "fused_chain_tangents": check_chain_tangents(gen, dev),
+        "fused_chain_tangents_bwd": check_chain_tangents_bwd(gen, dev),
+        "fused_sdf_chain_jvp": check_sdf_chain_jvp(gen, dev),
+        "fused_sdf_chain_jvp_bwd": check_sdf_chain_jvp_bwd(gen, dev),
+    }))
+    print("kernel checks of K1t and K4j off the main paths' shapes:")
+    phase("K1t and K4j edge cases", check_tangent_edges, gen, dev)
+    rays_per_s, train, launches = {}, {}, {}
     for method in CONFIGS:
-        print(f"render ({method}):")
-        _, rays_per_s[method] = phase(f"render {method}", run_slice, dev, card, method)
-        print(f"training ({method}):")
-        run, train_rays_per_s[method] = phase(f"training {method}", run_training, dev, card, method)
-        for name, count in run.items():  # each training run starts its counts at 0
+        with config_env(method):
+            print(f"render ({method}):")
+            _, rays_per_s[method] = phase(f"render {method}", run_slice, dev, card, method)
+            print(f"training ({method}):")
+            train[method] = phase(f"training {method}", run_training, dev, card, method)
+        for name, count in train[method]["launches"].items():  # each run counts from 0
             launches[name] = launches.get(name, 0) + count
 
     entries = []
@@ -1327,8 +1728,9 @@ def main() -> None:
             "library_ms": r.get("library_ms"),
         })
     for method in rays_per_s:
-        print(f"{method}: eval rays/s {rays_per_s[method]:.1f}, train rays/s "
-              f"{train_rays_per_s[method]:.1f} ({card})")
+        t = train[method]
+        print(f"{method}: eval rays/s {rays_per_s[method]:.1f}, train rays/s {t['rays_per_s']:.1f}, "
+              f"step {t['step_ms']:.2f} ms, card busy {100 * t['busy']:.1f}% of a step ({card})")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

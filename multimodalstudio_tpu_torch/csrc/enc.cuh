@@ -12,6 +12,14 @@ namespace mms {
 
 constexpr int MAXPE = 16;  // max NeRF-encoding frequencies
 
+// A chain's front end, passed to a kernel by value: the encoding's frequency
+// scales, or freqs = 0 for a chain whose input arrives already encoded.
+struct Enc {
+  int freqs;  // 0: no encoding (K5, K1t)
+  float scale[MAXPE];
+  int width;  // chain input width: 3 + 6 * freqs, or the input's
+};
+
 // column c (< 3 + 6F) of the encoding of p
 __device__ __forceinline__ float pe_col(const float* p, int F, const float* scale, int c) {
   if (c < 3) return p[c];

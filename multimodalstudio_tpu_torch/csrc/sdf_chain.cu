@@ -51,12 +51,6 @@
 
 using namespace mms;
 
-struct Enc {
-  int freqs;  // 0: no encoding (K5)
-  float scale[MAXPE];
-  int width;  // chain input width: 3 + 6 * freqs (K4) or D (K5)
-};
-
 // The tile's chain input x0 into buf [64, lds] and x0 [64, ldx0] (zero past E.width,
 // to p0, and past n): the bf16 encoding of the positions pos [n, 3] (ENC) or the rows
 // of the bf16 input x [n, E.width]. Ends with __syncthreads().

@@ -14,8 +14,12 @@ spatial tangents, K5 (the chain and d sdf / d input from one reverse
 sweep), and the tangents contracted outside. On the grid-less methods
 (mlp_raw_tpu) sampler queries run the SDF field (position encoding, then a
 K1 chain) and render samples K4 (encoding, chain and d sdf/dx in one
-kernel). The MLP chains of the trunk, the polarization heads and the
-background run as K1 (fields/mlp.py).
+kernel; K4j, its forward-tangent form, under MMS_SDF_CHAIN_MODE=jvp). A
+grid-less surface with a scene contraction, or without an input-including
+position encoding, takes the generic route: the encoding's tangents along
+the 3 axes outside the kernels, then K1 with those tangents (K1t) for sdf,
+geo and d sdf/dx. The MLP chains of the trunk, the polarization heads and
+the background run as K1 (fields/mlp.py).
 
 In training the kernels run as autograd Functions with CUDA backwards,
 and the curvature loss's hessian proxy comes from SDF taps through the
@@ -64,6 +68,7 @@ from multimodalstudio_tpu_torch.models.samplers import (
 )
 from multimodalstudio_tpu_torch.models.volume_rendering import neus_weights
 from multimodalstudio_tpu_torch.ops.encodings import sh_encoding_dense
+from multimodalstudio_tpu_torch.ops.kernels.fused_mlp import fused_chain
 from multimodalstudio_tpu_torch.ops.kernels.sdf_chain import fused_chain_adjoint, fused_sdf_chain
 from multimodalstudio_tpu_torch.ops.kernels.slot_fused import (
     fused_slot_sdf_chain,
@@ -291,8 +296,9 @@ class MMSModel(nn.Module):
         return sdf.reshape(positions.shape[:-1])
 
     def _fused_sdf_gradients(self, positions: torch.Tensor, train: bool):
-        """The grid-less surface through K4 (model.py:432-476): (sdf, geo
-        bf16, d sdf/dx, None)."""
+        """The grid-less surface (model.py:432-503): through K4 (or K4j)
+        with geo bf16, or the generic route with geo f32; (sdf, geo, d
+        sdf/dx, None)."""
         spec = self.spec.surface
         fspec = spec.surface_field
         mspec, pspec = fspec.field.mlp, fspec.position_encoding
@@ -301,12 +307,10 @@ class MMSModel(nn.Module):
             raise NotImplementedError(
                 "the jacfwd SDF gradients of an unfused surface MLP (model.py:505-533) are not "
                 "ported")
+        ws, bs = self.surface_field.field.mlp.effective_weights()
         if (spec.contraction_order is not None or not fspec.use_position_encoding
                 or not pspec.include_input):
-            raise NotImplementedError(
-                "the generic fused SDF gradients with outside tangents (model.py:477-503) are "
-                "not ported")
-        ws, bs = self.surface_field.field.mlp.effective_weights()
+            return self._tangent_sdf_gradients(positions, ws, bs)
         sdf, geo, grad = fused_sdf_chain(
             positions.reshape(-1, 3), ws, bs, num_frequencies=pspec.num_frequencies,
             min_freq_exp=pspec.min_freq_exp, max_freq_exp=pspec.max_freq_exp,
@@ -315,6 +319,35 @@ class MMSModel(nn.Module):
         lead = positions.shape[:-1]
         # geo stays bf16 into the radiance trunk (model.py:471-474)
         return sdf.reshape(lead), geo.reshape(*lead, -1), grad.reshape(positions.shape), None
+
+    def _tangent_sdf_gradients(self, positions: torch.Tensor, ws, bs):
+        """The generic route (model.py:477-503): enc(p) = PE(contract(p))
+        (each part as the spec has it) and its jvp along e_0, e_1, e_2
+        outside the kernels; K1t with those tangents gives y and d sdf/dx
+        from the sdf channel's tangents. Gradients reach the positions
+        through the chain input and through the tangents (the eikonal
+        loss's second-order term). Returns (sdf, geo f32, grad, None)."""
+        spec = self.spec.surface
+        fspec = spec.surface_field
+        mspec, pspec = fspec.field.mlp, fspec.position_encoding
+
+        def enc(p):
+            if spec.contraction_order is not None:
+                p = scene_contraction(p, spec.contraction_order)
+            return pspec.apply(p) if fspec.use_position_encoding else p
+
+        flat = positions.reshape(-1, 3)
+        eye = torch.eye(3, dtype=flat.dtype, device=flat.device)
+        tangs = []
+        for k in range(3):
+            primal, t = torch.func.jvp(enc, (flat,), (eye[k].expand_as(flat),))
+            tangs.append(t)
+        y, grad = fused_chain(primal, ws, bs, skip=mspec.skip_connections,
+                              activation=mspec.activation, beta=mspec.activation_beta,
+                              tangents=torch.stack(tangs), tangent_out_channel=0)
+        y = y.float()
+        lead = positions.shape[:-1]
+        return y[:, 0].reshape(lead), y[:, 1:].reshape(*lead, -1), grad.reshape(positions.shape), None
 
     def _slot_composition(self, flat: torch.Tensor, active_level):
         """The two-kernel composition (model.py:612-652) for a slot surface
@@ -351,7 +384,9 @@ class MMSModel(nn.Module):
         """(sdf [...], geo [..., G], d sdf/dx [..., 3], hessians). On a slot
         surface (model.py:547-669): through K3 (geo bf16) with an
         input-including position encoding, else through the K6 + K5
-        composition (geo f32); on a grid-less surface through K4 (geo bf16).
+        composition (geo f32); on a grid-less surface through K4 or K4j (geo
+        bf16), or with a contraction or without an input-including encoding
+        through K1t (geo f32).
         In training with compute_hessian, hessians [..., S_tap, 3] come from
         the curvature taps through sdf_only, else None."""
         spec = self.spec.surface

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 Each library under `csrc/` is one .cu source with a plain C interface
-(fused_mlp: K1 forward and backward; slot_fused: K2/K3 forward;
+(fused_mlp: K1 forward and backward, without and with forward tangents,
+and K4j, the tangent kernels with the encoding in front; slot_fused: K2/K3 forward;
 slot_fused_bwd: K2/K3 backward; sdf_chain: K4 and K5 forward and backward;
 slot_grid: K6 forward and backward),
 compiled by nvcc for sm_90a into `build/torch_kernels/` at the repository

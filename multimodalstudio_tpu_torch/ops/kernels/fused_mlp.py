@@ -1,5 +1,5 @@
-"""Fused dense chain (MLP): kernel K1, forward and backward, and their
-plain versions.
+"""Fused dense chain (MLP): kernel K1, forward and backward, without and
+with forward tangents (K1t), and their plain versions.
 
 `fused_chain` runs a whole MLP layer chain for a tile of samples on the
 card in one CUDA kernel (csrc/fused_mlp.cu), so activations between layers
@@ -12,21 +12,39 @@ it recomputes the forward per tile, keeping the bf16 pre-activations in a
 per-CTA slab of device scratch (an 8-layer 256-wide chain's stack does not
 fit in shared memory beside the activations), and runs the reverse sweep.
 
+With `tangents` [K, N, D_in] (K1t, the same two Pallas bodies with
+n_tangents = K) the chain also carries K forward tangents: y and ty
+[K, N, D_out] bf16, or with `tangent_out_channel=c` only column c of the
+last layer's f32 tangents, [N, K] f32. On the card a tile is 64 rows of
+the same products: the primal rows of b samples and the K tangent rows of
+each (b = 16 for K = 2, 3; 32 for K = 1), since u = t W shares W with z =
+h W + b. The backward (reverse over the tangent chain, act'' term
+included) is its own kernel with the z and u stacks in device scratch.
+
 Arithmetic (the JAX kernel's cast points, chain_reference :1263-1302):
 inputs and weights bf16, products accumulated in f32 plus an f32 bias,
 the hidden activation evaluated in f32 and rounded to bf16, a skip layer's
 input concat(h, x0) * 1/sqrt(2) rounded to bf16, and the last layer's z
-rounded to bf16 for y.
+rounded to bf16 for y. Tangents: u = t W in f32, t = bf16(u * act'(z))
+with the forward's f32 z, the last layer's u kept f32 (rounded to bf16 for
+the full ty).
 
 Backward cast points (_bwd_kernel :645-789): the cotangent gy arrives in
 bf16; the hidden inputs of layer l are recomputed as bf16(act(z)) from the
 bf16-stored z; gz = gh * act'(z) is rounded to bf16 before both products
 (gW = hin^T gz, gh = gz W^T); gb sums the unrounded f32 gz; gx is bf16.
+With tangents the recompute stores zb = bf16(z) and ub = bf16(u) and
+propagates t = bf16(ub * act'(zb)); tin = bf16(u_stack * act'(zb)); the
+tangent cotangent gty arrives f32 [N, K] (scattered into column c) or bf16;
+per layer gz = gh act'(z) + (sum_k gt_k u_k) act''(z), gu = gt act'(z), gW
+= hin^T bf16(gz) + sum_k tin_k^T bf16(gu_k), gb = sum gz, gh = bf16(gz)
+W^T, gt = bf16(gu) W^T; gx and gtx are bf16.
 
 Bound on an H100 at the slice's widths: about 2 * N * sum(din * dout)
 flops (6 * N * sum(din * dout) for the backward, forward recompute
 included) against 2 * N * (din + dout) bytes of input and output, far above
-the card's ridge of ~295 flop/byte, so the tensor-core rate bounds it.
+the card's ridge of ~295 flop/byte, so the tensor-core rate bounds it. The
+tangent chains multiply the hidden layers' work by 1 + K.
 """
 
 from __future__ import annotations
@@ -51,6 +69,17 @@ BWD_KERNEL = build.register(
     source="multimodalstudio_tpu_torch/csrc/fused_mlp.cu",
     replaces="multimodalstudio_tpu/ops/pallas/fused_mlp.py:607",
 )
+TANGENT_KERNEL = build.register(
+    "fused_chain_tangents",
+    source="multimodalstudio_tpu_torch/csrc/fused_mlp.cu",
+    replaces="multimodalstudio_tpu/ops/pallas/fused_mlp.py:265",
+)
+TANGENT_BWD_KERNEL = build.register(
+    "fused_chain_tangents_bwd",
+    source="multimodalstudio_tpu_torch/csrc/fused_mlp.cu",
+    replaces="multimodalstudio_tpu/ops/pallas/fused_mlp.py:607",
+)
+MAX_TANGENTS = 3  # a 64-row tile holds the primal rows and at most 3 tangent rows per sample
 
 
 def bf16_round(x: torch.Tensor) -> torch.Tensor:
@@ -200,6 +229,28 @@ def reverse_sweep(x0, zs, gy, weights, skip, activation, beta, inject=None, gw_e
     return gh + gx0, gws, gbs
 
 
+def tangent_forward(x0, t0, weights, biases, skip, activation, beta):
+    """The chain and its K forward tangents at the forward kernel's cast
+    points (_fwd_kernel :277-301): x0 [N, D_in] and t0 [K, N, D_in] as bf16
+    values in f32. Returns (the last layer's z [N, D_out] f32, its tangents
+    u [K, N, D_out] f32)."""
+    f, df = act_pair(activation, beta)
+    h, t = x0, t0
+    for l in range(len(weights)):
+        h, t = layer_input(l, x0, h, skip), layer_input(l, t0, t, skip)
+        w = bf16_round(weights[l].float())
+        z, u = h @ w + biases[l].float(), t @ w
+        if l < len(weights) - 1:
+            h, t = bf16_round(f(z)), bf16_round(u * df(z))
+    return z, u
+
+
+def tangent_output(u: torch.Tensor, channel: Optional[int]) -> torch.Tensor:
+    """ty from the last layer's f32 tangents u [K, N, D_out]: column
+    `channel` as [N, K] f32, or with no channel all of u as bf16."""
+    return u.to(torch.bfloat16) if channel is None else u[:, :, channel].T.contiguous()
+
+
 def fused_chain_plain(
     x: torch.Tensor,
     weights: Sequence[torch.Tensor],
@@ -209,33 +260,19 @@ def fused_chain_plain(
     activation: str = "ReLU",
     beta: float = 100.0,
     tangents: Optional[torch.Tensor] = None,
+    tangent_out_channel: Optional[int] = None,
 ):
     """Plain PyTorch version of K1: bf16 emulated by rounding, f32 math.
 
     x [N, D_in]; weights[l] [din_l, dout_l]; biases[l] [dout_l]. Returns
-    y [N, D_out] bf16 (and ty [K, N, D_out] bf16 for tangents [K, N, D_in],
-    the forward-mode variant of the JAX kernel)."""
-    f, df = act_pair(activation, beta)
-    n_layers = len(weights)
-    x0 = bf16_round(x)
-    h = x0
-    t0 = t = None if tangents is None else bf16_round(tangents)
-    for l in range(n_layers):
-        if l in skip:
-            h = bf16_round(torch.cat([h, x0], dim=-1) * SKIP_SCALE)
-            if t is not None:
-                t = bf16_round(torch.cat([t, t0], dim=-1) * SKIP_SCALE)
-        w = bf16_round(weights[l])
-        z = h @ w + biases[l].float()
-        u = None if t is None else t @ w
-        if l < n_layers - 1:
-            h = bf16_round(f(z))
-            if t is not None:
-                t = bf16_round(u * df(z)[None])
-        else:
-            h, t = z, u
-    y = h.to(torch.bfloat16)
-    return y if t is None else (y, t.to(torch.bfloat16))
+    y [N, D_out] bf16, and for tangents [K, N, D_in] (K1t) also ty:
+    [K, N, D_out] bf16, or [N, K] f32 with tangent_out_channel."""
+    x0 = bf16_round(x.float())
+    if tangents is None:
+        return chain_forward(x0, weights, biases, skip, activation, beta)[0].to(torch.bfloat16)
+    z, u = tangent_forward(x0, bf16_round(tangents.float()), weights, biases, skip, activation,
+                           beta)
+    return z.to(torch.bfloat16), tangent_output(u, tangent_out_channel)
 
 
 def fused_chain_bwd_plain(
@@ -257,6 +294,86 @@ def fused_chain_bwd_plain(
     _, zs = chain_forward(x0, weights, biases, skip, activation, beta)
     gx, gws, gbs = reverse_sweep(x0, zs, bf16_round(gy.float()), weights, skip, activation, beta)
     return gx.to(torch.bfloat16), gws, gbs
+
+
+def tangent_backward(x0, t0, gh, gt, weights, biases, skip, activation, beta):
+    """The backward of the chain with K forward tangents (_bwd_kernel
+    :636-789) at its cast points: x0 [N, D_in] and t0 [K, N, D_in] as bf16
+    values, the last layer's cotangents gh [N, D_out] and gt [K, N, D_out]
+    (f32, as they enter the products rounded to bf16). Recomputes z and u
+    stored in bf16, then per layer gz = gh act'(z) + (sum_k gt_k u_k)
+    act''(z), gu = gt act'(z), gW = hin^T bf16(gz) + sum_k tin_k^T
+    bf16(gu_k), gb = sum gz, gh = bf16(gz) W^T, gt = bf16(gu) W^T. Returns
+    (gx0 [N, D_in] f32, gtx0 [K, N, D_in] f32, gW list, gb list)."""
+    f, df = act_pair(activation, beta)
+    ddf = ddf_of(activation, beta)
+    n_layers, d_in = len(weights), x0.shape[-1]
+    wb = [bf16_round(w.float()) for w in weights]
+    zs, us = [], []
+    h, t = x0, t0
+    for l in range(n_layers - 1):
+        h, t = layer_input(l, x0, h, skip), layer_input(l, t0, t, skip)
+        z = h @ wb[l] + biases[l].float()
+        zb, ub = bf16_round(z), bf16_round(t @ wb[l])
+        zs.append(zb)
+        us.append(ub)
+        h, t = bf16_round(f(z)), bf16_round(ub * df(zb))
+    gws: List[torch.Tensor] = [None] * n_layers
+    gbs: List[torch.Tensor] = [None] * n_layers
+    gx0, gtx0 = torch.zeros_like(x0), torch.zeros_like(t0)
+    for l in reversed(range(n_layers)):
+        gz, gu = gh, gt
+        if l < n_layers - 1:
+            d1 = df(zs[l])
+            gz, gu = gh * d1, gt * d1
+            if ddf is not None:
+                gz = gz + (gt * us[l]).sum(0) * ddf(zs[l])
+        if l == 0:
+            hin, tin = x0, t0
+        else:
+            hin = bf16_round(f(zs[l - 1]))
+            tin = bf16_round(us[l - 1] * df(zs[l - 1]))
+        hin, tin = layer_input(l, x0, hin, skip), layer_input(l, t0, tin, skip)
+        gzb, gub = bf16_round(gz), bf16_round(gu)
+        gws[l] = hin.T @ gzb + tin.reshape(-1, tin.shape[-1]).T @ gub.reshape(-1, gub.shape[-1])
+        gbs[l] = gz.sum(0)
+        ghp, gtp = gzb @ wb[l].T, gub @ wb[l].T
+        if l in skip:
+            hw = weights[l].shape[0] - d_in
+            gh, gt = ghp[:, :hw] * SKIP_SCALE, gtp[..., :hw] * SKIP_SCALE
+            gx0 = gx0 + ghp[:, hw:] * SKIP_SCALE
+            gtx0 = gtx0 + gtp[..., hw:] * SKIP_SCALE
+        else:
+            gh, gt = ghp, gtp
+    return gh + gx0, gt + gtx0, gws, gbs
+
+
+def last_tangent_cotangent(gty: torch.Tensor, channel: Optional[int], k: int, n: int,
+                      d_out: int) -> torch.Tensor:
+    """The last layer's tangent cotangent [K, N, D_out] f32 from ty's: with a
+    channel, gty [N, K] f32 scattered into column c (:697-712); without,
+    gty [K, N, D_out] rounded to bf16."""
+    if channel is None:
+        return bf16_round(gty.float())
+    gt = gty.new_zeros((k, n, d_out), dtype=torch.float32)
+    gt[:, :, channel] = gty.float().T
+    return gt
+
+
+def fused_chain_tangent_bwd_plain(x, tangents, gy, gty, weights, biases, *, skip=(),
+                                  activation="ReLU", beta=100.0, tangent_out_channel=None):
+    """Plain PyTorch version of K1t's backward (_bwd_kernel :607-792 with
+    n_tangents = K): x [N, D_in], tangents [K, N, D_in], gy [N, D_out]
+    (rounded to bf16), gty [N, K] f32 with tangent_out_channel or [K, N,
+    D_out] (rounded to bf16) without. Returns (gx [N, D_in] bf16, gtx [K, N,
+    D_in] bf16, gW list f32, gb list f32)."""
+    skip = tuple(sorted(skip))
+    k, n = tangents.shape[0], x.shape[0]
+    gt = last_tangent_cotangent(gty, tangent_out_channel, k, n, weights[-1].shape[1])
+    gx, gtx, gws, gbs = tangent_backward(bf16_round(x.float()), bf16_round(tangents.float()),
+                                         bf16_round(gy.float()), gt, weights, biases, skip,
+                                         activation, beta)
+    return gx.to(torch.bfloat16), gtx.to(torch.bfloat16), gws, gbs
 
 
 def rup16(n: int) -> int:
@@ -398,12 +515,101 @@ def _launch_bwd(x, gy, weights, biases, skip, activation, beta):
     return gx, gws, gbs
 
 
+def _check_tangents(tangents: torch.Tensor, x: torch.Tensor) -> int:
+    k = tangents.shape[0]
+    if not 1 <= k <= MAX_TANGENTS or tuple(tangents.shape[1:]) != tuple(x.shape):
+        raise ValueError(f"fused_chain: tangents {tuple(tangents.shape)} do not fit x "
+                         f"{tuple(x.shape)} (1 to {MAX_TANGENTS} tangents)")
+    return k
+
+
+def _launch_tangent_fwd(x, tx, weights, biases, skip, activation, beta, channel):
+    """K1t's forward kernel: (y [N, D_out] bf16, ty [N, K] f32 with a
+    channel or [K, N, D_out] bf16 without)."""
+    _check_card(x, activation, len(weights))
+    k = _check_tangents(tx, x)
+    n, d_in = x.shape
+    d_out = weights[-1].shape[1]
+    in_dims, out_dims, p0, hidden = chain_geometry(d_in, weights, skip)
+    wpack, bpack = pack_chain(weights, biases, in_dims, out_dims, hidden, skip)
+    xb, txb = x.to(torch.bfloat16).contiguous(), tx.to(torch.bfloat16).contiguous()
+    y = torch.empty((n, d_out), dtype=torch.bfloat16, device=x.device)
+    if channel is None:
+        ty = torch.empty((k, n, d_out), dtype=torch.bfloat16, device=x.device)
+    else:
+        ty = torch.empty((n, k), dtype=torch.float32, device=x.device)
+    if n:
+        fn = build.function(
+            "fused_mlp", "mms_chain_tangent_fwd", "ptr", "ptr", "int", "int", "ptr", "ptr",
+            "int", "int", "ptr", "ptr", "int", "int", "int", "int", "float", "int", "ptr", "int",
+            "ptr", "ptr",
+        )
+        status = fn(
+            build.ptr(xb), build.ptr(txb), d_in, k, build.ptr(wpack), build.ptr(bpack), n,
+            len(weights), build.int_array(in_dims), build.int_array(out_dims),
+            sum(1 << l for l in skip), hidden, p0, ACTIVATIONS[activation], 2.0 / beta,
+            -1 if channel is None else channel, build.ptr(y), d_out, build.ptr(ty),
+            build.stream_of(x),
+        )
+        build.check(status, "fused_chain with tangents")
+        TANGENT_KERNEL.launches += 1
+    return y, ty
+
+
+def _launch_tangent_bwd(x, tx, gy, gty, weights, biases, skip, activation, beta, channel):
+    """K1t's backward kernel: (gx bf16, gtx bf16, gW list f32, gb list f32)."""
+    _check_card(x, activation, len(weights))
+    k = _check_tangents(tx, x)
+    if 0 in skip:
+        raise ValueError("fused_chain: layer 0 cannot be a skip layer")
+    n, d_in = x.shape
+    d_out = weights[-1].shape[1]
+    in_dims, out_dims, p0, hidden = chain_geometry(d_in, weights, skip)
+    wpack, bpack = pack_chain(weights, biases, in_dims, out_dims, hidden, skip)
+    xb, txb = x.to(torch.bfloat16).contiguous(), tx.to(torch.bfloat16).contiguous()
+    gyb = gy.to(torch.bfloat16).contiguous()
+    gtyc = (gty.to(torch.bfloat16) if channel is None else gty.float()).contiguous()
+    gx = torch.empty((n, d_in), dtype=torch.bfloat16, device=x.device)
+    gtx = torch.empty((k, n, d_in), dtype=torch.bfloat16, device=x.device)
+    gw = torch.zeros(sum(a * b for a, b in zip(in_dims, out_dims)), device=x.device)
+    gb = torch.zeros(sum(out_dims), device=x.device)
+    if n:
+        scratch, ctas = build.persistent_scratch(
+            "fused_mlp", "mms_fused_chain_bwd_slab", (len(weights), hidden, p0), x.device, n)
+        fn = build.function(
+            "fused_mlp", "mms_chain_tangent_bwd", "ptr", "ptr", "int", "int", "ptr", "ptr", "int",
+            "ptr", "ptr", "ptr", "ptr", "ptr", "ptr", "int", "int", "int", "ptr", "ptr", "int",
+            "int", "int", "int", "float", "ptr", "int", "ptr",
+        )
+        status = fn(
+            build.ptr(xb), build.ptr(txb), d_in, k, build.ptr(gyb), build.ptr(gtyc),
+            -1 if channel is None else channel, build.ptr(wpack), build.ptr(bpack),
+            build.ptr(gx), build.ptr(gtx), build.ptr(gw), build.ptr(gb), d_out, n, len(weights),
+            build.int_array(in_dims), build.int_array(out_dims), sum(1 << l for l in skip),
+            hidden, p0, ACTIVATIONS[activation], 2.0 / beta, build.ptr(scratch), ctas,
+            build.stream_of(x),
+        )
+        build.check(status, "fused_chain with tangents, backward")
+        TANGENT_BWD_KERNEL.launches += 1
+    gws, gbs = unpack_grads(gw, gb, weights, in_dims, out_dims, hidden, skip)
+    return gx, gtx, gws, gbs
+
+
 def _forward(x, weights, biases, skip, activation, beta):
     """The forward without tangents: the plain version for a CPU tensor,
     the kernel for any other (which raises off a card)."""
     if x.device.type == "cpu":
         return fused_chain_plain(x, weights, biases, skip=skip, activation=activation, beta=beta)
     return _launch_fwd(x, weights, biases, skip, activation, beta)
+
+
+def _forward_tangents(x, tx, weights, biases, skip, activation, beta, channel):
+    """The forward with tangents: the plain version for a CPU tensor, the
+    kernel for any other (which raises off a card)."""
+    if x.device.type == "cpu":
+        return fused_chain_plain(x, weights, biases, skip=skip, activation=activation, beta=beta,
+                                 tangents=tx, tangent_out_channel=channel)
+    return _launch_tangent_fwd(x, tx, weights, biases, skip, activation, beta, channel)
 
 
 class _FusedChain(torch.autograd.Function):
@@ -433,6 +639,36 @@ class _FusedChain(torch.autograd.Function):
         return (None, gx.to(x.dtype), *gws, *gbs)
 
 
+class _FusedChainTangents(torch.autograd.Function):
+    """K1t with its backward: saves x, the tangents and the parameters
+    (chain_fwd :901-902) and recomputes the forward in the backward."""
+
+    @staticmethod
+    def forward(ctx, cfg, x, tx, *params):
+        n_layers = len(params) // 2
+        ctx.cfg = cfg
+        ctx.save_for_backward(x, tx, *params)
+        return _forward_tangents(x, tx, params[:n_layers], params[n_layers:], *cfg)
+
+    @staticmethod
+    def backward(ctx, gy, gty):
+        skip, activation, beta, channel = ctx.cfg
+        x, tx, *params = ctx.saved_tensors
+        n_layers = len(params) // 2
+        ws, bs = params[:n_layers], params[n_layers:]
+        # chain_bwd :904-916: gy in bf16, gty f32 with a channel, else bf16
+        gy = gy.to(torch.bfloat16)
+        gty = gty.float() if channel is not None else gty.to(torch.bfloat16)
+        if x.device.type == "cpu":
+            gx, gtx, gws, gbs = fused_chain_tangent_bwd_plain(
+                x, tx, gy, gty, ws, bs, skip=skip, activation=activation, beta=beta,
+                tangent_out_channel=channel)
+        else:
+            gx, gtx, gws, gbs = _launch_tangent_bwd(x, tx, gy, gty, ws, bs, skip, activation,
+                                                    beta, channel)
+        return (None, gx.to(x.dtype), gtx.to(tx.dtype), *gws, *gbs)
+
+
 def fused_chain(
     x: torch.Tensor,
     weights: Sequence[torch.Tensor],
@@ -442,19 +678,23 @@ def fused_chain(
     activation: str = "ReLU",
     beta: float = 100.0,
     tangents: Optional[torch.Tensor] = None,
+    tangent_out_channel: Optional[int] = None,
 ):
     """Run the fused dense chain; y [N, D_out] bf16 before the output
-    activation. A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel (forward tangents raise there: their kernel belongs
-    to the mlp_raw_tpu slice). With grad enabled the chain is
-    differentiable through K1's backward."""
+    activation, and with tangents [K, N, D_in] also ty ([K, N, D_out] bf16,
+    or [N, K] f32 = d y_c / d t with tangent_out_channel=c). A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel. With grad
+    enabled the chain is differentiable through K1's (K1t's) backward."""
     skip = tuple(sorted(skip))
+    params = (*weights, *biases)
+    grad = torch.is_grad_enabled()
     if tangents is not None:
-        if x.device.type != "cpu":
-            raise NotImplementedError("fused_chain: forward tangents have no CUDA kernel yet")
-        return fused_chain_plain(
-            x, weights, biases, skip=skip, activation=activation, beta=beta, tangents=tangents
-        )
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *weights, *biases)):
-        return _FusedChain.apply((skip, activation, beta), x, *weights, *biases)
+        if tangent_out_channel is not None and not 0 <= tangent_out_channel < weights[-1].shape[1]:
+            raise ValueError(f"fused_chain: tangent channel {tangent_out_channel} out of range")
+        cfg = (skip, activation, beta, tangent_out_channel)
+        if grad and any(t.requires_grad for t in (x, tangents, *params)):
+            return _FusedChainTangents.apply(cfg, x, tangents, *params)
+        return _forward_tangents(x, tangents, weights, biases, *cfg)
+    if grad and any(t.requires_grad for t in (x, *params)):
+        return _FusedChain.apply((skip, activation, beta), x, *params)
     return _forward(x, weights, biases, skip, activation, beta)

@@ -43,8 +43,15 @@ e_l = bf16(m * s * act''(z)); the standard reverse sweep from the last
 layer's cotangent adds them; K4's d pos = J_enc^T (gh + gx0) + g3_k <adj,
 enc''_k>, K5's gx = bf16(gh + gx0).
 
-`mode="jvp"` (3 forward tangents through K1's tangent mode, :1209-1211)
-has no port yet and raises.
+`mode="jvp"` (K4j; fused_sdf_chain :1209-1211 through _build_chain with
+the encoding inside, bodies _fwd_kernel :265 and _bwd_kernel :607) gives
+the same outputs from the encoding, its 3 bf16 basis tangents (_enc_fwd
+:180-212) and 3 forward tangent chains: K1t's two kernels with the
+encoding front end (csrc/fused_mlp.cu), sdf the last layer's f32 column 0,
+grad column 0 of its three f32 tangents. Its backward ends in _enc_bwd
+(:215-239): d pos = J_enc^T gh0 + the tangent cotangents through the
+encoding's Hessian diagonal. MMS_SDF_CHAIN_MODE, read at call time as the
+reference reads it (:1177), overrides `mode`.
 
 Bound on an H100: forward, the primal chain and the adjoint sweep through
 the hidden layers and layer 0 (the last layer's adjoint product is a column
@@ -60,6 +67,7 @@ about 660 bytes).
 
 from __future__ import annotations
 
+import os
 from typing import Sequence, Tuple
 
 import torch
@@ -74,6 +82,8 @@ from multimodalstudio_tpu_torch.ops.kernels.fused_mlp import (
     ga_forward,
     pack_chain,
     reverse_sweep,
+    tangent_backward,
+    tangent_forward,
     unpack_grads,
 )
 from multimodalstudio_tpu_torch.ops.kernels.slot_fused import PEncoding, pe_scales
@@ -98,13 +108,20 @@ ADJ_BWD_KERNEL = build.register(
     source="multimodalstudio_tpu_torch/csrc/sdf_chain.cu",
     replaces="multimodalstudio_tpu/ops/pallas/fused_mlp.py:410",
 )
+JVP_KERNEL = build.register(
+    "fused_sdf_chain_jvp",
+    source="multimodalstudio_tpu_torch/csrc/fused_mlp.cu",
+    replaces="multimodalstudio_tpu/ops/pallas/fused_mlp.py:265",
+)
+JVP_BWD_KERNEL = build.register(
+    "fused_sdf_chain_jvp_bwd",
+    source="multimodalstudio_tpu_torch/csrc/fused_mlp.cu",
+    replaces="multimodalstudio_tpu/ops/pallas/fused_mlp.py:607",
+)
 
 
 def _check(weights, skip, activation, mode="adjoint"):
-    if mode != "adjoint":
-        if mode == "jvp":
-            raise NotImplementedError(
-                "fused_sdf_chain: jvp mode needs K1's forward-tangent mode, which has no port yet")
+    if mode not in ("adjoint", "jvp"):
         raise ValueError(f"unknown fused_sdf_chain mode {mode}")
     if activation not in ACTIVATIONS:
         raise ValueError(f"unsupported fused activation {activation}")
@@ -234,38 +251,120 @@ def _launch_bwd(positions, weights, biases, skip, activation, beta, pe, gsdf, gg
     return (d_pos, *unpack())
 
 
+# ---------------------------------------------------------------- K4j
+
+
+def fused_sdf_chain_jvp_plain(positions, weights, biases, *, num_frequencies, min_freq_exp,
+                              max_freq_exp, skip=(), activation="SoftplusQuad", beta=100.0):
+    """Plain PyTorch version of K4j's forward (_fwd_kernel :265-312 with the
+    encoding and 3 tangents): (sdf [N] f32, geo [N, D_out-1] bf16, grad [N,
+    3] f32)."""
+    skip = tuple(sorted(skip))
+    enc = PEncoding(positions.float(), pe_scales(num_frequencies, min_freq_exp, max_freq_exp))
+    z, u = tangent_forward(enc.x0, enc.basis_tangents(), weights, biases, skip, activation, beta)
+    return z[:, 0], z[:, 1:].to(torch.bfloat16), u[:, :, 0].T.contiguous()
+
+
+def fused_sdf_chain_jvp_bwd_plain(positions, weights, biases, gsdf, ggeo, g3, *,
+                                  num_frequencies, min_freq_exp, max_freq_exp, skip=(),
+                                  activation="SoftplusQuad", beta=100.0):
+    """Plain PyTorch version of K4j's backward (_bwd_kernel :607-792, its
+    split branch :678-696 and _enc_bwd :215-239): cotangents gsdf [N] f32,
+    ggeo [N, D_out-1] (rounded to bf16) and g3 [N, 3] f32 in; returns (d_pos
+    [N, 3] f32, gW list f32, gb list f32)."""
+    skip = tuple(sorted(skip))
+    enc = PEncoding(positions.float(), pe_scales(num_frequencies, min_freq_exp, max_freq_exp))
+    n, d_out = positions.shape[0], weights[-1].shape[1]
+    gh = torch.cat([gsdf.float()[:, None], bf16_round(ggeo.float())], dim=-1)
+    gt = gh.new_zeros((3, n, d_out))
+    gt[:, :, 0] = g3.float().T
+    ghx, gtx, gws, gbs = tangent_backward(enc.x0, enc.basis_tangents(), gh, gt, weights, biases,
+                                          skip, activation, beta)
+    hess = torch.stack([enc.hess(gtx[k])[:, k] for k in range(3)], dim=-1)
+    return enc.jt(ghx) + hess, gws, gbs
+
+
+def _launch_jvp_fwd(positions, weights, biases, skip, activation, beta, pe):
+    """K4j's forward kernel: (sdf, geo, grad)."""
+    ca = _k4_args(positions, weights, biases, skip, activation, beta, pe)
+    dev, n = positions.device, ca.n
+    geo_width = weights[-1].shape[1] - 1
+    sdf = torch.empty(n, dtype=torch.float32, device=dev)
+    geo = torch.empty((n, geo_width), dtype=torch.bfloat16, device=dev)
+    grad = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    if n:
+        fn = build.function("fused_mlp", "mms_sdf_chain_jvp_fwd", *_K4_TYPES, "ptr", "ptr", "int",
+                            "ptr", "ptr")
+        status = fn(*ca.args, build.ptr(sdf), build.ptr(geo), geo_width, build.ptr(grad),
+                    ca.stream)
+        build.check(status, "fused_sdf_chain (jvp mode)")
+        JVP_KERNEL.launches += 1
+    return sdf, geo, grad
+
+
+def _launch_jvp_bwd(positions, weights, biases, skip, activation, beta, pe, gsdf, ggeo, g3):
+    """K4j's backward kernel: (d_pos, gW list, gb list)."""
+    ca = _k4_args(positions, weights, biases, skip, activation, beta, pe)
+    d_pos = torch.empty((ca.n, 3), dtype=torch.float32, device=positions.device)
+    gw, gb, unpack = ca.grads(weights, skip)
+    if ca.n:
+        scratch, ctas = build.persistent_scratch(
+            "fused_mlp", "mms_fused_chain_bwd_slab",
+            (len(weights), ca.hidden, ca.in_dims[0]), positions.device, ca.n)
+        fn = build.function("fused_mlp", "mms_sdf_chain_jvp_bwd", *_K4_TYPES, "ptr", "ptr", "int",
+                            "ptr", "ptr", "ptr", "ptr", "ptr", "int", "ptr")
+        cot = (gsdf.float().contiguous(), ggeo.to(torch.bfloat16).contiguous(),
+               g3.float().contiguous())
+        status = fn(*ca.args, build.ptr(cot[0]), build.ptr(cot[1]), ggeo.shape[1],
+                    build.ptr(cot[2]), build.ptr(d_pos), build.ptr(gw), build.ptr(gb),
+                    build.ptr(scratch), ctas, ca.stream)
+        build.check(status, "fused_sdf_chain (jvp mode) backward")
+        JVP_BWD_KERNEL.launches += 1
+    return (d_pos, *unpack())
+
+
+# (plain forward, plain backward, forward kernel, backward kernel) per mode
+_ROUTES = {
+    "adjoint": (fused_sdf_chain_plain, fused_sdf_chain_bwd_plain, _launch_fwd, _launch_bwd),
+    "jvp": (fused_sdf_chain_jvp_plain, fused_sdf_chain_jvp_bwd_plain, _launch_jvp_fwd,
+            _launch_jvp_bwd),
+}
+
+
 class _SdfChain(torch.autograd.Function):
-    """K4 with its backward (chain_fwd / chain_bwd :1004-1022): saves the
-    positions and parameters only; the backward recomputes per tile."""
+    """K4 or K4j with its backward (chain_fwd / chain_bwd :901-916,
+    :1004-1022): saves the positions and parameters only; the backward
+    recomputes per tile."""
 
     @staticmethod
     def forward(ctx, cfg, positions, *params):
-        kw, pe = cfg
         ws, bs = params[: len(params) // 2], params[len(params) // 2 :]
         ctx.cfg = cfg
         ctx.save_for_backward(positions, *params)
-        return _forward(positions, ws, bs, kw, pe)
+        return _forward(positions, ws, bs, *cfg)
 
     @staticmethod
     def backward(ctx, gsdf, ggeo, g3):
-        kw, pe = ctx.cfg
+        kw, pe, mode = ctx.cfg
         positions, *params = ctx.saved_tensors
         ws, bs = params[: len(params) // 2], params[len(params) // 2 :]
-        ggeo = ggeo.to(torch.bfloat16)  # chain_bwd :1012
+        ggeo = ggeo.to(torch.bfloat16)  # chain_bwd :912, :1012
+        _, plain_bwd, _, launch_bwd = _ROUTES[mode]
         if positions.device.type == "cpu":
-            d_pos, gws, gbs = fused_sdf_chain_bwd_plain(positions, ws, bs, gsdf, ggeo, g3, **kw)
+            d_pos, gws, gbs = plain_bwd(positions, ws, bs, gsdf, ggeo, g3, **kw)
         else:
-            d_pos, gws, gbs = _launch_bwd(positions, ws, bs, kw["skip"], kw["activation"],
-                                          kw["beta"], pe, gsdf, ggeo, g3)
+            d_pos, gws, gbs = launch_bwd(positions, ws, bs, kw["skip"], kw["activation"],
+                                         kw["beta"], pe, gsdf, ggeo, g3)
         return (None, d_pos.to(positions.dtype), *gws, *gbs)
 
 
-def _forward(positions, weights, biases, kw, pe):
+def _forward(positions, weights, biases, kw, pe, mode):
     """The plain version for a CPU tensor, the kernel for any other (which
     raises off a card)."""
+    plain, _, launch, _ = _ROUTES[mode]
     if positions.device.type == "cpu":
-        return fused_sdf_chain_plain(positions, weights, biases, **kw)
-    return _launch_fwd(positions, weights, biases, kw["skip"], kw["activation"], kw["beta"], pe)
+        return plain(positions, weights, biases, **kw)
+    return launch(positions, weights, biases, kw["skip"], kw["activation"], kw["beta"], pe)
 
 
 def fused_sdf_chain(
@@ -283,21 +382,24 @@ def fused_sdf_chain(
     mode: str = "adjoint",
 ):
     """(sdf [N] f32, geo [N, D_out-1] bf16, grad [N, 3] f32 = d sdf / d
-    positions) at raw positions [N, 3] (K4). weights[l] [din_l, dout_l] are
-    the effective (weight-norm applied) matrices of a chain whose input is
-    the NeRF encoding with the raw input (3 + 6F columns). With grad
-    enabled, differentiable (second order through grad) in positions,
-    weights and biases through K4's backward."""
+    positions) at raw positions [N, 3]: K4 in adjoint mode, K4j in jvp mode
+    (MMS_SDF_CHAIN_MODE overrides `mode` at call time, as the reference
+    does at :1177). weights[l] [din_l, dout_l] are the effective
+    (weight-norm applied) matrices of a chain whose input is the NeRF
+    encoding with the raw input (3 + 6F columns). With grad enabled,
+    differentiable (second order through grad) in positions, weights and
+    biases through the mode's backward."""
+    mode = os.environ.get("MMS_SDF_CHAIN_MODE", mode)
     if tangent_out_channel != 0:
         raise ValueError("fused_sdf_chain: the sdf channel is column 0")
     skip = tuple(sorted(skip))
     _check(weights, skip, activation, mode)
     kw = dict(num_frequencies=num_frequencies, min_freq_exp=min_freq_exp,
               max_freq_exp=max_freq_exp, skip=skip, activation=activation, beta=beta)
-    pe = pe_scales(num_frequencies, min_freq_exp, max_freq_exp)
+    cfg = (kw, pe_scales(num_frequencies, min_freq_exp, max_freq_exp), mode)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (positions, *weights, *biases)):
-        return _SdfChain.apply((kw, pe), positions, *weights, *biases)
-    return _forward(positions, weights, biases, kw, pe)
+        return _SdfChain.apply(cfg, positions, *weights, *biases)
+    return _forward(positions, weights, biases, *cfg)
 
 
 # ---------------------------------------------------------------- K5

@@ -149,6 +149,18 @@ class PEncoding:
         return (gs * (-torch.sin(self.scaled) * s * s)
                 + gc * (-torch.cos(self.scaled) * s * s)).sum(-1)
 
+    def basis_tangents(self) -> torch.Tensor:
+        """The bf16 basis tangents t0 [3, N, 3+6F] (_enc_fwd :199-211): the
+        unit column of x_k, and cos(x_k s) s / -sin(x_k s) s in coordinate
+        k's sin / cos columns."""
+        n, f = self.scaled.shape[0], self.scale.shape[0]
+        eye = torch.eye(3, dtype=self.scaled.dtype, device=self.scaled.device)
+        mask = eye[:, None, :, None]  # [k, 1, d, 1]
+        dsin = bf16_round(torch.cos(self.scaled) * self.scale)[None] * mask
+        dcos = bf16_round(-torch.sin(self.scaled) * self.scale)[None] * mask
+        return torch.cat([eye[:, None, :].expand(3, n, 3), dsin.reshape(3, n, 3 * f),
+                          dcos.reshape(3, n, 3 * f)], dim=-1)
+
     def tangent_cotangent(self, g3: torch.Tensor) -> torch.Tensor:
         """sum_k g3_k bf16(t0_k) [N, 3+6F]: the cotangent g3 of d/dx carried
         onto the encoding through its bf16 basis tangents."""

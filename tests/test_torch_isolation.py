@@ -12,6 +12,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from multimodalstudio_tpu_torch.configs.config import load_config
 from multimodalstudio_tpu_torch.configs.methods import method_configs
 from multimodalstudio_tpu_torch.data.synthetic import make_synthetic_dataset
 from multimodalstudio_tpu_torch.engine.evaluator import Evaluator, RawEvaluator
@@ -168,3 +169,46 @@ def test_differentiable_kernels_and_backward_launchers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         slot_grid._launch_bwd(table, idx, w, dw, torch.empty(8, 4, device="meta"),
                               torch.empty(8, 12, device="meta"), 2, True)
+
+
+def test_contraction_path_raises_without_a_card(monkeypatch):
+    """mlp_raw_tpu with a scene contraction (the K1t route) through
+    load_config: the model refuses to start without a card unless asked
+    for the CPU, where its SDF gradients take the plain versions."""
+    cfg = load_config(method="mlp_raw_tpu",
+                      overrides={"model": {"surface": {"contraction_order": float("inf")}}})
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MMSModel(cfg.model)
+    assert MMSModel(cfg.model, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("requires_grad", [False, True])
+def test_tangent_kernels_refuse_other_devices(monkeypatch, requires_grad):
+    """K1t and K4j (fused_chain with tangents, fused_sdf_chain in jvp mode,
+    also through MMS_SDF_CHAIN_MODE) and their backward launchers take only
+    card tensors: nothing but a CPU tensor reaches a plain version."""
+    ws = [torch.empty(16, 16, device="meta", requires_grad=requires_grad),
+          torch.empty(16, 4, device="meta", requires_grad=requires_grad)]
+    bs = [torch.empty(16, device="meta", requires_grad=requires_grad),
+          torch.empty(4, device="meta", requires_grad=requires_grad)]
+    x, tx = torch.empty(8, 16, device="meta"), torch.empty(3, 8, 16, device="meta")
+    for channel in (0, None):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fused_mlp.fused_chain(x, ws, bs, tangents=tx, tangent_out_channel=channel)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_mlp._launch_tangent_bwd(x, tx, torch.empty(8, 4, device="meta"),
+                                      torch.empty(8, 3, device="meta"), ws, bs, (), "ReLU",
+                                      100.0, 0)
+    sws, sbs = _sdf_chain_params(requires_grad)
+    pos = torch.empty(8, 3, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        sdf_chain.fused_sdf_chain(pos, sws, sbs, mode="jvp", **SDF_KW)
+    monkeypatch.setenv("MMS_SDF_CHAIN_MODE", "jvp")
+    with pytest.raises(ValueError, match="unsupported device"):
+        sdf_chain.fused_sdf_chain(pos, sws, sbs, **SDF_KW)
+    with pytest.raises(ValueError, match="unsupported device"):
+        sdf_chain._launch_jvp_bwd(pos, sws, sbs, (1,), "SoftplusQuad", 100.0,
+                                  slot_fused.pe_scales(2, 0.0, 1.0),
+                                  torch.empty(8, device="meta"), torch.empty(8, 4, device="meta"),
+                                  torch.empty(8, 3, device="meta"))

@@ -17,18 +17,25 @@ port the plain versions of K1 and K4.
 Both round to bf16 at the same points; they differ by f32 summation order,
 which now and then flips the bf16 rounding of an activation, and down the
 chains and their backward such flips add up. Tolerances: eval outputs and
-the SDF route rel-L2 <= 1e-2, losses rel 1e-2, each gradient group rel-L2
-<= 3e-2 (as tests/test_torch_train.py holds grid_raw_tpu).
+the SDF route rel-L2 <= 1e-2, losses rel 1e-2.
 
-The camera-pose gradient of a 12-ray batch is ill-conditioned here: it
-sums per-sample position cotangents that carry the eikonal loss's second
-derivatives, and SoftplusQuad's act'' jumps from 0 to beta / 4 at |z| = 2 /
-beta, so a pre-activation that crosses that edge moves it in a step.
-Measured on the port alone for the batch drawn with seed 5: a relative
-perturbation of 1e-5 of every parameter moves the rgb camera-pose gradient
-by 18 % to 108 %, and JAX and the port differ there by 16 %. The batch is
-drawn with seed 7, where the two agree to 6.6e-3 on every camera-pose
-gradient.
+Some gradient groups of a 12-ray batch jump when a single bf16 rounding
+flips: the camera-pose gradient sums per-sample position cotangents that
+carry the eikonal loss's second derivatives, and SoftplusQuad's act''
+jumps from 0 to beta / 4 at |z| = 2 / beta, so a pre-activation that
+crosses that edge moves it in a step (on the batch drawn with seed 5 a
+relative move of 1e-5 of every parameter moved the rgb camera-pose
+gradient of the port by 18 % to 108 %). So each group is held to
+max(3e-2, 2 * noise), noise being the port's distance to itself with its
+parameters moved by 1e-6 in three draws, computed in the test
+(`assert_gradients_match`, which tests/test_torch_mlp_contraction.py and
+tests/test_torch_slot_composition.py share). Readings, JAX against the
+port (the noise), worst groups, over every batch seed tried:
+  5: the rgb poses 1.6e-1 (2.8e-1), the background density head 1.7e-2
+     (2.3e-2), every other group within 1.5e-2; losses within rel 4.5e-4;
+  7: every group within 9.4e-3 (the variance; its noise 1.9e-2), the rgb
+     poses 6.6e-3 (4.2e-1); losses within rel 2.3e-3.
+The batch is drawn with seed 5, the seed this test first took.
 """
 
 import dataclasses
@@ -57,6 +64,8 @@ from multimodalstudio_tpu_torch.convert import params_from_jax
 from multimodalstudio_tpu_torch.core.rays import RayBundle
 from multimodalstudio_tpu_torch.data.sampler import UniformPixelSampler
 from multimodalstudio_tpu_torch.data.synthetic import make_synthetic_dataset as tmake_dataset
+
+from test_torch_train import _groups
 
 torch.set_num_threads(1)
 
@@ -147,22 +156,26 @@ def _unflatten(flat):
     return tree
 
 
-@pytest.fixture(scope="module")
-def carried():
+def carry(jcfg, tcfg):
     """Both packages on the same parameters: the port's init as a JAX
     params tree (the dotted state-dict keys are the flax paths), moved by
     numpy noise, and loaded back through convert.params_from_jax."""
     jds = jmake_dataset(MODS, **DATA)
-    model = tmodel.MMSModel(TCFG.model, device="cpu").init(torch.Generator().manual_seed(0))
+    model = tmodel.MMSModel(tcfg.model, device="cpu").init(torch.Generator().manual_seed(0))
     tree = _unflatten({k: v.numpy() for k, v in model.state_dict().items()})
     num_cameras = {m: jds.data[m].cameras.camera_to_worlds.shape[0] for m in MODS}
     poses = {m: p.detach().numpy() for m, p in init_camera_poses(
-        TCFG.datamanager.camera_optimizer, MODS, num_cameras, device="cpu").items()}
+        tcfg.datamanager.camera_optimizer, MODS, num_cameras, device="cpu").items()}
     params = _perturbed({"model": tree, "camera_poses": poses})
     state = params_from_jax(jax.tree.map(np.asarray, params), model)
     model.load_state_dict(state["model"])
-    return dict(jm=jmodel.MMSModel(JCFG.model), params=params, jds=jds, model=model,
-                state=state)
+    return dict(jm=jmodel.MMSModel(jcfg.model), params=params, jds=jds, model=model,
+                state=state, jcfg=jcfg, tcfg=tcfg)
+
+
+@pytest.fixture(scope="module")
+def carried():
+    return carry(JCFG, TCFG)
 
 
 def test_convert_maps_the_deep_mlps(carried):
@@ -238,13 +251,17 @@ def test_sdf_gradients_take_k4_and_match_jax(carried):
         assert rel_l2(a.detach().float().numpy(), np.asarray(b, np.float32)) <= 1e-2, name
 
 
-@pytest.fixture(scope="module")
-def slice_run(carried):
-    """One batch through both packages' loss-and-gradient functions."""
+BATCH_SEED = 5  # the batch of the training tests (readings above)
+
+
+def batch_run(carried, seed):
+    """One batch, drawn with `seed`, through both packages' loss-and-gradient
+    functions, and the port's moved_runs."""
     jds, jm, model = carried["jds"], carried["jm"], carried["model"]
+    jcfg, tcfg = carried["jcfg"], carried["tcfg"]
     tds = tmake_dataset(MODS, **DATA, device="cpu")
-    state = ttrain.init_train_state(TCFG, model, carried["state"]["camera_poses"], step=STEP)
-    tbatch = UniformPixelSampler(tds, TCFG.datamanager.num_rays_per_modality, seed=7).sample()
+    state = ttrain.init_train_state(tcfg, model, carried["state"]["camera_poses"], step=STEP)
+    tbatch = UniformPixelSampler(tds, tcfg.datamanager.num_rays_per_modality, seed=seed).sample()
     jbatch = {m: JPixelBatch(
         camera_indices=jnp.asarray(b.camera_indices.numpy().astype(np.int32)),
         pixel_coords=jnp.asarray(b.pixel_coords.numpy()), pixels=jnp.asarray(b.pixels.numpy()),
@@ -252,12 +269,60 @@ def slice_run(carried):
     jcams = {m: jds.data[m].cameras for m in MODS}
     step = jnp.asarray(STEP)
     j = jtrain._batch_loss_and_grads(
-        JCFG, jm, jcams, None, carried["params"], jbatch, step, jtrain.make_schedules(JCFG, step),
+        jcfg, jm, jcams, None, carried["params"], jbatch, step, jtrain.make_schedules(jcfg, step),
         jax.random.key(1), jax.random.key(2))
     tcams = {m: tds.data[m].cameras for m in MODS}
-    t = ttrain.batch_loss_and_grads(TCFG, model, tcams, state.camera_poses, tbatch, STEP,
-                                    ttrain.make_schedules(TCFG, STEP))
-    return dict(j=j, t=t)
+
+    def port():
+        return ttrain.batch_loss_and_grads(tcfg, model, tcams, state.camera_poses, tbatch, STEP,
+                                           ttrain.make_schedules(tcfg, STEP))
+
+    return dict(j=j, t=port(), moved=moved_runs(model, port))
+
+
+@pytest.fixture(scope="module")
+def slice_run(carried):
+    return batch_run(carried, BATCH_SEED)
+
+
+def moved_runs(model, port, draws=3):
+    """The gradients of `port()` with every parameter of `model` moved by
+    1e-6 (relative), about as far as another f32 summation order moves a
+    bf16 rounding, in `draws` seeded draws; the parameters are restored."""
+    saved = {k: v.clone() for k, v in model.state_dict().items()}
+    moved = []
+    for draw in range(draws):
+        noise = torch.Generator().manual_seed(100 + draw)
+        model.load_state_dict({k: v * (1 + 1e-6 * torch.randn(v.shape, generator=noise))
+                               for k, v in saved.items()})
+        moved.append(port()[3])
+    model.load_state_dict(saved)
+    return moved
+
+
+def assert_gradients_match(jgrads, tgrads, moved, mods):
+    """Each gradient group of the fields and each modality's camera-pose
+    gradient within max(3e-2, twice the port's largest distance to itself
+    over the `moved` runs) of JAX's; returns the groups."""
+    jflat = _flatten(jgrads["model"])
+    assert set(jflat) == set(tgrads["fields"])
+
+    def check(name, got, ref, others):
+        assert np.linalg.norm(ref) > 0, name
+        noise = max(rel_l2(o, got) for o in others)
+        assert rel_l2(got, ref) <= max(3e-2, 2 * noise), (name, rel_l2(got, ref), noise)
+
+    def cat(fields, keys):
+        return np.concatenate([fields[k].numpy().ravel() for k in keys])
+
+    groups = _groups(jflat)
+    for name, keys in groups.items():
+        check(name, cat(tgrads["fields"], keys), np.concatenate([jflat[k].ravel() for k in keys]),
+              [cat(m["fields"], keys) for m in moved])
+    for mod in mods:
+        check(mod, tgrads["camera_poses"][mod].numpy(), np.asarray(jgrads["camera_poses"][mod]),
+              [m["camera_poses"][mod].numpy() for m in moved])
+    return groups
 
 
 def test_slice_losses_match_jax(slice_run):
@@ -275,23 +340,8 @@ def test_slice_losses_match_jax(slice_run):
 
 
 def test_slice_gradients_match_jax(slice_run):
-    jgrads, tgrads = slice_run["j"][3], slice_run["t"][3]
-    jflat = _flatten(jgrads["model"])
-    assert set(jflat) == set(tgrads["fields"])
-    groups = {}
-    for k in jflat:
-        parts = k.split(".")
-        g = "variance" if parts[0] == "variance" else ".".join(
-            p for p in parts[:-1] if not p.startswith("layer_"))
-        groups.setdefault(g, []).append(k)
+    """Each group within max(3e-2, twice the port's distance to itself with
+    its parameters moved by 1e-6)."""
+    groups = assert_gradients_match(slice_run["j"][3], slice_run["t"][3], slice_run["moved"], MODS)
     assert {"variance", "surface_field.field.mlp", "radiance_field.base_field.mlp",
             "heads.polarization.field", "background_field.base_field.mlp"} <= set(groups)
-    for name, keys in groups.items():
-        ref = np.concatenate([jflat[k].ravel() for k in keys])
-        got = np.concatenate([tgrads["fields"][k].numpy().ravel() for k in keys])
-        assert np.linalg.norm(ref) > 0, name
-        assert rel_l2(got, ref) <= 3e-2, (name, rel_l2(got, ref))
-    for mod in MODS:
-        ref = np.asarray(jgrads["camera_poses"][mod])
-        got = tgrads["camera_poses"][mod].numpy()
-        assert rel_l2(got, ref) <= 3e-2, (mod, rel_l2(got, ref))

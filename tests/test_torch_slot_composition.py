@@ -30,7 +30,8 @@ parameters moved by 1e-8 (relative) agrees to 1e-8, moved by 1e-7 it
 differs by 2.4e-2 on the polarization poses, and more rays per modality
 (16 to 256) do not bring that down. So each group
 is held to max(3e-2, 2 * noise), noise being the port's distance to itself
-with its parameters moved by 1e-6 in three draws, computed in the test.
+with its parameters moved by 1e-6 in three draws, computed in the test
+(tests/test_torch_mlp_raw.py's assert_gradients_match).
 Readings, JAX against the port (the noise), worst groups, over every
 (init, batch) seed pair tried:
   0/5: rgb heads 5.0e-2 (5.0e-2), background rgb heads 4.3e-2 (4.3e-2),
@@ -71,8 +72,8 @@ from multimodalstudio_tpu_torch.data.sampler import UniformPixelSampler
 from multimodalstudio_tpu_torch.data.synthetic import make_synthetic_dataset as tmake_dataset
 from multimodalstudio_tpu_torch.ops.kernels import build
 
-from test_torch_mlp_raw import _unflatten
-from test_torch_train import DATA, MODS, STEP, _flatten, _groups, _perturbed, rel_l2, tiny
+from test_torch_mlp_raw import _unflatten, assert_gradients_match, moved_runs
+from test_torch_train import DATA, MODS, STEP, _perturbed, rel_l2, tiny
 
 torch.set_num_threads(1)
 
@@ -211,19 +212,7 @@ def slice_run(carried):
         return ttrain.batch_loss_and_grads(TCFG, model, tcams, state.camera_poses, tbatch, STEP,
                                            ttrain.make_schedules(TCFG, STEP))
 
-    t = port()
-    # each group's conditioning: the port again with every parameter moved
-    # by 1e-6 (relative), about as far as another f32 summation order moves
-    # a bf16 rounding, three draws
-    saved = {k: v.clone() for k, v in model.state_dict().items()}
-    moved = []
-    for draw in range(3):
-        noise = torch.Generator().manual_seed(100 + draw)
-        model.load_state_dict({k: v * (1 + 1e-6 * torch.randn(v.shape, generator=noise))
-                               for k, v in saved.items()})
-        moved.append(port()[3])
-    model.load_state_dict(saved)
-    return dict(j=j, t=t, moved=moved)
+    return dict(j=j, t=port(), moved=moved_runs(model, port))
 
 
 def test_slice_losses_match_jax(slice_run):
@@ -243,25 +232,7 @@ def test_slice_losses_match_jax(slice_run):
 def test_slice_gradients_match_jax(slice_run):
     """Each group within max(3e-2, twice the port's distance to itself with
     its parameters moved by 1e-6)."""
-    jgrads, tgrads, moved = slice_run["j"][3], slice_run["t"][3], slice_run["moved"]
-    jflat = _flatten(jgrads["model"])
-    assert set(jflat) == set(tgrads["fields"])
-    groups = _groups(jflat)
+    groups = assert_gradients_match(slice_run["j"][3], slice_run["t"][3], slice_run["moved"], MODS)
     assert {"table", "variance", "surface_field.field.grid_mlp.mlp_head",
             "radiance_field.base_field.mlp", "heads.polarization.field",
             "background_field.base_field.mlp"} <= set(groups)
-
-    def check(name, got, ref, others):
-        assert np.linalg.norm(ref) > 0, name
-        noise = max(rel_l2(o, got) for o in others)
-        assert rel_l2(got, ref) <= max(3e-2, 2 * noise), (name, rel_l2(got, ref), noise)
-
-    def cat(fields, keys):
-        return np.concatenate([fields[k].numpy().ravel() for k in keys])
-
-    for name, keys in groups.items():
-        check(name, cat(tgrads["fields"], keys), np.concatenate([jflat[k].ravel() for k in keys]),
-              [cat(m["fields"], keys) for m in moved])
-    for mod in MODS:
-        check(mod, tgrads["camera_poses"][mod].numpy(), np.asarray(jgrads["camera_poses"][mod]),
-              [m["camera_poses"][mod].numpy() for m in moved])
