@@ -31,7 +31,7 @@ namespace wmma = nvcuda::wmma;
 constexpr int TILE_M = 64;    // samples per CTA
 constexpr int NWARPS = 8;
 constexpr int NTHREADS = NWARPS * 32;
-constexpr int MAXL = 8;       // max layers of a chain
+constexpr int MAXL = 32;      // max layers of a chain (build.py MAX_LAYERS)
 constexpr int PAD = 8;        // bf16 row padding of shared activation tiles
 
 enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_SOFTPLUS_QUAD = 2 };
@@ -65,6 +65,9 @@ __device__ __forceinline__ float bf(bf16 x) { return __bfloat162float(x); }
 
 constexpr float SKIP_SCALE = 0.70710678118654752f;  // 1 / sqrt(2)
 constexpr size_t MAX_SMEM = 232448;                 // per block on sm_90
+// Status of an entry point whose tile needs more shared memory than MAX_SMEM
+// (build.py check; -1: arguments the kernels do not take).
+constexpr int ERR_SMEM = -2;
 
 using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 

@@ -237,7 +237,7 @@ extern "C" int mms_fused_chain_bwd(const void* x, int d_in, const void* gy, cons
   const int lds = width + PAD;
   size_t smem = 2 * (size_t)TILE_M * lds * sizeof(bf16) + NWARPS * 256 * sizeof(float);
   if (skip_mask) smem += (size_t)TILE_M * p0 * sizeof(float);
-  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  if (smem > MAX_SMEM) return ERR_SMEM;
   cudaError_t err = cudaFuncSetAttribute(fused_chain_bwd_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -651,7 +651,7 @@ static int launch_tangent_fwd(const float* pos, const bf16* x, const bf16* tx, i
                               int b, int lds, int ldx0, const TanOut& O, void* stream) {
   const size_t smem = 2 * (size_t)TILE_M * lds * sizeof(bf16) + (size_t)TILE_M * ldx0 * sizeof(bf16) +
                       (size_t)b * C.hidden * sizeof(float) + NWARPS * 256 * sizeof(float);
-  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  if (smem > MAX_SMEM) return ERR_SMEM;
   cudaError_t err = cudaFuncSetAttribute(chain_tangent_fwd_kernel<ENC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -669,7 +669,8 @@ static int launch_tangent_bwd(const float* pos, const bf16* x, const bf16* tx, i
   const size_t smem = 2 * (size_t)TILE_M * lds * sizeof(bf16) +
                       (size_t)TILE_M * C.p0 * sizeof(float) + (size_t)b * C.hidden * sizeof(float) +
                       NWARPS * 256 * sizeof(float);
-  if (smem > MAX_SMEM || max_ctas < 1) return (int)cudaErrorInvalidValue;
+  if (max_ctas < 1) return -1;
+  if (smem > MAX_SMEM) return ERR_SMEM;
   cudaError_t err = cudaFuncSetAttribute(chain_tangent_bwd_kernel<ENC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

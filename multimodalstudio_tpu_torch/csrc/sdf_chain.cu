@@ -431,7 +431,8 @@ static size_t smem_bytes(int lds, int ldx0, int p0, int n_rows) {
 
 template <class Kernel, class... Args>
 static int launch(Kernel kernel, size_t smem, int n, int max_ctas, void* stream, Args... args) {
-  if (smem > MAX_SMEM || max_ctas < 1) return (int)cudaErrorInvalidValue;
+  if (max_ctas < 1) return -1;
+  if (smem > MAX_SMEM) return ERR_SMEM;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;

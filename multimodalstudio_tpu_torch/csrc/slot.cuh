@@ -7,7 +7,7 @@
 
 namespace mms {
 
-constexpr int MAXLV = 8;  // max grid levels
+constexpr int MAXLV = 32;  // max grid levels (build.py MAX_LEVELS)
 
 struct SlotParams {
   int levels;    // active levels K (<= the table's levels)
@@ -29,7 +29,7 @@ inline int fill_slot_params(SlotParams& P, int levels, int feats, int pk_shift, 
                             const int* dense, const int* ent_mask, const int* row_off,
                             float radius, float clip_hi, int smooth, int pe_freqs,
                             const float* pe_scale) {
-  if (levels < 1 || levels > MAXLV || pe_freqs < 1 || pe_freqs > MAXPE || feats > 16) return -1;
+  if (levels < 1 || levels > MAXLV || pe_freqs < 0 || pe_freqs > MAXPE || feats > 16) return -1;
   P.levels = levels;
   P.feats = feats;
   P.pk_shift = pk_shift;

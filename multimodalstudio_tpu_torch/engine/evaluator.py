@@ -11,6 +11,7 @@ regimes are not ported yet.
 
 from __future__ import annotations
 
+import os
 from typing import Dict
 
 import numpy as np
@@ -109,13 +110,19 @@ class Evaluator:
                 "ssim": float(masked_ssim(p, g, m))}
 
     def render_all_eval_views(self, state: TrainState) -> Dict[str, Dict[str, float]]:
-        """Render and score every eval view of every modality; per-modality
-        means."""
+        """Render and score the eval views of every modality; per-modality
+        means. MMS_EVAL_MAX_VIEWS = K > 0, read at call time, scores only the
+        first K views of each modality (unset or 0: every view), as the JAX
+        evaluator does."""
+        max_views = int(os.environ.get("MMS_EVAL_MAX_VIEWS", "0"))
         results: Dict[str, Dict[str, float]] = {}
         for mod in self.eval_dataset.modalities:
+            n_frames = self.eval_dataset.num_frames(mod)
+            if max_views > 0:
+                n_frames = min(n_frames, max_views)
             vals = [
                 self.view_metrics(self.render_view(state, self.eval_dataset, mod, fi), mod)
-                for fi in range(self.eval_dataset.num_frames(mod))
+                for fi in range(n_frames)
             ]
             results[mod] = {k: float(np.mean([v[k] for v in vals])) for k in vals[0]} if vals else {}
         return results

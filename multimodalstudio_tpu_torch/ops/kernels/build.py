@@ -3,8 +3,9 @@
 Each library under `csrc/` is one .cu source with a plain C interface
 (fused_mlp: K1 forward and backward, without and with forward tangents,
 and K4j, the tangent kernels with the encoding in front; slot_fused: K2/K3 forward;
-slot_fused_bwd: K2/K3 backward; sdf_chain: K4 and K5 forward and backward;
-slot_grid: K6 forward and backward),
+slot_fused_bwd: K2/K3 merged backward; slot_split: K2s/K3s per-sample passes
+and the table scatter of the split backward; sdf_chain: K4 and K5 forward and
+backward; slot_grid: K6 forward and backward),
 compiled by nvcc for sm_90a into `build/torch_kernels/` at the repository
 root and loaded with ctypes. The library name carries a hash of every file
 in `csrc/`, so an edited source rebuilds and a stale library is never
@@ -29,8 +30,11 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-LIBRARIES = ("fused_mlp", "slot_fused", "slot_fused_bwd", "sdf_chain", "slot_grid")
+LIBRARIES = ("fused_mlp", "slot_fused", "slot_fused_bwd", "slot_split", "sdf_chain", "slot_grid")
 TILE_M = 64  # samples per CTA tile of every kernel (csrc/chain.cuh)
+MAX_LAYERS = 32  # layers of a chain a kernel takes (csrc/chain.cuh MAXL)
+MAX_LEVELS = 32  # grid levels a slot kernel takes (csrc/slot.cuh MAXLV)
+ERR_SMEM = -2  # entry point status: the tile needs more shared memory than a CTA has
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # no multiply-add contraction: the kernels reproduce the reference's
@@ -162,10 +166,20 @@ def persistent_scratch(library: str, slab_fn: str, slab_args, dev: torch.device,
     return scratch, ctas
 
 
+def check_layers(n_layers: int, what: str) -> None:
+    """Raise for a chain deeper than the kernels' parameter structs hold."""
+    if n_layers > MAX_LAYERS:
+        raise ValueError(f"{what}: at most {MAX_LAYERS} layers (csrc/chain.cuh MAXL)")
+
+
 def check(status: int, what: str) -> None:
-    """Raise on a non-zero cudaError_t returned by a launch."""
+    """Raise on a non-zero status returned by a launch: a cudaError_t, or -1
+    (arguments the kernel does not take) or ERR_SMEM."""
+    if status == ERR_SMEM:
+        raise ValueError(f"{what}: the 64-sample tile's buffers need more than the 232,448 bytes "
+                         "of shared memory a CTA has (too wide a chain, or too many grid levels)")
     if status != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {status}")
+        raise RuntimeError(f"{what}: CUDA launch failed with status {status}")
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -169,14 +169,15 @@ def adjoint_sweep(x0, zs, weights, skip, activation, beta, channel=0):
     return adj, ss
 
 
-def ga_forward(ga, zs, ss, weights, skip, activation, beta, channel=0):
+def ga_forward(ga, zs, ss, weights, skip, activation, beta, channel=0, qs=None):
     """The forward chain of the adjoint's cotangent ga [N, D_in] f32 in a
     reverse-over-reverse backward (_bwd_adj_kernel :489-524): qin_0 = ga, ga
     re-injected at a skip like x0; v_l = s_l * act'(z_l) (e_c at the last
     layer); gW_l = bf16(qin_l)^T bf16(v_l); m = bf16(qin_l) W_l;
     e_l = bf16(m * s_l * act''(z_l)); q = m * act'(z_l). zs, ss: the bf16
     pre-activations and adjoint rows. Returns (gW list, the injections e_l
-    or None where act'' is 0)."""
+    or None where act'' is 0); a list `qs` receives bf16(q) of each hidden
+    layer (the split backward's q stack, slot_fused.py:895-896)."""
     _, df = act_pair(activation, beta)
     ddf = ddf_of(activation, beta)
     zs, ss = [z.float() for z in zs], [s.float() for s in ss]
@@ -195,16 +196,20 @@ def ga_forward(ga, zs, ss, weights, skip, activation, beta, channel=0):
             if ddf is not None:
                 inject.append(bf16_round(m * ss[l] * ddf(zs[l])))
             q = m * df(zs[l])
+            if qs is not None:
+                qs.append(bf16_round(q))
     return gws, (inject if ddf is not None else None)
 
 
-def reverse_sweep(x0, zs, gy, weights, skip, activation, beta, inject=None, gw_extra=None):
+def reverse_sweep(x0, zs, gy, weights, skip, activation, beta, inject=None, gw_extra=None,
+                  gzs=None):
     """The chain's reverse sweep from the last layer's cotangent gy (f32):
     gz_{L-1} = gy; gz_l = gh * act'(z_l) (+ inject[l]); gW_l = hin_l^T
     bf16(gz_l) (+ gw_extra[l]); gb_l = sum of the f32 gz_l; gh = bf16(gz_l)
     W_l^T, a skip layer's x0 part added to gx0. zs: the bf16 hidden
     pre-activations. Returns (cotangent of x0 [N, D_in] f32, gW list, gb
-    list)."""
+    list); a list `gzs` receives bf16(gz_l) of each hidden layer, first
+    layer first (the split backward's gz stack, slot_fused.py:910)."""
     f, df = act_pair(activation, beta)
     zs = [z.float() for z in zs]
     n_layers, d_in = len(weights), x0.shape[1]
@@ -216,6 +221,8 @@ def reverse_sweep(x0, zs, gy, weights, skip, activation, beta, inject=None, gw_e
         if inject is not None and l < n_layers - 1:
             gz = gz + inject[l]
         gzb = bf16_round(gz)
+        if gzs is not None and l < n_layers - 1:
+            gzs.insert(0, gzb)
         hin = layer_input(l, x0, x0 if l == 0 else bf16_round(f(zs[l - 1])), skip)
         gws[l] = hin.T @ gzb if gw_extra is None else gw_extra[l] + hin.T @ gzb
         gbs[l] = gz.sum(0)
@@ -451,8 +458,7 @@ def _check_card(x: torch.Tensor, activation: str, n_layers: int) -> None:
         raise ValueError(f"fused_chain: unsupported device {x.device}")
     if activation not in ACTIVATIONS:
         raise ValueError(f"unsupported fused activation {activation}")
-    if n_layers > 8:
-        raise ValueError("fused_chain: at most 8 layers")
+    build.check_layers(n_layers, "fused_chain")
 
 
 def _launch_fwd(x, weights, biases, skip, activation, beta):

@@ -173,8 +173,7 @@ class _CardArgs:
     def __init__(self, x, d_in, weights, biases, skip, activation, beta):
         if x.device.type != "cuda":
             raise ValueError(f"adjoint chain: unsupported device {x.device}")
-        if len(weights) > 8:
-            raise ValueError("adjoint chain: at most 8 layers")
+        build.check_layers(len(weights), "adjoint chain")
         self.n = x.shape[0]
         self.in_dims, self.out_dims, p0, self.hidden = chain_geometry(d_in, weights, skip)
         wpack, bpack = pack_chain(weights, biases, self.in_dims, self.out_dims, self.hidden, skip)

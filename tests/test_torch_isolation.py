@@ -171,6 +171,40 @@ def test_differentiable_kernels_and_backward_launchers_refuse_other_devices():
                               torch.empty(8, 12, device="meta"), 2, True)
 
 
+def test_split_launchers_refuse_other_devices(monkeypatch):
+    """The split backward's launchers (the per-sample passes and the table
+    scatter) take only card tensors, and under MMS_SLOT_BWD_SPLIT=1 the
+    differentiable wrappers still refuse other devices."""
+    monkeypatch.setenv("MMS_SLOT_BWD_SPLIT", "1")
+    ws = [torch.empty(16, 16, device="meta", requires_grad=True),
+          torch.empty(16, 4, device="meta", requires_grad=True)]
+    bs = [torch.empty(16, device="meta", requires_grad=True),
+          torch.empty(4, device="meta", requires_grad=True)]
+    spec = slot_grid.SlotGridSpec(num_levels=2, min_res=4, max_res=8, rows_per_level=64,
+                                  layout="cell", feats=2, table_dtype="bf16")
+    pos = torch.empty(8, 3, device="meta", requires_grad=True)
+    table = torch.empty(spec.total_rows, 128, device="meta")
+    kw = dict(radius=1.0, num_frequencies=2, min_freq_exp=0.0, max_freq_exp=1.0)
+    for fn in (slot_fused.fused_slot_sdf_value, slot_fused.fused_slot_sdf_chain):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(pos, table, ws, bs, spec, **kw)
+    pe = slot_fused.pe_scales(2, 0.0, 1.0)
+    mask = torch.ones(4, device="meta")
+    z = torch.empty(1, 8, 16, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        slot_fused._launch_value_bwd_sample(pos, table, ws, bs, spec, 2, 1.0, pe, "ReLU", 100.0,
+                                            mask, z, torch.empty(8, device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        slot_fused._launch_chain_bwd_sample(pos, table, ws, bs, spec, 1.0, pe, "ReLU", 100.0,
+                                            mask, z, z, torch.empty(8, 19, device="meta"),
+                                            torch.empty(8, device="meta"),
+                                            torch.empty(8, 3, device="meta"),
+                                            torch.empty(8, 3, device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        slot_fused._launch_table_scatter(pos, torch.empty(8, 2, 16, dtype=torch.bfloat16,
+                                                          device="meta"), spec, 1.0)
+
+
 def test_contraction_path_raises_without_a_card(monkeypatch):
     """mlp_raw_tpu with a scene contraction (the K1t route) through
     load_config: the model refuses to start without a card unless asked

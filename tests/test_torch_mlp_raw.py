@@ -269,8 +269,8 @@ def batch_run(carried, seed):
     jcams = {m: jds.data[m].cameras for m in MODS}
     step = jnp.asarray(STEP)
     j = jtrain._batch_loss_and_grads(
-        jcfg, jm, jcams, None, carried["params"], jbatch, step, jtrain.make_schedules(jcfg, step),
-        jax.random.key(1), jax.random.key(2))
+        jcfg, jm, jcams, jcfg.model.surface.surface_field.field.grid, carried["params"], jbatch,
+        step, jtrain.make_schedules(jcfg, step), jax.random.key(1), jax.random.key(2))
     tcams = {m: tds.data[m].cameras for m in MODS}
 
     def port():

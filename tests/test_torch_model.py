@@ -185,3 +185,31 @@ def test_raw_evaluator_matches_jax(carried):
         assert set(tm_) == set(jm_)
         for key in jm_:
             assert abs(tm_[key] - jm_[key]) <= 1e-3 * max(1.0, abs(jm_[key])), (mod, key)
+
+
+@pytest.mark.parametrize("max_views", [None, "2"])
+def test_eval_max_views_matches_jax(carried, monkeypatch, max_views):
+    """MMS_EVAL_MAX_VIEWS = K scores the first K eval views of each modality
+    in both evaluators (unset: every view). render_view and view_metrics are
+    stubbed to record the views scored, so the test holds the evaluators'
+    view loops, not the renders (test_raw_evaluator_matches_jax holds those)."""
+    _, model, state = carried
+    if max_views is None:
+        monkeypatch.delenv("MMS_EVAL_MAX_VIEWS", raising=False)
+    else:
+        monkeypatch.setenv("MMS_EVAL_MAX_VIEWS", max_views)
+    kw = dict(num_views=4, height=8, width=8, raw=True)
+    jds = jmake_dataset(MODS, **kw)
+    tds = tmake_dataset(MODS, **kw, device="cpu")
+    scored = {}
+    for name, ev in (("jax", jevaluator.RawEvaluator(JCFG, jmodel.MMSModel(JCFG.model), jds, jds)),
+                     ("port", tevaluator.RawEvaluator(TCFG, model, tds, tds, device="cpu"))):
+        seen = scored.setdefault(name, [])
+        monkeypatch.setattr(ev, "render_view",
+                            lambda st, ds, mod, fi, seen=seen: seen.append((mod, fi)) or (mod, fi))
+        monkeypatch.setattr(ev, "view_metrics",
+                            lambda frames, mod: {"psnr": float(frames[1]), "ssim": 1.0})
+        scored[name + " results"] = ev.render_all_eval_views(state)
+    views = jds.num_frames(MODS[0]) if max_views is None else int(max_views)
+    assert scored["port"] == scored["jax"] == [(m, fi) for m in MODS for fi in range(views)]
+    assert scored["port results"] == scored["jax results"]

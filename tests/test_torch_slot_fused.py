@@ -200,21 +200,26 @@ def test_chain_backward_matches_jax_grad(activation, active):
 
 def test_plain_backwards_take_the_forward_residuals():
     """The residuals the training forward keeps have the layout the CUDA
-    kernels read: zs and ss [L-1, N, H] bf16, adj [N, D_in] f32."""
+    kernels read: zs and ss [L-1, N, H] bf16, adj [N, D_in] f32, and the
+    split backward's chain input x0 [N, D_in] bf16."""
     pos, table, ws, bs = inputs(5)
     t = both(pos, table, ws, bs)[1]
     pe = tsf.pe_scales(PE["num_frequencies"], PE["min_freq_exp"], PE["max_freq_exp"])
     mask = torch.ones(6)
-    (_, _, _), (zs, ss, adj) = tsf._chain_fwd_plain(*t, TSPEC, R, pe, "SoftplusQuad", 100.0, mask)
-    _, vzs = tsf._value_fwd_plain(*t, TSPEC, 3, R, pe, "SoftplusQuad", 100.0, mask)
+    (_, _, _), (zs, ss, adj, x0) = tsf._chain_fwd_plain(*t, TSPEC, R, pe, "SoftplusQuad", 100.0,
+                                                        mask)
+    _, vzs, vx0 = tsf._value_fwd_plain(*t, TSPEC, 3, R, pe, "SoftplusQuad", 100.0, mask)
     n = pos.shape[0]
     assert zs.dtype == ss.dtype == vzs.dtype == torch.bfloat16
     assert tuple(zs.shape) == tuple(ss.shape) == tuple(vzs.shape) == (2, n, HID)
     assert adj.dtype == torch.float32 and tuple(adj.shape) == (n, 3 + 24 + JSPEC.out_dim)
     assert torch.equal(zs, vzs)
+    assert x0.dtype == torch.bfloat16 and tuple(x0.shape) == tuple(adj.shape)
+    assert torch.equal(x0, vx0)
 
 
-@pytest.mark.parametrize("launcher", ["value", "chain", "value_bwd", "chain_bwd"])
+@pytest.mark.parametrize("launcher", ["value", "chain", "value_bwd", "chain_bwd", "value_sample",
+                                      "chain_sample", "scatter"])
 def test_empty_batch_counts_no_launch(launcher, monkeypatch):
     """A launcher given no samples launches nothing, so its count stays."""
     monkeypatch.setattr(tsf.build, "stream_of", lambda t: None)  # no card here
@@ -232,6 +237,14 @@ def test_empty_batch_counts_no_launch(launcher, monkeypatch):
         "chain_bwd": (tsf.CHAIN_BWD_KERNEL, lambda: tsf._launch_chain_bwd(
             *t, TSPEC, R, pe, "SoftplusQuad", 100.0, mask, zs, zs, torch.zeros(0, 51),
             torch.zeros(0), torch.zeros(0, D_OUT - 1), torch.zeros(0, 3))),
+        "value_sample": (tsf.VALUE_SPLIT_KERNEL,
+                         lambda: tsf._launch_value_bwd_sample(*t, *rest, zs, torch.zeros(0))),
+        "chain_sample": (tsf.CHAIN_SPLIT_KERNEL, lambda: tsf._launch_chain_bwd_sample(
+            *t, TSPEC, R, pe, "SoftplusQuad", 100.0, mask, zs, zs, torch.zeros(0, 51),
+            torch.zeros(0), torch.zeros(0, D_OUT - 1), torch.zeros(0, 3))),
+        # the table gradient stays zero: no nonzero entries
+        "scatter": (tsf.SCATTER_KERNEL, lambda: (tsf._launch_table_scatter(
+            t[0], torch.zeros(0, 3, 16, dtype=torch.bfloat16), TSPEC, R).nonzero(),)),
     }
     info, call = calls[launcher]
     before = info.launches
