@@ -16,19 +16,28 @@
    chains) at the mlp_raw_tpu SDF chain's, and the split backward's
    kernels (K2s and K3s, the per-sample passes, and the table scatter) at
    grid_raw_tpu's, where the whole split backward is also held against the
-   merged backward kernels and timed beside them. Then checks the cases
-   those paths do not reach (ragged N, skip layers, ReLU, truncated and
-   masked grids, one or two tangents, the full tangent output, 10-layer
-   chains, 9 and 16 grid levels).
+   merged backward kernels and timed beside them; then the same slot
+   kernels with an f32 table (K2f, K3f, their merged and split backwards
+   and the f32 scatter) at the shapes of grid_raw_tpu with an f32 table
+   (6 levels of 512 entries, F = 16). Then checks the cases those paths
+   do not reach (ragged N, skip layers, ReLU, truncated and masked grids,
+   one or two tangents, the full tangent output, 10-layer chains, 9 and 16
+   grid levels, the slot kernels with a skip on either table and on a
+   10-layer chain whose stacks live in device scratch).
 3. For grid_raw_tpu, mlp_raw_tpu, grid_raw_tpu with
    model.surface.surface_field.use_position_encoding = False (through
    load_config's overrides: its SDF runs the slot-grid lookup K6 and the
    chain adjoint K5), mlp_raw_tpu with model.surface.contraction_order =
    inf (its render samples run K1t), mlp_raw_tpu with
-   MMS_SDF_CHAIN_MODE=jvp (K4j) and grid_raw_tpu with MMS_SLOT_BWD_SPLIT=1
-   (the split backward), at full width with seeded random weights
+   MMS_SDF_CHAIN_MODE=jvp (K4j), grid_raw_tpu with MMS_SLOT_BWD_SPLIT=1
+   (the split backward), and grid_raw_tpu with the slot grid of the
+   committed capacity_base6 checkpoint (rows_per_level = 512, feats = 16,
+   table_dtype = "f32" through load_config: K2f and K3f), merged and under
+   MMS_SLOT_BWD_SPLIT=1, at full width with seeded random weights
    on a raw 5-modality synthetic scene (256 x 256, 10 views):
-   renders one eval view of every modality through RawEvaluator, scores it,
+   renders one eval view of every modality through RawEvaluator (the f32
+   split label reports the f32 label's render: a render runs no backward),
+   scores it,
    checks that the render went through its forward kernels (exact launch
    counts) and renders one chunk again on the CPU through the plain
    versions; then trains at the bench geometry (2048 rays per modality in 4
@@ -160,12 +169,24 @@ def check_fused_chain(gen, dev):
 
 
 def slot_inputs(gen, dev, gspec):
+    """A table and the grid_raw_tpu SDF chain (3 + 36 PE columns and the
+    grid's -> 128 -> 128 -> 257) for gspec."""
     from multimodalstudio_tpu_torch.ops.kernels.slot_grid import make_table_init
 
     # the table init is uniform +-1e-4, which would hide gather faults: scale it up
     table = make_table_init(gspec)(gen) * 1e4
-    ws, bs = random_chain(gen, [(51, 128), (128, 128), (128, 257)], dev)
+    ws, bs = random_chain(gen, [(slot_d_in(gspec), 128), (128, 128), (128, 257)], dev)
     return table, ws, bs
+
+
+def slot_d_in(gspec):
+    """The slot chain's input width: 3 + 36 PE columns and the grid's."""
+    return 39 + gspec.out_dim
+
+
+def slot_tag(name, gspec):
+    """A slot kernel's label, "K2" or "K2f" (f32 table)."""
+    return name + ("f" if gspec.table_dtype == "f32" else "")
 
 
 SLOT_KW = dict(radius=1.0, num_frequencies=6, min_freq_exp=0.0, max_freq_exp=5.0,
@@ -173,7 +194,8 @@ SLOT_KW = dict(radius=1.0, num_frequencies=6, min_freq_exp=0.0, max_freq_exp=5.0
 
 
 def check_slot_value(gen, dev, gspec):
-    """K2 at one chunk's sampler queries: N=32768 then 3 x 8192, 4 levels."""
+    """K2 (K2f for an f32 table) at one chunk's sampler queries: N=32768
+    then 3 x 8192, 4 levels."""
     from multimodalstudio_tpu_torch.ops.kernels.slot_fused import (
         fused_slot_sdf_value,
         slot_sdf_value_plain,
@@ -192,20 +214,22 @@ def check_slot_value(gen, dev, gspec):
         torch.cuda.synchronize()
         err = float((sdf - ref).abs().max())
         rel = rel_l2(sdf, ref)
-        print(f"  K2 N={n}: rel_l2={rel:.3e} max_abs={err:.3e} (tolerance rel_l2 <= 1e-2)")
+        print(f"  {slot_tag('K2', gspec)} N={n}: rel_l2={rel:.3e} max_abs={err:.3e} "
+              "(tolerance rel_l2 <= 1e-2)")
         if not (rel <= 1e-2 and torch.isfinite(sdf).all()):
             fail("fused_slot_sdf_value disagrees with its plain version")
         tot["ms"] += count * time_ms(lambda: fused_slot_sdf_value(*args, **kw))
         tot["plain_ms"] += count * time_ms(lambda: slot_sdf_value_plain(*args, **kw))
         # sdf needs column 0 of the last layer only
-        tot["flops"] += count * 2.0 * n * (51 * 128 + 128 * 128 + 128 * 1)
+        tot["flops"] += count * 2.0 * n * (slot_d_in(gspec) * 128 + 128 * 128 + 128 * 1)
         tot["bytes"] += count * nbytes(pos, table, mask, ws, bs, sdf)
         tot["err"] = max(tot["err"], err)
     return tot
 
 
 def check_slot_chain(gen, dev, gspec):
-    """K3 at one chunk's render samples: N=65536, all 6 levels."""
+    """K3 (K3f for an f32 table) at one chunk's render samples: N=65536, all
+    6 levels."""
     from multimodalstudio_tpu_torch.ops.kernels.slot_fused import (
         fused_slot_sdf_chain,
         slot_sdf_chain_plain,
@@ -225,10 +249,12 @@ def check_slot_chain(gen, dev, gspec):
         rel = rel_l2(a.float(), b.float())
         e = float((a.float() - b.float()).abs().max())
         err = max(err, e)
-        print(f"  K3 {name}: rel_l2={rel:.3e} max_abs={e:.3e} (tolerance rel_l2 <= 1e-2)")
+        print(f"  {slot_tag('K3', gspec)} {name}: rel_l2={rel:.3e} max_abs={e:.3e} "
+              "(tolerance rel_l2 <= 1e-2)")
         if not (rel <= 1e-2 and torch.isfinite(a.float()).all()):
             fail(f"fused_slot_sdf_chain disagrees with its plain version on {name}")
-    flops = 2.0 * n * (51 * 128 + 128 * 128 + 128 * 257) + 2.0 * n * (128 * 128 + 128 * 51)
+    d_in = slot_d_in(gspec)
+    flops = 2.0 * n * (d_in * 128 + 128 * 128 + 128 * 257) + 2.0 * n * (128 * 128 + 128 * d_in)
     return dict(ms=time_ms(lambda: fused_slot_sdf_chain(*args, **kw)),
                 plain_ms=time_ms(lambda: slot_sdf_chain_plain(*args, **kw)),
                 flops=flops, bytes=nbytes(pos, table, mask, ws, bs, out), err=err)
@@ -321,11 +347,14 @@ def _compare_outputs(what, names, out, ref, tol=1e-2):
     return err
 
 
-def check_slot_value_bwd(gen, dev, gspec):
-    """K2's training forward and its backward at one training microbatch's
-    curvature taps: N=81920 (16 strided samples x 2 taps x 2560 rays), all 6
-    levels, 3 active. The forward's sdf and residual zs are held against the
-    plain forward's; each backward reads its own forward's residuals."""
+def check_slot_value_bwd(gen, dev, gspec, conditioned=False):
+    """K2's (K2f's) training forward and its backward at one training
+    microbatch's curvature taps: N=81920 (16 strided samples x 2 taps x
+    2560 rays), all 6 levels, 3 active. The forward's sdf and residual zs are
+    held against the plain forward's; each backward reads its own forward's
+    residuals. `conditioned`: the backward's limits follow the plain
+    version's spread (_plain_conditioning), as for the f32 table, whose
+    grid columns (F = 16) reach x0 through many bf16 roundings."""
     from multimodalstudio_tpu_torch.ops.kernels.slot_fused import (
         _launch,
         _launch_value_bwd,
@@ -334,6 +363,7 @@ def check_slot_value_bwd(gen, dev, gspec):
         slot_sdf_value_bwd_plain,
     )
 
+    what = slot_tag("K2", gspec)
     table, ws, bs = slot_inputs(gen, dev, gspec)
     n = 81920
     pos = torch.rand(n, 3, generator=gen, device=dev) * 2.2 - 1.1
@@ -342,16 +372,27 @@ def check_slot_value_bwd(gen, dev, gspec):
     fwd = (pos, table, ws, bs, gspec, gspec.num_levels, 1.0, pe, "SoftplusQuad", 100.0, mask)
     sdf, _, _, zs, _, _, _ = _launch(*fwd, False, resid=True)
     sdf_p, zs_p, _ = _value_fwd_plain(*fwd)
-    fwd_err = _compare_outputs(f"K2 training fwd N={n}", ("sdf", "zs"), (sdf, zs), (sdf_p, zs_p))
+    fwd_err = _compare_outputs(f"{what} training fwd N={n}", ("sdf", "zs"), (sdf, zs),
+                               (sdf_p, zs_p))
     gsdf = torch.randn(n, generator=gen, device=dev)
     args = (*fwd, zs, gsdf)
     plain_kw = dict(SLOT_KW, level_mask=mask)
+
+    def plain(b):
+        """The plain forward with biases b, then the plain backward."""
+        zs_b = _value_fwd_plain(pos, table, ws, b, *fwd[4:])[1]
+        return slot_sdf_value_bwd_plain(pos, table, ws, b, gspec, zs_b, gsdf, **plain_kw)
+
     out = _launch_value_bwd(*args)
     ref = slot_sdf_value_bwd_plain(pos, table, ws, bs, gspec, zs_p, gsdf, **plain_kw)
     torch.cuda.synchronize()
-    err = _compare_grads(f"K2 bwd N={n}", SLOT_GRADS, out, ref)
+    limits = 1e-2
+    if conditioned:
+        limits = _plain_conditioning(f"{what} bwd N={n}", SLOT_GRADS, plain, lambda b: (b,), bs,
+                                     {}, torch.Generator(device=dev).manual_seed(SEED), dev, ref)
+    err = _compare_grads(f"{what} bwd N={n}", SLOT_GRADS, out, ref, tol=limits)
     # the last layer's cotangent is sdf's column only
-    dims = [(51, 128), (128, 128), (128, 1)]
+    dims = [(slot_d_in(gspec), 128), (128, 128), (128, 1)]
     return dict(ms=time_ms(lambda: _launch_value_bwd(*args)),
                 plain_ms=time_ms(lambda: slot_sdf_value_bwd_plain(
                     pos, table, ws, bs, gspec, zs_p, gsdf, **plain_kw)),
@@ -360,12 +401,12 @@ def check_slot_value_bwd(gen, dev, gspec):
                 err=err, fwd_err=fwd_err)
 
 
-def check_slot_chain_bwd(gen, dev, gspec):
-    """K3's training forward and its backward at one training microbatch's
-    render samples: N=163840, all 6 levels, 3 active, cotangents on sdf, geo
-    and grad. The forward's sdf, geo, grad and residuals zs, ss and adj are
-    held against the plain forward's; each backward reads its own forward's
-    residuals."""
+def check_slot_chain_bwd(gen, dev, gspec, conditioned=False):
+    """K3's (K3f's) training forward and its backward at one training
+    microbatch's render samples: N=163840, all 6 levels, 3 active,
+    cotangents on sdf, geo and grad. The forward's sdf, geo, grad and
+    residuals zs, ss and adj are held against the plain forward's; each
+    backward reads its own forward's residuals. `conditioned` as for K2."""
     from multimodalstudio_tpu_torch.ops.kernels.slot_fused import (
         _chain_fwd_plain,
         _launch,
@@ -374,6 +415,7 @@ def check_slot_chain_bwd(gen, dev, gspec):
         slot_sdf_chain_bwd_plain,
     )
 
+    what = slot_tag("K3", gspec)
     table, ws, bs = slot_inputs(gen, dev, gspec)
     n = 163840
     pos = torch.rand(n, 3, generator=gen, device=dev) * 2.2 - 1.1
@@ -382,20 +424,32 @@ def check_slot_chain_bwd(gen, dev, gspec):
     fwd = (pos, table, ws, bs, gspec, 1.0, pe, "SoftplusQuad", 100.0, mask)
     out_k = _launch(*fwd[:5], gspec.num_levels, *fwd[5:], True, resid=True)
     outs_p, (zs_p, ss_p, adj_p, _) = _chain_fwd_plain(*fwd)
-    fwd_err = _compare_outputs(f"K3 training fwd N={n}", ("sdf", "geo", "grad", "zs", "ss", "adj"),
-                           out_k, (*outs_p, zs_p, ss_p, adj_p))
+    fwd_err = _compare_outputs(f"{what} training fwd N={n}",
+                               ("sdf", "geo", "grad", "zs", "ss", "adj"), out_k,
+                               (*outs_p, zs_p, ss_p, adj_p))
     zs, ss, adj = out_k[3:6]
     gsdf = torch.randn(n, generator=gen, device=dev)
     ggeo = (0.1 * torch.randn(n, 256, generator=gen, device=dev)).to(torch.bfloat16)
     g3 = torch.randn(n, 3, generator=gen, device=dev)
     args = (*fwd, zs, ss, adj, gsdf, ggeo, g3)
     plain_kw = dict(SLOT_KW, level_mask=mask)
+
+    def plain(b):
+        """The plain forward with biases b, then the plain backward."""
+        resid = _chain_fwd_plain(pos, table, ws, b, *fwd[4:])[1][:3]
+        return slot_sdf_chain_bwd_plain(pos, table, ws, b, gspec, *resid, gsdf, ggeo, g3,
+                                        **plain_kw)
+
     out = _launch_chain_bwd(*args)
     ref = slot_sdf_chain_bwd_plain(pos, table, ws, bs, gspec, zs_p, ss_p, adj_p, gsdf, ggeo, g3,
                                    **plain_kw)
     torch.cuda.synchronize()
-    err = _compare_grads(f"K3 bwd N={n}", SLOT_GRADS, out, ref)
-    hidden = [(51, 128), (128, 128)]
+    limits = 1e-2
+    if conditioned:
+        limits = _plain_conditioning(f"{what} bwd N={n}", SLOT_GRADS, plain, lambda b: (b,), bs,
+                                     {}, torch.Generator(device=dev).manual_seed(SEED), dev, ref)
+    err = _compare_grads(f"{what} bwd N={n}", SLOT_GRADS, out, ref, tol=limits)
+    hidden = [(slot_d_in(gspec), 128), (128, 128)]
     dims = hidden + [(128, 257)]
     # ga-forward (gW and mq of the hidden layers, the last layer's column
     # sums), then gW and gh of every layer
@@ -1336,7 +1390,9 @@ def _split_checks(what, names, sample, sample_plain, scatter_args, merged, whole
                    split[:2], ref[:2], tol=1e-5)
     _compare_grads(f"{what} whole split backward vs the merged backward kernel", SLOT_GRADS[2:],
                    split[2:], ref[2:], tol=2e-2)
+    # the merged backward adds each nonzero table cotangent value with one f32 atomic
     return dict(got=got, err=err, scatter_err=scatter_err, dcomp_values=d_comp.numel(),
+                atomics=int((d_comp != 0).sum()), dcomp_bytes=nbytes(d_comp),
                 ms=time_ms(sample), plain_ms=time_ms(sample_plain),
                 scatter_ms=time_ms(lambda: _launch_table_scatter(pos, d_comp, gspec, 1.0)),
                 scatter_plain_ms=time_ms(lambda: slot_table_scatter_plain(pos, d_comp, gspec,
@@ -1347,7 +1403,8 @@ def _split_checks(what, names, sample, sample_plain, scatter_args, merged, whole
 def check_slot_value_split(gen, dev, gspec):
     """K2s and the table scatter at one training microbatch's curvature taps
     (N=81920, all 6 levels, 3 active), with the products' and the whole
-    split backward's times beside the merged K2 backward's."""
+    split backward's times beside the merged K2 backward's (for an f32
+    table: K2f's, the cotangent f32)."""
     from multimodalstudio_tpu_torch.ops.kernels.slot_fused import (
         _launch_value_bwd,
         _launch_value_bwd_sample,
@@ -1366,11 +1423,13 @@ def check_slot_value_split(gen, dev, gspec):
     pe = pe_scales(6, 0.0, 5.0)
     fwd = (pos, table, ws, bs, gspec, k, 1.0, pe, "SoftplusQuad", 100.0, mask)
     (zs, _, _, x0), (zs_p, _), fwd_err = _split_forward(
-        "K2", fwd, (*fwd, False), lambda *a: (lambda s, z, x: (s, (z, x)))(*_value_fwd_plain(*a)))
+        slot_tag("K2", gspec), fwd, (*fwd, False),
+        lambda *a: (lambda s, z, x: (s, (z, x)))(*_value_fwd_plain(*a)))
     gsdf = torch.randn(n, generator=gen, device=dev)
     skw = dict(radius=1.0, pe=pe, activation="SoftplusQuad", beta=100.0, mask=mask, num_levels=k)
     r = _split_checks(
-        f"K2s N={n}", SPLIT_OUTPUTS["value"], lambda: _launch_value_bwd_sample(*fwd, zs, gsdf),
+        f"{slot_tag('K2', gspec)}s N={n}", SPLIT_OUTPUTS["value"],
+        lambda: _launch_value_bwd_sample(*fwd, zs, gsdf),
         lambda: slot_sdf_value_bwd_sample_plain(pos, table, ws, gspec, zs_p, gsdf, **skw),
         (pos, gspec), lambda: _launch_value_bwd(*fwd, zs, gsdf),
         lambda: _value_split_card(*fwd, zs, x0, gsdf))
@@ -1378,7 +1437,7 @@ def check_slot_value_split(gen, dev, gspec):
     r["products_ms"] = time_ms(lambda: split_weight_grads(ws, x0, zs, _value_gy(gsdf, ws), gzs,
                                                           "SoftplusQuad", 100.0))
     # the sweep's gh products (the last layer's sdf column only), no gW
-    r["flops"] = chain_flops(n, [(51, 128), (128, 128), (128, 1)])
+    r["flops"] = chain_flops(n, [(slot_d_in(gspec), 128), (128, 128), (128, 1)])
     r["bytes"] = nbytes(pos, table, mask, ws, bs, zs, gsdf, *r["got"])
     r["scatter_bytes"] = nbytes(pos, r["got"][1]) + 4 * gspec.total_rows * 128
     r["fwd_err"] = fwd_err
@@ -1389,7 +1448,7 @@ def check_slot_chain_split(gen, dev, gspec):
     """K3s and the table scatter at one training microbatch's render samples
     (N=163840, all 6 levels, 3 active, cotangents on sdf, geo and grad),
     with the products' and the whole split backward's times beside the
-    merged K3 backward's."""
+    merged K3 backward's (for an f32 table: K3f's, the cotangent f32)."""
     from multimodalstudio_tpu_torch.ops.kernels.slot_fused import (
         _chain_fwd_plain,
         _chain_gy,
@@ -1409,15 +1468,16 @@ def check_slot_chain_split(gen, dev, gspec):
     fwd = (pos, table, ws, bs, gspec, 1.0, pe, "SoftplusQuad", 100.0, mask)
     launch_args = (*fwd[:5], gspec.num_levels, *fwd[5:], True)
     (zs, ss, adj, x0), (zs_p, ss_p, adj_p, _), fwd_err = _split_forward(
-        "K3", fwd, launch_args, lambda *a: (lambda o, res: (o[0], res))(*_chain_fwd_plain(*a)))
+        slot_tag("K3", gspec), fwd, launch_args,
+        lambda *a: (lambda o, res: (o[0], res))(*_chain_fwd_plain(*a)))
     gsdf = torch.randn(n, generator=gen, device=dev)
     ggeo = (0.1 * torch.randn(n, 256, generator=gen, device=dev)).to(torch.bfloat16)
     g3 = torch.randn(n, 3, generator=gen, device=dev)
     skw = dict(radius=1.0, pe=pe, activation="SoftplusQuad", beta=100.0, mask=mask)
     cot = (gsdf, ggeo, g3)
     r = _split_checks(
-        f"K3s N={n}", SPLIT_OUTPUTS["chain"], lambda: _launch_chain_bwd_sample(*fwd, zs, ss, adj,
-                                                                              *cot),
+        f"{slot_tag('K3', gspec)}s N={n}", SPLIT_OUTPUTS["chain"],
+        lambda: _launch_chain_bwd_sample(*fwd, zs, ss, adj, *cot),
         lambda: _padded_ga(slot_sdf_chain_bwd_sample_plain(pos, table, ws, gspec, zs_p, ss_p,
                                                            adj_p, *cot, **skw)),
         (pos, gspec), lambda: _launch_chain_bwd(*fwd, zs, ss, adj, *cot),
@@ -1425,7 +1485,7 @@ def check_slot_chain_split(gen, dev, gspec):
     _, _, ga, qs, gzs = r["got"]
     r["products_ms"] = time_ms(lambda: split_weight_grads(
         ws, x0, zs, _chain_gy(gsdf, ggeo), gzs, "SoftplusQuad", 100.0, ss=ss, ga=ga, qs=qs))
-    hidden = [(51, 128), (128, 128)]
+    hidden = [(slot_d_in(gspec), 128), (128, 128)]
     # the ga-forward chain's products through the hidden layers and the
     # sweep's gh products of every layer; no gW
     r["flops"] = chain_flops(n, hidden) + chain_flops(n, hidden + [(128, 257)])
@@ -1435,20 +1495,24 @@ def check_slot_chain_split(gen, dev, gspec):
     return r
 
 
-def split_results(value, chain):
+def split_results(value, chain, f32=False):
     """The kernel-table entries of K2s, K3s and the scatter (its two launches
-    of a training microbatch summed); prints the split against the merged
-    backward."""
-    for name, r in (("K2", value), ("K3", chain)):
+    of a training microbatch summed), with `f32` those of the f32 table's
+    kernels; prints the split against the merged backward."""
+    sfx = "f" if f32 else ""
+    for name, r in ((f"K2{sfx}", value), (f"K3{sfx}", chain)):
         print(f"  {name} split backward per microbatch: per-sample kernel {r['ms']:.3f} ms, "
               f"scatter {r['scatter_ms']:.3f} ms, products {r['products_ms']:.3f} ms, whole "
-              f"{r['whole_ms']:.3f} ms; merged backward kernel {r['merged_ms']:.3f} ms")
+              f"{r['whole_ms']:.3f} ms; merged backward kernel {r['merged_ms']:.3f} ms; table "
+              f"cotangent {r['dcomp_bytes'] / 1e6:.1f} MB, {r['atomics']} nonzero values (the "
+              "merged backward's table atomics)")
     entries = {}
-    for name, r in (("fused_slot_sdf_value_bwd_sample", value),
-                    ("fused_slot_sdf_chain_bwd_sample", chain)):
+    sfx = "_f32" if f32 else ""
+    for name, r in ((f"fused_slot_sdf_value{sfx}_bwd_sample", value),
+                    (f"fused_slot_sdf_chain{sfx}_bwd_sample", chain)):
         entries[name] = dict(ms=r["ms"], plain_ms=r["plain_ms"], flops=r["flops"],
                              bytes=r["bytes"], err=r["err"])
-    entries["slot_table_scatter"] = dict(
+    entries[f"slot_table_scatter{sfx}"] = dict(
         ms=value["scatter_ms"] + chain["scatter_ms"],
         plain_ms=value["scatter_plain_ms"] + chain["scatter_plain_ms"],
         # one f32 add per cotangent value, outside the tensor cores
@@ -1635,6 +1699,100 @@ def check_slot_levels(gen, dev, gspec, n, hidden_layers=1) -> None:
                                                                *chain_resid(b), *cot, **skw)))
 
 
+def skip_chain(d_in, skip_layer, n_layers):
+    """A slot chain of n_layers (x0 -> 128 ... -> 257) whose layer
+    skip_layer takes [128 | x0]."""
+    return ([(d_in, 128)] + [(128 + d_in if l == skip_layer else 128, 128)
+                             for l in range(1, n_layers - 1)] + [(128, 257)])
+
+
+def check_skip_edges(gen, dev, gspecs) -> None:
+    """The slot kernels with a skip connection, which no registered method's
+    SDF has: for each table type of gspecs a 4-layer SoftplusQuad chain
+    (x0 -> 128 -> 128 -> [128 | x0] -> 128 -> 257, the skip at layer 2) at a
+    ragged N = 1000, then on the last gspec a 10-layer ReLU chain with the
+    skip at layer 4 at N = 40,000, whose residual stacks leave shared
+    memory for per-CTA scratch (ReLU: no act'' terms, so a fixed limit
+    holds at that depth); 4 of 6 levels active. K2 and K3 forward (training
+    mode), their merged backwards, K2s, K3s and the scatter against their
+    plain versions at 1e-2, and each whole split backward against the
+    merged backward kernel at the JAX test's limits (d_table and d_pos
+    1e-5, gW and gb 2e-2)."""
+    from multimodalstudio_tpu_torch.ops.kernels.slot_fused import (
+        _chain_fwd_plain,
+        _chain_split_card,
+        _launch,
+        _launch_chain_bwd,
+        _launch_chain_bwd_sample,
+        _launch_table_scatter,
+        _launch_value_bwd,
+        _launch_value_bwd_sample,
+        _value_fwd_plain,
+        _value_split_card,
+        pe_scales,
+        slot_sdf_chain_bwd_plain,
+        slot_sdf_chain_bwd_sample_plain,
+        slot_sdf_value_bwd_plain,
+        slot_sdf_value_bwd_sample_plain,
+        slot_table_scatter_plain,
+    )
+    from multimodalstudio_tpu_torch.ops.kernels.slot_grid import make_table_init
+
+    pe = pe_scales(6, 0.0, 5.0)
+    cases = ([(g, 1000, 2, 4, "SoftplusQuad") for g in gspecs]
+             + [(gspecs[-1], 40000, 4, 10, "ReLU")])
+    for gspec, n, skip_layer, n_layers, act in cases:
+        skip = (skip_layer,)
+        what = f"{n_layers} layers {act} skip={skip} {gspec.table_dtype} table N={n}"
+        table = make_table_init(gspec)(gen) * 1e4
+        ws, bs = random_chain(gen, skip_chain(slot_d_in(gspec), skip_layer, n_layers), dev)
+        pos = torch.rand(n, 3, generator=gen, device=dev) * 2.2 - 1.1
+        mask = (torch.arange(gspec.out_dim, device=dev) < 4 * gspec.feats).float()
+        k = gspec.num_levels
+        chain = (1.0, pe, act, 100.0, mask)
+        kw = dict(SLOT_KW, activation=act, level_mask=mask, skip=skip)
+        skw = dict(radius=1.0, pe=pe, activation=act, beta=100.0, mask=mask, skip=skip)
+        fwd = (pos, table, ws, bs, gspec, k, *chain)
+        sdf, _, _, zs, _, _, x0 = _launch(*fwd, False, resid=True, x0=True, skip=skip)
+        sdf_p, zs_p, _ = _value_fwd_plain(*fwd, skip)
+        _compare_outputs(f"K2 training fwd {what}", ("sdf", "zs"), (sdf, zs), (sdf_p, zs_p))
+        gsdf = torch.randn(n, generator=gen, device=dev)
+        merged = _launch_value_bwd(*fwd, zs, gsdf, skip)
+        _compare_grads(f"K2 bwd {what}", SLOT_GRADS, merged, slot_sdf_value_bwd_plain(
+            pos, table, ws, bs, gspec, zs_p, gsdf, **kw))
+        got = _launch_value_bwd_sample(*fwd, zs, gsdf, skip)
+        _compare_outputs(f"K2s {what}", SPLIT_OUTPUTS["value"], got,
+                         slot_sdf_value_bwd_sample_plain(pos, table, ws, gspec, zs_p, gsdf,
+                                                         num_levels=k, **skw))
+        _compare_outputs(f"table scatter {what}", ("d_table",),
+                         (_launch_table_scatter(pos, got[1], gspec, 1.0),),
+                         (slot_table_scatter_plain(pos, got[1], gspec, radius=1.0),))
+        split = _value_split_card(*fwd, zs, x0, gsdf, skip)
+        _compare_grads(f"K2 whole split backward vs merged {what}", SLOT_GRADS[:2], split[:2],
+                       merged[:2], tol=1e-5)
+        _compare_grads(f"K2 whole split backward vs merged {what}", SLOT_GRADS[2:], split[2:],
+                       merged[2:], tol=2e-2)
+        cfwd = (pos, table, ws, bs, gspec, *chain)
+        out_k = _launch(*fwd, True, resid=True, x0=True, skip=skip)
+        outs_p, (zs_p, ss_p, adj_p, _) = _chain_fwd_plain(*cfwd, skip)
+        _compare_outputs(f"K3 training fwd {what}", ("sdf", "geo", "grad", "zs", "ss", "adj"),
+                         out_k[:6], (*outs_p, zs_p, ss_p, adj_p))
+        cot = (gsdf, (0.1 * torch.randn(n, 256, generator=gen, device=dev)).to(torch.bfloat16),
+               torch.randn(n, 3, generator=gen, device=dev))
+        merged = _launch_chain_bwd(*cfwd, *out_k[3:6], *cot, skip)
+        _compare_grads(f"K3 bwd {what}", SLOT_GRADS, merged, slot_sdf_chain_bwd_plain(
+            pos, table, ws, bs, gspec, zs_p, ss_p, adj_p, *cot, **kw))
+        got = _launch_chain_bwd_sample(*cfwd, *out_k[3:6], *cot, skip)
+        _compare_outputs(f"K3s {what}", SPLIT_OUTPUTS["chain"], got, _padded_ga(
+            slot_sdf_chain_bwd_sample_plain(pos, table, ws, gspec, zs_p, ss_p, adj_p, *cot,
+                                            **skw)))
+        split = _chain_split_card(*cfwd, *out_k[3:7], *cot, skip)
+        _compare_grads(f"K3 whole split backward vs merged {what}", SLOT_GRADS[:2], split[:2],
+                       merged[:2], tol=1e-5)
+        _compare_grads(f"K3 whole split backward vs merged {what}", SLOT_GRADS[2:], split[2:],
+                       merged[2:], tol=2e-2)
+
+
 PER_CHUNK = {  # kernel launches of one 1024-ray eval chunk (derived in PERF.md)
     # trunk, polarization head, background x3; sampler x4; render samples
     "grid_raw_tpu": {"fused_chain": 5, "fused_slot_sdf_value": 4, "fused_slot_sdf_chain": 1},
@@ -1649,10 +1807,17 @@ PER_CHUNK = {  # kernel launches of one 1024-ray eval chunk (derived in PERF.md)
     # the split backward changes nothing a render runs
     "grid_raw_tpu with split backward": {"fused_chain": 5, "fused_slot_sdf_value": 4,
                                          "fused_slot_sdf_chain": 1},
+    # as grid_raw_tpu, through the f32 table's K2f and K3f
+    "grid_raw_tpu with f32 table": {"fused_chain": 5, "fused_slot_sdf_value_f32": 4,
+                                    "fused_slot_sdf_chain_f32": 1},
 }
 
 NO_PE = {"model": {"surface": {"surface_field": {"use_position_encoding": False}}}}
 CONTRACTION = {"model": {"surface": {"contraction_order": float("inf")}}}
+# the grid of two committed grid_raw_tpu checkpoints (capacity_base6, rehearsal_grid_dense,
+# config.yaml:64-72): 6 levels of 512 entries, F = 16, an f32 table
+F32_TABLE = {"model": {"surface": {"surface_field": {"field": {"grid": {"encoding": {
+    "rows_per_level": 512, "feats": 16, "table_dtype": "f32"}}}}}}}
 CONFIGS = {  # label: (registered method, load_config overrides, environment of its phases)
     "grid_raw_tpu": ("grid_raw_tpu", None, {}),
     "mlp_raw_tpu": ("mlp_raw_tpu", None, {}),
@@ -1660,7 +1825,13 @@ CONFIGS = {  # label: (registered method, load_config overrides, environment of 
     "mlp_raw_tpu with contraction": ("mlp_raw_tpu", CONTRACTION, {}),
     "mlp_raw_tpu in jvp mode": ("mlp_raw_tpu", None, {"MMS_SDF_CHAIN_MODE": "jvp"}),
     "grid_raw_tpu with split backward": ("grid_raw_tpu", None, {"MMS_SLOT_BWD_SPLIT": "1"}),
+    "grid_raw_tpu with f32 table": ("grid_raw_tpu", F32_TABLE, {}),
+    "grid_raw_tpu with f32 table and split backward": ("grid_raw_tpu", F32_TABLE,
+                                                       {"MMS_SLOT_BWD_SPLIT": "1"}),
 }
+# labels whose render is another label's (the split backward changes nothing a render
+# runs): their render phase is not repeated
+SAME_RENDER = {"grid_raw_tpu with f32 table and split backward": "grid_raw_tpu with f32 table"}
 
 
 def load(label):
@@ -1836,6 +2007,18 @@ PER_MICROBATCH = {  # kernel launches of one training microbatch (derived in PER
         "fused_slot_sdf_chain": 1, "fused_slot_sdf_chain_bwd_sample": 1,
         "slot_table_scatter": 2,
     },
+    # as grid_raw_tpu and its split, through the f32 table's kernels
+    "grid_raw_tpu with f32 table": {
+        "fused_chain": 5, "fused_chain_bwd": 5,
+        "fused_slot_sdf_value_f32": 5, "fused_slot_sdf_value_f32_bwd": 1,
+        "fused_slot_sdf_chain_f32": 1, "fused_slot_sdf_chain_f32_bwd": 1,
+    },
+    "grid_raw_tpu with f32 table and split backward": {
+        "fused_chain": 5, "fused_chain_bwd": 5,
+        "fused_slot_sdf_value_f32": 5, "fused_slot_sdf_value_f32_bwd_sample": 1,
+        "fused_slot_sdf_chain_f32": 1, "fused_slot_sdf_chain_f32_bwd_sample": 1,
+        "slot_table_scatter_f32": 2,
+    },
 }
 
 
@@ -1848,7 +2031,8 @@ PER_MICROBATCH = {  # kernel launches of one training microbatch (derived in PER
 # grid_raw_tpu's poses, keep 1e-1.
 POSE_TOL = {"grid_raw_tpu": 1e-1, "mlp_raw_tpu": 3e-1, "grid_raw_tpu without PE": 1e-1,
             "mlp_raw_tpu with contraction": 3e-1, "mlp_raw_tpu in jvp mode": 3e-1,
-            "grid_raw_tpu with split backward": 1e-1}
+            "grid_raw_tpu with split backward": 1e-1, "grid_raw_tpu with f32 table": 1e-1,
+            "grid_raw_tpu with f32 table and split backward": 1e-1}
 
 
 def _param_groups(named):
@@ -2110,11 +2294,39 @@ def main() -> None:
     results.update(split_results(*split))
     print("kernel checks deeper than the registered methods (10 layers; 9 and 16 grid levels):")
     phase("depth edge cases", check_depth_edges, gen, dev)
+    # the f32 table's phases draw from `gen` after every earlier phase
+    f32spec = SlotGridSpec(num_levels=6, min_res=16, max_res=512, rows_per_level=512,
+                           layout="cell", feats=16, table_dtype="f32")
+    print("kernel checks of K2f and K3f (grid_raw_tpu with f32 table; forward: per 1024-ray eval "
+          "chunk; backward: per 512-ray training microbatch):")
+    f32 = phase("K2f and K3f", lambda: {
+        "fused_slot_sdf_value_f32": check_slot_value(gen, dev, f32spec),
+        "fused_slot_sdf_chain_f32": check_slot_chain(gen, dev, f32spec),
+        "fused_slot_sdf_value_f32_bwd": check_slot_value_bwd(gen, dev, f32spec, conditioned=True),
+        "fused_slot_sdf_chain_f32_bwd": check_slot_chain_bwd(gen, dev, f32spec, conditioned=True),
+    })
+    for name in ("fused_slot_sdf_value_f32", "fused_slot_sdf_chain_f32"):
+        f32[name]["err"] = max(f32[name]["err"], f32[name + "_bwd"].pop("fwd_err"))
+    results.update(f32)
+    print("kernel checks of K2fs, K3fs and the f32 table scatter (grid_raw_tpu with f32 table and "
+          "split backward; per 512-ray training microbatch):")
+    split = phase("K2fs, K3fs and the f32 scatter", lambda: (
+        check_slot_value_split(gen, dev, f32spec), check_slot_chain_split(gen, dev, f32spec)))
+    for name, r in zip(("fused_slot_sdf_value_f32", "fused_slot_sdf_chain_f32"), split):
+        results[name]["err"] = max(results[name]["err"], r["fwd_err"])
+    results.update(split_results(*split, f32=True))
+    print("kernel checks with a skip connection (bf16 and f32 tables; 10 layers with scratch "
+          "stacks):")
+    phase("skip edge cases", check_skip_edges, gen, dev, (gspec, f32spec))
     rays_per_s, train, launches = {}, {}, {}
     for method in CONFIGS:
         with config_env(method):
-            print(f"render ({method}):")
-            _, rays_per_s[method] = phase(f"render {method}", run_slice, dev, card, method)
+            if method in SAME_RENDER:
+                print(f"render ({method}): that of {SAME_RENDER[method]}")
+                rays_per_s[method] = rays_per_s[SAME_RENDER[method]]
+            else:
+                print(f"render ({method}):")
+                _, rays_per_s[method] = phase(f"render {method}", run_slice, dev, card, method)
             print(f"training ({method}):")
             train[method] = phase(f"training {method}", run_training, dev, card, method)
         for name, count in train[method]["launches"].items():  # each run counts from 0

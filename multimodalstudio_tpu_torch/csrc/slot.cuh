@@ -1,7 +1,20 @@
-// Shared pieces of the fused slot-grid kernels (slot_fused.cu, slot_fused_bwd.cu):
-// the grid and encoding constants, the cell geometry of one (sample, level), and
-// the front end that builds a tile's chain input x0 = [pos, sin, cos, grid, 0].
+// Shared pieces of the fused slot-grid kernels (slot_fused.cu, slot_fused_bwd.cu,
+// slot_split.cu): the grid and encoding constants, the cell geometry of one (sample,
+// level), and the front end that builds a tile's chain input x0 = [pos, sin, cos, grid, 0].
+//
+// The kernels take the table's element type TT as a template argument, and it sets the
+// grid side's cast points (grid_round). A bf16 table (TT = bf16) rounds as the reference's
+// single-bf16 dots do: table value and trilerp weight bf16, their product rounded to bf16
+// before the f32 sum, and so on. An f32 table (TT = float) keeps f32 throughout the grid
+// side, as the reference's bf16 hi+lo split dots reach f32 to about 2^-16
+// (slot_fused.py:368-369, SlotGeom.bf16 False); only the grid column of x0 is rounded to
+// bf16. A bf16 tile stages its cell entries in shared memory ([64, K, 8F], 8F values of
+// 2 bytes per (sample, level)); an f32 tile reads each entry from device memory where it
+// is used (the table, 1.57 MB at 6 levels x 512 rows of 128 f32, stays in L2), since its
+// staged entries would take 64 x 6 x 128 x 4 = 196,608 bytes of the 232,448 a CTA has.
 #pragma once
+
+#include <type_traits>
 
 #include "enc.cuh"
 
@@ -88,6 +101,29 @@ __device__ __forceinline__ unsigned cell_geom(const SlotParams& P, int l, const 
   return h & P.ent_mask[l];
 }
 
+// Whether a tile stages its cell entries in shared memory (bf16 tables only).
+template <class TT>
+constexpr bool kStaged = std::is_same<TT, bf16>::value;
+
+// Bytes of a tile's staged cell entries.
+inline size_t staged_bytes(int levels, int feats, int table_f32) {
+  return table_f32 ? 0 : (size_t)TILE_M * levels * 8 * feats * sizeof(bf16);
+}
+
+// A grid-side value as the table's type rounds it: to bf16 for a bf16 table, not at all
+// for an f32 one.
+template <class TT>
+__device__ __forceinline__ float grid_round(float x) {
+  if constexpr (kStaged<TT>) return round_bf16(x);
+  return x;
+}
+
+__device__ __forceinline__ float tval(bf16 x) { return bf(x); }
+__device__ __forceinline__ float tval(float x) { return x; }
+
+__device__ __forceinline__ void store_as(bf16* dst, float v) { *dst = __float2bfloat16(v); }
+__device__ __forceinline__ void store_as(float* dst, float v) { *dst = v; }
+
 // Offset of a cell entry's first value in the [rows, 128] table.
 __device__ __forceinline__ long long entry_offset(const SlotParams& P, int l, unsigned e) {
   const long long phys = P.row_off[l] + (long long)(e >> P.pk_shift);
@@ -95,9 +131,19 @@ __device__ __forceinline__ long long entry_offset(const SlotParams& P, int l, un
   return phys * 128 + grp * 8 * P.feats;
 }
 
-// bf16 trilerp weight of corner c (offset bits c = dx + 2 dy + 4 dz)
+// The 8F values of entry e of level l for row r of the tile: staged in sT (bf16), or in
+// the table itself (f32).
+template <class TT>
+__device__ __forceinline__ const TT* entry_values(const SlotParams& P, const TT* table,
+                                                  const bf16* sT, int r, int l, unsigned e) {
+  if constexpr (kStaged<TT>) return sT + (r * P.levels + l) * 8 * P.feats;
+  else return table + entry_offset(P, l, e);
+}
+
+// trilerp weight of corner c (offset bits c = dx + 2 dy + 4 dz), rounded by the table's type
+template <class TT>
 __device__ __forceinline__ float corner_weight(const float wa[3][2], int c) {
-  return round_bf16(wa[0][c & 1] * wa[1][(c >> 1) & 1] * wa[2][(c >> 2) & 1]);
+  return grid_round<TT>(wa[0][c & 1] * wa[1][(c >> 1) & 1] * wa[2][(c >> 2) & 1]);
 }
 
 // d w_c / d g_t = dwa_t * wa_u * wa_v (u, v the other axes in cyclic order)
@@ -112,15 +158,16 @@ __device__ __forceinline__ void load_pos(const float* pos, int n, long long row,
   for (int t = 0; t < 3; ++t) p[t] = row < n ? pos[row * 3 + t] : 0.f;
 }
 
-// The tile's chain input into buf [64, lds] bf16 (columns [0, p0)) and its
-// cell entries into sT [64, levels, 8F]. Grid part: one thread per (sample,
-// level) reads the entry as 16-byte loads; table and trilerp weight rounded
-// to bf16, their product rounded to bf16 before the 8-corner f32 sum, the sum
-// times the coarse-to-fine mask rounded to bf16. NeRF encoding [x, sin(x_d
-// 2^i), cos(x_d 2^i)] (d-major) with sinf / cosf; zeros past the active
-// levels. Ends with __syncthreads().
+// The tile's chain input into buf [64, lds] bf16 (columns [0, p0)), a bf16 table's cell
+// entries into sT [64, levels, 8F]. Grid part: one thread per (sample, level) reads the
+// entry (bf16: as 16-byte loads into sT); table value times trilerp weight, each and their
+// product rounded by the table's type (grid_round), summed over the 8 corners in f32, the
+// sum times the coarse-to-fine mask rounded to bf16. NeRF encoding [x, sin(x_d 2^i),
+// cos(x_d 2^i)] (d-major) with sinf / cosf; zeros past the active levels. Ends with
+// __syncthreads().
+template <class TT>
 __device__ __forceinline__ void slot_front(const SlotParams& P, int p0, const float* pos, int n,
-                                           long long row0, const bf16* table, const float* lmask,
+                                           long long row0, const TT* table, const float* lmask,
                                            bf16* buf, int lds, bf16* sT) {
   const int ew = 8 * P.feats;
   for (int i = threadIdx.x; i < TILE_M * P.levels; i += NTHREADS) {
@@ -129,17 +176,19 @@ __device__ __forceinline__ void slot_front(const SlotParams& P, int p0, const fl
     load_pos(pos, n, row0 + r, p);
     float wa[3][2], dwa[3][2], ddwa[3][2];
     const unsigned e = cell_geom(P, l, p, wa, dwa, ddwa);
-    const uint4* src = reinterpret_cast<const uint4*>(table + entry_offset(P, l, e));
-    uint4* dst = reinterpret_cast<uint4*>(sT + (r * P.levels + l) * ew);
-    for (int q = 0; q < ew / 8; ++q) dst[q] = src[q];
-    const bf16* T = sT + (r * P.levels + l) * ew;
+    if constexpr (kStaged<TT>) {
+      const uint4* src = reinterpret_cast<const uint4*>(table + entry_offset(P, l, e));
+      uint4* dst = reinterpret_cast<uint4*>(sT + (r * P.levels + l) * ew);
+      for (int q = 0; q < ew / 8; ++q) dst[q] = src[q];
+    }
+    const TT* T = entry_values<TT>(P, table, sT, r, l, e);
     float wb[8];
 #pragma unroll
-    for (int c = 0; c < 8; ++c) wb[c] = corner_weight(wa, c);
+    for (int c = 0; c < 8; ++c) wb[c] = corner_weight<TT>(wa, c);
     for (int f = 0; f < P.feats; ++f) {
       float acc = 0.f;
 #pragma unroll
-      for (int c = 0; c < 8; ++c) acc += round_bf16(bf(T[f * 8 + c]) * wb[c]);
+      for (int c = 0; c < 8; ++c) acc += grid_round<TT>(tval(T[f * 8 + c]) * wb[c]);
       buf[r * lds + P.pw + l * P.feats + f] = __float2bfloat16(acc * lmask[l * P.feats + f]);
     }
   }

@@ -6,7 +6,8 @@
 //   K2 _value_bwd_kernel (:1370), via op_bwd (:1737): first-order backward of sdf;
 //   K3 _fused_bwd_kernel (:474), via op_bwd (:1149): backward of (sdf, geo, d sdf / d x),
 //      reverse over reverse.
-// Both return d pos [N, 3] f32, d table [rows, 128] f32 and the chain's gW / gb f32 (packed).
+// Both return d pos [N, 3] f32, d table [rows, 128] f32 and the chain's gW / gb f32 (packed),
+// for a bf16 or (table_f32, K2f / K3f) an f32 table and a chain with or without skips.
 #include "slot_bwd.cuh"
 
 using namespace mms;
@@ -18,8 +19,8 @@ extern "C" int mms_slot_value_bwd(SLOT_COMMON_PARAMS, const void* zs, const void
   return launch_value_bwd<false>(pos, n, table, lmask, wpack, bpack, n_layers, in_dims, out_dims,
                                  hidden, p0, act, quad_a, levels, feats, pk_shift, res, dense,
                                  ent_mask, row_off, radius, clip_hi, smooth, pe_freqs, pe_scale,
-                                 zs, gsdf, d_pos, d_table, gw, gb, SplitOut{}, scratch, max_ctas,
-                                 stream);
+                                 skip_mask, table_f32, zs, gsdf, d_pos, d_table, gw, gb,
+                                 SplitOut{}, scratch, max_ctas, stream);
 }
 
 extern "C" int mms_slot_chain_bwd(SLOT_COMMON_PARAMS, const void* zs, const void* ss,
@@ -30,6 +31,7 @@ extern "C" int mms_slot_chain_bwd(SLOT_COMMON_PARAMS, const void* zs, const void
   return launch_chain_bwd<false>(pos, n, table, lmask, wpack, bpack, n_layers, in_dims, out_dims,
                                  hidden, p0, act, quad_a, levels, feats, pk_shift, res, dense,
                                  ent_mask, row_off, radius, clip_hi, smooth, pe_freqs, pe_scale,
-                                 zs, ss, adj, adj_width, gsdf, ggeo, geo_width, g3, d_pos,
-                                 d_table, gw, gb, SplitOut{}, scratch, max_ctas, stream);
+                                 skip_mask, table_f32, zs, ss, adj, adj_width, gsdf, ggeo,
+                                 geo_width, g3, d_pos, d_table, gw, gb, SplitOut{}, scratch,
+                                 max_ctas, stream);
 }

@@ -4,7 +4,8 @@ Each library under `csrc/` is one .cu source with a plain C interface
 (fused_mlp: K1 forward and backward, without and with forward tangents,
 and K4j, the tangent kernels with the encoding in front; slot_fused: K2/K3 forward;
 slot_fused_bwd: K2/K3 merged backward; slot_split: K2s/K3s per-sample passes
-and the table scatter of the split backward; sdf_chain: K4 and K5 forward and
+and the table scatter of the split backward, the slot kernels each for a bf16
+and an f32 table (K2f/K3f); sdf_chain: K4 and K5 forward and
 backward; slot_grid: K6 forward and backward),
 compiled by nvcc for sm_90a into `build/torch_kernels/` at the repository
 root and loaded with ctypes. The library name carries a hash of every file

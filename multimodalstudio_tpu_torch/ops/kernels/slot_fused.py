@@ -25,6 +25,24 @@ rounded to bf16 into the chain input; the NeRF encoding computes cos
 directly (fused_mlp.py:192-196); act' of the adjoint sweep reads the
 bf16-stored pre-activations; sdf is f32 and geo bf16.
 
+With table_dtype="f32" (K2f/K3f, SlotGeom.bf16 False, slot_fused.py:119)
+the TPU runs every table and trilerp-weight dot as a bf16 hi+lo split
+against exact 0/1 matrices (_dot_hl, _dotg_hl), which reaches f32 to about
+2^-16. The card reads the f32 table directly, and the plain versions keep
+f32 on the grid side: gathered values, trilerp weights, their products,
+the 8-corner sums, the gradient path's adjS and dwexp, the backward's
+gt0, gc0, dwg and the table cotangent; only the grid column written into
+x0 is rounded to bf16 (after the mask). The split's per-sample table
+cotangent is then f32 [N, k, 8F] (slot_fused.py:1055, 1652). The kernels
+of an f32 table count under their own names (fused_slot_sdf_value_f32,
+...). Each f32 (sample, level) entry is read from device memory (the
+table, 1.57 MB at F = 16 with 512 rows per level, stays in L2) where the
+trilerp and the gradient path need it: staged in shared memory as the
+bf16 entries are, a 64-sample tile's f32 entries would take 196,608 B.
+
+A chain with skip connections (`skip`, either table) feeds a skip layer
+concat(h, x0) / sqrt(2) rounded to bf16 (slot_fused.py:423, 642), as K1.
+
 With grad enabled both run as autograd Functions. Their forward launches
 the same kernel in a training mode that also writes the residuals the
 backward reads (bf16 pre-activations zs; for K3 the adjoint-sweep rows ss
@@ -44,7 +62,8 @@ CUDA kernels of csrc/slot_bwd.cuh, entered through csrc/slot_fused_bwd.cu:
 
 The plain backwards write these steps out with the kernels' cast points
 (gz rounded to bf16 before both products, each sample's table cotangent
-rounded to bf16 before the f32 sum, d pos, gW and gb f32) rather than
+rounded to bf16 before the f32 sum for a bf16 table, d pos, gW and gb
+f32) rather than
 differentiating the plain forward, whose bf16 roundings autograd would
 put on the gradients at other places.
 
@@ -56,11 +75,11 @@ least 2 layers. The forward then also keeps the chain input x0 (bf16
 * (a) a per-sample pass, the CUDA kernels of csrc/slot_split.cu replacing
   _bwd_sample_kernel (:758, K3s) and _value_bwd_sample_kernel (:1485, K2s):
   everything the merged backward does per sample, without its weight
-  gradient and table atomics. It writes d pos, each (sample, level)'s bf16
-  table cotangent compact as [N, K, 8F] (the TPU's lane-padded
-  [N, K*128] is a mechanism of its one-hot MXU scatter), and the stacks
-  the weight gradients contract: gz [L-1, N, H] bf16, for K3 also ga
-  [N, P0] and q [L-1, N, H] bf16;
+  gradient and table atomics. It writes d pos, each (sample, level)'s table
+  cotangent compact as [N, K, 8F], bf16 (f32 for an f32 table; the TPU's
+  lane-padded [N, K*128] is a mechanism of its one-hot MXU scatter), and
+  the stacks the weight gradients contract: gz [L-1, N, H] bf16, for K3
+  also ga [N, P0] and q [L-1, N, H] bf16;
 * (b) a scatter of that cotangent into the f32 table gradient
   (csrc/slot_split.cu, replacing _bwd_scatter_kernel :925), recomputing
   each sample's entry from its position;
@@ -91,6 +110,7 @@ from multimodalstudio_tpu_torch.ops.kernels.fused_mlp import (
     chain_forward,
     chain_geometry,
     ga_forward,
+    layer_input,
     pack_chain,
     reverse_sweep,
     unpack_grads,
@@ -103,42 +123,37 @@ from multimodalstudio_tpu_torch.ops.kernels.slot_grid import (
     cell_factors,
 )
 
-VALUE_KERNEL = build.register(
-    "fused_slot_sdf_value",
-    source="multimodalstudio_tpu_torch/csrc/slot_fused.cu",
-    replaces="multimodalstudio_tpu/ops/pallas/slot_fused.py:1307",
-)
-CHAIN_KERNEL = build.register(
-    "fused_slot_sdf_chain",
-    source="multimodalstudio_tpu_torch/csrc/slot_fused.cu",
-    replaces="multimodalstudio_tpu/ops/pallas/slot_fused.py:353",
-)
-VALUE_BWD_KERNEL = build.register(
-    "fused_slot_sdf_value_bwd",
-    source="multimodalstudio_tpu_torch/csrc/slot_fused_bwd.cu",
-    replaces="multimodalstudio_tpu/ops/pallas/slot_fused.py:1370",
-)
-CHAIN_BWD_KERNEL = build.register(
-    "fused_slot_sdf_chain_bwd",
-    source="multimodalstudio_tpu_torch/csrc/slot_fused_bwd.cu",
-    replaces="multimodalstudio_tpu/ops/pallas/slot_fused.py:474",
-)
-VALUE_SPLIT_KERNEL = build.register(
-    "fused_slot_sdf_value_bwd_sample",
-    source="multimodalstudio_tpu_torch/csrc/slot_split.cu",
-    replaces="multimodalstudio_tpu/ops/pallas/slot_fused.py:1485",
-)
-CHAIN_SPLIT_KERNEL = build.register(
-    "fused_slot_sdf_chain_bwd_sample",
-    source="multimodalstudio_tpu_torch/csrc/slot_split.cu",
-    replaces="multimodalstudio_tpu/ops/pallas/slot_fused.py:758",
-)
-SCATTER_KERNEL = build.register(
-    "slot_table_scatter",
-    source="multimodalstudio_tpu_torch/csrc/slot_split.cu",
-    replaces="multimodalstudio_tpu/ops/pallas/slot_fused.py:925",
-)
 
+
+def _register(name: str, f32_name: str, source: str, line: int):
+    """The kernel of a bf16 table and its f32-table form (the same Pallas
+    body with SlotGeom.bf16 False), each with its own count."""
+    src = f"multimodalstudio_tpu_torch/csrc/{source}"
+    replaces = f"multimodalstudio_tpu/ops/pallas/slot_fused.py:{line}"
+    return (build.register(name, source=src, replaces=replaces),
+            build.register(f32_name, source=src, replaces=replaces))
+
+
+VALUE_KERNEL, VALUE_F32_KERNEL = _register(
+    "fused_slot_sdf_value", "fused_slot_sdf_value_f32", "slot_fused.cu", 1307)
+CHAIN_KERNEL, CHAIN_F32_KERNEL = _register(
+    "fused_slot_sdf_chain", "fused_slot_sdf_chain_f32", "slot_fused.cu", 353)
+VALUE_BWD_KERNEL, VALUE_BWD_F32_KERNEL = _register(
+    "fused_slot_sdf_value_bwd", "fused_slot_sdf_value_f32_bwd", "slot_fused_bwd.cu", 1370)
+CHAIN_BWD_KERNEL, CHAIN_BWD_F32_KERNEL = _register(
+    "fused_slot_sdf_chain_bwd", "fused_slot_sdf_chain_f32_bwd", "slot_fused_bwd.cu", 474)
+VALUE_SPLIT_KERNEL, VALUE_SPLIT_F32_KERNEL = _register(
+    "fused_slot_sdf_value_bwd_sample", "fused_slot_sdf_value_f32_bwd_sample", "slot_split.cu",
+    1485)
+CHAIN_SPLIT_KERNEL, CHAIN_SPLIT_F32_KERNEL = _register(
+    "fused_slot_sdf_chain_bwd_sample", "fused_slot_sdf_chain_f32_bwd_sample", "slot_split.cu", 758)
+SCATTER_KERNEL, SCATTER_F32_KERNEL = _register(
+    "slot_table_scatter", "slot_table_scatter_f32", "slot_split.cu", 925)
+
+
+def _count(kernels, gspec: SlotGridSpec) -> None:
+    """One launch of the (bf16, f32) pair's kernel for gspec's table."""
+    kernels[int(gspec.table_dtype == "f32")].launches += 1
 
 def bwd_split(n_layers: int) -> bool:
     """Whether the split backward runs: MMS_SLOT_BWD_SPLIT=1, read at each
@@ -154,10 +169,10 @@ def pe_scales(num_frequencies: int, min_freq_exp: float, max_freq_exp: float) ->
 
 
 def _check(gspec: SlotGridSpec, skip, activation: str) -> None:
-    if gspec.layout != "cell" or gspec.table_dtype != "bf16":
-        raise ValueError("the fused slot kernels take the cell layout with a bf16 table")
-    if skip:
-        raise ValueError("the fused slot kernels take chains without skip connections")
+    """The fused slot kernels take the cell layout only (_make_geom
+    :108-109), with a bf16 or an f32 table, with or without skips."""
+    if gspec.layout != "cell":
+        raise ValueError("fused slot kernels require layout='cell'")
     if activation not in ACTIVATIONS:
         raise ValueError(f"unsupported fused activation {activation}")
 
@@ -229,19 +244,22 @@ def _cell_coords(pos, radius):
 
 class _Front:
     """The plain front end of one sample batch: cell geometry (idx, per-axis
-    trilerp factors, clip gate), the bf16 corner values T [N, k, F, 8], the
-    bf16 trilerp weights wb [N, k, 8], the position encoding pe and the
-    chain input x0 [N, 3+6F_pe + num_levels*F] (bf16 values in f32)."""
+    trilerp factors, clip gate), the corner values T [N, k, F, 8], the
+    trilerp weights wb [N, k, 8], the position encoding pe and the chain
+    input x0 [N, 3+6F_pe + num_levels*F] (bf16 values in f32). `rnd` is the
+    grid side's rounding: to bf16 for a bf16 table, none for an f32 one;
+    T and wb are rounded by it."""
 
     def __init__(self, pos, table, gspec, k, radius, mask, pe):
         n, feats = pos.shape[0], gspec.feats
+        self.rnd = bf16_round if gspec.table_dtype == "bf16" else (lambda t: t)
         x, self.gate = _cell_coords(pos, radius)
         self.idx, self.wa, self.dwa, self.ddwa = cell_factors(x, gspec, k)
-        entries = bf16_round(table).reshape(-1, NSLOT * feats)  # one row per absolute entry
+        entries = self.rnd(table.float()).reshape(-1, NSLOT * feats)  # one row per absolute entry
         self.T = entries[self.idx].reshape(n, k, feats, NSLOT)
         wa = self.wa
-        self.wb = bf16_round(wa[..., 0] * wa[..., 1] * wa[..., 2])
-        encg = bf16_round(bf16_round(self.T * self.wb[:, :, None, :]).sum(-1)
+        self.wb = self.rnd(wa[..., 0] * wa[..., 1] * wa[..., 2])
+        encg = bf16_round(self.rnd(self.T * self.wb[:, :, None, :]).sum(-1)
                           * mask.reshape(1, k, feats))
         self.pe = PEncoding(pos, pe)
         pad = (gspec.num_levels - k) * feats
@@ -253,20 +271,15 @@ class _Front:
         return self.dwa[..., t] * self.wa[..., u] * self.wa[..., v]
 
 
-def _chain(x0, weights, biases, activation, beta):
-    """Plain chain forward: (last layer z in f32, bf16-rounded hidden z's)."""
-    return chain_forward(x0, weights, biases, (), activation, beta)
-
-
 def _levels(gspec: SlotGridSpec, num_levels) -> int:
     return gspec.num_levels if num_levels is None else min(int(num_levels), gspec.num_levels)
 
 
 def _value_fwd_plain(positions, table, weights, biases, gspec, k, radius, pe, activation, beta,
-                     mask):
+                     mask, skip=()):
     """(sdf [N] f32, zs [L-1, N, H] bf16, x0 [N, D_in] bf16)."""
     front = _Front(positions.float(), table, gspec, k, radius, mask, pe)
-    y, zs = _chain(front.x0, weights, biases, activation, beta)
+    y, zs = chain_forward(front.x0, weights, biases, skip, activation, beta)
     return y[:, 0], _stack(zs, y), front.x0.to(torch.bfloat16)
 
 
@@ -281,17 +294,17 @@ def slot_sdf_value_plain(
     min_freq_exp, max_freq_exp, skip=(), activation="SoftplusQuad", beta=100.0,
     level_mask=None, num_levels=None,
 ):
-    """Plain PyTorch version of K2: sdf [N] f32."""
+    """Plain PyTorch version of K2 (K2f for an f32 table): sdf [N] f32."""
     _check(gspec, skip, activation)
     k = _levels(gspec, num_levels)
     pe = pe_scales(num_frequencies, min_freq_exp, max_freq_exp)
     mask = _mask(level_mask, k * gspec.feats, positions)
     return _value_fwd_plain(positions, table, weights, biases, gspec, k, radius, pe, activation,
-                            beta, mask)[0]
+                            beta, mask, skip)[0]
 
 
 def _chain_fwd_plain(positions, table, weights, biases, gspec, radius, pe, activation, beta,
-                     mask):
+                     mask, skip=()):
     """(sdf [N] f32, geo [N, D_out-1] bf16, grad [N, 3] f32) and the
     backward's residuals (zs, ss [L-1, N, H] bf16, adj [N, D_in] f32, x0
     [N, D_in] bf16)."""
@@ -299,16 +312,17 @@ def _chain_fwd_plain(positions, table, weights, biases, gspec, radius, pe, activ
     n = positions.shape[0]
     pos = positions.float()
     front = _Front(pos, table, gspec, k, radius, mask, pe)
-    y, zs = _chain(front.x0, weights, biases, activation, beta)
+    y, zs = chain_forward(front.x0, weights, biases, skip, activation, beta)
     # the rows s of layers l >= 1 of the adjoint sweep are the backward's
     # residual ss[l-1]
-    adj, ss = adjoint_sweep(front.x0, zs, weights, (), activation, beta)
+    adj, ss = adjoint_sweep(front.x0, zs, weights, skip, activation, beta)
 
-    # grid part: sum comp * bf16(dw_k / 2r) * bf16(adj_grid * mask) (slot_fused.py:445-458)
+    # grid part: sum comp * rnd(dw_k / 2r) * rnd(adj_grid * mask) (slot_fused.py:445-458)
     pw = 3 + 6 * len(pe)
-    a = bf16_round(adj[:, pw : pw + k * feats].reshape(n, k, feats) * mask.reshape(k, feats))
+    rnd = front.rnd
+    a = rnd(adj[:, pw : pw + k * feats].reshape(n, k, feats) * mask.reshape(k, feats))
     cs = 1.0 / (2.0 * radius)
-    grid = [(front.T * bf16_round(front.axis_factor(t) * cs)[:, :, None, :] * a[..., None])
+    grid = [(front.T * rnd(front.axis_factor(t) * cs)[:, :, None, :] * a[..., None])
             .sum(dim=(1, 2, 3)) for t in range(3)]
     grad = front.pe.jt(adj) + torch.stack(grid, -1)
     residuals = (_stack(zs, y), _stack(ss, y), adj.contiguous(), front.x0.to(torch.bfloat16))
@@ -320,33 +334,41 @@ def slot_sdf_chain_plain(
     min_freq_exp, max_freq_exp, skip=(), activation="SoftplusQuad", beta=100.0,
     level_mask=None,
 ):
-    """Plain PyTorch version of K3: (sdf [N] f32, geo [N, D_out-1] bf16,
-    grad [N, 3] f32 = d sdf / d positions)."""
+    """Plain PyTorch version of K3 (K3f for an f32 table): (sdf [N] f32,
+    geo [N, D_out-1] bf16, grad [N, 3] f32 = d sdf / d positions)."""
     _check(gspec, skip, activation)
     pe = pe_scales(num_frequencies, min_freq_exp, max_freq_exp)
     mask = _mask(level_mask, gspec.num_levels * gspec.feats, positions)
     return _chain_fwd_plain(positions, table, weights, biases, gspec, radius, pe, activation,
-                            beta, mask)[0]
+                            beta, mask, skip)[0]
+
+
+def _dcomp_dtype(gspec: SlotGridSpec) -> torch.dtype:
+    """The per-sample table cotangent's type: bf16 for a bf16 table, f32
+    for an f32 one (slot_fused.py:1055)."""
+    return torch.bfloat16 if gspec.table_dtype == "bf16" else torch.float32
 
 
 def _scatter_table(gspec, idx, d_comp):
-    """d_table [rows, 128] f32: bf16(d_comp [N, k, F, 8]) added into each
-    sample's entry (the one-hot scatter of slot_fused.py:201-236)."""
+    """d_table [rows, 128] f32: d_comp [N, k, F, 8], rounded to bf16 for a
+    bf16 table, added into each sample's entry (the one-hot scatter of
+    slot_fused.py:201-236)."""
     width = NSLOT * gspec.feats
     d = torch.zeros(gspec.total_rows * (LANE // width), width, device=d_comp.device)
-    d.index_add_(0, idx.reshape(-1), bf16_round(d_comp).reshape(-1, width))
+    d.index_add_(0, idx.reshape(-1), d_comp.to(_dcomp_dtype(gspec)).float().reshape(-1, width))
     return d.reshape(gspec.total_rows, LANE)
 
 
-def _compact(d_comp):
+def _compact(d_comp, gspec):
     """The per-sample table cotangent d_comp [N, k, F, 8] as the split pass
-    stores it: bf16 [N, k, 8F], each level's values in its entry's layout."""
+    stores it: [N, k, 8F] in _dcomp_dtype, each level's values in its
+    entry's layout."""
     n, k = d_comp.shape[:2]
-    return d_comp.to(torch.bfloat16).reshape(n, k, -1)
+    return d_comp.to(_dcomp_dtype(gspec)).reshape(n, k, -1)
 
 
 def _value_bwd_parts(positions, table, weights, gspec, zs, gsdf, k, radius, pe, activation, beta,
-                     mask):
+                     mask, skip=()):
     """The per-sample math of K2's backward: (d_pos [N, 3] f32, the table
     cotangent d_comp [N, k, F, 8] f32, the entry indices [N, k], gW list, gb
     list, the bf16 gz stack [L-1, N, H])."""
@@ -354,15 +376,16 @@ def _value_bwd_parts(positions, table, weights, gspec, zs, gsdf, k, radius, pe, 
     mask = mask.reshape(k, feats)
     n = positions.shape[0]
     front = _Front(positions.float(), table, gspec, k, radius, mask, pe)
+    rnd = front.rnd
     gy = front.x0.new_zeros(n, weights[-1].shape[1])
     gy[:, 0] = gsdf.float()
     gzs = []
-    ghin, gws, gbs = reverse_sweep(front.x0, zs, gy, weights, (), activation, beta, gzs=gzs)
+    ghin, gws, gbs = reverse_sweep(front.x0, zs, gy, weights, skip, activation, beta, gzs=gzs)
 
     pw = 3 + 6 * len(pe)
-    gt0 = bf16_round(ghin[:, pw : pw + k * feats].reshape(n, k, feats) * mask)
+    gt0 = rnd(ghin[:, pw : pw + k * feats].reshape(n, k, feats) * mask)
     d_comp = gt0[..., None] * front.wb[:, :, None, :]
-    d_w = bf16_round(front.T * gt0[..., None]).sum(2)  # [N, k, 8]
+    d_w = rnd(front.T * gt0[..., None]).sum(2)  # [N, k, 8]
     cs = 1.0 / (2.0 * radius)
     gpos = torch.stack([(d_w * front.axis_factor(t)).sum((1, 2)) for t in range(3)], -1)
     d_pos = front.pe.jt(ghin) + gpos * (front.gate * cs)
@@ -382,12 +405,12 @@ def slot_sdf_value_bwd_plain(
     pe = pe_scales(num_frequencies, min_freq_exp, max_freq_exp)
     mask = _mask(level_mask, k * gspec.feats, positions)
     d_pos, d_comp, idx, gws, gbs, _ = _value_bwd_parts(positions, table, weights, gspec, zs, gsdf,
-                                                       k, radius, pe, activation, beta, mask)
+                                                       k, radius, pe, activation, beta, mask, skip)
     return d_pos, _scatter_table(gspec, idx, d_comp), gws, gbs
 
 
 def _chain_bwd_parts(positions, table, weights, gspec, zs, ss, adj, gsdf, ggeo, g3, radius, pe,
-                     activation, beta, mask):
+                     activation, beta, mask, skip=()):
     """The per-sample math of K3's backward: (d_pos [N, 3] f32, the table
     cotangent d_comp [N, K, F, 8] f32, the entry indices [N, K], gW list, gb
     list, and the split's stacks: bf16 ga [N, D_in], q and gz [L-1, N, H])."""
@@ -397,6 +420,7 @@ def _chain_bwd_parts(positions, table, weights, gspec, zs, ss, adj, gsdf, ggeo, 
     mask = mask.reshape(k, feats)
     n = positions.shape[0]
     front = _Front(positions.float(), table, gspec, k, radius, mask, pe)
+    rnd = front.rnd
     cs = 1.0 / (2.0 * radius)
     g3 = g3.float()
     T = front.T
@@ -407,25 +431,25 @@ def _chain_bwd_parts(positions, table, weights, gspec, zs, ss, adj, gsdf, ggeo, 
     dwsum = g3[:, 0, None, None] * (D[0] * cs)
     dwsum = dwsum + g3[:, 1, None, None] * (D[1] * cs)
     dwsum = dwsum + g3[:, 2, None, None] * (D[2] * cs)
-    dwg = bf16_round(dwsum)  # [N, k, 8]
-    ga_g = bf16_round(T * dwg[:, :, None, :]).sum(-1) * mask  # [N, k, F]
-    gc0 = bf16_round(adj[:, pw : pw + kf].reshape(n, k, feats) * mask)
+    dwg = rnd(dwsum)  # [N, k, 8]
+    ga_g = rnd(T * dwg[:, :, None, :]).sum(-1) * mask  # [N, k, F]
+    gc0 = rnd(adj[:, pw : pw + kf].reshape(n, k, feats) * mask)
     d_comp = gc0[..., None] * dwg[:, :, None, :]  # [N, k, F, 8]
-    dd0 = bf16_round(T * gc0[..., None]).sum(2)  # [N, k, 8]
+    dd0 = rnd(T * gc0[..., None]).sum(2)  # [N, k, 8]
     ga = torch.cat([ga_pe, ga_g.reshape(n, kf), ga_pe.new_zeros(n, adj.shape[1] - pw - kf)], -1)
 
     # ga-forward chain (:603-638), then the standard reverse sweep with its
     # act'' injections (:648-694)
     qs, gzs = [], []
-    gwd, inject = ga_forward(ga, zs, ss, weights, (), activation, beta, qs=qs)
+    gwd, inject = ga_forward(ga, zs, ss, weights, skip, activation, beta, qs=qs)
     gy = torch.cat([gsdf.float()[:, None], ggeo.float()], dim=-1)
-    ghin, gws, gbs = reverse_sweep(front.x0, zs, gy, weights, (), activation, beta,
+    ghin, gws, gbs = reverse_sweep(front.x0, zs, gy, weights, skip, activation, beta,
                                    inject=inject, gw_extra=gwd, gzs=gzs)
 
     # grid slice of the input cotangent -> the table cotangent (:696-708)
-    gt0 = bf16_round(ghin[:, pw : pw + kf].reshape(n, k, feats) * mask)
+    gt0 = rnd(ghin[:, pw : pw + kf].reshape(n, k, feats) * mask)
     d_comp = d_comp + gt0[..., None] * front.wb[:, :, None, :]
-    d_w = bf16_round(T * gt0[..., None]).sum(2)
+    d_w = rnd(T * gt0[..., None]).sum(2)
 
     # position cotangent (:710-735): PE Jacobian transpose, the PE Hessian
     # term weighted by g3, and the second-order trilerp fold
@@ -463,7 +487,7 @@ def slot_sdf_chain_bwd_plain(
     mask = _mask(level_mask, gspec.num_levels * gspec.feats, positions)
     d_pos, d_comp, idx, gws, gbs, _ = _chain_bwd_parts(
         positions, table, weights, gspec, zs, ss, adj, gsdf, ggeo, g3, radius, pe, activation,
-        beta, mask)
+        beta, mask, skip)
     return d_pos, _scatter_table(gspec, idx, d_comp), gws, gbs
 
 
@@ -471,59 +495,64 @@ def slot_sdf_chain_bwd_plain(
 
 
 def slot_sdf_value_bwd_sample_plain(positions, table, weights, gspec, zs, gsdf, *, radius, pe,
-                                    activation, beta, mask, num_levels):
+                                    activation, beta, mask, num_levels, skip=()):
     """Plain version of K2s's per-sample pass (_value_bwd_sample_kernel
-    :1485-1565): (d_pos [N, 3] f32, d_comp [N, k, 8F] bf16, gz [L-1, N, H]
-    bf16)."""
+    :1485-1565): (d_pos [N, 3] f32, d_comp [N, k, 8F] bf16 (f32 for an f32
+    table), gz [L-1, N, H] bf16)."""
     d_pos, d_comp, _, _, _, gzs = _value_bwd_parts(positions, table, weights, gspec, zs, gsdf,
-                                                   num_levels, radius, pe, activation, beta, mask)
-    return d_pos, _compact(d_comp), gzs
+                                                   num_levels, radius, pe, activation, beta, mask,
+                                                   skip)
+    return d_pos, _compact(d_comp, gspec), gzs
 
 
 def slot_sdf_chain_bwd_sample_plain(positions, table, weights, gspec, zs, ss, adj, gsdf, ggeo, g3,
-                                    *, radius, pe, activation, beta, mask):
+                                    *, radius, pe, activation, beta, mask, skip=()):
     """Plain version of K3s's per-sample pass (_bwd_sample_kernel :758-922):
-    (d_pos [N, 3] f32, d_comp [N, K, 8F] bf16, ga [N, D_in] bf16, q and gz
-    [L-1, N, H] bf16)."""
+    (d_pos [N, 3] f32, d_comp [N, K, 8F] bf16 (f32 for an f32 table), ga
+    [N, D_in] bf16, q and gz [L-1, N, H] bf16)."""
     d_pos, d_comp, _, _, _, stacks = _chain_bwd_parts(
         positions, table, weights, gspec, zs, ss, adj, gsdf, ggeo, g3, radius, pe, activation,
-        beta, mask)
-    return (d_pos, _compact(d_comp), *stacks)
+        beta, mask, skip)
+    return (d_pos, _compact(d_comp, gspec), *stacks)
 
 
 def slot_table_scatter_plain(positions, d_comp, gspec: SlotGridSpec, *, radius):
     """Plain version of the split's table scatter (_bwd_scatter_kernel
-    :925-935): d_table [rows, 128] f32, each sample's bf16 d_comp [N, k, 8F]
-    added into the entry its position falls in on each of the first k
-    levels."""
+    :925-935): d_table [rows, 128] f32, each sample's d_comp [N, k, 8F]
+    (bf16, or f32 for an f32 table) added into the entry its position
+    falls in on each of the first k levels."""
     n, k = d_comp.shape[:2]
     idx = cell_factors(_cell_coords(positions.float(), radius)[0], gspec, k)[0]
     return _scatter_table(gspec, idx, d_comp.float().reshape(n, k, gspec.feats, NSLOT))
 
 
 def split_weight_grads(weights, x0, zs, gy, gzs, activation, beta, ss=None, ga=None, qs=None,
-                       channel=0):
+                       channel=0, skip=()):
     """The split backward's weight gradients from its stacks (_wgrads_xla
     :938-977; _value_wgrads_xla :1567-1590 without ss, ga, qs): gW_l = hin_l^T
     gz_l, plus qin_l^T v_l with v_l = bf16(s_l act'(z_l)) for K3, whose last
     layer takes the rank-1 term gW[:, channel] += sum of qin instead; hin_0 =
-    x0, hin_l = bf16(act(z_{l-1})), qin_0 = ga, qin_l = q_{l-1}; gb_l = the
-    column sum of the f32 view of the bf16 gz stack, of gy (f32) at the last
-    layer. gy [N, D_out] f32, the rest bf16. The products take their bf16
-    operands to f32: each product of two bf16 values is then exact and the
-    sums f32, on the CPU and on the card alike, where TF32, if it is on,
-    keeps 10 of f32's mantissa bits and so every bit of a bf16 value.
-    Returns (gW list [din_l, dout_l], gb list), the first layer's rows cut to
-    weights[0]'s (x0 and ga may carry the kernels' zero padding)."""
+    x0, hin_l = bf16(act(z_{l-1})), qin_0 = ga, qin_l = q_{l-1}, a skip
+    layer's hin and qin bf16(concat(., x0) / sqrt(2)) and bf16(concat(., ga)
+    / sqrt(2)) (:957, 961); gb_l = the column sum of the f32 view of the
+    bf16 gz stack, of gy (f32) at the last layer. gy [N, D_out] f32, the
+    rest bf16. The products take their bf16 operands to f32: each product
+    of two bf16 values is then exact and the sums f32, on the CPU and on
+    the card alike, where TF32, if it is on, keeps 10 of f32's mantissa
+    bits and so every bit of a bf16 value. Returns (gW list [din_l,
+    dout_l], gb list), each layer's rows cut to weights[l]'s (x0 and ga
+    may carry the kernels' zero padding, past a skip layer's h rows too)."""
     f, df = act_pair(activation, beta)
     n_layers = len(weights)
+    x0 = x0.float()
     gws, gbs = [], []
     for l in range(n_layers):
-        hin = x0.float() if l == 0 else bf16_round(f(zs[l - 1].float()))
+        hin = layer_input(l, x0, x0 if l == 0 else bf16_round(f(zs[l - 1].float())), skip)
         gz = gy if l == n_layers - 1 else gzs[l].float()
         gw = hin.T @ bf16_round(gz)
         if ga is not None:
-            qin = (ga if l == 0 else qs[l - 1]).float()
+            g = ga.float()
+            qin = layer_input(l, g, g if l == 0 else qs[l - 1].float(), skip)
             if l == n_layers - 1:
                 gw[:, channel] += qin.sum(0)
             else:
@@ -558,9 +587,10 @@ def slot_sdf_value_bwd_split_plain(
     mask = _mask(level_mask, k * gspec.feats, positions)
     d_pos, d_comp, gzs = slot_sdf_value_bwd_sample_plain(
         positions, table, weights, gspec, zs, gsdf, radius=radius, pe=pe, activation=activation,
-        beta=beta, mask=mask, num_levels=k)
+        beta=beta, mask=mask, num_levels=k, skip=skip)
     d_table = slot_table_scatter_plain(positions, d_comp, gspec, radius=radius)
-    gws, gbs = split_weight_grads(weights, x0, zs, _value_gy(gsdf, weights), gzs, activation, beta)
+    gws, gbs = split_weight_grads(weights, x0, zs, _value_gy(gsdf, weights), gzs, activation, beta,
+                                  skip=skip)
     return d_pos, d_table, gws, gbs
 
 
@@ -578,16 +608,18 @@ def slot_sdf_chain_bwd_split_plain(
     mask = _mask(level_mask, gspec.num_levels * gspec.feats, positions)
     d_pos, d_comp, ga, qs, gzs = slot_sdf_chain_bwd_sample_plain(
         positions, table, weights, gspec, zs, ss, adj, gsdf, ggeo, g3, radius=radius, pe=pe,
-        activation=activation, beta=beta, mask=mask)
+        activation=activation, beta=beta, mask=mask, skip=skip)
     d_table = slot_table_scatter_plain(positions, d_comp, gspec, radius=radius)
     gws, gbs = split_weight_grads(weights, x0, zs, _chain_gy(gsdf, ggeo), gzs, activation, beta,
-                                  ss=ss, ga=ga, qs=qs)
+                                  ss=ss, ga=ga, qs=qs, skip=skip)
     return d_pos, d_table, gws, gbs
 
 
+# the arguments every slot kernel entry point takes first (csrc/slot_bwd.cuh
+# SLOT_COMMON_PARAMS): operands, chain, grid and encoding, skip mask, table type
 _COMMON_TYPES = ("ptr", "int", "ptr", "ptr", "ptr", "ptr", "int", "ptr", "ptr", "int", "int",
                  "int", "float", "int", "int", "int", "ptr", "ptr", "ptr", "ptr", "float",
-                 "float", "int", "int", "ptr")
+                 "float", "int", "int", "ptr", "int", "int")
 _GRID_TYPES = ("int", "int", "int", "ptr", "ptr", "ptr", "ptr", "float", "float")
 
 
@@ -605,10 +637,11 @@ def _grid_args(gspec: SlotGridSpec, k: int, radius: float) -> list:
 class _CardArgs:
     """The packed operands and the geometry arguments every slot kernel
     entry point takes first (positions, table, mask, weights, grid and
-    encoding constants); `keep` holds the tensors the pointers refer to."""
+    encoding constants, skip mask, table type); `keep` holds the tensors
+    the pointers refer to."""
 
     def __init__(self, positions, table, weights, biases, gspec, k, radius, pe, activation, beta,
-                 mask):
+                 mask, skip=()):
         _on_card(positions)
         if len(weights) < 2:
             raise ValueError("the fused slot kernels take chains of at least 2 layers")
@@ -616,12 +649,18 @@ class _CardArgs:
         if gspec.num_levels > build.MAX_LEVELS:
             raise ValueError(f"the fused slot kernels take at most {build.MAX_LEVELS} grid levels "
                              "(csrc/slot.cuh MAXLV)")
+        self.skip = tuple(sorted(skip))
+        if 0 in self.skip:
+            raise ValueError("the fused slot kernels take no skip at layer 0")
+        self.f32 = gspec.table_dtype == "f32"
         self.n, self.k, self.feats = positions.shape[0], k, gspec.feats
         self.d_in = 3 + 6 * len(pe) + gspec.num_levels * gspec.feats
-        self.in_dims, self.out_dims, self.p0, self.hidden = chain_geometry(self.d_in, weights, ())
-        wpack, bpack = pack_chain(weights, biases, self.in_dims, self.out_dims, self.hidden, ())
+        self.in_dims, self.out_dims, self.p0, self.hidden = chain_geometry(self.d_in, weights,
+                                                                           self.skip)
+        wpack, bpack = pack_chain(weights, biases, self.in_dims, self.out_dims, self.hidden,
+                                  self.skip)
         pos = positions.float().contiguous()
-        tbl = table.to(torch.bfloat16).contiguous()
+        tbl = (table.float() if self.f32 else table.to(torch.bfloat16)).contiguous()
         if tbl.shape != (gspec.total_rows, 128):
             raise ValueError(f"table shape {tuple(tbl.shape)} != ({gspec.total_rows}, 128)")
         self.keep = (pos, tbl, mask, wpack, bpack)
@@ -630,7 +669,7 @@ class _CardArgs:
             build.ptr(bpack), len(weights), build.int_array(self.in_dims),
             build.int_array(self.out_dims), self.hidden, self.p0, ACTIVATIONS[activation],
             2.0 / beta, *_grid_args(gspec, k, radius), int(gspec.interpolation == "Smoothstep"),
-            len(pe), build.float_array(pe),
+            len(pe), build.float_array(pe), sum(1 << l for l in self.skip), int(self.f32),
         ]
         self.stream = build.stream_of(pos)
 
@@ -639,7 +678,7 @@ class _CardArgs:
         gw = torch.zeros(sum(a * b for a, b in zip(self.in_dims, self.out_dims)), device=dev)
         gb = torch.zeros(sum(self.out_dims), device=dev)
         return gw, gb, lambda: unpack_grads(gw, gb, weights, self.in_dims, self.out_dims,
-                                            self.hidden, ())
+                                            self.hidden, self.skip)
 
     def stack(self, n_layers, dev):
         """An empty bf16 stack [L-1, N, H]."""
@@ -657,22 +696,23 @@ class _CardArgs:
     def fwd_scratch(self, with_grad: bool, keep_z: bool):
         return self._scratch("slot_fused", "mms_slot_fwd_slab", (
             len(self.in_dims), self.hidden, self.p0, self.k, self.feats, self.out_dims[-1],
-            int(with_grad), int(keep_z)))
+            int(with_grad), int(keep_z), int(bool(self.skip)), int(self.f32)))
 
     def bwd_scratch(self, library: str, stacks: int):
         """K2's backwards keep one stack (zs), K3's two (zs, ss)."""
         return self._scratch(library, "mms_slot_bwd_slab", (
             stacks, len(self.in_dims), self.hidden, self.p0, self.k, self.feats,
-            self.out_dims[-1]))
+            self.out_dims[-1], int(bool(self.skip)), int(self.f32)))
 
 
 def _launch(positions, table, weights, biases, gspec, k, radius, pe, activation, beta,
-            mask, with_grad, resid=False, x0=False):
+            mask, with_grad, resid=False, x0=False, skip=()):
     """Launch the forward kernel; returns (sdf, geo, grad, zs, ss, adj, x0):
     geo and grad without `with_grad`, the backward's residuals without
     `resid` (ss and adj come with the gradient only) and the chain input x0
     [N, P0] bf16 without `x0` (the split backward's residual) are None."""
-    ca = _CardArgs(positions, table, weights, biases, gspec, k, radius, pe, activation, beta, mask)
+    ca = _CardArgs(positions, table, weights, biases, gspec, k, radius, pe, activation, beta, mask,
+                   skip)
     dev, n = positions.device, ca.n
     d_out = weights[-1].shape[1]
     sdf = torch.empty(n, dtype=torch.float32, device=dev)
@@ -696,14 +736,16 @@ def _launch(positions, table, weights, biases, gspec, k, radius, pe, activation,
                     int(with_grad), build.ptr(zs), build.ptr(ss), build.ptr(adj), ca.d_in,
                     build.ptr(x0_out), build.ptr(scratch), ctas, ca.stream)
         build.check(status, "fused slot sdf")
-        (CHAIN_KERNEL if with_grad else VALUE_KERNEL).launches += 1
+        _count((CHAIN_KERNEL, CHAIN_F32_KERNEL) if with_grad else (VALUE_KERNEL, VALUE_F32_KERNEL),
+               gspec)
     return sdf, geo, grad, zs, ss, adj, x0_out
 
 
 def _launch_value_bwd(positions, table, weights, biases, gspec, k, radius, pe, activation, beta,
-                      mask, zs, gsdf):
+                      mask, zs, gsdf, skip=()):
     """K2's backward kernel: (d_pos, d_table, gW list, gb list)."""
-    ca = _CardArgs(positions, table, weights, biases, gspec, k, radius, pe, activation, beta, mask)
+    ca = _CardArgs(positions, table, weights, biases, gspec, k, radius, pe, activation, beta, mask,
+                   skip)
     dev = positions.device
     d_pos = torch.empty((ca.n, 3), dtype=torch.float32, device=dev)
     d_table = torch.zeros(table.shape, dtype=torch.float32, device=dev)
@@ -716,7 +758,7 @@ def _launch_value_bwd(positions, table, weights, biases, gspec, k, radius, pe, a
         status = fn(*ca.args, build.ptr(zs), build.ptr(g), build.ptr(d_pos), build.ptr(d_table),
                     build.ptr(gw), build.ptr(gb), build.ptr(scratch), ctas, ca.stream)
         build.check(status, "fused slot sdf value backward")
-        VALUE_BWD_KERNEL.launches += 1
+        _count((VALUE_BWD_KERNEL, VALUE_BWD_F32_KERNEL), gspec)
     return (d_pos, d_table, *unpack())
 
 
@@ -725,10 +767,10 @@ def _chain_cotangents(gsdf, ggeo, g3):
 
 
 def _launch_chain_bwd(positions, table, weights, biases, gspec, radius, pe, activation, beta,
-                      mask, zs, ss, adj, gsdf, ggeo, g3):
+                      mask, zs, ss, adj, gsdf, ggeo, g3, skip=()):
     """K3's backward kernel: (d_pos, d_table, gW list, gb list)."""
     ca = _CardArgs(positions, table, weights, biases, gspec, gspec.num_levels, radius, pe,
-                   activation, beta, mask)
+                   activation, beta, mask, skip)
     dev = positions.device
     d_pos = torch.empty((ca.n, 3), dtype=torch.float32, device=dev)
     d_table = torch.zeros(table.shape, dtype=torch.float32, device=dev)
@@ -744,18 +786,19 @@ def _launch_chain_bwd(positions, table, weights, biases, gspec, radius, pe, acti
                     build.ptr(d_pos), build.ptr(d_table), build.ptr(gw), build.ptr(gb),
                     build.ptr(scratch), ctas, ca.stream)
         build.check(status, "fused slot sdf chain backward")
-        CHAIN_BWD_KERNEL.launches += 1
+        _count((CHAIN_BWD_KERNEL, CHAIN_BWD_F32_KERNEL), gspec)
     return (d_pos, d_table, *unpack())
 
 
 def _launch_value_bwd_sample(positions, table, weights, biases, gspec, k, radius, pe, activation,
-                             beta, mask, zs, gsdf):
-    """K2s's per-sample kernel: (d_pos [N, 3] f32, d_comp [N, k, 8F] bf16,
-    gz [L-1, N, H] bf16)."""
-    ca = _CardArgs(positions, table, weights, biases, gspec, k, radius, pe, activation, beta, mask)
+                             beta, mask, zs, gsdf, skip=()):
+    """K2s's per-sample kernel: (d_pos [N, 3] f32, d_comp [N, k, 8F] (bf16,
+    f32 for an f32 table), gz [L-1, N, H] bf16)."""
+    ca = _CardArgs(positions, table, weights, biases, gspec, k, radius, pe, activation, beta, mask,
+                   skip)
     dev = positions.device
     d_pos = torch.empty((ca.n, 3), dtype=torch.float32, device=dev)
-    d_comp = torch.empty((ca.n, k, NSLOT * gspec.feats), dtype=torch.bfloat16, device=dev)
+    d_comp = torch.empty((ca.n, k, NSLOT * gspec.feats), dtype=_dcomp_dtype(gspec), device=dev)
     gzs = ca.stack(len(weights), dev)
     if ca.n:
         fn = build.function("slot_split", "mms_slot_value_bwd_sample", *_COMMON_TYPES,
@@ -765,19 +808,20 @@ def _launch_value_bwd_sample(positions, table, weights, biases, gspec, k, radius
         status = fn(*ca.args, build.ptr(zs), build.ptr(g), build.ptr(d_pos), build.ptr(d_comp),
                     build.ptr(gzs), build.ptr(scratch), ctas, ca.stream)
         build.check(status, "fused slot sdf value backward, per-sample pass")
-        VALUE_SPLIT_KERNEL.launches += 1
+        _count((VALUE_SPLIT_KERNEL, VALUE_SPLIT_F32_KERNEL), gspec)
     return d_pos, d_comp, gzs
 
 
 def _launch_chain_bwd_sample(positions, table, weights, biases, gspec, radius, pe, activation,
-                             beta, mask, zs, ss, adj, gsdf, ggeo, g3):
-    """K3s's per-sample kernel: (d_pos [N, 3] f32, d_comp [N, K, 8F] bf16, ga
-    [N, P0] bf16, q and gz [L-1, N, H] bf16)."""
+                             beta, mask, zs, ss, adj, gsdf, ggeo, g3, skip=()):
+    """K3s's per-sample kernel: (d_pos [N, 3] f32, d_comp [N, K, 8F] (bf16,
+    f32 for an f32 table), ga [N, P0] bf16, q and gz [L-1, N, H] bf16)."""
     k = gspec.num_levels
-    ca = _CardArgs(positions, table, weights, biases, gspec, k, radius, pe, activation, beta, mask)
+    ca = _CardArgs(positions, table, weights, biases, gspec, k, radius, pe, activation, beta, mask,
+                   skip)
     dev = positions.device
     d_pos = torch.empty((ca.n, 3), dtype=torch.float32, device=dev)
-    d_comp = torch.empty((ca.n, k, NSLOT * gspec.feats), dtype=torch.bfloat16, device=dev)
+    d_comp = torch.empty((ca.n, k, NSLOT * gspec.feats), dtype=_dcomp_dtype(gspec), device=dev)
     ga = torch.empty((ca.n, ca.p0), dtype=torch.bfloat16, device=dev)
     qs, gzs = ca.stack(len(weights), dev), ca.stack(len(weights), dev)
     if ca.n:
@@ -791,53 +835,55 @@ def _launch_chain_bwd_sample(positions, table, weights, biases, gspec, radius, p
                     build.ptr(d_pos), build.ptr(d_comp), build.ptr(ga), build.ptr(qs),
                     build.ptr(gzs), build.ptr(scratch), ctas, ca.stream)
         build.check(status, "fused slot sdf chain backward, per-sample pass")
-        CHAIN_SPLIT_KERNEL.launches += 1
+        _count((CHAIN_SPLIT_KERNEL, CHAIN_SPLIT_F32_KERNEL), gspec)
     return d_pos, d_comp, ga, qs, gzs
 
 
 def _launch_table_scatter(positions, d_comp, gspec, radius):
-    """The split's scatter kernel: d_table [rows, 128] f32 from the bf16
-    d_comp [N, k, 8F]."""
+    """The split's scatter kernel: d_table [rows, 128] f32 from d_comp
+    [N, k, 8F] (bf16, f32 for an f32 table)."""
     _on_card(positions)
     n, k = d_comp.shape[:2]
-    if d_comp.shape[2] != NSLOT * gspec.feats or d_comp.dtype != torch.bfloat16:
-        raise ValueError(f"d_comp {tuple(d_comp.shape)} {d_comp.dtype} is not bf16 "
+    dtype = _dcomp_dtype(gspec)
+    if d_comp.shape[2] != NSLOT * gspec.feats or d_comp.dtype != dtype:
+        raise ValueError(f"d_comp {tuple(d_comp.shape)} {d_comp.dtype} is not {dtype} "
                          f"[N, k, {NSLOT * gspec.feats}]")
     pos = positions.float().contiguous()
     dc = d_comp.contiguous()
     d_table = torch.zeros((gspec.total_rows, LANE), dtype=torch.float32, device=pos.device)
     if n:
-        fn = build.function("slot_split", "mms_slot_table_scatter", "ptr", "int", "ptr",
+        fn = build.function("slot_split", "mms_slot_table_scatter", "ptr", "int", "ptr", "int",
                             *_GRID_TYPES, "ptr", "ptr")
-        status = fn(build.ptr(pos), n, build.ptr(dc), *_grid_args(gspec, k, radius),
-                    build.ptr(d_table), build.stream_of(pos))
+        status = fn(build.ptr(pos), n, build.ptr(dc), int(dtype == torch.float32),
+                    *_grid_args(gspec, k, radius), build.ptr(d_table), build.stream_of(pos))
         build.check(status, "slot table scatter")
-        SCATTER_KERNEL.launches += 1
+        _count((SCATTER_KERNEL, SCATTER_F32_KERNEL), gspec)
     return d_table
 
 
 def _value_split_card(positions, table, weights, biases, gspec, k, radius, pe, activation, beta,
-                      mask, zs, x0, gsdf):
+                      mask, zs, x0, gsdf, skip=()):
     """K2's split backward on the card: the per-sample kernel, the scatter
     kernel and the weight-gradient products. Returns (d_pos, d_table, gW
     list, gb list)."""
     d_pos, d_comp, gzs = _launch_value_bwd_sample(positions, table, weights, biases, gspec, k,
-                                                  radius, pe, activation, beta, mask, zs, gsdf)
+                                                  radius, pe, activation, beta, mask, zs, gsdf,
+                                                  skip)
     d_table = _launch_table_scatter(positions, d_comp, gspec, radius)
     gws, gbs = split_weight_grads(weights, x0, zs, _value_gy(gsdf, weights), gzs, activation,
-                                  beta)
+                                  beta, skip=skip)
     return d_pos, d_table, gws, gbs
 
 
 def _chain_split_card(positions, table, weights, biases, gspec, radius, pe, activation, beta,
-                      mask, zs, ss, adj, x0, gsdf, ggeo, g3):
+                      mask, zs, ss, adj, x0, gsdf, ggeo, g3, skip=()):
     """K3's split backward on the card, as _value_split_card."""
     d_pos, d_comp, ga, qs, gzs = _launch_chain_bwd_sample(
         positions, table, weights, biases, gspec, radius, pe, activation, beta, mask, zs, ss, adj,
-        gsdf, ggeo, g3)
+        gsdf, ggeo, g3, skip)
     d_table = _launch_table_scatter(positions, d_comp, gspec, radius)
     gws, gbs = split_weight_grads(weights, x0, zs, _chain_gy(gsdf, ggeo), gzs, activation, beta,
-                                  ss=ss, ga=ga, qs=qs)
+                                  ss=ss, ga=ga, qs=qs, skip=skip)
     return d_pos, d_table, gws, gbs
 
 
@@ -858,13 +904,13 @@ class _SlotValue(torch.autograd.Function):
     def forward(ctx, cfg, positions, table, mask, *params):
         gspec, k, pe, split, kw = cfg
         ws, bs = params[: len(params) // 2], params[len(params) // 2 :]
+        chain = (kw["activation"], kw["beta"], mask)
         if _on_card(positions):
             sdf, _, _, zs, _, _, x0 = _launch(positions, table, ws, bs, gspec, k, kw["radius"], pe,
-                                              kw["activation"], kw["beta"], mask, False,
-                                              resid=True, x0=split)
+                                              *chain, False, resid=True, x0=split, skip=kw["skip"])
         else:
             sdf, zs, x0 = _value_fwd_plain(positions, table, ws, bs, gspec, k, kw["radius"], pe,
-                                           kw["activation"], kw["beta"], mask)
+                                           *chain, kw["skip"])
         ctx.cfg = cfg
         ctx.save_for_backward(positions, table, mask, zs, x0 if split else None, *params)
         return sdf
@@ -882,10 +928,10 @@ class _SlotValue(torch.autograd.Function):
                                              num_levels=k, **kw)
         elif split:
             d_pos, d_table, gws, gbs = _value_split_card(positions, table, ws, bs, *geom, zs, x0,
-                                                         gsdf)
+                                                         gsdf, kw["skip"])
         else:
             d_pos, d_table, gws, gbs = _launch_value_bwd(positions, table, ws, bs, *geom, zs,
-                                                         gsdf)
+                                                         gsdf, kw["skip"])
         return (None, d_pos, d_table, None, *gws, *gbs)
 
 
@@ -898,14 +944,14 @@ class _SlotChain(torch.autograd.Function):
     def forward(ctx, cfg, positions, table, mask, *params):
         gspec, _, pe, split, kw = cfg
         ws, bs = params[: len(params) // 2], params[len(params) // 2 :]
+        chain = (kw["activation"], kw["beta"], mask)
         if _on_card(positions):
             sdf, geo, grad, zs, ss, adj, x0 = _launch(
-                positions, table, ws, bs, gspec, gspec.num_levels, kw["radius"], pe,
-                kw["activation"], kw["beta"], mask, True, resid=True, x0=split)
+                positions, table, ws, bs, gspec, gspec.num_levels, kw["radius"], pe, *chain, True,
+                resid=True, x0=split, skip=kw["skip"])
         else:
             (sdf, geo, grad), (zs, ss, adj, x0) = _chain_fwd_plain(
-                positions, table, ws, bs, gspec, kw["radius"], pe, kw["activation"], kw["beta"],
-                mask)
+                positions, table, ws, bs, gspec, kw["radius"], pe, *chain, kw["skip"])
         ctx.cfg = cfg
         ctx.save_for_backward(positions, table, mask, zs, ss, adj, x0 if split else None, *params)
         return sdf, geo, grad
@@ -924,10 +970,10 @@ class _SlotChain(torch.autograd.Function):
                                              level_mask=mask, **kw)
         elif split:
             d_pos, d_table, gws, gbs = _chain_split_card(positions, table, ws, bs, *geom, zs, ss,
-                                                         adj, x0, gsdf, ggeo, g3)
+                                                         adj, x0, gsdf, ggeo, g3, kw["skip"])
         else:
             d_pos, d_table, gws, gbs = _launch_chain_bwd(positions, table, ws, bs, *geom, zs, ss,
-                                                         adj, gsdf, ggeo, g3)
+                                                         adj, gsdf, ggeo, g3, kw["skip"])
         return (None, d_pos, d_table, None, *gws, *gbs)
 
 
@@ -953,25 +999,26 @@ def fused_slot_sdf_value(
     level_mask: Optional[torch.Tensor] = None,
     num_levels: Optional[int] = None,
 ) -> torch.Tensor:
-    """SDF values [N] f32 at raw positions [N, 3] (K2). num_levels keeps
-    only the first k levels (their columns past k enter the chain as
-    zeros); level_mask [k*F] is the coarse-to-fine mask of those levels.
-    With grad enabled, differentiable in positions, table, weights and
-    biases through K2's backward, merged or split (bwd_split)."""
+    """SDF values [N] f32 at raw positions [N, 3] (K2; K2f for an f32
+    table). num_levels keeps only the first k levels (their columns past k
+    enter the chain as zeros); level_mask [k*F] is the coarse-to-fine mask
+    of those levels. With grad enabled, differentiable in positions, table,
+    weights and biases through K2's backward, merged or split (bwd_split)."""
     _check(gspec, skip, activation)
     k = _levels(gspec, num_levels)
     pe = pe_scales(num_frequencies, min_freq_exp, max_freq_exp)
     mask = _mask(level_mask, k * gspec.feats, positions)
+    skip = tuple(sorted(skip))
     kw = dict(radius=radius, num_frequencies=num_frequencies, min_freq_exp=min_freq_exp,
-              max_freq_exp=max_freq_exp, activation=activation, beta=beta)
+              max_freq_exp=max_freq_exp, skip=skip, activation=activation, beta=beta)
     if _differentiable(positions, table, weights, biases):
         cfg = (gspec, k, pe, bwd_split(len(weights)), kw)
         return _SlotValue.apply(cfg, positions, table, mask, *weights, *biases)
     if not _on_card(positions):
         return _value_fwd_plain(positions, table, weights, biases, gspec, k, radius, pe,
-                                activation, beta, mask)[0]
+                                activation, beta, mask, skip)[0]
     return _launch(positions, table, weights, biases, gspec, k, radius, pe, activation, beta,
-                   mask, with_grad=False)[0]
+                   mask, with_grad=False, skip=skip)[0]
 
 
 def fused_slot_sdf_chain(
@@ -991,20 +1038,21 @@ def fused_slot_sdf_chain(
     level_mask: Optional[torch.Tensor] = None,
 ):
     """(sdf [N] f32, geo [N, D_out-1] bf16, grad [N, 3] f32) at raw
-    positions [N, 3] over all levels (K3); level_mask [num_levels*F]. With
-    grad enabled, differentiable (second order through grad) in positions,
-    table, weights and biases through K3's backward, merged or split
-    (bwd_split)."""
+    positions [N, 3] over all levels (K3; K3f for an f32 table);
+    level_mask [num_levels*F]. With grad enabled, differentiable (second
+    order through grad) in positions, table, weights and biases through
+    K3's backward, merged or split (bwd_split)."""
     _check(gspec, skip, activation)
     pe = pe_scales(num_frequencies, min_freq_exp, max_freq_exp)
     mask = _mask(level_mask, gspec.num_levels * gspec.feats, positions)
+    skip = tuple(sorted(skip))
     kw = dict(radius=radius, num_frequencies=num_frequencies, min_freq_exp=min_freq_exp,
-              max_freq_exp=max_freq_exp, activation=activation, beta=beta)
+              max_freq_exp=max_freq_exp, skip=skip, activation=activation, beta=beta)
     if _differentiable(positions, table, weights, biases):
         cfg = (gspec, gspec.num_levels, pe, bwd_split(len(weights)), kw)
         return _SlotChain.apply(cfg, positions, table, mask, *weights, *biases)
     if not _on_card(positions):
         return _chain_fwd_plain(positions, table, weights, biases, gspec, radius, pe, activation,
-                                beta, mask)[0]
+                                beta, mask, skip)[0]
     return _launch(positions, table, weights, biases, gspec, gspec.num_levels, radius, pe,
-                   activation, beta, mask, with_grad=True)[:3]
+                   activation, beta, mask, with_grad=True, skip=skip)[:3]

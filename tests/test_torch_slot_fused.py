@@ -219,35 +219,46 @@ def test_plain_backwards_take_the_forward_residuals():
 
 
 @pytest.mark.parametrize("launcher", ["value", "chain", "value_bwd", "chain_bwd", "value_sample",
-                                      "chain_sample", "scatter"])
+                                      "chain_sample", "scatter", "value_f32", "chain_f32",
+                                      "value_bwd_f32", "chain_bwd_f32", "value_sample_f32",
+                                      "chain_sample_f32", "scatter_f32"])
 def test_empty_batch_counts_no_launch(launcher, monkeypatch):
-    """A launcher given no samples launches nothing, so its count stays."""
+    """A launcher given no samples launches nothing, so its count stays (the
+    "_f32" cases: the kernels of an f32 table, counted under their own
+    names)."""
     monkeypatch.setattr(tsf.build, "stream_of", lambda t: None)  # no card here
+    f32 = launcher.endswith("_f32")
+    spec = tsg.SlotGridSpec(**dict(SPEC_ARGS, table_dtype="f32")) if f32 else TSPEC
     _, table, ws, bs = inputs(6)
     t = both(np.zeros((0, 3), np.float32), table, ws, bs)[1]
     pe = tsf.pe_scales(PE["num_frequencies"], PE["min_freq_exp"], PE["max_freq_exp"])
     mask = torch.ones(6)
-    rest = (TSPEC, 3, R, pe, "SoftplusQuad", 100.0, mask)
+    rest = (spec, 3, R, pe, "SoftplusQuad", 100.0, mask)
     zs = torch.zeros(2, 0, HID, dtype=torch.bfloat16)
+    dcomp = torch.zeros(0, 3, 16, dtype=torch.float32 if f32 else torch.bfloat16)
     calls = {
-        "value": (tsf.VALUE_KERNEL, lambda: tsf._launch(*t, *rest, False, resid=True)),
-        "chain": (tsf.CHAIN_KERNEL, lambda: tsf._launch(*t, *rest, True, resid=True)),
-        "value_bwd": (tsf.VALUE_BWD_KERNEL,
+        "value": ((tsf.VALUE_KERNEL, tsf.VALUE_F32_KERNEL),
+                  lambda: tsf._launch(*t, *rest, False, resid=True)),
+        "chain": ((tsf.CHAIN_KERNEL, tsf.CHAIN_F32_KERNEL),
+                  lambda: tsf._launch(*t, *rest, True, resid=True)),
+        "value_bwd": ((tsf.VALUE_BWD_KERNEL, tsf.VALUE_BWD_F32_KERNEL),
                       lambda: tsf._launch_value_bwd(*t, *rest, zs, torch.zeros(0))),
-        "chain_bwd": (tsf.CHAIN_BWD_KERNEL, lambda: tsf._launch_chain_bwd(
-            *t, TSPEC, R, pe, "SoftplusQuad", 100.0, mask, zs, zs, torch.zeros(0, 51),
+        "chain_bwd": ((tsf.CHAIN_BWD_KERNEL, tsf.CHAIN_BWD_F32_KERNEL),
+                      lambda: tsf._launch_chain_bwd(
+            *t, spec, R, pe, "SoftplusQuad", 100.0, mask, zs, zs, torch.zeros(0, 51),
             torch.zeros(0), torch.zeros(0, D_OUT - 1), torch.zeros(0, 3))),
-        "value_sample": (tsf.VALUE_SPLIT_KERNEL,
+        "value_sample": ((tsf.VALUE_SPLIT_KERNEL, tsf.VALUE_SPLIT_F32_KERNEL),
                          lambda: tsf._launch_value_bwd_sample(*t, *rest, zs, torch.zeros(0))),
-        "chain_sample": (tsf.CHAIN_SPLIT_KERNEL, lambda: tsf._launch_chain_bwd_sample(
-            *t, TSPEC, R, pe, "SoftplusQuad", 100.0, mask, zs, zs, torch.zeros(0, 51),
+        "chain_sample": ((tsf.CHAIN_SPLIT_KERNEL, tsf.CHAIN_SPLIT_F32_KERNEL),
+                         lambda: tsf._launch_chain_bwd_sample(
+            *t, spec, R, pe, "SoftplusQuad", 100.0, mask, zs, zs, torch.zeros(0, 51),
             torch.zeros(0), torch.zeros(0, D_OUT - 1), torch.zeros(0, 3))),
         # the table gradient stays zero: no nonzero entries
-        "scatter": (tsf.SCATTER_KERNEL, lambda: (tsf._launch_table_scatter(
-            t[0], torch.zeros(0, 3, 16, dtype=torch.bfloat16), TSPEC, R).nonzero(),)),
+        "scatter": ((tsf.SCATTER_KERNEL, tsf.SCATTER_F32_KERNEL),
+                    lambda: (tsf._launch_table_scatter(t[0], dcomp, spec, R).nonzero(),)),
     }
-    info, call = calls[launcher]
-    before = info.launches
+    infos, call = calls[launcher.removesuffix("_f32")]
+    before = [info.launches for info in infos]
     out = call()
-    assert info.launches == before
+    assert [info.launches for info in infos] == before
     assert out[0].shape[0] == 0
