@@ -23,7 +23,16 @@
    do not reach (ragged N, skip layers, ReLU, truncated and masked grids,
    one or two tangents, the full tangent output, 10-layer chains, 9 and 16
    grid levels, the slot kernels with a skip on either table and on a
-   10-layer chain whose stacks live in device scratch).
+   10-layer chain whose stacks live in device scratch). Then K6 with the
+   f32 table's cell grid (6 x 512 entries, F = 16) and K6v, the vertex
+   layout's lookup, at the shapes of grid_raw_tpu without its position
+   encoding on a vertex table (6 x 2048 rows, F = 16, f32), each within
+   rel-L2 1e-4 of its plain version (both exact f32), with a ragged N and
+   3 levels off those shapes. Then K5 and K1 on that label's SDF head (99
+   -> 128 -> 128 -> 257): K5 forward at the render samples of a chunk and
+   of a microbatch and backward at a microbatch's, K1 forward at the
+   sampler's queries and the taps and backward at the taps, the SoftplusQuad
+   backwards' limits following the plain version's spread.
 3. For grid_raw_tpu, mlp_raw_tpu, grid_raw_tpu with
    model.surface.surface_field.use_position_encoding = False (through
    load_config's overrides: its SDF runs the slot-grid lookup K6 and the
@@ -33,7 +42,10 @@
    (the split backward), and grid_raw_tpu with the slot grid of the
    committed capacity_base6 checkpoint (rows_per_level = 512, feats = 16,
    table_dtype = "f32" through load_config: K2f and K3f), merged and under
-   MMS_SLOT_BWD_SPLIT=1, at full width with seeded random weights
+   MMS_SLOT_BWD_SPLIT=1, and grid_raw_tpu without its position encoding on
+   the vertex layout's table (layout = "vertex", rows_per_level = 2048,
+   feats = 16, table_dtype = "f32": K6v in K6's place, K6 never launched),
+   at full width with seeded random weights
    on a raw 5-modality synthetic scene (256 x 256, 10 views):
    renders one eval view of every modality through RawEvaluator (the f32
    split label reports the f32 label's render: a render runs no backward),
@@ -50,9 +62,10 @@
    route of mlp_raw_tpu on one microbatch's render samples inside the unit
    cube, where the contraction is the identity.
 
-Prints each phase's seconds, one {"kernels": [...]} line (launches summed
-over the training runs, each counted from 0), each path's rays/s, step
-time and busy share, and last the {"ok": true, "device": ...} line. Exits
+Prints each phase's seconds and the whole run's, one {"kernels": [...]}
+line (launches summed over the training runs, each counted from 0), each
+path's rays/s, step time and busy share, and last the {"ok": true,
+"device": ...} line. Exits
 non-zero, printing no result, when a phase fails or no card is present.
 """
 
@@ -347,14 +360,16 @@ def _compare_outputs(what, names, out, ref, tol=1e-2):
     return err
 
 
-def check_slot_value_bwd(gen, dev, gspec, conditioned=False):
+def check_slot_value_bwd(gen, dev, gspec):
     """K2's (K2f's) training forward and its backward at one training
     microbatch's curvature taps: N=81920 (16 strided samples x 2 taps x
     2560 rays), all 6 levels, 3 active. The forward's sdf and residual zs are
     held against the plain forward's; each backward reads its own forward's
-    residuals. `conditioned`: the backward's limits follow the plain
-    version's spread (_plain_conditioning), as for the f32 table, whose
-    grid columns (F = 16) reach x0 through many bf16 roundings."""
+    residuals. The backward's limits follow the plain version's spread
+    (_plain_conditioning), whose own generator leaves `gen`'s draws as they
+    were: the f32 table's grid columns (F = 16) reach x0 through many bf16
+    roundings, and a fixed 1e-2 sat inside the bf16 table's spread on
+    another draw."""
     from multimodalstudio_tpu_torch.ops.kernels.slot_fused import (
         _launch,
         _launch_value_bwd,
@@ -386,10 +401,8 @@ def check_slot_value_bwd(gen, dev, gspec, conditioned=False):
     out = _launch_value_bwd(*args)
     ref = slot_sdf_value_bwd_plain(pos, table, ws, bs, gspec, zs_p, gsdf, **plain_kw)
     torch.cuda.synchronize()
-    limits = 1e-2
-    if conditioned:
-        limits = _plain_conditioning(f"{what} bwd N={n}", SLOT_GRADS, plain, lambda b: (b,), bs,
-                                     {}, torch.Generator(device=dev).manual_seed(SEED), dev, ref)
+    limits = _plain_conditioning(f"{what} bwd N={n}", SLOT_GRADS, plain, lambda b: (b,), bs, {},
+                                 torch.Generator(device=dev).manual_seed(SEED), dev, ref)
     err = _compare_grads(f"{what} bwd N={n}", SLOT_GRADS, out, ref, tol=limits)
     # the last layer's cotangent is sdf's column only
     dims = [(slot_d_in(gspec), 128), (128, 128), (128, 1)]
@@ -401,12 +414,13 @@ def check_slot_value_bwd(gen, dev, gspec, conditioned=False):
                 err=err, fwd_err=fwd_err)
 
 
-def check_slot_chain_bwd(gen, dev, gspec, conditioned=False):
+def check_slot_chain_bwd(gen, dev, gspec):
     """K3's (K3f's) training forward and its backward at one training
     microbatch's render samples: N=163840, all 6 levels, 3 active,
     cotangents on sdf, geo and grad. The forward's sdf, geo, grad and
     residuals zs, ss and adj are held against the plain forward's; each
-    backward reads its own forward's residuals. `conditioned` as for K2."""
+    backward reads its own forward's residuals. The backward's limits follow
+    the plain version's spread, as for K2."""
     from multimodalstudio_tpu_torch.ops.kernels.slot_fused import (
         _chain_fwd_plain,
         _launch,
@@ -444,10 +458,8 @@ def check_slot_chain_bwd(gen, dev, gspec, conditioned=False):
     ref = slot_sdf_chain_bwd_plain(pos, table, ws, bs, gspec, zs_p, ss_p, adj_p, gsdf, ggeo, g3,
                                    **plain_kw)
     torch.cuda.synchronize()
-    limits = 1e-2
-    if conditioned:
-        limits = _plain_conditioning(f"{what} bwd N={n}", SLOT_GRADS, plain, lambda b: (b,), bs,
-                                     {}, torch.Generator(device=dev).manual_seed(SEED), dev, ref)
+    limits = _plain_conditioning(f"{what} bwd N={n}", SLOT_GRADS, plain, lambda b: (b,), bs, {},
+                                 torch.Generator(device=dev).manual_seed(SEED), dev, ref)
     err = _compare_grads(f"{what} bwd N={n}", SLOT_GRADS, out, ref, tol=limits)
     hidden = [(slot_d_in(gspec), 128), (128, 128)]
     dims = hidden + [(128, 257)]
@@ -1104,6 +1116,8 @@ def check_tangent_edges(gen, dev) -> None:
 # grid_raw_tpu's slot grid without its position encoding: the SDF head takes
 # [xyz, 6 levels x F = 2] into 128 -> 128 -> 257 SoftplusQuad
 NOPE_DIMS = [(15, 128), (128, 128), (128, 257)]
+# the same head on the vertex layout's table: [xyz, 6 levels x F = 16]
+VERTEX_DIMS = [(99, 128), (128, 128), (128, 257)]
 
 
 def _lookup_library(table, idx, w, dw, feats):
@@ -1117,6 +1131,47 @@ def _lookup_library(table, idx, w, dw, feats):
     if dw is None:
         return enc
     return enc, torch.einsum("nkfp,ntkp->ntkf", T, dw.to(torch.bfloat16).reshape(n, 3, k, 8))
+
+
+def _vertex_library(table, idx, w, dw):
+    """One PyTorch composition computing K6v's function in f32: a gather of
+    the 8 corner rows of each sample per level, their parity diagonal
+    (lanes f*8 + p of corner p's row), and an einsum with the trilerp
+    weights (and their derivatives)."""
+    n, k = idx.shape[0], idx.shape[1] // 8
+    rows = table[idx].reshape(n, k, 8, 16, 8)  # [n, k, corner p, f, lane parity q]
+    T = torch.diagonal(rows, dim1=2, dim2=4)  # [n, k, f, p]
+    enc = torch.einsum("nkfp,nkp->nkf", T, w.reshape(n, k, 8))
+    if dw is None:
+        return enc
+    return enc, torch.einsum("nkfp,ntkp->ntkf", T, dw.reshape(n, 3, k, 8))
+
+
+def lookup_fns(gspec):
+    """K6's (or K6v's, for the vertex layout) forward and backward wrappers,
+    their plain versions, a PyTorch composition of the forward and the
+    rel-L2 limit of a check: (fwd, plain fwd, bwd, plain bwd, library,
+    tol), each taking (table, idx, w, dw[, genc, gtenc]). The bf16 table
+    rounds at the same points on both sides and sums in other orders
+    (1e-2); an f32 table is exact f32 on both (1e-4)."""
+    from multimodalstudio_tpu_torch.ops.kernels import slot_grid as sg
+
+    feats, bf16 = gspec.feats, gspec.table_dtype == "bf16"
+    if gspec.layout == "vertex":
+        return (lambda *a: sg._lookup(*a, feats, bf16, True), sg.slot_lookup_vertex_plain,
+                sg._launch_vertex_bwd, sg.slot_lookup_vertex_bwd_plain, _vertex_library, 1e-4)
+    return (lambda *a: sg._lookup(*a, feats, bf16),
+            lambda *a: sg.slot_lookup_plain(*a, feats=feats, bf16=bf16),
+            lambda *a: sg._launch_bwd(*a, feats, bf16),
+            lambda *a: sg.slot_lookup_bwd_plain(*a, feats=feats, bf16=bf16),
+            lambda *a: _lookup_library(*a, feats), 1e-2 if bf16 else 1e-4)
+
+
+def lookup_tag(gspec):
+    """A lookup kernel's label: K6, K6 with an f32 table, or K6v."""
+    if gspec.layout == "vertex":
+        return "K6v"
+    return "K6" + (" f32" if gspec.table_dtype == "f32" else "")
 
 
 def lookup_inputs(gen, dev, gspec, n, k):
@@ -1133,55 +1188,67 @@ def lookup_flops(n, k, feats, tangents):
 
 
 def lookup_bytes(gspec, table, idx, *tensors):
-    """Bytes K6 must move: the table rows of the levels idx reads, a 4-byte
-    entry index per sample and level, and the given tensors."""
-    k = idx.shape[1]
+    """Bytes K6 (K6v) must move: the table rows of the levels idx reads, a
+    4-byte index per sample and level (per corner in the vertex layout), and
+    the given tensors."""
+    k = idx.shape[1] // (8 if gspec.layout == "vertex" else 1)
     rows = gspec.total_rows if k >= gspec.num_levels else int(gspec.level_offsets[k])
     return rows * table.shape[1] * table.element_size() + 4 * idx.numel() + nbytes(*tensors)
 
 
-def check_slot_grid_lookup(gen, dev, gspec):
-    """K6's forward at one training microbatch's render samples (N=163840,
-    6 levels, with tangents) and the sampler's queries (4 levels, without),
-    and timed over one 1024-ray eval chunk: 4 sampler queries (32768 + 3 x
-    8192 samples, 4 levels) and 65536 render samples with tangents."""
-    from multimodalstudio_tpu_torch.ops.kernels.slot_grid import _lookup, slot_lookup_plain
+def _moved(ts, gen):
+    """Each tensor (or None) moved by 1e-6, relative, with gen's draws."""
+    return [t * (1 + 1e-6 * torch.randn(t.shape, generator=gen, device=t.device))
+            if t is not None else None for t in ts]
 
-    feats = gspec.feats
+
+def check_slot_grid_lookup(gen, dev, gspec, timed=True):
+    """K6's (K6v's) forward at one training microbatch's render samples
+    (N=163840, 6 levels, with tangents) and the sampler's queries (4
+    levels, without), and timed over one 1024-ray eval chunk: 4 sampler
+    queries (32768 + 3 x 8192 samples, 4 levels) and 65536 render samples
+    with tangents. Prints the plain version against itself with w and dw
+    moved by 1e-6 (relative; a generator of its own) beside each check."""
+    fwd, plain, _, _, library, tol = lookup_fns(gspec)
+    tag, feats = lookup_tag(gspec), gspec.feats
     err = 0.0
     for n, k, tang in ((163840, gspec.num_levels, True), (163840, 4, False)):
         table, idx, w, dw = lookup_inputs(gen, dev, gspec, n, k)
         dw = dw if tang else None
-        out = _lookup(table, idx, w, dw, feats, True)
-        ref = slot_lookup_plain(table, idx, w, dw, feats=feats, bf16=True)
+        out = fwd(table, idx, w, dw)
+        ref = plain(table, idx, w, dw)
         names = ("enc", "tenc") if tang else ("enc",)
-        err = max(err, _compare_outputs(f"K6 fwd N={n} {k} levels", names,
-                                        out if tang else (out,), ref if tang else (ref,)))
+        what = f"{tag} fwd N={n} {k} levels"
+        err = max(err, _compare_outputs(what, names, out if tang else (out,),
+                                        ref if tang else (ref,), tol=tol))
+        spread = plain(table, idx, *_moved((w, dw), torch.Generator(device=dev).manual_seed(SEED)))
+        _compare_outputs(what + ", plain vs plain with w, dw moved by 1e-6", names,
+                         spread if tang else (spread,), ref if tang else (ref,), tol=float("inf"))
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, bytes=0.0, err=err,
                peak=H100_F32_FLOPS)
+    if not timed:
+        return tot
     for n, k, tang, count in ((32768, 4, False, 1), (8192, 4, False, 3),
                               (65536, gspec.num_levels, True, 1)):
         table, idx, w, dw = lookup_inputs(gen, dev, gspec, n, k)
         dw = dw if tang else None
-        out = _lookup(table, idx, w, dw, feats, True)
-        tot["ms"] += count * time_ms(lambda: _lookup(table, idx, w, dw, feats, True))
-        tot["plain_ms"] += count * time_ms(
-            lambda: slot_lookup_plain(table, idx, w, dw, feats=feats, bf16=True))
-        tot["library_ms"] += count * time_ms(lambda: _lookup_library(table, idx, w, dw, feats))
+        out = fwd(table, idx, w, dw)
+        tot["ms"] += count * time_ms(lambda: fwd(table, idx, w, dw))
+        tot["plain_ms"] += count * time_ms(lambda: plain(table, idx, w, dw))
+        tot["library_ms"] += count * time_ms(lambda: library(table, idx, w, dw))
         tot["flops"] += count * lookup_flops(n, k, feats, tang)
         tot["bytes"] += count * lookup_bytes(gspec, table, idx, w, *([dw] if tang else []), out)
     return tot
 
 
-def check_slot_grid_lookup_bwd(gen, dev, gspec):
-    """K6's backward at one training microbatch: the render samples
+def check_slot_grid_lookup_bwd(gen, dev, gspec, timed=True):
+    """K6's (K6v's) backward at one training microbatch: the render samples
     (N=163840, 6 levels, with tangents) and the curvature taps (N=81920, 6
     levels, without), cotangents on the first 3 levels only (3 active). The
     tolerance's scale: the plain backward against itself with w and dw
     moved by 1e-6 (relative), since d_table is summed by atomics."""
-    from multimodalstudio_tpu_torch.ops.kernels.slot_grid import _launch_bwd, slot_lookup_bwd_plain
-
-    feats, k = gspec.feats, gspec.num_levels
+    _, _, bwd, plain, library, tol = lookup_fns(gspec)
+    tag, feats, k = lookup_tag(gspec), gspec.feats, gspec.num_levels
     mask = (torch.arange(k * feats, device=dev) < 3 * feats).float()
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, bytes=0.0, err=0.0,
                peak=H100_F32_FLOPS)
@@ -1191,37 +1258,37 @@ def check_slot_grid_lookup_bwd(gen, dev, gspec):
         genc = torch.randn(n, k * feats, generator=gen, device=dev) * mask
         gtenc = (torch.randn(n, 3, k * feats, generator=gen, device=dev) * mask).reshape(n, -1)
         gtenc = gtenc if tang else None
-        args = (table, idx, w, dw, genc, gtenc, feats, True)
-        got = _launch_bwd(*args)
-        want = slot_lookup_bwd_plain(table, idx, w, dw, genc, gtenc, feats=feats, bf16=True)
+        args = (table, idx, w, dw, genc, gtenc)
+        got = bwd(*args)
+        want = plain(*args)
         torch.cuda.synchronize()
         names = ("d_table", "d_w", "d_dw") if tang else ("d_table", "d_w")
-        what = f"K6 bwd N={n}" + (" with tangents" if tang else "")
-        tot["err"] = max(tot["err"], _compare_grads(what, names, got, want))
-        moved = [t * (1 + 1e-6 * torch.randn(t.shape, generator=gen, device=dev))
-                 if t is not None else None for t in (w, dw)]
+        what = f"{tag} bwd N={n}" + (" with tangents" if tang else "")
+        tot["err"] = max(tot["err"], _compare_grads(what, names, got, want, tol=tol))
         _compare_grads(what + ", plain vs plain with w, dw moved by 1e-6", names, want,
-                       slot_lookup_bwd_plain(table, idx, *moved, genc, gtenc, feats=feats,
-                                             bf16=True), tol=float("inf"))
+                       plain(table, idx, *_moved((w, dw), gen), genc, gtenc), tol=float("inf"))
+        if not timed:
+            continue
         tl = table.clone().requires_grad_(True)
         wl = w.clone().requires_grad_(True)
         dwl = dw.clone().requires_grad_(True) if tang else None
-        outs = _lookup_library(tl, idx, wl, dwl, feats)
+        outs = library(tl, idx, wl, dwl)
         leaves = [tl, wl] + ([dwl] if tang else [])
-        cot = [genc.to(torch.bfloat16).reshape(n, k, feats)]
+        cot_dt = torch.bfloat16 if gspec.table_dtype == "bf16" else torch.float32
+        cot = [genc.to(cot_dt).reshape(n, k, feats)]
         if tang:
             outs = list(outs)
-            cot.append(gtenc.to(torch.bfloat16).reshape(n, 3, k, feats))
+            cot.append(gtenc.to(cot_dt).reshape(n, 3, k, feats))
         else:
             outs = [outs]
 
-        def library():
+        def lib():
             return torch.autograd.grad(outs, leaves, cot, retain_graph=True)
 
-        tot["ms"] += time_ms(lambda: _launch_bwd(*args))
-        tot["plain_ms"] += time_ms(lambda: slot_lookup_bwd_plain(
-            table, idx, w, dw, genc, gtenc, feats=feats, bf16=True))
-        tot["library_ms"] += time_ms(library)
+        tot["ms"] += time_ms(lambda: bwd(*args))
+        tot["plain_ms"] += time_ms(lambda: plain(*args))
+        tot["library_ms"] += time_ms(lib)
+        del outs
         # d_w and d_dw: a product per corner, feature and output; u: 2 (4) per lane
         tot["flops"] += lookup_flops(n, k, feats, tang) * 2
         tot["bytes"] += lookup_bytes(gspec, table, idx, w, genc, got[0], got[1],
@@ -1229,53 +1296,81 @@ def check_slot_grid_lookup_bwd(gen, dev, gspec):
     return tot
 
 
-def check_chain_adjoint(gen, dev):
+def check_lookup_edges(gen, dev, gspec) -> None:
+    """K6 (K6v) off the main path's shapes: a ragged N = 1000 on 3 levels
+    without tangents and on all with, forward and backward."""
+    fwd, plain, bwd, plain_bwd, _, tol = lookup_fns(gspec)
+    tag, n, feats = lookup_tag(gspec), 1000, gspec.feats
+    for k, tang in ((3, False), (gspec.num_levels, True)):
+        table, idx, w, dw = lookup_inputs(gen, dev, gspec, n, k)
+        dw = dw if tang else None
+        names = ("enc", "tenc") if tang else ("enc",)
+        out, ref = fwd(table, idx, w, dw), plain(table, idx, w, dw)
+        _compare_outputs(f"{tag} fwd {k} levels N={n}", names, out if tang else (out,),
+                         ref if tang else (ref,), tol=tol)
+        genc = torch.randn(n, k * feats, generator=gen, device=dev)
+        gtenc = torch.randn(n, 3 * k * feats, generator=gen, device=dev) if tang else None
+        _compare_grads(f"{tag} bwd {k} levels N={n}", ("d_table", "d_w", "d_dw")[:len(names) + 1],
+                       bwd(table, idx, w, dw, genc, gtenc),
+                       plain_bwd(table, idx, w, dw, genc, gtenc), tol=tol)
+
+
+def check_chain_adjoint(gen, dev, dims=NOPE_DIMS, what="K5"):
     """K5's forward at one 1024-ray eval chunk's render samples (N=65536)
-    and one training microbatch's (N=163840), on the 15 -> 128 -> 128 -> 257
-    SoftplusQuad chain."""
+    and one training microbatch's (N=163840), on the SoftplusQuad chain
+    `dims` (NOPE_DIMS, or VERTEX_DIMS for the vertex table's 99 inputs)."""
     from multimodalstudio_tpu_torch.ops.kernels.sdf_chain import (
         fused_chain_adjoint,
         fused_chain_adjoint_plain,
     )
 
-    ws, bs = random_chain(gen, NOPE_DIMS, dev)
+    ws, bs = random_chain(gen, dims, dev)
     err = 0.0
     for n in (163840, 65536):
-        x = torch.rand(n, 15, generator=gen, device=dev) * 2 - 1
+        x = torch.rand(n, dims[0][0], generator=gen, device=dev) * 2 - 1
         with torch.no_grad():
             out = fused_chain_adjoint(x, ws, bs)
             ref = fused_chain_adjoint_plain(x, ws, bs)
         torch.cuda.synchronize()
-        err = max(err, _compare_outputs(f"K5 fwd N={n}", ("y", "adj"), out, ref))
+        err = max(err, _compare_outputs(f"{what} fwd N={n}", ("y", "adj"), out, ref))
     library, _ = adjoint_library(x, ws, bs)
     with torch.no_grad():
         ms = time_ms(lambda: fused_chain_adjoint(x, ws, bs))
         plain_ms = time_ms(lambda: fused_chain_adjoint_plain(x, ws, bs))
     return dict(ms=ms, plain_ms=plain_ms, library_ms=time_ms(library),
-                flops=sdf_flops(n, NOPE_DIMS), bytes=nbytes(x, ws, bs, out), err=err)
+                flops=sdf_flops(n, dims), bytes=nbytes(x, ws, bs, out), err=err)
 
 
-def check_chain_adjoint_bwd(gen, dev):
+def check_chain_adjoint_bwd(gen, dev, dims=NOPE_DIMS, what="K5", conditioned=False):
     """K5's backward at one training microbatch's render samples: N=163840,
-    cotangents on y (bf16) and adj."""
+    cotangents on y (bf16) and adj, on the chain `dims`. With `conditioned`
+    its limits follow the plain version's spread (_plain_conditioning, a
+    generator of its own), else the plain spread is printed beside 1e-2."""
     from multimodalstudio_tpu_torch.ops.kernels.sdf_chain import (
         _launch_adj_bwd,
         fused_chain_adjoint_bwd_plain,
     )
 
-    n = 163840
-    ws, bs = random_chain(gen, NOPE_DIMS, dev)
-    x = torch.rand(n, 15, generator=gen, device=dev) * 2 - 1
-    gy = (0.1 * torch.randn(n, 257, generator=gen, device=dev)).to(torch.bfloat16)
-    ga = torch.randn(n, 15, generator=gen, device=dev)
+    n, d_in = 163840, dims[0][0]
+    ws, bs = random_chain(gen, dims, dev)
+    x = torch.rand(n, d_in, generator=gen, device=dev) * 2 - 1
+    gy = (0.1 * torch.randn(n, dims[-1][1], generator=gen, device=dev)).to(torch.bfloat16)
+    ga = torch.randn(n, d_in, generator=gen, device=dev)
     kargs = (x, ws, bs, (), "SoftplusQuad", 100.0, 0, gy, ga)
     got = _launch_adj_bwd(*kargs)
     want = fused_chain_adjoint_bwd_plain(x, ws, bs, gy, ga)
     torch.cuda.synchronize()
-    err = _compare_grads(f"K5 bwd N={n}", CHAIN_GRADS, got, want)
-    moved = [b * (1 + 1e-6 * torch.randn(b.shape, generator=gen, device=dev)) for b in bs]
-    _compare_grads(f"K5 bwd N={n}, plain vs plain with biases moved by 1e-6", CHAIN_GRADS, want,
-                   fused_chain_adjoint_bwd_plain(x, ws, moved, gy, ga), tol=float("inf"))
+    if conditioned:
+        limits = _plain_conditioning(f"{what} bwd N={n}", CHAIN_GRADS,
+                                     fused_chain_adjoint_bwd_plain, lambda b: (x, ws, b, gy, ga),
+                                     bs, {}, torch.Generator(device=dev).manual_seed(SEED), dev,
+                                     want)
+        err = _compare_grads(f"{what} bwd N={n}", CHAIN_GRADS, got, want, tol=limits)
+    else:
+        err = _compare_grads(f"{what} bwd N={n}", CHAIN_GRADS, got, want)
+        moved = [b * (1 + 1e-6 * torch.randn(b.shape, generator=gen, device=dev)) for b in bs]
+        _compare_grads(f"{what} bwd N={n}, plain vs plain with biases moved by 1e-6", CHAIN_GRADS,
+                       want, fused_chain_adjoint_bwd_plain(x, ws, moved, gy, ga), tol=float("inf"))
     fn, leaves = adjoint_library(x, ws, bs, create_graph=True)
     outs = fn()
 
@@ -1284,41 +1379,22 @@ def check_chain_adjoint_bwd(gen, dev):
 
     return dict(ms=time_ms(lambda: _launch_adj_bwd(*kargs)),
                 plain_ms=time_ms(lambda: fused_chain_adjoint_bwd_plain(x, ws, bs, gy, ga)),
-                library_ms=time_ms(library), flops=sdf_flops(n, NOPE_DIMS, backward=True),
+                library_ms=time_ms(library), flops=sdf_flops(n, dims, backward=True),
                 bytes=nbytes(x, ws, bs, gy, ga, got[0], got[1], got[2]), err=err)
 
 
 def check_nope_edges(gen, dev, gspec) -> None:
-    """K6 and K5 off the main path's shapes: a ragged N; K6 on 3 levels
-    without tangents and on all with; K5 with a skip layer at channel 1."""
+    """K6 and K5 off the main path's shapes: K6's check_lookup_edges; K5
+    with a skip layer at channel 1, a ragged N."""
     from multimodalstudio_tpu_torch.ops.kernels.sdf_chain import (
         _launch_adj_bwd,
         fused_chain_adjoint,
         fused_chain_adjoint_bwd_plain,
         fused_chain_adjoint_plain,
     )
-    from multimodalstudio_tpu_torch.ops.kernels.slot_grid import (
-        _launch_bwd,
-        _lookup,
-        slot_lookup_bwd_plain,
-        slot_lookup_plain,
-    )
 
-    n, feats = 1000, gspec.feats
-    for k, tang in ((3, False), (gspec.num_levels, True)):
-        table, idx, w, dw = lookup_inputs(gen, dev, gspec, n, k)
-        dw = dw if tang else None
-        names = ("enc", "tenc") if tang else ("enc",)
-        out = _lookup(table, idx, w, dw, feats, True)
-        ref = slot_lookup_plain(table, idx, w, dw, feats=feats, bf16=True)
-        _compare_outputs(f"K6 fwd {k} levels N={n}", names, out if tang else (out,),
-                         ref if tang else (ref,))
-        genc = torch.randn(n, k * feats, generator=gen, device=dev)
-        gtenc = torch.randn(n, 3 * k * feats, generator=gen, device=dev) if tang else None
-        _compare_grads(f"K6 bwd {k} levels N={n}", ("d_table", "d_w", "d_dw")[:len(names) + 1],
-                       _launch_bwd(table, idx, w, dw, genc, gtenc, feats, True),
-                       slot_lookup_bwd_plain(table, idx, w, dw, genc, gtenc, feats=feats,
-                                             bf16=True))
+    check_lookup_edges(gen, dev, gspec)
+    n = 1000
     dims = [(15, 128), (128, 128), (143, 128), (128, 33)]
     ws, bs = random_chain(gen, dims, dev)
     kw = dict(skip=(2,), activation="SoftplusQuad", beta=100.0, channel=1)
@@ -1331,6 +1407,78 @@ def check_nope_edges(gen, dev, gspec) -> None:
     _compare_grads(f"K5 bwd skip=(2,) channel 1 N={n}", CHAIN_GRADS,
                    _launch_adj_bwd(x, ws, bs, (2,), "SoftplusQuad", 100.0, 1, gy, ga),
                    fused_chain_adjoint_bwd_plain(x, ws, bs, gy, ga, **kw))
+
+
+def check_sdf_head(gen, dev, dims=VERTEX_DIMS):
+    """K1 on the SDF head of grid_raw_tpu without PE (SoftplusQuad, no
+    skip): the forward at the sampler's queries, timed over one 1024-ray
+    eval chunk (32768 + 3 x 8192), and at a training microbatch's curvature
+    taps (N=81920); the backward at the taps, whose cotangent is the sdf
+    column's alone (sdf_only keeps that column), its limits following the
+    plain version's spread (_plain_conditioning, a generator of its own).
+    Returns the forward's and the backward's timings."""
+    from multimodalstudio_tpu_torch.ops.kernels.fused_mlp import (
+        _launch_bwd,
+        fused_chain,
+        fused_chain_bwd_plain,
+        fused_chain_plain,
+    )
+
+    kw = dict(activation="SoftplusQuad", beta=100.0)
+    ws, bs = random_chain(gen, dims, dev)
+    wb, bb = bf16_leaves(ws, bs, False)
+    fwd = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, bytes=0.0, err=0.0)
+    for n, count in ((32768, 1), (8192, 3), (81920, 0)):
+        x = torch.rand(n, dims[0][0], generator=gen, device=dev) * 2 - 1
+        with torch.no_grad():
+            y = fused_chain(x, ws, bs, **kw)
+            ref = fused_chain_plain(x, ws, bs, **kw)
+            torch.cuda.synchronize()
+            fwd["err"] = max(fwd["err"], _compare_outputs(f"K1 SDF head fwd N={n}", ("y",), (y,),
+                                                          (ref,)))
+            if not count:
+                continue
+            xb = x.to(torch.bfloat16)
+            fwd["ms"] += count * time_ms(lambda: fused_chain(x, ws, bs, **kw))
+            fwd["plain_ms"] += count * time_ms(lambda: fused_chain_plain(x, ws, bs, **kw))
+            fwd["library_ms"] += count * time_ms(lambda: linear_chain(xb, wb, bb))
+        fwd["flops"] += count * chain_flops(n, dims)
+        fwd["bytes"] += count * nbytes(x, ws, bs, y)
+    n = 81920
+    x = torch.rand(n, dims[0][0], generator=gen, device=dev) * 2 - 1
+    gy = torch.zeros(n, dims[-1][1], device=dev)
+    gy[:, 0] = torch.randn(n, generator=gen, device=dev)
+    gy = gy.to(torch.bfloat16)
+    args = (x, gy, ws, bs, (), kw["activation"], kw["beta"])
+    out = _launch_bwd(*args)
+    ref = fused_chain_bwd_plain(x, gy, ws, bs, **kw)
+    torch.cuda.synchronize()
+    limits = _plain_conditioning(f"K1 bwd SDF head N={n}", CHAIN_GRADS, fused_chain_bwd_plain,
+                                 lambda b: (x, gy, ws, b), bs, kw,
+                                 torch.Generator(device=dev).manual_seed(SEED), dev, ref)
+    err = _compare_grads(f"K1 bwd SDF head N={n}", CHAIN_GRADS, out, ref, tol=limits)
+    wl, bl = bf16_leaves(ws, bs, True)
+    xl = x.to(torch.bfloat16).requires_grad_(True)
+    h = linear_chain(xl, wl, bl)
+
+    def library():
+        return torch.autograd.grad(h, [xl, *wl, *bl], gy, retain_graph=True)
+
+    # the last layer's cotangent is the sdf column's only
+    live = dims[:-1] + [(dims[-1][0], 1)]
+    bwd = dict(ms=time_ms(lambda: _launch_bwd(*args)),
+               plain_ms=time_ms(lambda: fused_chain_bwd_plain(x, gy, ws, bs, **kw)),
+               library_ms=time_ms(library),
+               flops=chain_flops(n, dims[:-1]) + 2 * chain_flops(n, live),
+               bytes=nbytes(x, gy, ws, bs, out[0], out[1], out[2]), err=err)
+    return fwd, bwd
+
+
+def print_timing(what, r, peak=H100_BF16_FLOPS):
+    """One check's kernel, plain and library ms beside its bound."""
+    b_ms, b_by = bound(r["flops"], r["bytes"], peak)
+    print(f"  {what}: {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, library "
+          f"{r['library_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by}), max_abs_err {r['err']:.3e}")
 
 
 # ------------------------------------------------- K2s, K3s and the table scatter
@@ -1810,6 +1958,9 @@ PER_CHUNK = {  # kernel launches of one 1024-ray eval chunk (derived in PERF.md)
     # as grid_raw_tpu, through the f32 table's K2f and K3f
     "grid_raw_tpu with f32 table": {"fused_chain": 5, "fused_slot_sdf_value_f32": 4,
                                     "fused_slot_sdf_chain_f32": 1},
+    # as grid_raw_tpu without PE, the lookups through K6v
+    "grid_raw_tpu without PE, vertex layout": {"fused_chain": 9, "slot_grid_lookup_vertex": 5,
+                                               "fused_chain_adjoint": 1},
 }
 
 NO_PE = {"model": {"surface": {"surface_field": {"use_position_encoding": False}}}}
@@ -1818,6 +1969,13 @@ CONTRACTION = {"model": {"surface": {"contraction_order": float("inf")}}}
 # config.yaml:64-72): 6 levels of 512 entries, F = 16, an f32 table
 F32_TABLE = {"model": {"surface": {"surface_field": {"field": {"grid": {"encoding": {
     "rows_per_level": 512, "feats": 16, "table_dtype": "f32"}}}}}}}
+# the vertex layout's grid of the quality harness (configs/methods.py:356-359): 6 levels of
+# 2048 rows, F = 16, an f32 table; without the position encoding, as the fused slot kernels
+# refuse the layout
+VERTEX_TABLE = {"model": {"surface": {"surface_field": {
+    "use_position_encoding": False,
+    "field": {"grid": {"encoding": {"layout": "vertex", "feats": 16, "table_dtype": "f32",
+                                    "rows_per_level": 2048}}}}}}}
 CONFIGS = {  # label: (registered method, load_config overrides, environment of its phases)
     "grid_raw_tpu": ("grid_raw_tpu", None, {}),
     "mlp_raw_tpu": ("mlp_raw_tpu", None, {}),
@@ -1828,6 +1986,7 @@ CONFIGS = {  # label: (registered method, load_config overrides, environment of 
     "grid_raw_tpu with f32 table": ("grid_raw_tpu", F32_TABLE, {}),
     "grid_raw_tpu with f32 table and split backward": ("grid_raw_tpu", F32_TABLE,
                                                        {"MMS_SLOT_BWD_SPLIT": "1"}),
+    "grid_raw_tpu without PE, vertex layout": ("grid_raw_tpu", VERTEX_TABLE, {}),
 }
 # labels whose render is another label's (the split backward changes nothing a render
 # runs): their render phase is not repeated
@@ -2019,6 +2178,12 @@ PER_MICROBATCH = {  # kernel launches of one training microbatch (derived in PER
         "fused_slot_sdf_chain_f32": 1, "fused_slot_sdf_chain_f32_bwd_sample": 1,
         "slot_table_scatter_f32": 2,
     },
+    # as grid_raw_tpu without PE, the lookups through K6v (no launch of K6)
+    "grid_raw_tpu without PE, vertex layout": {
+        "fused_chain": 10, "fused_chain_bwd": 6,
+        "slot_grid_lookup_vertex": 6, "slot_grid_lookup_vertex_bwd": 2,
+        "fused_chain_adjoint": 1, "fused_chain_adjoint_bwd": 1,
+    },
 }
 
 
@@ -2027,12 +2192,14 @@ PER_MICROBATCH = {  # kernel launches of one training microbatch (derived in PER
 # terms. On mlp_raw_tpu these carry the eikonal loss's second derivatives
 # through the 8-layer SoftplusQuad SDF, and the CPU run moves by ~1e-1 when
 # its parameters move by 1e-5 (printed beside each group), so its limit is
-# 3e-1, as on its contraction and jvp-mode variants; every other group, and
-# grid_raw_tpu's poses, keep 1e-1.
+# 3e-1, as on its contraction and jvp-mode variants; so is the vertex
+# table's, whose CPU run moves by 2.2e-1 under the same move (the card read
+# 9.8e-2). Every other group, and grid_raw_tpu's poses, keep 1e-1.
 POSE_TOL = {"grid_raw_tpu": 1e-1, "mlp_raw_tpu": 3e-1, "grid_raw_tpu without PE": 1e-1,
             "mlp_raw_tpu with contraction": 3e-1, "mlp_raw_tpu in jvp mode": 3e-1,
             "grid_raw_tpu with split backward": 1e-1, "grid_raw_tpu with f32 table": 1e-1,
-            "grid_raw_tpu with f32 table and split backward": 1e-1}
+            "grid_raw_tpu with f32 table and split backward": 1e-1,
+            "grid_raw_tpu without PE, vertex layout": 3e-1}
 
 
 def _param_groups(named):
@@ -2229,6 +2396,7 @@ def main() -> None:
     from multimodalstudio_tpu_torch.ops.kernels import build
     from multimodalstudio_tpu_torch.ops.kernels.slot_grid import SlotGridSpec
 
+    t_start = time.perf_counter()
     set_reference_precision()
     card = card_line()
     print(card)
@@ -2302,8 +2470,8 @@ def main() -> None:
     f32 = phase("K2f and K3f", lambda: {
         "fused_slot_sdf_value_f32": check_slot_value(gen, dev, f32spec),
         "fused_slot_sdf_chain_f32": check_slot_chain(gen, dev, f32spec),
-        "fused_slot_sdf_value_f32_bwd": check_slot_value_bwd(gen, dev, f32spec, conditioned=True),
-        "fused_slot_sdf_chain_f32_bwd": check_slot_chain_bwd(gen, dev, f32spec, conditioned=True),
+        "fused_slot_sdf_value_f32_bwd": check_slot_value_bwd(gen, dev, f32spec),
+        "fused_slot_sdf_chain_f32_bwd": check_slot_chain_bwd(gen, dev, f32spec),
     })
     for name in ("fused_slot_sdf_value_f32", "fused_slot_sdf_chain_f32"):
         f32[name]["err"] = max(f32[name]["err"], f32[name + "_bwd"].pop("fwd_err"))
@@ -2318,6 +2486,36 @@ def main() -> None:
     print("kernel checks with a skip connection (bf16 and f32 tables; 10 layers with scratch "
           "stacks):")
     phase("skip edge cases", check_skip_edges, gen, dev, (gspec, f32spec))
+    # the lookup's exact-f32 phases draw from `gen` after every earlier phase
+    print("kernel checks of K6 with an f32 cell table (grid_raw_tpu with f32 table's grid; "
+          "forward: one microbatch's render samples and sampler queries; backward: per 512-ray "
+          "training microbatch):")
+    phase("K6 with an f32 table", lambda: (check_slot_grid_lookup(gen, dev, f32spec, timed=False),
+                                           check_slot_grid_lookup_bwd(gen, dev, f32spec,
+                                                                      timed=False)))
+    vspec = SlotGridSpec(num_levels=6, min_res=16, max_res=512, rows_per_level=2048,
+                         layout="vertex", feats=16, table_dtype="f32")
+    print("kernel checks of K6v (grid_raw_tpu without PE, vertex layout; forward: per 1024-ray "
+          "eval chunk; backward: per 512-ray training microbatch):")
+    results.update(phase("K6v", lambda: {
+        "slot_grid_lookup_vertex": check_slot_grid_lookup(gen, dev, vspec),
+        "slot_grid_lookup_vertex_bwd": check_slot_grid_lookup_bwd(gen, dev, vspec),
+    }))
+    print("kernel checks of K6v off the main path's shapes:")
+    phase("K6v edge cases", check_lookup_edges, gen, dev, vspec)
+    # the vertex label's SDF head (99 inputs) draws from `gen` after every earlier phase
+    print("kernel checks of K5 and K1 on the SDF head of grid_raw_tpu without PE, vertex layout "
+          "(99 -> 128 -> 128 -> 257; forward: per 1024-ray eval chunk; backward: per 512-ray "
+          "training microbatch):")
+    wide = phase("K5 and K1 at 99 inputs", lambda: {
+        "fused_chain_adjoint": check_chain_adjoint(gen, dev, VERTEX_DIMS, "K5 at 99 inputs"),
+        "fused_chain_adjoint_bwd": check_chain_adjoint_bwd(gen, dev, VERTEX_DIMS,
+                                                           "K5 at 99 inputs", conditioned=True),
+        **dict(zip(("fused_chain", "fused_chain_bwd"), check_sdf_head(gen, dev))),
+    })
+    for name, r in wide.items():
+        results[name]["err"] = max(results[name]["err"], r["err"])
+        print_timing(f"{name} at 99 inputs ({card})", r)
     rays_per_s, train, launches = {}, {}, {}
     for method in CONFIGS:
         with config_env(method):
@@ -2346,6 +2544,7 @@ def main() -> None:
         t = train[method]
         print(f"{method}: eval rays/s {rays_per_s[method]:.1f}, train rays/s {t['rays_per_s']:.1f}, "
               f"step {t['step_ms']:.2f} ms, card busy {100 * t['busy']:.1f}% of a step ({card})")
+    print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s ({card})")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

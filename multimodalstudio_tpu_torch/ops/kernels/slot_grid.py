@@ -8,10 +8,20 @@ index when res^3 fits the level's entry budget, else the XOR hash of the
 cell coordinate; physical row = level offset + (entry >> log2 P), group =
 entry & (P - 1).
 
+In the vertex layout (exact C0) one row holds ONE grid vertex's features
+at one level, and the 8 corners of a cell read 8 rows: vertices are
+grouped 2 x 2 x 2, the group of vertex g being g >> 1 per axis, and the
+8 vertices of a group share a row, vertex parity p (bits g & 1) owning
+lanes f * 8 + p. A cell's 8 corners have 8 distinct parities, so corner
+slot p of a sample is the corner whose parity is p; its row is the
+group's dense index when (res // 2 + 1)^3 fits the budget, else the XOR
+hash of the group coordinate. F = 16 and an f32 table only.
+
 `slot_geometry` is the plain version of the geometry that the fused slot
-kernels compute in-kernel (slot_fused.py); it is plain tensor code, so
-autograd carries position gradients (second order included) through its
-trilerp weights w and their derivatives dw.
+kernels compute in-kernel (slot_fused.py) in the cell layout, and the
+vertex layout's; it is plain tensor code, so autograd carries position
+gradients (second order included) through its trilerp weights w and their
+derivatives dw.
 
 `slot_grid_lookup` is kernel K6: from (table, idx, w[, dw]) it gathers each
 sample's entry per level and returns the encoding enc [N, K*F] (and its
@@ -33,14 +43,26 @@ bf16(gtenc_t); d_w[p] = sum_f bf16(bf16(T) * gt), d_dw the same with gtk;
 u = gt * bf16(w) + sum_t gtk * bf16(dw_t) in f32, rounded to bf16 before
 the f32 scatter-sum into d_table. Only the sample's own entry (its 8F
 lanes) receives anything. The f32 table runs the same arithmetic without
-the roundings (the TPU's hi/lo split reaches f32 to about 2^-16). The
-vertex layout has no port and raises.
+the roundings (the TPU's hi/lo split reaches f32 to about 2^-16).
+
+K6v is the vertex layout's lookup, a kernel pair of its own in
+csrc/slot_grid.cu replacing the vertex branches of the same two Pallas
+kernels (_fwd_kernel :487-507, _bwd_kernel :645-662): T[n, l, f, p] =
+table[idx[n, l*8 + p], f*8 + p], the parity-p lanes of corner p's row,
+then enc and tenc by the cell formula in exact f32 (the TPU's copy gather
+and its float32 dots); the backward adds u[n, l, f, p] into those lanes
+of d_table by f32 atomics. The plain versions gather by flat element
+index (row * 128 + lane), never whole rows.
 
 Bound on an H100: per (sample, level) the forward reads 8 + 24 f32
 weights, an index and 8F table values (L2-resident: 1.5 MB at the
 flagship size) and writes 4F floats; about 8F multiply-adds per output:
 the bytes bound it. The backward adds F + 3F cotangents, writes 32 f32
-weight cotangents and 8F atomics.
+weight cotangents and 8F atomics. K6v reads 8 indices and the parity
+lanes of 8 rows per (sample, level): 16 floats at a 32-byte stride from
+each 512-byte row, so each corner touches its whole row (about 4 KB of L2
+sectors for 512 B of data); its backward's atomics contend on the dense
+coarsest level, which every sample reads.
 """
 
 from __future__ import annotations
@@ -66,6 +88,16 @@ KERNEL = build.register(
 )
 BWD_KERNEL = build.register(
     "slot_grid_lookup_bwd",
+    source="multimodalstudio_tpu_torch/csrc/slot_grid.cu",
+    replaces="multimodalstudio_tpu/ops/pallas/slot_grid.py:536",
+)
+VERTEX_KERNEL = build.register(
+    "slot_grid_lookup_vertex",
+    source="multimodalstudio_tpu_torch/csrc/slot_grid.cu",
+    replaces="multimodalstudio_tpu/ops/pallas/slot_grid.py:415",
+)
+VERTEX_BWD_KERNEL = build.register(
+    "slot_grid_lookup_vertex_bwd",
     source="multimodalstudio_tpu_torch/csrc/slot_grid.cu",
     replaces="multimodalstudio_tpu/ops/pallas/slot_grid.py:536",
 )
@@ -172,17 +204,11 @@ def make_table_init(spec: SlotGridSpec):
     return init
 
 
-def cell_factors(x: torch.Tensor, spec: SlotGridSpec, num_levels: Optional[int] = None):
-    """Cell-layout entry indices and per-axis trilerp factors.
-
-    x [N, 3] in [0, 1]. Returns idx [N, K] int64 ABSOLUTE entry indices
-    (level row offset * P + entry) and wa, dwa, ddwa [N, K, 8, 3]: for
-    corner p (offset bits p = dx + 2 dy + 4 dz) and axis t, the factor
-    (bit ? s : 1 - s) and its first and second derivatives in x_t (the
-    resolution chain rule included; slot_fused.py::_geom_weights)."""
-    if spec.layout != "cell":
-        raise NotImplementedError("only the cell layout is ported")
-    k = spec.num_levels if num_levels is None else min(num_levels, spec.num_levels)
+def _grid_coords(x: torch.Tensor, spec: SlotGridSpec, k: int):
+    """Per level of the first k: the smoothstep (or linear) factor s of the
+    in-cell offset and its first and second derivatives in x (the
+    resolution chain rule included), each [N, k, 3], and the clamped cell
+    coordinate b [N, k, 3] int64."""
     dev = x.device
     res = spec.resolutions[:k]
     resf = torch.as_tensor(res.astype(np.float32), device=dev)
@@ -201,35 +227,104 @@ def cell_factors(x: torch.Tensor, spec: SlotGridSpec, num_levels: Optional[int] 
         raise ValueError(f"unknown interpolation {spec.interpolation}")
     resi = torch.as_tensor(res.astype(np.int64), device=dev)
     b = torch.minimum(base.long().clamp_min(0), (resi - 1)[None, :, None])  # [N, K, 3]
-    h = b[..., 0] * PRIMES[0]
-    h = torch.bitwise_xor(h, (b[..., 1] * PRIMES[1]) & 0xFFFFFFFF)
-    h = torch.bitwise_xor(h, (b[..., 2] * PRIMES[2]) & 0xFFFFFFFF)
+    return s, ds, dds, b
+
+
+def _hash(c: torch.Tensor) -> torch.Tensor:
+    """XOR hash of integer coordinates c [..., 3] in uint32 arithmetic
+    (int64 masked to 32 bits)."""
+    h = c[..., 0] * PRIMES[0]
+    h = torch.bitwise_xor(h, (c[..., 1] * PRIMES[1]) & 0xFFFFFFFF)
+    return torch.bitwise_xor(h, (c[..., 2] * PRIMES[2]) & 0xFFFFFFFF)
+
+
+def _corner_bits(dev) -> torch.Tensor:
+    """Offset bits [8, 3] of corner p = dx + 2 dy + 4 dz."""
+    return torch.tensor([[p & 1, (p >> 1) & 1, (p >> 2) & 1] for p in range(NSLOT)],
+                        dtype=torch.int64, device=dev)
+
+
+def _axis_factors(d8: torch.Tensor, s, ds, dds, dtype):
+    """Per-axis trilerp factors of the corners with offset bits d8 [.., 8,
+    3] and their first and second derivatives, each [N, K, 8, 3]."""
+    df = d8.to(dtype)
+    s4 = s[:, :, None, :]
+    wa = df * s4 + (1.0 - df) * (1.0 - s4)
+    sgn = 2.0 * df - 1.0
+    return wa, sgn * ds[:, :, None, :], sgn * dds[:, :, None, :]
+
+
+def cell_factors(x: torch.Tensor, spec: SlotGridSpec, num_levels: Optional[int] = None):
+    """Cell-layout entry indices and per-axis trilerp factors.
+
+    x [N, 3] in [0, 1]. Returns idx [N, K] int64 ABSOLUTE entry indices
+    (level row offset * P + entry) and wa, dwa, ddwa [N, K, 8, 3]: for
+    corner p (offset bits p = dx + 2 dy + 4 dz) and axis t, the factor
+    (bit ? s : 1 - s) and its first and second derivatives in x_t (the
+    resolution chain rule included; slot_fused.py::_geom_weights). The
+    fused slot kernels run on these; the vertex layout has none."""
+    if spec.layout != "cell":
+        raise NotImplementedError(
+            f"cell_factors: the {spec.layout} layout has no cell entries (cell layout only)")
+    k = spec.num_levels if num_levels is None else min(num_levels, spec.num_levels)
+    dev = x.device
+    s, ds, dds, b = _grid_coords(x, spec, k)
+    res = spec.resolutions[:k]
+    resi = torch.as_tensor(res.astype(np.int64), device=dev)
     ents = torch.as_tensor(spec.level_entries[:k], device=dev)
-    row_hash = h & (ents - 1)[None, :]
+    row_hash = _hash(b) & (ents - 1)[None, :]
     row_dense = b[..., 0] + (b[..., 1] + b[..., 2] * resi[None, :]) * resi[None, :]
     dense = torch.as_tensor(res.astype(np.int64) ** 3 <= spec.rows_per_level, device=dev)
     row = torch.where(dense[None, :], row_dense, row_hash)
     offs = torch.as_tensor(spec.level_offsets[:k] * spec.entries_per_row, device=dev)
     idx = row + offs[None, :]
+    bits = _corner_bits(dev)[None, None].expand(x.shape[0], k, NSLOT, 3)
+    return (idx, *_axis_factors(bits, s, ds, dds, x.dtype))
 
-    bits = torch.tensor([[p & 1, (p >> 1) & 1, (p >> 2) & 1] for p in range(NSLOT)],
-                        dtype=x.dtype, device=dev)  # [8, 3]
-    s4 = s[:, :, None, :]
-    wa = bits * s4 + (1.0 - bits) * (1.0 - s4)  # [N, K, 8, 3]
-    sgn = 2.0 * bits - 1.0
-    return idx, wa, sgn * ds[:, :, None, :], sgn * dds[:, :, None, :]
+
+def _vertex_factors(x: torch.Tensor, spec: SlotGridSpec, num_levels: Optional[int] = None):
+    """Vertex-layout rows and per-axis trilerp factors (slot_grid.py:288-303).
+
+    x [N, 3] in [0, 1]. Returns idx [N, K*8] int64 absolute rows (column
+    l*8 + p: the row of the corner whose PARITY is p) and wa, dwa [N, K, 8,
+    3]. With group coordinate gb = b >> 1 and parity par = b & 1, slot p's
+    corner has offset bits d8 = par ^ bits(p) and group gb + (par & d8),
+    whose row is its dense index over (res // 2 + 1)^3 groups when that
+    fits rows_per_level, else its hash masked to the level's rows."""
+    k = spec.num_levels if num_levels is None else min(num_levels, spec.num_levels)
+    n, dev = x.shape[0], x.device
+    s, ds, dds, b = _grid_coords(x, spec, k)
+    par, gb = b & 1, b >> 1
+    d8 = torch.bitwise_xor(par[:, :, None, :], _corner_bits(dev)[None, None])  # [N, K, 8, 3]
+    g8 = gb[:, :, None, :] + (par[:, :, None, :] & d8)
+    gdims = spec.resolutions[:k].astype(np.int64) // 2 + 1
+    gd = torch.as_tensor(gdims, device=dev)[None, :, None]
+    row_dense = g8[..., 0] + (g8[..., 1] + g8[..., 2] * gd) * gd  # [N, K, 8]
+    ents = torch.as_tensor(spec.level_entries[:k], device=dev)
+    row_hash = _hash(g8) & (ents - 1)[None, :, None]
+    dense = torch.as_tensor(gdims**3 <= spec.rows_per_level, device=dev)
+    row8 = torch.where(dense[None, :, None], row_dense, row_hash)
+    offs = torch.as_tensor(spec.level_offsets[:k], device=dev)
+    idx = (row8 + offs[None, :, None]).reshape(n, k * NSLOT)
+    wa, dwa, _ = _axis_factors(d8, s, ds, dds, x.dtype)
+    return idx, wa, dwa
 
 
 def slot_geometry(x: torch.Tensor, spec: SlotGridSpec, num_levels: Optional[int] = None):
-    """Cell-layout entry indices and trilerp weights (slot_grid.py:212-319).
+    """Rows and trilerp weights of either layout (slot_grid.py:212-319).
 
-    x [N, 3] in [0, 1]. Returns idx [N, K] int64 ABSOLUTE entry indices
-    (level row offset * P + entry), w [N, K*8] f32 (column l*8 + p, corner
-    offset bits p = dx + 2 dy + 4 dz) and dw [N, 3*K*8] f32 with column
-    t*K*8 + c = d w[:, c] / d x[:, t]. The hash runs in int64 masked to 32
-    bits, the uint32 arithmetic of the reference."""
-    idx, wa, dwa, _ = cell_factors(x, spec, num_levels)
-    n, k = idx.shape
+    x [N, 3] in [0, 1]. Returns idx (cell: [N, K] int64 ABSOLUTE entry
+    indices, level row offset * P + entry; vertex: [N, K*8] int64 absolute
+    rows, one per corner), w [N, K*8] f32 (column l*8 + p: corner offset
+    bits p = dx + 2 dy + 4 dz in the cell layout, corner parity p in the
+    vertex layout) and dw [N, 3*K*8] f32 with column t*K*8 + c = d w[:, c] /
+    d x[:, t]. The hash runs in int64 masked to 32 bits, the uint32
+    arithmetic of the reference."""
+    if spec.layout == "cell":
+        idx, wa, dwa, _ = cell_factors(x, spec, num_levels)
+    else:
+        idx, wa, dwa = _vertex_factors(x, spec, num_levels)
+    n, k = x.shape[0], wa.shape[1]
     w = (wa[..., 0] * wa[..., 1] * wa[..., 2]).reshape(n, k * NSLOT)
     dw = torch.cat(
         [
@@ -257,13 +352,20 @@ def _gather(table, idx, feats, bf16):
     return entries[idx].reshape(n, k, feats, NSLOT)
 
 
-def slot_lookup_plain(table, idx, w, dw, *, feats: int, bf16: bool):
-    """Plain PyTorch version of K6's forward (_fwd_kernel :415-523): idx
-    [N, k] absolute entry indices, w [N, k*8], dw [N, 3*k*8] or None.
-    Returns enc [N, k*F] f32 and, with dw, tenc [N, 3*k*F] f32 (column
-    t*k*F + l*F + f)."""
-    n, k = idx.shape
-    T = _gather(table, idx, feats, bf16)
+def _vertex_elements(idx):
+    """Flat table element indices [N, k, 16, 8] of the vertex layout's
+    corner values: row idx[n, l*8 + p] * 128 + lane f*8 + p, the lanes of
+    parity p in slot p's row (_fwd_kernel :487-507)."""
+    n, k = idx.shape[0], idx.shape[1] // NSLOT
+    lanes = torch.arange(LANE, device=idx.device).reshape(FEAT, NSLOT)  # f * 8 + p
+    return idx.reshape(n, k, 1, NSLOT) * LANE + lanes
+
+
+def _combine(T, w, dw, bf16):
+    """enc [N, k*F] (and with dw, tenc [N, 3*k*F], column t*k*F + l*F + f)
+    from the corner values T [N, k, F, 8]: the 8-corner sums weighted by w
+    (and dw)."""
+    n, k, feats, _ = T.shape
     wb = _round(w.float(), bf16).reshape(n, k, 1, NSLOT)
     enc = _round(T * wb, bf16).sum(-1).reshape(n, k * feats)
     if dw is None:
@@ -273,13 +375,11 @@ def slot_lookup_plain(table, idx, w, dw, *, feats: int, bf16: bool):
     return enc, tenc
 
 
-def slot_lookup_bwd_plain(table, idx, w, dw, genc, gtenc, *, feats: int, bf16: bool):
-    """Plain PyTorch version of K6's backward (_bwd_kernel :536-629) at its
-    cast points: cotangents genc [N, k*F] (and gtenc [N, 3*k*F] with dw) in;
-    returns (d_table [rows, 128] f32, d_w [N, k*8] f32, d_dw [N, 3*k*8] f32
-    or None)."""
-    n, k = idx.shape
-    T = _gather(table, idx, feats, bf16)
+def _bwd_terms(T, w, dw, genc, gtenc, bf16):
+    """From the corner values T [N, k, F, 8] and the cotangents: d_w [N,
+    k*8], d_dw [N, 3*k*8] or None, and the scatter values u [N, k, F, 8]
+    (rounded to bf16 in bf16-table mode)."""
+    n, k, feats, _ = T.shape
     gt = _round(genc.float(), bf16).reshape(n, k, feats, 1)
     d_w = _round(T * gt, bf16).sum(2).reshape(n, k * NSLOT)
     u = gt * _round(w.float(), bf16).reshape(n, k, 1, NSLOT)  # [N, k, F, 8]
@@ -290,9 +390,45 @@ def slot_lookup_bwd_plain(table, idx, w, dw, genc, gtenc, *, feats: int, bf16: b
         d_dw = _round(T[:, None] * gtk, bf16).sum(3).reshape(n, 3 * k * NSLOT)
         for t in range(3):
             u = u + gtk[:, t] * dwb[:, t]
+    return d_w, d_dw, _round(u, bf16)
+
+
+def slot_lookup_plain(table, idx, w, dw, *, feats: int, bf16: bool):
+    """Plain PyTorch version of K6's forward (_fwd_kernel :415-523): idx
+    [N, k] absolute entry indices, w [N, k*8], dw [N, 3*k*8] or None.
+    Returns enc [N, k*F] f32 and, with dw, tenc [N, 3*k*F] f32 (column
+    t*k*F + l*F + f)."""
+    return _combine(_gather(table, idx, feats, bf16), w, dw, bf16)
+
+
+def slot_lookup_bwd_plain(table, idx, w, dw, genc, gtenc, *, feats: int, bf16: bool):
+    """Plain PyTorch version of K6's backward (_bwd_kernel :536-629) at its
+    cast points: cotangents genc [N, k*F] (and gtenc [N, 3*k*F] with dw) in;
+    returns (d_table [rows, 128] f32, d_w [N, k*8] f32, d_dw [N, 3*k*8] f32
+    or None)."""
+    d_w, d_dw, u = _bwd_terms(_gather(table, idx, feats, bf16), w, dw, genc, gtenc, bf16)
     width = NSLOT * feats
     d = torch.zeros(table.shape[0] * (LANE // width), width, device=table.device)
-    d.index_add_(0, idx.reshape(-1), _round(u, bf16).reshape(-1, width))
+    d.index_add_(0, idx.reshape(-1), u.reshape(-1, width))
+    return d.reshape(table.shape), d_w, d_dw
+
+
+def slot_lookup_vertex_plain(table, idx, w, dw):
+    """Plain PyTorch version of K6v's forward (_fwd_kernel's vertex branch
+    :487-507, then the float32 dots :516-523): idx [N, k*8] absolute rows,
+    w [N, k*8], dw [N, 3*k*8] or None; exact f32. Returns enc [N, k*16]
+    (and tenc [N, 3*k*16]) as slot_lookup_plain."""
+    return _combine(table.float().reshape(-1)[_vertex_elements(idx)], w, dw, False)
+
+
+def slot_lookup_vertex_bwd_plain(table, idx, w, dw, genc, gtenc):
+    """Plain PyTorch version of K6v's backward (_bwd_kernel :536-662, its
+    vertex branch's masked row updates): d_table[idx[n, l*8 + p], f*8 + p]
+    += u[n, l, f, p] and d_w, d_dw as slot_lookup_bwd_plain, exact f32."""
+    el = _vertex_elements(idx)
+    d_w, d_dw, u = _bwd_terms(table.float().reshape(-1)[el], w, dw, genc, gtenc, False)
+    d = torch.zeros(table.numel(), device=table.device)
+    d.index_add_(0, el.reshape(-1), u.reshape(-1))
     return d.reshape(table.shape), d_w, d_dw
 
 
@@ -341,17 +477,74 @@ def _launch_bwd(table, idx, w, dw, genc, gtenc, feats, bf16):
     return d_table, d_w, d_dw
 
 
-def _lookup(table, idx, w, dw, feats, bf16):
+def _launch_vertex_fwd(table, idx, w, dw):
+    """K6v's forward kernel: enc (and tenc with dw)."""
+    if idx.device.type != "cuda":
+        raise ValueError(f"slot_grid_lookup (vertex layout): unsupported device {idx.device}")
+    n, k = idx.shape[0], idx.shape[1] // NSLOT
+    tbl, ix, wc, dwc = _f32(table), idx.long().contiguous(), _f32(w), _f32(dw)
+    enc = torch.empty((n, k * FEAT), dtype=torch.float32, device=idx.device)
+    tenc = None if dw is None else torch.empty((n, 3 * k * FEAT), dtype=torch.float32,
+                                               device=idx.device)
+    if n:
+        fn = build.function("slot_grid", "mms_slot_vertex_fwd", "ptr", "ptr", "ptr", "ptr", "int",
+                            "int", "ptr", "ptr", "ptr")
+        status = fn(build.ptr(tbl), build.ptr(ix), build.ptr(wc), build.ptr(dwc), n, k,
+                    build.ptr(enc), build.ptr(tenc), build.stream_of(ix))
+        build.check(status, "slot_grid_lookup (vertex layout)")
+        VERTEX_KERNEL.launches += 1
+    return enc if dw is None else (enc, tenc)
+
+
+def _launch_vertex_bwd(table, idx, w, dw, genc, gtenc):
+    """K6v's backward kernel: (d_table, d_w, d_dw or None)."""
+    if idx.device.type != "cuda":
+        raise ValueError(f"slot_grid_lookup (vertex layout): unsupported device {idx.device}")
+    n, k = idx.shape[0], idx.shape[1] // NSLOT
+    dev = idx.device
+    tbl, ix, wc, dwc = _f32(table), idx.long().contiguous(), _f32(w), _f32(dw)
+    ge, gte = _f32(genc), _f32(gtenc if dw is not None else None)
+    d_table = torch.zeros(table.shape, dtype=torch.float32, device=dev)
+    d_w = torch.empty((n, k * NSLOT), dtype=torch.float32, device=dev)
+    d_dw = None if dw is None else torch.empty((n, 3 * k * NSLOT), dtype=torch.float32, device=dev)
+    if n:
+        fn = build.function("slot_grid", "mms_slot_vertex_bwd", "ptr", "ptr", "ptr", "ptr", "ptr",
+                            "ptr", "int", "int", "ptr", "ptr", "ptr", "ptr")
+        status = fn(build.ptr(tbl), build.ptr(ix), build.ptr(wc), build.ptr(dwc), build.ptr(ge),
+                    build.ptr(gte), n, k, build.ptr(d_table), build.ptr(d_w), build.ptr(d_dw),
+                    build.stream_of(ix))
+        build.check(status, "slot_grid_lookup backward (vertex layout)")
+        VERTEX_BWD_KERNEL.launches += 1
+    return d_table, d_w, d_dw
+
+
+def _lookup(table, idx, w, dw, feats, bf16, vertex=False):
     """The plain version for a CPU tensor, the kernel for any other (which
-    raises off a card)."""
+    raises off a card): K6, or with `vertex` K6v."""
+    if vertex:
+        if idx.device.type == "cpu":
+            return slot_lookup_vertex_plain(table, idx, w, dw)
+        return _launch_vertex_fwd(table, idx, w, dw)
     if idx.device.type == "cpu":
         return slot_lookup_plain(table, idx, w, dw, feats=feats, bf16=bf16)
     return _launch_fwd(table, idx, w, dw, feats, bf16)
 
 
+def _lookup_bwd(table, idx, w, dw, genc, gtenc, feats, bf16, vertex=False):
+    """The backward of _lookup, dispatched as it is."""
+    if vertex:
+        if idx.device.type == "cpu":
+            return slot_lookup_vertex_bwd_plain(table, idx, w, dw, genc, gtenc)
+        return _launch_vertex_bwd(table, idx, w, dw, genc, gtenc)
+    if idx.device.type == "cpu":
+        return slot_lookup_bwd_plain(table, idx, w, dw, genc, gtenc, feats=feats, bf16=bf16)
+    return _launch_bwd(table, idx, w, dw, genc, gtenc, feats, bf16)
+
+
 class _Lookup(torch.autograd.Function):
-    """K6 with its backward (_lookup_fn's op_fwd / op_bwd :813-841): saves
-    (table, idx, w, dw), not the gathered rows; idx has no cotangent."""
+    """K6 or K6v with its backward (_lookup_fn's op_fwd / op_bwd :813-841):
+    saves (table, idx, w, dw), not the gathered rows; idx has no
+    cotangent. cfg = (feats, bf16[, vertex])."""
 
     @staticmethod
     def forward(ctx, cfg, table, idx, w, dw):
@@ -361,13 +554,8 @@ class _Lookup(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, genc, gtenc=None):
-        feats, bf16 = ctx.cfg
         table, idx, w, dw = ctx.saved_tensors
-        if idx.device.type == "cpu":
-            d_table, d_w, d_dw = slot_lookup_bwd_plain(table, idx, w, dw, genc, gtenc,
-                                                       feats=feats, bf16=bf16)
-        else:
-            d_table, d_w, d_dw = _launch_bwd(table, idx, w, dw, genc, gtenc, feats, bf16)
+        d_table, d_w, d_dw = _lookup_bwd(table, idx, w, dw, genc, gtenc, *ctx.cfg)
         return None, d_table.to(table.dtype), None, d_w.to(w.dtype), (
             None if d_dw is None else d_dw.to(dw.dtype))
 
@@ -377,14 +565,15 @@ def slot_grid_lookup(table: torch.Tensor, x: torch.Tensor, spec: SlotGridSpec,
     """Slot-grid encoding enc [N, spec.out_dim] of x [N, 3] in [0, 1]
     (zero columns for the levels past num_levels), and with_tangents its
     spatial tangents tenc [3, N, spec.out_dim] = d enc / d x. Differentiable
-    in the table (K6's backward) and in x (autograd through the geometry's
-    w and dw, second order included)."""
+    in the table (the backward of K6, or of K6v for the vertex layout) and
+    in x (autograd through the geometry's w and dw, second order
+    included)."""
     k = spec.num_levels if num_levels is None else min(num_levels, spec.num_levels)
     n, feats = x.shape[0], spec.feats
-    idx, w, dw = slot_geometry(x, spec, k)  # raises for the vertex layout
+    idx, w, dw = slot_geometry(x, spec, k)
     if not with_tangents:
         dw = None
-    cfg = (feats, spec.table_dtype == "bf16")
+    cfg = (feats, spec.table_dtype == "bf16", spec.layout == "vertex")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (table, x)):
         out = _Lookup.apply(cfg, table, idx, w, dw)
     else:

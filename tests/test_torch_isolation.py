@@ -102,6 +102,17 @@ def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
     for tangents in (False, True):
         with pytest.raises(ValueError, match="unsupported device"):
             slot_grid.slot_grid_lookup(table, pos, spec, with_tangents=tangents)
+    # the vertex layout's lookup (K6v)
+    vspec = _vertex_spec()
+    vtable = torch.empty(vspec.total_rows, 128, device="meta")
+    for tangents in (False, True):
+        with pytest.raises(ValueError, match="unsupported device"):
+            slot_grid.slot_grid_lookup(vtable, pos, vspec, with_tangents=tangents)
+
+
+def _vertex_spec():
+    return slot_grid.SlotGridSpec(num_levels=2, min_res=4, max_res=8, rows_per_level=64,
+                                  layout="vertex", feats=16, table_dtype="f32")
 
 
 SDF_KW = dict(num_frequencies=2, min_freq_exp=0.0, max_freq_exp=1.0, skip=(1,))
@@ -169,6 +180,16 @@ def test_differentiable_kernels_and_backward_launchers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         slot_grid._launch_bwd(table, idx, w, dw, torch.empty(8, 4, device="meta"),
                               torch.empty(8, 12, device="meta"), 2, True)
+    vspec = _vertex_spec()
+    vtable = torch.empty(vspec.total_rows, 128, device="meta", requires_grad=True)
+    with pytest.raises(ValueError, match="unsupported device"):
+        slot_grid.slot_grid_lookup(vtable, pos, vspec, with_tangents=True)
+    vidx = torch.zeros(8, 16, dtype=torch.long, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        slot_grid._launch_vertex_fwd(vtable, vidx, w, dw)
+    with pytest.raises(ValueError, match="unsupported device"):
+        slot_grid._launch_vertex_bwd(vtable, vidx, w, dw, torch.empty(8, 32, device="meta"),
+                                     torch.empty(8, 96, device="meta"))
 
 
 def test_split_launchers_refuse_other_devices(monkeypatch):

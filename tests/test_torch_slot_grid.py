@@ -136,10 +136,18 @@ def test_function_backward_is_the_plain_backward():
 
 
 def test_vertex_layout_raises_and_cpu_counts_no_launch():
+    """The vertex layout runs on the CPU through K6v's plain version and
+    counts no launch of either K6 or K6v (tests/test_torch_slot_vertex.py
+    holds it against JAX); a vertex spec with the cell layout's packed
+    entries raises. The cell lookup counts no launch either."""
     _, ts = specs(table_dtype="f32", layout="vertex", feats=16, gather="copy")
     table, x = inputs(ts)
-    with pytest.raises(NotImplementedError, match="cell layout"):
-        tslot.slot_grid_lookup(torch.from_numpy(table), torch.from_numpy(x), ts)
+    build.reset_launch_counts()
+    enc = tslot.slot_grid_lookup(torch.from_numpy(table), torch.from_numpy(x), ts)
+    assert tuple(enc.shape) == (N, 48) and bool(torch.isfinite(enc).all())
+    assert all(info.launches == 0 for info in build.KERNELS.values())
+    with pytest.raises(ValueError, match="layout='cell'"):
+        specs(table_dtype="f32", layout="vertex", feats=2, gather="copy")
     _, ts = specs()
     table, x = inputs(ts)
     build.reset_launch_counts()
