@@ -10,7 +10,13 @@ parent. Each tree builds its own kernels, seeds a CUDA generator with 0 and
 calls the named check functions of its own chip_smoke.py in turn (default:
 the six grid_raw_tpu kernel checks), which print their agreement with the
 plain versions; then one line `AB <tree> {"<check>": ms, ...}` with each
-check's kernel time (CUDA events, median of 15). Needs one card.
+check's kernel time (CUDA events, median of 15; a check that returns a
+forward and a backward gives "<check>[0]" and "<check>[1]"; beside it
+"<check> kernel" for its kernels alone, without the wrapper, "<check>
+standalone" for K1's backward packing its own images, and "<check> library"
+for the library call, where the check times them). Giving one tree several
+times repeats its checks in processes of their own: readings of one call to
+set a difference against. Needs one card.
 """
 
 import argparse
@@ -38,8 +44,13 @@ for name in sys.argv[2].split(","):
     fn = getattr(c, name)
     args = (gen, dev, gspec) if "gspec" in inspect.signature(fn).parameters else (gen, dev)
     r = fn(*args)
-    if isinstance(r, dict):
-        out[name] = round(r["ms"], 4)
+    for i, part in enumerate(r if isinstance(r, tuple) else (r,)):
+        if isinstance(part, dict):
+            key = name if not isinstance(r, tuple) else f"{name}[{i}]"
+            out[key] = round(part["ms"], 4)
+            for what in ("kernel", "standalone", "library"):
+                if part.get(what + "_ms") is not None:
+                    out[f"{key} {what}"] = round(part[what + "_ms"], 4)
 print("AB", sys.argv[1], json.dumps(out), flush=True)
 '''
 

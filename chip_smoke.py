@@ -10,7 +10,11 @@
    microbatch gives it (512 rays per modality), and times kernel, plain
    version and a PyTorch call (or composition) that computes the same
    function, where one exists (CUDA events, median of 15 after warm-up):
-   K1-K3 at the grid_raw_tpu shapes, K4 at the mlp_raw_tpu ones, K1 at the
+   K1-K3 at the grid_raw_tpu shapes (K1's backward also in its parts: the
+   pack of its weight images against its plain version bit for bit, the
+   per-tile pass and chain_wgrad against theirs, each K1 check printing the
+   kernel's time alone and the device ops of one wrapper call beside the
+   wrapper's time), K4 at the mlp_raw_tpu ones, K1 at the
    8-layer mlp_raw_tpu chains, K6 and K5 at the shapes of grid_raw_tpu
    without its position encoding, K1t and K4j (the forward-tangent
    chains) at the mlp_raw_tpu SDF chain's, and the split backward's
@@ -138,6 +142,121 @@ def random_chain(gen, dims, dev):
     return ws, bs
 
 
+def device_ops(fn) -> int:
+    """Device operations (kernels, fills, copies) that one call of fn issues:
+    the nodes of a CUDA graph that captures the call (fn must not
+    synchronise). torch.profiler's per-call counts dropped events late in a
+    long run."""
+    import ctypes
+
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        fn()
+    torch.cuda.synchronize()
+    runtime = ctypes.CDLL("libcudart.so.12")
+    count = ctypes.c_size_t(0)
+    status = runtime.cudaGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()), None,
+                                       ctypes.byref(count))
+    if status:
+        fail(f"cudaGraphGetNodes failed with status {status}")
+    graph.reset()
+    return count.value
+
+
+def k1_forward_parts(what, x, ws, bs, kw):
+    """K1's forward chain kernel alone on pre-packed images (ms) and the
+    device ops of one wrapper call without grad; printed beside each other."""
+    from multimodalstudio_tpu_torch.ops.kernels.fused_mlp import bare_forward, fused_chain
+
+    kernel_ms = time_ms(bare_forward(x, ws, bs, kw.get("skip", ()), kw["activation"],
+                                     kw.get("beta", 100.0)))
+    with torch.no_grad():
+        ops = device_ops(lambda: fused_chain(x, ws, bs, **kw))
+    print(f"  {what}: kernel alone {kernel_ms:.3f} ms, {ops} device ops per call")
+    return kernel_ms, ops
+
+
+K1_PARTS = ("fused_chain_pack", "chain_wgrad")
+
+
+def k1_bwd_bytes(x, gy, ws, bs, out) -> int:
+    """Bytes K1's backward must move: x, gy and the parameters read once, gW
+    and gb written once and gx at the reference's bf16 width."""
+    return nbytes(x, gy, ws, bs, out[1], out[2]) + 2 * out[0].numel()
+
+
+def k1_backward_ms(x, gy, ws, bs, skip, act, beta=100.0):
+    """K1's backward wrapper as the main path calls it (the autograd
+    backward, which reuses the images its forward's pack wrote), and the
+    wrapper alone, packing its own images: (ms, standalone ms)."""
+    from multimodalstudio_tpu_torch.ops.kernels.fused_mlp import _launch_bwd, _launch_fwd
+
+    packed = _launch_fwd(x, ws, bs, tuple(skip), act, beta, backward_images=True)[1]
+    return (time_ms(lambda: _launch_bwd(x, gy, ws, bs, tuple(skip), act, beta, packed)),
+            time_ms(lambda: _launch_bwd(x, gy, ws, bs, tuple(skip), act, beta)))
+
+
+def k1_backward_parts(what, x, gy, ws, bs, kw, tot):
+    """K1's backward in its parts on one chain: the pack against its plain
+    version (bitwise), the per-tile pass against its plain version (gx, gb,
+    the hin and gz stacks; rel-L2 1e-2 as the backward checks) and
+    chain_wgrad against the plain product of the pass's own stacks (rel-L2
+    1e-4: the same bf16 products, summed in f32 in another order). Adds the
+    pack's and chain_wgrad's times to tot["parts"] and the kernel-only time
+    of the backward (pass and chain_wgrad) and the device ops of one backward
+    call (the forward's images reused, as in training) to tot."""
+    from multimodalstudio_tpu_torch.ops.kernels import fused_mlp as fm
+
+    skip, act, beta = tuple(kw.get("skip", ())), kw["activation"], kw.get("beta", 100.0)
+    n = x.shape[0]
+    layout, packed, gx, gw, gb, scratch, tile, wgrad = fm.bare_backward(x, gy, ws, bs, skip, act,
+                                                                        beta)
+    want = fm.pack_plain(layout, ws, bs)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip((packed.wfw, packed.wbw, packed.bpk), want)):
+        fail(f"the K1 pack disagrees with its plain version at {what}")
+    print(f"  K1 pack {what}: equal to its plain version, bit for bit")
+    tile()
+    torch.cuda.synchronize()
+    p_gx, p_hin, p_gz, p_gb = fm.chain_bwd_tile_plain(x, gy, ws, bs, skip=skip, activation=act,
+                                                      beta=beta)
+    hins, gzs = fm.stacks_of(layout, scratch, n)
+    gbs = [gb[layout.gb_off[l]:layout.gb_off[l + 1]] for l in range(layout.n_layers)]
+    err = _compare_grads(f"K1 per-tile pass {what}", ("gx", "gb", "hin", "gz"),
+                         (gx, gbs, hins, gzs), (p_gx, p_gb, p_hin, p_gz))
+    wgrad()
+    torch.cuda.synchronize()
+    gws = [gw[layout.gw_off[l]:layout.gw_off[l + 1]].view(layout.din_true[l], layout.dout_true[l])
+           for l in range(layout.n_layers)]
+    plain_w = fm.chain_wgrad_plain(hins, gzs)
+    werr = _compare_grads(f"chain_wgrad {what}", ("gW",), (gws,), (plain_w,), tol=1e-4)
+    hb, gb16 = [h.contiguous() for h in hins], [g.contiguous() for g in gzs]
+    parts = tot.setdefault("parts", {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0,
+                                             bytes=0.0, err=0.0) for k in K1_PARTS})
+    pk = parts["fused_chain_pack"]
+    lg = fm._chain(x.shape[1], ws, skip, act, beta)[1]
+    pk["ms"] += time_ms(lambda: fm._launch_pack(layout, lg, ws, bs, True))
+    pk["plain_ms"] += time_ms(lambda: fm.pack_plain(layout, ws, bs))
+    pk["library_ms"] = None  # no PyTorch call writes the swizzled images
+    pk["bytes"] += nbytes(ws, bs, packed.wfw, packed.wbw, packed.bpk)
+    wg = parts["chain_wgrad"]
+    wg["ms"] += time_ms(wgrad)
+    wg["plain_ms"] += time_ms(lambda: fm.chain_wgrad_plain(hins, gzs))
+    wg["library_ms"] += time_ms(lambda: [torch.matmul(h.T, g) for h, g in zip(hb, gb16)])
+    wg["flops"] += chain_flops(n, [tuple(w.shape) for w in ws])
+    # the stacks' true columns read once (bf16), gW written once
+    wg["bytes"] += 2.0 * n * sum(layout.din_true + layout.dout_true) + nbytes(gws)
+    wg["err"] = max(wg["err"], werr)
+    kernel_ms = time_ms(lambda: (tile(), wgrad()))
+    ops = device_ops(lambda: fm._launch_bwd(x, gy, ws, bs, skip, act, beta, packed))
+    tot["kernel_ms"] = tot.get("kernel_ms", 0.0) + kernel_ms
+    tot["ops"] = max(tot.get("ops", 0), ops)
+    print(f"  K1 bwd {what}: kernel alone (pass and chain_wgrad) {kernel_ms:.3f} ms, {ops} device "
+          "ops per call with the forward's images")
+    return max(err, werr)
+
+
 def check_fused_chain(gen, dev):
     """K1 at the five chain shapes of one 1024-ray chunk."""
     from multimodalstudio_tpu_torch.ops.kernels.fused_mlp import fused_chain, fused_chain_plain
@@ -178,6 +297,12 @@ def check_fused_chain(gen, dev):
         tot["flops"] += 2.0 * n * sum(a * b for a, b in dims)
         tot["bytes"] += nbytes(x, ws, bs, y)
         tot["err"] = max(tot["err"], err)
+        kernel_ms, ops = k1_forward_parts(f"K1 {name}", x, ws, bs, dict(activation=act))
+        tot["kernel_ms"] = tot.get("kernel_ms", 0.0) + kernel_ms
+        tot["ops"] = max(tot.get("ops", 0), ops)
+    print(f"  K1 forward, the five chains: wrapper {tot['ms']:.3f} ms, kernel alone "
+          f"{tot['kernel_ms']:.3f} ms, at most {tot['ops']} device ops per call, library "
+          f"{tot['library_ms']:.3f} ms")
     return tot
 
 
@@ -311,13 +436,19 @@ def check_fused_chain_bwd(gen, dev):
         def library():
             return torch.autograd.grad(h, [xl, *wb, *bb], gy, retain_graph=True)
 
-        tot["ms"] += time_ms(lambda: _launch_bwd(x, gy, ws, bs, (), "ReLU", 100.0))
+        ms, alone_ms = k1_backward_ms(x, gy, ws, bs, (), "ReLU")
+        tot["ms"] += ms
+        tot["standalone_ms"] = tot.get("standalone_ms", 0.0) + alone_ms
         tot["plain_ms"] += time_ms(lambda: fused_chain_bwd_plain(x, gy, ws, bs, activation="ReLU"))
         tot["library_ms"] += time_ms(library)
         # forward recompute of the hidden layers, then gW and gh of every layer
         tot["flops"] += chain_flops(n, dims[:-1]) + 2 * chain_flops(n, dims)
-        tot["bytes"] += nbytes(x, gy, ws, bs, out[0], out[1], out[2])
-        tot["err"] = max(tot["err"], err)
+        tot["bytes"] += k1_bwd_bytes(x, gy, ws, bs, out)
+        tot["err"] = max(tot["err"], err, k1_backward_parts(name, x, gy, ws, bs,
+                                                            dict(activation="ReLU"), tot))
+    print(f"  K1 backward, the five chains: wrapper {tot['ms']:.3f} ms with the forward's images "
+          f"({tot['standalone_ms']:.3f} ms packing its own), kernel alone {tot['kernel_ms']:.3f} ms, "
+          f"at most {tot['ops']} device ops per call, library {tot['library_ms']:.3f} ms")
     return tot
 
 
@@ -520,6 +651,37 @@ def check_edge_cases(gen, dev, gspec) -> None:
     check_edge_cases_bwd(gen, dev, gspec, n)
 
 
+def check_k1_piece_offsets(dev, n) -> None:
+    """K1 with outputs of 40 and 100 columns (padded to 48 and 112): their
+    last piece of 16 columns starts 32 columns into a 64-column image of gz,
+    the one place where chain_wgrad's B operand starts inside a swizzle atom.
+    The forward and the backward against their plain versions, the backward
+    also in its parts; inputs from a generator of their own, so the phases
+    after this one draw what they drew before."""
+    from multimodalstudio_tpu_torch.ops.kernels.fused_mlp import (
+        _launch_bwd,
+        fused_chain,
+        fused_chain_bwd_plain,
+        fused_chain_plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for d_out in (40, 100):
+        dims = [(39, 128), (128, 128), (128, d_out)]
+        ws, bs = random_chain(gen, dims, dev)
+        x = torch.rand(n, 39, generator=gen, device=dev) * 2 - 1
+        gy = torch.randn(n, d_out, generator=gen, device=dev)
+        rel = rel_l2(fused_chain(x, ws, bs, activation="ReLU").float(),
+                     fused_chain_plain(x, ws, bs, activation="ReLU").float())
+        print(f"  K1 {d_out} outputs N={n}: rel_l2={rel:.3e} (tolerance rel_l2 <= 1e-2)")
+        if not rel <= 1e-2:
+            fail(f"fused_chain disagrees with its plain version at {d_out} outputs")
+        out = _launch_bwd(x, gy, ws, bs, (), "ReLU", 100.0)
+        ref = fused_chain_bwd_plain(x, gy, ws, bs, activation="ReLU")
+        _compare_grads(f"K1 bwd {d_out} outputs N={n}", CHAIN_GRADS, out, ref)
+        k1_backward_parts(f"{d_out} outputs N={n}", x, gy, ws, bs, dict(activation="ReLU"), {})
+
+
 def check_edge_cases_bwd(gen, dev, gspec, n) -> None:
     """The backwards off the training shapes: a ragged N, a skip layer and
     the None activation (K1), a truncated grid with a partial mask (K2),
@@ -545,6 +707,7 @@ def check_edge_cases_bwd(gen, dev, gspec, n) -> None:
         out = _launch_bwd(x, gy, ws, bs, skip, act, 100.0)
         ref = fused_chain_bwd_plain(x, gy, ws, bs, skip=skip, activation=act)
         _compare_grads(f"K1 bwd {act} skip={skip} N={n}", CHAIN_GRADS, out, ref)
+    check_k1_piece_offsets(dev, n)
     table, ws, bs = slot_inputs(gen, dev, gspec)
     pos = torch.rand(n, 3, generator=gen, device=dev) * 2.2 - 1.1
     pe = pe_scales(6, 0.0, 5.0)
@@ -784,6 +947,17 @@ def check_mlp_chains(gen, dev):
         print(f"  K1 mlp_raw_tpu {name}: N={n} rel_l2={rel:.3e} (tolerance rel_l2 <= 1e-2)")
         if not rel <= 1e-2:
             fail(f"fused_chain disagrees with its plain version at the mlp_raw_tpu {name}")
+        kw = dict(skip=(4,), activation=act)
+        ms = time_ms(lambda: fused_chain(x, ws, bs, **kw))
+        plain_ms = time_ms(lambda: fused_chain_plain(x, ws, bs, **kw))
+        wb, bb = bf16_leaves(ws, bs, False)
+        xb = x.to(torch.bfloat16)
+        library_ms = time_ms(lambda: linear_chain(xb, wb, bb, skip=(4,), activation=act))
+        kernel_ms, ops = k1_forward_parts(f"K1 mlp_raw_tpu {name}", x, ws, bs, kw)
+        b_ms, b_by = bound(chain_flops(n, dims), nbytes(x, ws, bs) + 2 * n * dims[-1][1])
+        print(f"  K1 mlp_raw_tpu {name} N={n}: wrapper {ms:.3f} ms, kernel alone {kernel_ms:.3f} ms, "
+              f"{ops} device ops per call, plain {plain_ms:.3f} ms, library {library_ms:.3f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by})")
     n = 163840
     ws, bs = random_chain(gen, TRUNK_DIMS, dev)
     x = (torch.rand(n, 285, generator=gen, device=dev) * 2 - 1).to(torch.bfloat16)
@@ -808,15 +982,22 @@ def check_mlp_chains(gen, dev):
         return torch.autograd.grad(h, [xl, *wb, *bb], gy, retain_graph=True)
 
     hidden = TRUNK_DIMS[:-1]
-    res = dict(ms=time_ms(lambda: _launch_bwd(*args)),
+    ms, alone_ms = k1_backward_ms(x, gy, ws, bs, (4,), "ReLU")
+    res = dict(ms=ms, standalone_ms=alone_ms,
                plain_ms=time_ms(lambda: fused_chain_bwd_plain(x, gy, ws, bs, skip=(4,),
                                                               activation="ReLU")),
                library_ms=time_ms(library),
                flops=chain_flops(n, hidden) + 2 * chain_flops(n, TRUNK_DIMS),
-               bytes=nbytes(x, gy, ws, bs, out[0], out[1], out[2]), err=err)
+               bytes=k1_bwd_bytes(x, gy, ws, bs, out), err=err)
+    res["err"] = max(err, k1_backward_parts(f"mlp_raw_tpu trunk N={n}", x, gy, ws, bs,
+                                            dict(skip=(4,), activation="ReLU"), res))
+    res.pop("parts")  # the kernels line times the parts at grid_raw_tpu's chains
     b_ms, b_by = bound(res["flops"], res["bytes"])
-    print(f"  K1 bwd mlp_raw_tpu trunk N={n}: {res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms, "
-          f"library {res['library_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    print(f"  K1 bwd mlp_raw_tpu trunk N={n}: wrapper {res['ms']:.3f} ms with the forward's "
+          f"images ({res['standalone_ms']:.3f} ms packing its own), kernel alone "
+          f"{res['kernel_ms']:.3f} ms, {res['ops']} device ops per call, plain "
+          f"{res['plain_ms']:.3f} ms, library {res['library_ms']:.3f} ms, bound {b_ms:.4f} ms "
+          f"({b_by})")
     return res
 
 
@@ -1442,6 +1623,9 @@ def check_sdf_head(gen, dev, dims=VERTEX_DIMS):
             fwd["ms"] += count * time_ms(lambda: fused_chain(x, ws, bs, **kw))
             fwd["plain_ms"] += count * time_ms(lambda: fused_chain_plain(x, ws, bs, **kw))
             fwd["library_ms"] += count * time_ms(lambda: linear_chain(xb, wb, bb))
+        kernel_ms, ops = k1_forward_parts(f"K1 SDF head fwd N={n}", x, ws, bs, kw)
+        fwd["kernel_ms"] = fwd.get("kernel_ms", 0.0) + count * kernel_ms
+        fwd["ops"] = max(fwd.get("ops", 0), ops)
         fwd["flops"] += count * chain_flops(n, dims)
         fwd["bytes"] += count * nbytes(x, ws, bs, y)
     n = 81920
@@ -1466,11 +1650,19 @@ def check_sdf_head(gen, dev, dims=VERTEX_DIMS):
 
     # the last layer's cotangent is the sdf column's only
     live = dims[:-1] + [(dims[-1][0], 1)]
-    bwd = dict(ms=time_ms(lambda: _launch_bwd(*args)),
+    ms, alone_ms = k1_backward_ms(x, gy, ws, bs, (), kw["activation"], kw["beta"])
+    bwd = dict(ms=ms, standalone_ms=alone_ms,
                plain_ms=time_ms(lambda: fused_chain_bwd_plain(x, gy, ws, bs, **kw)),
                library_ms=time_ms(library),
                flops=chain_flops(n, dims[:-1]) + 2 * chain_flops(n, live),
-               bytes=nbytes(x, gy, ws, bs, out[0], out[1], out[2]), err=err)
+               bytes=k1_bwd_bytes(x, gy, ws, bs, out), err=err)
+    bwd["err"] = max(err, k1_backward_parts(f"SDF head N={n}", x, gy, ws, bs, kw, bwd))
+    bwd.pop("parts")
+    for what, r in (("fwd", fwd), ("bwd", bwd)):
+        alone = f" ({r['standalone_ms']:.3f} ms packing its own)" if "standalone_ms" in r else ""
+        print(f"  K1 SDF head {what}: wrapper {r['ms']:.3f} ms{alone}, kernel alone "
+              f"{r['kernel_ms']:.3f} ms, at most {r['ops']} device ops per call, library "
+              f"{r['library_ms']:.3f} ms")
     return fwd, bwd
 
 
@@ -1942,24 +2134,29 @@ def check_skip_edges(gen, dev, gspecs) -> None:
 
 
 PER_CHUNK = {  # kernel launches of one 1024-ray eval chunk (derived in PERF.md)
+    # every K1 forward call launches the pack of its weights, then the chain
     # trunk, polarization head, background x3; sampler x4; render samples
-    "grid_raw_tpu": {"fused_chain": 5, "fused_slot_sdf_value": 4, "fused_slot_sdf_chain": 1},
+    "grid_raw_tpu": {"fused_chain": 5, "fused_chain_pack": 5, "fused_slot_sdf_value": 4,
+                     "fused_slot_sdf_chain": 1},
     # sampler x4 and the five chains above through K1; render samples through K4
-    "mlp_raw_tpu": {"fused_chain": 9, "fused_sdf_chain": 1},
+    "mlp_raw_tpu": {"fused_chain": 9, "fused_chain_pack": 9, "fused_sdf_chain": 1},
     # sampler x4 through K6 (4 levels) and the K1 head, the five chains above
     # through K1; render samples through K6 with tangents and K5
-    "grid_raw_tpu without PE": {"fused_chain": 9, "slot_grid_lookup": 5, "fused_chain_adjoint": 1},
+    "grid_raw_tpu without PE": {"fused_chain": 9, "fused_chain_pack": 9, "slot_grid_lookup": 5,
+                                "fused_chain_adjoint": 1},
     # as mlp_raw_tpu, the render samples through K1t (contraction) or K4j (jvp mode)
-    "mlp_raw_tpu with contraction": {"fused_chain": 9, "fused_chain_tangents": 1},
-    "mlp_raw_tpu in jvp mode": {"fused_chain": 9, "fused_sdf_chain_jvp": 1},
+    "mlp_raw_tpu with contraction": {"fused_chain": 9, "fused_chain_pack": 9,
+                                     "fused_chain_tangents": 1},
+    "mlp_raw_tpu in jvp mode": {"fused_chain": 9, "fused_chain_pack": 9, "fused_sdf_chain_jvp": 1},
     # the split backward changes nothing a render runs
-    "grid_raw_tpu with split backward": {"fused_chain": 5, "fused_slot_sdf_value": 4,
-                                         "fused_slot_sdf_chain": 1},
+    "grid_raw_tpu with split backward": {"fused_chain": 5, "fused_chain_pack": 5,
+                                         "fused_slot_sdf_value": 4, "fused_slot_sdf_chain": 1},
     # as grid_raw_tpu, through the f32 table's K2f and K3f
-    "grid_raw_tpu with f32 table": {"fused_chain": 5, "fused_slot_sdf_value_f32": 4,
-                                    "fused_slot_sdf_chain_f32": 1},
+    "grid_raw_tpu with f32 table": {"fused_chain": 5, "fused_chain_pack": 5,
+                                    "fused_slot_sdf_value_f32": 4, "fused_slot_sdf_chain_f32": 1},
     # as grid_raw_tpu without PE, the lookups through K6v
-    "grid_raw_tpu without PE, vertex layout": {"fused_chain": 9, "slot_grid_lookup_vertex": 5,
+    "grid_raw_tpu without PE, vertex layout": {"fused_chain": 9, "fused_chain_pack": 9,
+                                               "slot_grid_lookup_vertex": 5,
                                                "fused_chain_adjoint": 1},
 }
 
@@ -2132,55 +2329,66 @@ def profile_device(fn, label: str, ref_ms: float, top: int = 12) -> float:
 
 
 PER_MICROBATCH = {  # kernel launches of one training microbatch (derived in PERF.md)
+    # K1: one pack per forward call, whose images its backward reuses; every
+    # backward a per-tile pass and chain_wgrad
     "grid_raw_tpu": {
-        "fused_chain": 5, "fused_chain_bwd": 5,  # trunk, polarization head, background x3
+        "fused_chain": 5, "fused_chain_pack": 5,
+        "fused_chain_bwd": 5, "chain_wgrad": 5,  # trunk, polarization head, background x3
         "fused_slot_sdf_value": 5, "fused_slot_sdf_value_bwd": 1,  # sampler x4, taps
         "fused_slot_sdf_chain": 1, "fused_slot_sdf_chain_bwd": 1,
     },
     "mlp_raw_tpu": {
         # sampler x4 (no grad), trunk, polarization head, background x3
-        "fused_chain": 9, "fused_chain_bwd": 5,
+        "fused_chain": 9, "fused_chain_pack": 9,
+        "fused_chain_bwd": 5, "chain_wgrad": 5,
         "fused_sdf_chain": 1, "fused_sdf_chain_bwd": 1,
     },
     "grid_raw_tpu without PE": {
         # K1: the SDF head of the sampler x4 (no grad) and of the taps, trunk,
         # polarization head, background x3; K6: sampler x4, taps, render samples
-        "fused_chain": 10, "fused_chain_bwd": 6,
+        "fused_chain": 10, "fused_chain_pack": 10,
+        "fused_chain_bwd": 6, "chain_wgrad": 6,
         "slot_grid_lookup": 6, "slot_grid_lookup_bwd": 2,
         "fused_chain_adjoint": 1, "fused_chain_adjoint_bwd": 1,
     },
     # as mlp_raw_tpu, the render samples through K1t or K4j in place of K4
     "mlp_raw_tpu with contraction": {
-        "fused_chain": 9, "fused_chain_bwd": 5,
+        "fused_chain": 9, "fused_chain_pack": 9,
+        "fused_chain_bwd": 5, "chain_wgrad": 5,
         "fused_chain_tangents": 1, "fused_chain_tangents_bwd": 1,
     },
     "mlp_raw_tpu in jvp mode": {
-        "fused_chain": 9, "fused_chain_bwd": 5,
+        "fused_chain": 9, "fused_chain_pack": 9,
+        "fused_chain_bwd": 5, "chain_wgrad": 5,
         "fused_sdf_chain_jvp": 1, "fused_sdf_chain_jvp_bwd": 1,
     },
     # as grid_raw_tpu, the taps' and the render samples' backwards split:
     # K2s and K3s in place of the merged K2/K3 backwards, one scatter each
     "grid_raw_tpu with split backward": {
-        "fused_chain": 5, "fused_chain_bwd": 5,
+        "fused_chain": 5, "fused_chain_pack": 5,
+        "fused_chain_bwd": 5, "chain_wgrad": 5,
         "fused_slot_sdf_value": 5, "fused_slot_sdf_value_bwd_sample": 1,
         "fused_slot_sdf_chain": 1, "fused_slot_sdf_chain_bwd_sample": 1,
         "slot_table_scatter": 2,
     },
     # as grid_raw_tpu and its split, through the f32 table's kernels
     "grid_raw_tpu with f32 table": {
-        "fused_chain": 5, "fused_chain_bwd": 5,
+        "fused_chain": 5, "fused_chain_pack": 5,
+        "fused_chain_bwd": 5, "chain_wgrad": 5,
         "fused_slot_sdf_value_f32": 5, "fused_slot_sdf_value_f32_bwd": 1,
         "fused_slot_sdf_chain_f32": 1, "fused_slot_sdf_chain_f32_bwd": 1,
     },
     "grid_raw_tpu with f32 table and split backward": {
-        "fused_chain": 5, "fused_chain_bwd": 5,
+        "fused_chain": 5, "fused_chain_pack": 5,
+        "fused_chain_bwd": 5, "chain_wgrad": 5,
         "fused_slot_sdf_value_f32": 5, "fused_slot_sdf_value_f32_bwd_sample": 1,
         "fused_slot_sdf_chain_f32": 1, "fused_slot_sdf_chain_f32_bwd_sample": 1,
         "slot_table_scatter_f32": 2,
     },
     # as grid_raw_tpu without PE, the lookups through K6v (no launch of K6)
     "grid_raw_tpu without PE, vertex layout": {
-        "fused_chain": 10, "fused_chain_bwd": 6,
+        "fused_chain": 10, "fused_chain_pack": 10,
+        "fused_chain_bwd": 6, "chain_wgrad": 6,
         "slot_grid_lookup_vertex": 6, "slot_grid_lookup_vertex_bwd": 2,
         "fused_chain_adjoint": 1, "fused_chain_adjoint_bwd": 1,
     },
@@ -2425,6 +2633,8 @@ def main() -> None:
         "fused_sdf_chain": check_sdf_chain(gen, dev),
         "fused_sdf_chain_bwd": check_sdf_chain_bwd(gen, dev),
     })
+    # K1's backward parts (the pack, chain_wgrad) timed inside its check
+    results.update(results["fused_chain_bwd"].pop("parts"))
     # the training forwards' errors
     for name in ("fused_slot_sdf_value", "fused_slot_sdf_chain", "fused_sdf_chain"):
         results[name]["err"] = max(results[name]["err"], results[name + "_bwd"].pop("fwd_err"))
@@ -2539,6 +2749,8 @@ def main() -> None:
             "launches": launches[name], "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": r.get("library_ms"),
+            **({"kernel_ms": r["kernel_ms"], "device_ops": r["ops"]} if "ops" in r else {}),
+            **({"standalone_ms": r["standalone_ms"]} if "standalone_ms" in r else {}),
         })
     for method in rays_per_s:
         t = train[method]

@@ -10,6 +10,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from multimodalstudio_tpu_torch.device import resolve_device
 from multimodalstudio_tpu_torch.ops.lie_groups import exp_map_SE3, exp_map_SO3xR3
 
 
@@ -28,14 +29,16 @@ class CameraOptimizerSpec:
 
 
 def init_camera_poses(
-    spec: CameraOptimizerSpec, modalities, num_cameras: Dict[str, int], device="cpu"
+    spec: CameraOptimizerSpec, modalities, num_cameras: Dict[str, int], device="cuda"
 ) -> Dict[str, torch.Tensor]:
     """Zero tangents per modality ([1, 6] when shared), as leaves that
-    require grad."""
+    require grad, on the card unless `device` names another (without a card
+    a CUDA device raises, as every entry point of the port does)."""
+    dev = resolve_device(device)
     if spec.mode == "off":
         return {}
     return {
-        mod: torch.zeros((1 if spec.shared_optimization else num_cameras[mod], 6), device=device,
+        mod: torch.zeros((1 if spec.shared_optimization else num_cameras[mod], 6), device=dev,
                          requires_grad=True)
         for mod in modalities
     }

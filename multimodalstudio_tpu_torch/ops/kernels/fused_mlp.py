@@ -1,16 +1,19 @@
 """Fused dense chain (MLP): kernel K1, forward and backward, without and
 with forward tangents (K1t), and their plain versions.
 
-`fused_chain` runs a whole MLP layer chain for a tile of samples on the
-card in one CUDA kernel (csrc/fused_mlp.cu), so activations between layers
-never touch device memory. It replaces the Pallas TPU kernel
-multimodalstudio_tpu/ops/pallas/fused_mlp.py::_fwd_kernel (:265), reached
-through `fused_chain` (:1080), in its forward mode without tangents. With
-grad enabled it runs as an autograd Function whose backward is the second
-CUDA kernel of the file, replacing _bwd_kernel (:607, via chain_bwd :904):
-it recomputes the forward per tile, keeping the bf16 pre-activations in a
-per-CTA slab of device scratch (an 8-layer 256-wide chain's stack does not
-fit in shared memory beside the activations), and runs the reverse sweep.
+`fused_chain` runs a whole MLP layer chain on the card without writing the
+activations between layers to device memory. It replaces the Pallas TPU
+kernels multimodalstudio_tpu/ops/pallas/fused_mlp.py::_fwd_kernel (:265)
+and _bwd_kernel (:607), reached through `fused_chain` (:1080), without
+tangents, by the four kernels of csrc/fused_chain.cu: a pack of the weights
+into the bf16 images that wgmma reads (one launch), the forward (wgmma on
+weight images staged by bulk copies, activations in place in shared
+memory), and for the backward a per-tile pass (forward recompute, reverse
+sweep gh = gz W^T; writes gx, gb and the per-layer stacks of the layer
+inputs hin_l and cotangents gz_l) and `chain_wgrad`, gW_l = hin_l^T gz_l of
+every layer in one launch. A forward call is two device launches (pack,
+chain); with grad the pack also writes the backward images, which the
+backward reuses: one fill of gW/gb and two launches.
 
 With `tangents` [K, N, D_in] (K1t, the same two Pallas bodies with
 n_tangents = K) the chain also carries K forward tangents: y and ty
@@ -18,8 +21,9 @@ n_tangents = K) the chain also carries K forward tangents: y and ty
 last layer's f32 tangents, [N, K] f32. On the card a tile is 64 rows of
 the same products: the primal rows of b samples and the K tangent rows of
 each (b = 16 for K = 2, 3; 32 for K = 1), since u = t W shares W with z =
-h W + b. The backward (reverse over the tangent chain, act'' term
-included) is its own kernel with the z and u stacks in device scratch.
+h W + b (csrc/fused_mlp.cu). The backward (reverse over the tangent chain,
+act'' term included) is its own kernel with the z and u stacks in device
+scratch.
 
 Arithmetic (the JAX kernel's cast points, chain_reference :1263-1302):
 inputs and weights bf16, products accumulated in f32 plus an f32 bias,
@@ -43,14 +47,18 @@ W^T, gt = bf16(gu) W^T; gx and gtx are bf16.
 Bound on an H100 at the slice's widths: about 2 * N * sum(din * dout)
 flops (6 * N * sum(din * dout) for the backward, forward recompute
 included) against 2 * N * (din + dout) bytes of input and output, far above
-the card's ridge of ~295 flop/byte, so the tensor-core rate bounds it. The
-tangent chains multiply the hidden layers' work by 1 + K.
+the card's ridge of ~295 flop/byte, so the tensor-core rate bounds it;
+chain_wgrad alone reads its stacks (2 * N * sum(din + dout) bytes) for
+2 * N * sum(din * dout) flops, near the ridge. The tangent chains multiply
+the hidden layers' work by 1 + K.
 """
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -59,15 +67,25 @@ from multimodalstudio_tpu_torch.ops.kernels import build
 SKIP_SCALE = 1.0 / math.sqrt(2.0)
 ACTIVATIONS = {"None": 0, "ReLU": 1, "SoftplusQuad": 2}
 
+PACK_KERNEL = build.register(
+    "fused_chain_pack",
+    source="multimodalstudio_tpu_torch/csrc/fused_chain.cu",
+    replaces="multimodalstudio_tpu/ops/pallas/fused_mlp.py:1070",
+)
 KERNEL = build.register(
     "fused_chain",
-    source="multimodalstudio_tpu_torch/csrc/fused_mlp.cu",
+    source="multimodalstudio_tpu_torch/csrc/fused_chain.cu",
     replaces="multimodalstudio_tpu/ops/pallas/fused_mlp.py:265",
 )
 BWD_KERNEL = build.register(
     "fused_chain_bwd",
-    source="multimodalstudio_tpu_torch/csrc/fused_mlp.cu",
+    source="multimodalstudio_tpu_torch/csrc/fused_chain.cu",
     replaces="multimodalstudio_tpu/ops/pallas/fused_mlp.py:607",
+)
+WGRAD_KERNEL = build.register(
+    "chain_wgrad",
+    source="multimodalstudio_tpu_torch/csrc/fused_chain.cu",
+    replaces="multimodalstudio_tpu/ops/pallas/fused_mlp.py:748",
 )
 TANGENT_KERNEL = build.register(
     "fused_chain_tangents",
@@ -303,6 +321,41 @@ def fused_chain_bwd_plain(
     return gx.to(torch.bfloat16), gws, gbs
 
 
+def chain_bwd_tile_plain(x, gy, weights, biases, *, skip=(), activation="ReLU", beta=100.0):
+    """Plain version of K1's per-tile backward pass (csrc/fused_chain.cu
+    k1_bwd): the forward recompute and the reverse sweep gh = bf16(gz) W^T,
+    without the weight gradients. x [N, D_in], gy [N, D_out] (rounded to
+    bf16). Returns (gx [N, D_in] bf16, the layer inputs hin_l [N, din_l] and
+    cotangents gz_l [N, dout_l] as bf16 values in f32, gz_{L-1} = bf16(gy);
+    gb list f32)."""
+    skip = tuple(sorted(skip))
+    f, df = act_pair(activation, beta)
+    x0 = bf16_round(x.float())
+    _, zs = chain_forward(x0, weights, biases, skip, activation, beta)
+    n_layers, d_in = len(weights), x0.shape[1]
+    hins = [layer_input(l, x0, x0 if l == 0 else bf16_round(f(zs[l - 1])), skip)
+            for l in range(n_layers)]
+    gzs: List[torch.Tensor] = [None] * n_layers
+    gbs: List[torch.Tensor] = [None] * n_layers
+    gh, gx0 = bf16_round(gy.float()), torch.zeros_like(x0)
+    for l in reversed(range(n_layers)):
+        gz = gh if l == n_layers - 1 else gh * df(zs[l])
+        gzs[l], gbs[l] = bf16_round(gz), gz.sum(0)
+        ghp = gzs[l] @ bf16_round(weights[l].float()).T
+        if l in skip:
+            hw = weights[l].shape[0] - d_in
+            gh = ghp[:, :hw] * SKIP_SCALE
+            gx0 = gx0 + ghp[:, hw:] * SKIP_SCALE
+        else:
+            gh = ghp
+    return (gh + gx0).to(torch.bfloat16), hins, gzs, gbs
+
+
+def chain_wgrad_plain(hins: Sequence[torch.Tensor], gzs: Sequence[torch.Tensor]):
+    """Plain version of chain_wgrad: gW_l = hin_l^T gz_l of every layer, f32."""
+    return [h.float().T @ g.float() for h, g in zip(hins, gzs)]
+
+
 def tangent_backward(x0, t0, gh, gt, weights, biases, skip, activation, beta):
     """The backward of the chain with K forward tangents (_bwd_kernel
     :636-789) at its cast points: x0 [N, D_in] and t0 [K, N, D_in] as bf16
@@ -420,16 +473,14 @@ def pack_chain(
     skip: Tuple[int, ...],
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Zero-padded weights as one bf16 buffer (row-major [din, dout] per
-    layer, back to back) and biases as one f32 buffer. A skip layer's rows
-    are [h (hidden) | x0 (padded input width)]."""
+    layer, back to back) and biases as one f32 buffer, the layout of the
+    tangent and slot kernels. A skip layer's rows are [h (hidden) | x0
+    (padded input width)], so its weight lands in its first rows as a plain
+    layer's does."""
     ws, bs = [], []
     for l, (w, b) in enumerate(zip(weights, biases)):
         wp = w.new_zeros((in_dims[l], out_dims[l]), dtype=torch.float32)
-        if l in skip:
-            wp[:hidden, : w.shape[1]] = w[:hidden]
-            wp[hidden : hidden + w.shape[0] - hidden, : w.shape[1]] = w[hidden:]
-        else:
-            wp[: w.shape[0], : w.shape[1]] = w
+        wp[: w.shape[0], : w.shape[1]] = w
         ws.append(wp.reshape(-1))
         bp = b.new_zeros(out_dims[l], dtype=torch.float32)
         bp[: b.shape[0]] = b
@@ -438,19 +489,260 @@ def pack_chain(
 
 
 def unpack_grads(gw: torch.Tensor, gb: torch.Tensor, weights, in_dims, out_dims, hidden, skip):
-    """Per-layer gW [din_l, dout_l] and gb [dout_l] out of the packed,
+    """Per-layer gW [din_l, dout_l] and gb [dout_l] as views of the packed,
     padded f32 gradient buffers (the layout of pack_chain)."""
     gws, gbs = [], []
     wo = bo = 0
     for l, w in enumerate(weights):
         g = gw[wo : wo + in_dims[l] * out_dims[l]].view(in_dims[l], out_dims[l])
-        if l in skip:
-            g = torch.cat([g[:hidden], g[hidden : w.shape[0]]], dim=0)
         gws.append(g[: w.shape[0], : w.shape[1]])
         gbs.append(gb[bo : bo + w.shape[1]])
         wo += in_dims[l] * out_dims[l]
         bo += out_dims[l]
     return gws, gbs
+
+
+# ------------------------------------------------------------- K1 on the card
+#
+# The layout of csrc/fused_chain.cu. Activation columns come in 64-wide
+# images: [h (H) | x0 (P0 = ceil64(d_in))]; hidden widths are 64, 128 or 256
+# (one wgmma of at most 256 columns per hidden layer). A product's output
+# width (padded to 16) is cut into pieces of 256 columns, then 128, 64, 32,
+# 16. An image is R rows of 64 bf16 (one 64-deep k-chunk), its 16-byte units
+# permuted by unit ^ (row % 8) (the 128-byte swizzle of wgmma).
+
+MAX_PIECES = 8  # csrc/fused_chain.cu MAXPIECES
+HIDDEN_WIDTHS = (64, 128, 256)
+
+
+def ceil64(n: int) -> int:
+    return (n + 63) // 64 * 64
+
+
+def pieces(width: int) -> List[Tuple[int, int]]:
+    """(offset, columns) of each piece of a width (a multiple of 16)."""
+    out, off = [], 0
+    for _ in range(width // 256):
+        out.append((off, 256))
+        off += 256
+    for np_ in (128, 64, 32, 16):
+        if width % 256 & np_:
+            out.append((off, np_))
+            off += np_
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainLayout:
+    """Where csrc/fused_chain.cu keeps each layer of one chain: padded and
+    true widths, element offsets of its forward and backward images, of its
+    gW and gb, and its columns in the hin and gz stacks (per tile)."""
+
+    d_in: int
+    d_out: int
+    hidden: int
+    p0: int  # ceil64(d_in)
+    skip: Tuple[int, ...]
+    din_pad: Tuple[int, ...]
+    din_true: Tuple[int, ...]
+    dout_pad: Tuple[int, ...]
+    dout_true: Tuple[int, ...]
+    fw_off: Tuple[int, ...]  # [L + 1]
+    bw_off: Tuple[int, ...]  # [L + 1], layer L - 1 first; [L] = total
+    gw_off: Tuple[int, ...]  # [L + 1]
+    b_off: Tuple[int, ...]  # [L + 1]
+    gb_off: Tuple[int, ...]  # [L + 1]
+    hs_w: Tuple[int, ...]  # [L + 1]
+    gs_w: Tuple[int, ...]  # [L + 1]
+
+    @property
+    def n_layers(self) -> int:
+        return len(self.din_pad)
+
+    def gcols(self, l: int) -> int:
+        return ceil64(self.dout_pad[l])
+
+    @property
+    def gw_sizes(self) -> Tuple[int, ...]:
+        return tuple(a * b for a, b in zip(self.din_true, self.dout_true))
+
+    def bwd_pieces(self, l: int) -> List[Tuple[int, int]]:
+        """Pieces of layer l's backward product gh = gz W^T over its input
+        columns: a skip layer's x0 part first (at column H), then its h part."""
+        if l == 0:
+            return pieces(self.p0)
+        h = [(0, self.hidden)]
+        return [(self.hidden + o, n) for o, n in pieces(self.p0)] + h if l in self.skip else h
+
+
+def chain_layout(d_in: int, shapes: Sequence[Tuple[int, int]],
+                 skip: Tuple[int, ...]) -> ChainLayout:
+    """The layout of one chain ([din, dout] per layer), or ValueError naming
+    the bound the card's kernels set."""
+    n_layers = len(shapes)
+    if not 2 <= n_layers <= build.MAX_LAYERS:
+        raise ValueError(f"fused_chain: the card's kernel takes chains of 2 to {build.MAX_LAYERS} "
+                         f"layers, not {n_layers}")
+    if 0 in skip:
+        raise ValueError("fused_chain: layer 0 cannot be a skip layer")
+    hidden, d_out = shapes[0][1], shapes[-1][1]
+    if hidden not in HIDDEN_WIDTHS:
+        raise ValueError(f"fused_chain: hidden width {hidden}; the card's kernel takes "
+                         f"{HIDDEN_WIDTHS} (one wgmma of at most 256 columns per hidden layer)")
+    p0 = ceil64(d_in)
+    din_pad, din_true = [], []
+    for l, (din, dout) in enumerate(shapes):
+        want = d_in if l == 0 else hidden + (d_in if l in skip else 0)
+        if din != want:
+            raise ValueError(f"layer {l} input width {din} != {want}")
+        if l < n_layers - 1 and dout != hidden:
+            raise ValueError(f"layer {l} output width {dout} != hidden {hidden}")
+        din_pad.append(p0 if l == 0 else hidden + (p0 if l in skip else 0))
+        din_true.append(din)
+    dout_true = [hidden] * (n_layers - 1) + [d_out]
+    dout_pad = [hidden] * (n_layers - 1) + [rup16(d_out)]
+    if len(pieces(dout_pad[-1])) > MAX_PIECES or len(pieces(p0)) + 1 > MAX_PIECES:
+        raise ValueError(f"fused_chain: widths {d_in} in, {d_out} out need more than {MAX_PIECES} "
+                         "pieces of at most 256 columns")
+    cum = lambda xs: tuple(sum(xs[:i]) for i in range(len(xs) + 1))  # noqa: E731
+    layout = ChainLayout(
+        d_in=d_in, d_out=d_out, hidden=hidden, p0=p0, skip=tuple(skip),
+        din_pad=tuple(din_pad), din_true=tuple(din_true), dout_pad=tuple(dout_pad),
+        dout_true=tuple(dout_true),
+        fw_off=cum([a * b for a, b in zip(din_pad, dout_pad)]), bw_off=(),
+        gw_off=cum([a * b for a, b in zip(din_true, dout_true)]), b_off=cum(dout_pad),
+        gb_off=cum(dout_true), hs_w=cum(din_pad), gs_w=cum([ceil64(d) for d in dout_pad]))
+    sizes = [sum(n for _, n in layout.bwd_pieces(l)) * layout.gcols(l) for l in range(n_layers)]
+    bw_off, off = [0] * (n_layers + 1), 0
+    for l in reversed(range(n_layers)):
+        bw_off[l] = off
+        off += sizes[l]
+    bw_off[n_layers] = off
+    return dataclasses.replace(layout, bw_off=tuple(bw_off))
+
+
+def swizzle_units(m: torch.Tensor) -> torch.Tensor:
+    """Rows of 64 values with their 8 units of 8 permuted by unit ^ (row % 8):
+    a [R, 64] matrix to its image, or an image back (the permutation is its
+    own inverse)."""
+    r = m.shape[0]
+    slots = torch.arange(8, device=m.device) ^ (torch.arange(r, device=m.device) % 8)[:, None]
+    return m.reshape(r, 8, 8).gather(1, slots[:, :, None].expand(r, 8, 8)).reshape(r, 64)
+
+
+def _padded(w: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    out = w.new_zeros((rows, cols), dtype=torch.float32)
+    out[: w.shape[0], : w.shape[1]] = w.float()
+    return out
+
+
+def pack_plain(layout: ChainLayout, weights, biases, backward: bool = True):
+    """Plain version of the pack kernel: (forward images, backward images or
+    None, both bf16, and the padded f32 biases), element for element as
+    csrc/fused_chain.cu k1_pack writes them."""
+    fw, bw = [], []
+    for l, w in enumerate(weights):
+        wp = _padded(w, layout.din_pad[l], layout.dout_pad[l])
+        for off, np_ in pieces(layout.dout_pad[l]):
+            for kc in range(layout.din_pad[l] // 64):
+                fw.append(swizzle_units(wp[kc * 64:(kc + 1) * 64, off:off + np_].T))
+    for l in reversed(range(len(weights))):
+        wp = _padded(weights[l], layout.din_pad[l], layout.gcols(l))
+        for off, np_ in layout.bwd_pieces(l):
+            for kc in range(layout.gcols(l) // 64):
+                bw.append(swizzle_units(wp[off:off + np_, kc * 64:(kc + 1) * 64]))
+    flat = lambda ms: torch.cat([m.reshape(-1) for m in ms]).to(torch.bfloat16)  # noqa: E731
+    bpk = torch.cat([_padded(b[None], 1, n)[0] for b, n in zip(biases, layout.dout_pad)])
+    return flat(fw), flat(bw) if backward else None, bpk
+
+
+def stack_rows(images: torch.Tensor, tiles: int, cols: int) -> torch.Tensor:
+    """A stack of the per-tile pass (per tile, cols / 64 images of 64 rows,
+    the activation images of shared memory) as rows [tiles * 64, cols]."""
+    m = swizzle_units(images[: tiles * 64 * cols].reshape(tiles * cols, 64))
+    return m.reshape(tiles, cols // 64, 64, 64).transpose(1, 2).reshape(tiles * 64, cols)
+
+
+_MAXL = build.MAX_LAYERS
+
+
+class _Geom(ctypes.Structure):
+    """csrc/fused_chain.cu struct Geom."""
+
+    _fields_ = [
+        ("fw_off", ctypes.c_longlong * (_MAXL + 1)), ("bw_off", ctypes.c_longlong * (_MAXL + 1)),
+        ("gw_off", ctypes.c_longlong * _MAXL), ("din_pad", ctypes.c_int * _MAXL),
+        ("din_true", ctypes.c_int * _MAXL), ("dout_pad", ctypes.c_int * _MAXL),
+        ("dout_true", ctypes.c_int * _MAXL), ("b_off", ctypes.c_int * _MAXL),
+        ("gb_off", ctypes.c_int * _MAXL), ("hs_w", ctypes.c_int * (_MAXL + 1)),
+        ("gs_w", ctypes.c_int * (_MAXL + 1)), ("L", ctypes.c_int), ("H", ctypes.c_int),
+        ("P0", ctypes.c_int), ("d_in", ctypes.c_int), ("d_out", ctypes.c_int),
+        ("skip_mask", ctypes.c_int), ("act", ctypes.c_int), ("quad_a", ctypes.c_float),
+    ]
+
+
+class _PackArgs(ctypes.Structure):
+    """csrc/fused_chain.cu struct PackArgs."""
+
+    _fields_ = [("w", ctypes.c_void_p * _MAXL), ("b", ctypes.c_void_p * _MAXL),
+                ("ws0", ctypes.c_longlong * _MAXL), ("ws1", ctypes.c_longlong * _MAXL)]
+
+
+_CHAINS: Dict[tuple, Tuple[ChainLayout, _Geom]] = {}
+_ENTRY = {  # csrc/fused_chain.cu's entry points: argument types, result type
+    "mms_k1_pack": (("ptr",) * 6, ctypes.c_int),
+    "mms_k1_fwd": (("ptr", "ptr", "int", "int", "ptr", "ptr", "ptr", "ptr"), ctypes.c_int),
+    "mms_k1_bwd_bytes": (("ptr", "int"), ctypes.c_longlong),
+    "mms_k1_bwd": (("ptr", "ptr", "int", "ptr", "int", "int") + ("ptr",) * 7, ctypes.c_int),
+    "mms_k1_wgrad": (("ptr", "int", "ptr", "ptr", "ptr"), ctypes.c_int),
+}
+_ENTRIES: Dict[str, object] = {}
+
+
+def _stream(dev) -> int:
+    """The current CUDA stream of a device, as the kernels' launch argument."""
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _entry(name: str):
+    """A C entry point of the fused_chain library, looked up once."""
+    fn = _ENTRIES.get(name)
+    if fn is None:
+        types, restype = _ENTRY[name]
+        fn = _ENTRIES[name] = build.function("fused_chain", name, *types, restype=restype)
+    return fn
+
+
+def _chain(d_in: int, weights, skip, activation: str, beta: float) -> Tuple[ChainLayout, _Geom]:
+    """The layout and the kernels' Geom of a chain, built once per shape."""
+    key = (d_in, tuple(w.shape for w in weights), skip, activation, beta)
+    hit = _CHAINS.get(key)
+    if hit is None:
+        layout = chain_layout(d_in, [tuple(w.shape) for w in weights], skip)
+        g = _Geom()
+        bw_total = layout.bw_off[-1]
+        for name in ("din_pad", "din_true", "dout_pad", "dout_true", "b_off", "gb_off", "gw_off"):
+            getattr(g, name)[: layout.n_layers] = getattr(layout, name)[: layout.n_layers]
+        for name in ("fw_off", "hs_w", "gs_w"):
+            getattr(g, name)[: layout.n_layers + 1] = getattr(layout, name)
+        g.bw_off[: layout.n_layers] = layout.bw_off[: layout.n_layers]
+        g.bw_off[_MAXL] = bw_total
+        g.L, g.H, g.P0, g.d_in, g.d_out = (layout.n_layers, layout.hidden, layout.p0, d_in,
+                                            layout.d_out)
+        g.skip_mask = sum(1 << l for l in skip)
+        g.act, g.quad_a = ACTIVATIONS[activation], 2.0 / beta
+        hit = _CHAINS[key] = (layout, g)
+    return hit
+
+
+@dataclasses.dataclass
+class Packed:
+    """What the pack kernel wrote for one call: the forward images, the
+    backward images (or None) and the padded biases, views of one buffer."""
+
+    wfw: torch.Tensor
+    wbw: Optional[torch.Tensor]
+    bpk: torch.Tensor
 
 
 def _check_card(x: torch.Tensor, activation: str, n_layers: int) -> None:
@@ -461,64 +753,169 @@ def _check_card(x: torch.Tensor, activation: str, n_layers: int) -> None:
     build.check_layers(n_layers, "fused_chain")
 
 
-def _launch_fwd(x, weights, biases, skip, activation, beta):
+def _card_operand(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous, 16-byte aligned f32 or bf16 operand (the kernels read
+    either, as 16-byte vectors)."""
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        t = t.float()
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch_pack(layout: ChainLayout, geom: _Geom, weights, biases, backward: bool) -> Packed:
+    """The pack kernel: forward (and backward) images and biases, one launch."""
+    dev = weights[0].device
+    fw_b, bw_b = 2 * layout.fw_off[-1], 2 * layout.bw_off[-1] if backward else 0
+    buf = torch.empty(fw_b + bw_b + 4 * layout.b_off[-1], dtype=torch.uint8, device=dev)
+    packed = Packed(buf[:fw_b].view(torch.bfloat16),
+                    buf[fw_b:fw_b + bw_b].view(torch.bfloat16) if backward else None,
+                    buf[fw_b + bw_b:].view(torch.float32))
+    args = _PackArgs()
+    ws = [w if w.dtype == torch.float32 else w.float() for w in weights]
+    bs = [b if b.dtype == torch.float32 and b.is_contiguous() else b.float().contiguous()
+          for b in biases]
+    n_layers = len(ws)
+    args.w[:n_layers] = [w.data_ptr() for w in ws]
+    args.b[:n_layers] = [b.data_ptr() for b in bs]
+    args.ws0[:n_layers] = [w.stride(0) for w in ws]
+    args.ws1[:n_layers] = [w.stride(1) for w in ws]
+    wbw = None if packed.wbw is None else packed.wbw.data_ptr()
+    status = _entry("mms_k1_pack")(ctypes.byref(geom), ctypes.byref(args), packed.wfw.data_ptr(),
+                                   wbw, packed.bpk.data_ptr(), _stream(dev))
+    build.check(status, "fused_chain pack")
+    PACK_KERNEL.launches += 1
+    return packed
+
+
+def _fwd_launcher(geom: _Geom, x, n: int, packed: Packed, y):
+    """The chain kernel's launch on prepared operands, as a closure
+    (uncounted: its callers count)."""
+    args = (ctypes.byref(geom), x.data_ptr(), int(x.dtype == torch.bfloat16), n,
+            packed.wfw.data_ptr(), packed.bpk.data_ptr(), y.data_ptr(), _stream(x.device))
+    return lambda: build.check(_entry("mms_k1_fwd")(*args), "fused_chain")
+
+
+def _launch_fwd(x, weights, biases, skip, activation, beta, backward_images=False):
+    """K1's forward on the card: (y [N, D_out] bf16, the Packed images, or
+    None for N = 0)."""
     _check_card(x, activation, len(weights))
-    n, d_in = x.shape
-    d_out = weights[-1].shape[1]
-    in_dims, out_dims, p0, hidden = chain_geometry(d_in, weights, skip)
-    wpack, bpack = pack_chain(weights, biases, in_dims, out_dims, hidden, skip)
-    xb = x.to(torch.bfloat16).contiguous()
-    y = torch.empty((n, d_out), dtype=torch.bfloat16, device=x.device)
+    layout, geom = _chain(x.shape[1], weights, skip, activation, beta)
+    n = x.shape[0]
+    y = torch.empty((n, layout.d_out), dtype=torch.bfloat16, device=x.device)
     if n == 0:
-        return y
-    fn = build.function(
-        "fused_mlp", "mms_fused_chain_fwd", "ptr", "int", "ptr", "ptr", "ptr", "int", "int",
-        "int", "ptr", "ptr", "int", "int", "int", "int", "float", "ptr",
-    )
-    skip_mask = sum(1 << l for l in skip)
-    status = fn(
-        build.ptr(xb), d_in, build.ptr(wpack), build.ptr(bpack), build.ptr(y), d_out, n,
-        len(weights), build.int_array(in_dims), build.int_array(out_dims), skip_mask,
-        hidden, p0, ACTIVATIONS[activation], 2.0 / beta, build.stream_of(x),
-    )
-    build.check(status, "fused_chain")
+        return y, None
+    x = _card_operand(x)
+    packed = _launch_pack(layout, geom, weights, biases, backward_images)
+    _fwd_launcher(geom, x, n, packed, y)()
     KERNEL.launches += 1
-    return y
+    return y, packed
 
 
-def _launch_bwd(x, gy, weights, biases, skip, activation, beta):
-    """K1's backward kernel: (gx bf16, gW list f32, gb list f32)."""
+_SCRATCH_BYTES: Dict[Tuple[int, int], int] = {}
+
+
+def _bwd_scratch(geom: _Geom, n: int, dev) -> torch.Tensor:
+    """The backward's device scratch (stacks and per-CTA slabs) for n rows."""
+    key = (id(geom), n)  # a Geom lives as long as the process (_CHAINS)
+    size = _SCRATCH_BYTES.get(key)
+    if size is None:
+        size = int(_entry("mms_k1_bwd_bytes")(ctypes.byref(geom), n))
+        if size < 0:
+            build.check(size, "fused_chain backward")
+        if len(_SCRATCH_BYTES) > 1024:  # many batch sizes: start over
+            _SCRATCH_BYTES.clear()
+        _SCRATCH_BYTES[key] = size
+    return torch.empty(size, dtype=torch.uint8, device=dev)
+
+
+def _bwd_launchers(geom: _Geom, x, gy, n: int, packed: Packed, gx, gw, gb, scratch):
+    """The per-tile pass (gx in x's dtype, gb accumulated into gb, the hin
+    and gz stacks into scratch) and chain_wgrad (gW of every layer from the
+    stacks, accumulated into gw), as two closures (uncounted)."""
+    g, st = ctypes.byref(geom), _stream(x.device)
+    tile = (g, x.data_ptr(), int(x.dtype == torch.bfloat16), gy.data_ptr(),
+            int(gy.dtype == torch.bfloat16), n, packed.wfw.data_ptr(), packed.wbw.data_ptr(),
+            packed.bpk.data_ptr(), gx.data_ptr(), gb.data_ptr(), scratch.data_ptr(), st)
+    wgrad = (g, n, scratch.data_ptr(), gw.data_ptr(), st)
+    return (lambda: build.check(_entry("mms_k1_bwd")(*tile), "fused_chain backward"),
+            lambda: build.check(_entry("mms_k1_wgrad")(*wgrad), "chain_wgrad"))
+
+
+def _grad_buffers(layout: ChainLayout, dev):
+    """gW and gb of every layer, zeroed in one fill, with their per-layer views."""
+    nw, nb = layout.gw_off[-1], layout.gb_off[-1]
+    buf = torch.zeros(nw + nb, device=dev)
+    gw, gb = buf[:nw], buf[nw:]
+    gws = [g.view(a, b) for g, a, b in zip(gw.split(layout.gw_sizes), layout.din_true,
+                                           layout.dout_true)]
+    return gw, gb, gws, list(gb.split(layout.dout_true))
+
+
+def _launch_bwd(x, gy, weights, biases, skip, activation, beta, packed=None):
+    """K1's backward on the card: (gx in x's dtype, rounded to bf16; gW list
+    f32; gb list f32). Reuses the forward's images when given them."""
     _check_card(x, activation, len(weights))
-    if 0 in skip:
-        raise ValueError("fused_chain: layer 0 cannot be a skip layer")
-    n, d_in = x.shape
-    d_out = weights[-1].shape[1]
-    in_dims, out_dims, p0, hidden = chain_geometry(d_in, weights, skip)
-    wpack, bpack = pack_chain(weights, biases, in_dims, out_dims, hidden, skip)
-    xb = x.to(torch.bfloat16).contiguous()
-    gyb = gy.to(torch.bfloat16).contiguous()
-    gx = torch.empty((n, d_in), dtype=torch.bfloat16, device=x.device)
-    gw = torch.zeros(sum(a * b for a, b in zip(in_dims, out_dims)), device=x.device)
-    gb = torch.zeros(sum(out_dims), device=x.device)
-    if n:
-        scratch, ctas = build.persistent_scratch(
-            "fused_mlp", "mms_fused_chain_bwd_slab", (len(weights), hidden, p0), x.device, n)
-        fn = build.function(
-            "fused_mlp", "mms_fused_chain_bwd", "ptr", "int", "ptr", "ptr", "ptr", "ptr", "ptr",
-            "ptr", "int", "int", "int", "ptr", "ptr", "int", "int", "int", "int", "float", "ptr",
-            "int", "ptr",
-        )
-        status = fn(
-            build.ptr(xb), d_in, build.ptr(gyb), build.ptr(wpack), build.ptr(bpack),
-            build.ptr(gx), build.ptr(gw), build.ptr(gb), d_out, n, len(weights),
-            build.int_array(in_dims), build.int_array(out_dims), sum(1 << l for l in skip),
-            hidden, p0, ACTIVATIONS[activation], 2.0 / beta, build.ptr(scratch), ctas,
-            build.stream_of(x),
-        )
-        build.check(status, "fused_chain backward")
-        BWD_KERNEL.launches += 1
-    gws, gbs = unpack_grads(gw, gb, weights, in_dims, out_dims, hidden, skip)
+    layout, geom = _chain(x.shape[1], weights, skip, activation, beta)
+    gw, gb, gws, gbs = _grad_buffers(layout, x.device)
+    x = _card_operand(x)
+    n = x.shape[0]
+    if n == 0:
+        return torch.empty_like(x), gws, gbs
+    if packed is None or packed.wbw is None:
+        packed = _launch_pack(layout, geom, weights, biases, True)
+    gx = torch.empty_like(x)
+    tile, wgrad = _bwd_launchers(geom, x, _card_operand(gy), n, packed, gx, gw, gb,
+                                 _bwd_scratch(geom, n, x.device))
+    tile()
+    BWD_KERNEL.launches += 1
+    wgrad()
+    WGRAD_KERNEL.launches += 1
     return gx, gws, gbs
+
+
+def bare_forward(x, weights, biases, skip, activation, beta):
+    """The forward chain kernel on one card input, packed once and its
+    output preallocated, for timing the kernel alone: a closure that
+    launches it as the wrapper does, uncounted."""
+    layout, geom = _chain(x.shape[1], weights, tuple(sorted(skip)), activation, beta)
+    x = _card_operand(x)
+    packed = _launch_pack(layout, geom, weights, biases, False)
+    y = torch.empty((x.shape[0], layout.d_out), dtype=torch.bfloat16, device=x.device)
+    return _fwd_launcher(geom, x, x.shape[0], packed, y)
+
+
+def bare_backward(x, gy, weights, biases, skip, activation, beta):
+    """The backward's kernels on one card input, packed once and every output
+    preallocated, for checking and timing them alone: (layout, packed, gx,
+    gw, gb, scratch, tile, wgrad), the last two the closures that launch the
+    per-tile pass and chain_wgrad as the wrapper does, uncounted."""
+    layout, geom = _chain(x.shape[1], weights, tuple(sorted(skip)), activation, beta)
+    x, gy = _card_operand(x), _card_operand(gy)
+    n = x.shape[0]
+    packed = _launch_pack(layout, geom, weights, biases, True)
+    gx = torch.empty_like(x)
+    gw, gb, _, _ = _grad_buffers(layout, x.device)
+    scratch = _bwd_scratch(geom, n, x.device)
+    tile, wgrad = _bwd_launchers(geom, x, gy, n, packed, gx, gw, gb, scratch)
+    return layout, packed, gx, gw, gb, scratch, tile, wgrad
+
+
+def stacks_of(layout: ChainLayout, scratch: torch.Tensor, n: int):
+    """The hin and gz stacks that the per-tile pass left in scratch, as rows
+    [n, din_l] and [n, dout_l] per layer (bf16)."""
+    tiles = -(-n // 64)
+    flat = scratch.view(torch.bfloat16)
+    hins, gzs, pos = [], [], 0
+    for l in range(layout.n_layers):
+        cols = layout.din_pad[l]
+        hins.append(stack_rows(flat[pos:], tiles, cols)[:n, :layout.din_true[l]])
+        pos += tiles * 64 * cols
+    pos = (2 * pos + 255) // 256 * 256 // 2  # the gz stacks start 256-byte aligned
+    for l in range(layout.n_layers):
+        cols = layout.gcols(l)
+        gzs.append(stack_rows(flat[pos:], tiles, cols)[:n, :layout.dout_true[l]])
+        pos += tiles * 64 * cols
+    return hins, gzs
 
 
 def _check_tangents(tangents: torch.Tensor, x: torch.Tensor) -> int:
@@ -581,7 +978,7 @@ def _launch_tangent_bwd(x, tx, gy, gty, weights, biases, skip, activation, beta,
     gb = torch.zeros(sum(out_dims), device=x.device)
     if n:
         scratch, ctas = build.persistent_scratch(
-            "fused_mlp", "mms_fused_chain_bwd_slab", (len(weights), hidden, p0), x.device, n)
+            "fused_mlp", "mms_chain_tangent_bwd_slab", (len(weights), hidden, p0), x.device, n)
         fn = build.function(
             "fused_mlp", "mms_chain_tangent_bwd", "ptr", "ptr", "int", "int", "ptr", "ptr", "int",
             "ptr", "ptr", "ptr", "ptr", "ptr", "ptr", "int", "int", "int", "ptr", "ptr", "int",
@@ -606,7 +1003,7 @@ def _forward(x, weights, biases, skip, activation, beta):
     the kernel for any other (which raises off a card)."""
     if x.device.type == "cpu":
         return fused_chain_plain(x, weights, biases, skip=skip, activation=activation, beta=beta)
-    return _launch_fwd(x, weights, biases, skip, activation, beta)
+    return _launch_fwd(x, weights, biases, skip, activation, beta)[0]
 
 
 def _forward_tangents(x, tx, weights, biases, skip, activation, beta, channel):
@@ -619,15 +1016,22 @@ def _forward_tangents(x, tx, weights, biases, skip, activation, beta, channel):
 
 
 class _FusedChain(torch.autograd.Function):
-    """K1 with its backward; saves only x and the parameters, as chain_fwd
-    (:901-902) does, and recomputes the forward in the backward kernel."""
+    """K1 with its backward; saves x and the parameters, as chain_fwd
+    (:901-902) does, and on the card also the images the forward's pack
+    wrote (backward images included), and recomputes the forward in the
+    backward kernel."""
 
     @staticmethod
     def forward(ctx, cfg, x, *params):
         n_layers = len(params) // 2
         ctx.cfg = cfg
         ctx.save_for_backward(x, *params)
-        return _forward(x, params[:n_layers], params[n_layers:], *cfg)
+        ctx.packed = None
+        if x.device.type == "cpu":
+            return _forward(x, params[:n_layers], params[n_layers:], *cfg)
+        y, ctx.packed = _launch_fwd(x, params[:n_layers], params[n_layers:], *cfg,
+                                    backward_images=True)
+        return y
 
     @staticmethod
     def backward(ctx, gy):
@@ -635,13 +1039,13 @@ class _FusedChain(torch.autograd.Function):
         x, *params = ctx.saved_tensors
         n_layers = len(params) // 2
         ws, bs = params[:n_layers], params[n_layers:]
-        gy = gy.to(torch.bfloat16)  # chain_bwd :907
         if x.device.type == "cpu":
             gx, gws, gbs = fused_chain_bwd_plain(
-                x, gy, ws, bs, skip=skip, activation=activation, beta=beta
-            )
-        else:
-            gx, gws, gbs = _launch_bwd(x, gy, ws, bs, skip, activation, beta)
+                x, gy.to(torch.bfloat16), ws, bs, skip=skip, activation=activation, beta=beta
+            )  # gy in bf16: chain_bwd :907
+        else:  # the kernel rounds gy to bf16 as it reads it
+            gx, gws, gbs = _launch_bwd(x, gy, ws, bs, skip, activation, beta, ctx.packed)
+        ctx.packed = None
         return (None, gx.to(x.dtype), *gws, *gbs)
 
 

@@ -308,7 +308,7 @@ def _launch_jvp_bwd(positions, weights, biases, skip, activation, beta, pe, gsdf
     gw, gb, unpack = ca.grads(weights, skip)
     if ca.n:
         scratch, ctas = build.persistent_scratch(
-            "fused_mlp", "mms_fused_chain_bwd_slab",
+            "fused_mlp", "mms_chain_tangent_bwd_slab",
             (len(weights), ca.hidden, ca.in_dims[0]), positions.device, ca.n)
         fn = build.function("fused_mlp", "mms_sdf_chain_jvp_bwd", *_K4_TYPES, "ptr", "ptr", "int",
                             "ptr", "ptr", "ptr", "ptr", "ptr", "int", "ptr")

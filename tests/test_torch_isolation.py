@@ -12,6 +12,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from multimodalstudio_tpu_torch.cameras.camera_optimizer import CameraOptimizerSpec, init_camera_poses
 from multimodalstudio_tpu_torch.configs.config import load_config
 from multimodalstudio_tpu_torch.configs.methods import method_configs
 from multimodalstudio_tpu_torch.data.synthetic import make_synthetic_dataset
@@ -77,6 +78,11 @@ def test_entry_points_raise_without_a_card(monkeypatch, method):
     for cls in (Evaluator, RawEvaluator):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cls(cfg, model, data, data)
+    spec = CameraOptimizerSpec(mode="SO3xR3")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_camera_poses(spec, ("rgb",), {"rgb": 2})
+    poses = init_camera_poses(spec, ("rgb",), {"rgb": 2}, device="cpu")
+    assert poses["rgb"].device.type == "cpu" and tuple(poses["rgb"].shape) == (2, 6)
 
 
 def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
