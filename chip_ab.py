@@ -11,7 +11,9 @@ calls the named check functions of its own chip_smoke.py in turn (default:
 the six grid_raw_tpu kernel checks), which print their agreement with the
 plain versions; then one line `AB <tree> {"<check>": ms, ...}` with each
 check's kernel time (CUDA events, median of 15; a check that returns a
-forward and a backward gives "<check>[0]" and "<check>[1]"; beside it
+forward and a backward gives "<check>[0]" and "<check>[1]"; a check named
+"<check>:<arg>=<NAME>" is called with chip_smoke's NAME as the keyword
+argument <arg>, e.g. check_chain_adjoint_bwd:dims=VERTEX_DIMS; beside it
 "<check> kernel" for its kernels alone, without the wrapper, "<check>
 standalone" for K1's backward packing its own images, and "<check> library"
 for the library call, where the check times them). Giving one tree several
@@ -41,9 +43,14 @@ gspec = SlotGridSpec(num_levels=6, min_res=16, max_res=512, rows_per_level=4096,
                      feats=2, table_dtype="bf16")
 out = {}
 for name in sys.argv[2].split(","):
-    fn = getattr(c, name)
+    fname, _, arg = name.partition(":")
+    fn = getattr(c, fname)
     args = (gen, dev, gspec) if "gspec" in inspect.signature(fn).parameters else (gen, dev)
-    r = fn(*args)
+    kw = {}
+    if arg:
+        key, value = arg.split("=")
+        kw[key] = getattr(c, value)
+    r = fn(*args, **kw)
     for i, part in enumerate(r if isinstance(r, tuple) else (r,)):
         if isinstance(part, dict):
             key = name if not isinstance(r, tuple) else f"{name}[{i}]"

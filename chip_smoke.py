@@ -235,7 +235,7 @@ def k1_backward_parts(what, x, gy, ws, bs, kw, tot):
     parts = tot.setdefault("parts", {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0,
                                              bytes=0.0, err=0.0) for k in K1_PARTS})
     pk = parts["fused_chain_pack"]
-    lg = fm._chain(x.shape[1], ws, skip, act, beta)[1]
+    lg = fm.chain_of(x.shape[1], ws, skip, act, beta)[1]
     pk["ms"] += time_ms(lambda: fm._launch_pack(layout, lg, ws, bs, True))
     pk["plain_ms"] += time_ms(lambda: fm.pack_plain(layout, ws, bs))
     pk["library_ms"] = None  # no PyTorch call writes the swizzled images
@@ -255,6 +255,71 @@ def k1_backward_parts(what, x, gy, ws, bs, kw, tot):
     print(f"  K1 bwd {what}: kernel alone (pass and chain_wgrad) {kernel_ms:.3f} ms, {ops} device "
           "ops per call with the forward's images")
     return max(err, werr)
+
+
+def old_atomics(n, dims, skip, k=0):
+    """gW atomics per call of the replaced per-tile designs (one per element
+    of every tile's gW product, widths padded to 16): the adjoint backward's
+    hin^T gz of every layer, qin^T v of the hidden layers and the last
+    layer's column sums, per 64-row tile; the tangent backward's Hin^T G of
+    every layer per tile of 16 (K = 2, 3) or 32 (K = 1) samples."""
+    from multimodalstudio_tpu_torch.ops.kernels.fused_mlp import rup16
+
+    p0, hidden = rup16(dims[0][0]), dims[0][1]
+    ins = [p0 if l == 0 else hidden + (p0 if l in skip else 0) for l in range(len(dims))]
+    per_tile = sum(a * rup16(o) for a, (_, o) in zip(ins, dims))
+    if k:
+        return -(-n // (32 if k == 1 else 16)) * per_tile
+    return -(-n // 64) * (per_tile + hidden * sum(ins[:-1]) + ins[-1])
+
+
+def stacked_backward_parts(what, prepare, launch, rows, old, tot, gate=True):
+    """A redesigned backward (K4's, K5's, K1t's, K4j's) in its parts on one
+    call: `prepare(count)` gives (fused_mlp.Backward, outputs) with the gW
+    atomics counted into `count`, `launch()` the wrapper call. Runs the
+    per-tile pass and chain_wgrad once and holds chain_wgrad's gW (the
+    pass's own column term taken off) against the plain product of the
+    pass's own stacks (rel-L2 1e-4: the same bf16 products, summed in f32 in
+    another order); prints the kernels' time alone (pass and chain_wgrad),
+    the device ops of one wrapper call, the scratch bytes and the gW atomics
+    (counted, beside the replaced design's `old`), and with `gate` fails if
+    they are 1 % of the old or more (K4, K1t, K4j; K5's small chain prints
+    its share). `rows` [per layer]: the stacked rows the data holds.
+    Adds kernel_ms and ops to tot; returns the stacked gW's timings."""
+    from multimodalstudio_tpu_torch.ops.kernels import fused_mlp as fm
+
+    count = torch.zeros(1, dtype=torch.int64, device="cuda")
+    bw = prepare(count)[0]
+    bw.tile()
+    torch.cuda.synchronize()
+    after_pass = bw.gw.clone()
+    bw.wgrad()
+    torch.cuda.synchronize()
+    atomics = int(count.item())
+    lay = bw.layout
+    hins, gzs = fm.stacks_of(lay, bw.scratch, bw.tiles * 64, tiles=bw.tiles)
+    stacked = [(bw.gw - after_pass)[lay.gw_off[l]:lay.gw_off[l + 1]].view(lay.din_true[l],
+                                                                            lay.dout_true[l])
+               for l in range(lay.n_layers)]
+    plain_w = fm.chain_wgrad_plain(hins, gzs)
+    err = _compare_grads(f"{what} stacked gW (chain_wgrad) vs its own stacks", ("gW",), (stacked,),
+                         (plain_w,), tol=1e-4)
+    hb, gb16 = [h.contiguous() for h in hins], [g.contiguous() for g in gzs]
+    wgrad = dict(ms=time_ms(bw.wgrad), plain_ms=time_ms(lambda: fm.chain_wgrad_plain(hins, gzs)),
+                 library_ms=time_ms(lambda: [torch.matmul(h.T, g) for h, g in zip(hb, gb16)]),
+                 flops=sum(2.0 * r * a * b for r, a, b in zip(rows, lay.din_true, lay.dout_true)),
+                 bytes=sum(2.0 * r * (a + b) for r, a, b in zip(rows, lay.din_true, lay.dout_true))
+                 + 4.0 * lay.gw_off[-1], err=err)
+    kernel_ms = time_ms(lambda: (bw.tile(), bw.wgrad()))
+    ops = device_ops(launch)
+    tot["kernel_ms"], tot["ops"] = kernel_ms, ops
+    share = atomics / old
+    print(f"  {what}: kernel alone (pass and chain_wgrad) {kernel_ms:.3f} ms, {ops} device ops per "
+          f"call, scratch {bw.scratch.numel()} bytes, gW atomics per call {atomics} (the replaced "
+          f"design's {old}: {100 * share:.3f}%), chain_wgrad {wgrad['ms']:.3f} ms")
+    if gate and not share < 1e-2:
+        fail(f"{what}: the gW atomics are not under 1% of the replaced design's")
+    return wgrad
 
 
 def check_fused_chain(gen, dev):
@@ -845,16 +910,23 @@ def check_sdf_chain(gen, dev):
                 flops=sdf_flops(n, SDF_DIMS), bytes=nbytes(pos, ws, bs, out), err=err)
 
 
+def adjoint_rows(n, n_layers):
+    """Stacked rows of the adjoint backward's gW products: hin over qin
+    below the last layer, hin alone at it."""
+    return [2 * n] * (n_layers - 1) + [n]
+
+
 def check_sdf_chain_bwd(gen, dev):
     """K4's training forward and its backward at one training microbatch's
     render samples: N=163840 (2560 rays x 64), cotangents on sdf, geo and
-    grad."""
+    grad; then the backward in its parts (stacked_backward_parts)."""
     from multimodalstudio_tpu_torch.ops.kernels.sdf_chain import (
         _launch_bwd,
         fused_sdf_chain,
         fused_sdf_chain_bwd_plain,
         fused_sdf_chain_plain,
         pe_scales,
+        sdf_bwd_card,
     )
 
     n = 163840
@@ -882,12 +954,17 @@ def check_sdf_chain_bwd(gen, dev):
     def library():
         return torch.autograd.grad(outs, leaves, cot, retain_graph=True)
 
-    return dict(ms=time_ms(lambda: _launch_bwd(*kargs)),
-                plain_ms=time_ms(lambda: fused_sdf_chain_bwd_plain(pos, ws, bs, gsdf, ggeo, g3,
-                                                                   **SDF_KW)),
-                library_ms=time_ms(library), flops=sdf_flops(n, SDF_DIMS, backward=True),
-                bytes=nbytes(pos, ws, bs, gsdf, ggeo, g3, got[0], got[1], got[2]),
-                err=err, fwd_err=fwd_err)
+    res = dict(ms=time_ms(lambda: _launch_bwd(*kargs)),
+               plain_ms=time_ms(lambda: fused_sdf_chain_bwd_plain(pos, ws, bs, gsdf, ggeo, g3,
+                                                                  **SDF_KW)),
+               library_ms=time_ms(library), flops=sdf_flops(n, SDF_DIMS, backward=True),
+               bytes=nbytes(pos, ws, bs, gsdf, ggeo, g3, got[0], got[1], got[2]),
+               err=err, fwd_err=fwd_err)
+    res["wgrad"] = stacked_backward_parts(
+        f"K4 bwd N={n}", lambda count: sdf_bwd_card(*kargs, count=count),
+        lambda: _launch_bwd(*kargs), adjoint_rows(n, len(SDF_DIMS)),
+        old_atomics(n, SDF_DIMS, SDF_KW["skip"]), res)
+    return res
 
 
 def check_sdf_chain_edges(gen, dev) -> None:
@@ -1123,10 +1200,12 @@ def check_chain_tangents(gen, dev):
 def check_chain_tangents_bwd(gen, dev):
     """K1t's backward at one training microbatch's render samples on the
     contraction path: N=163840, cotangents on y (bf16) and the sdf
-    channel's tangents (f32)."""
+    channel's tangents (f32); then the backward in its parts
+    (stacked_backward_parts)."""
     from multimodalstudio_tpu_torch.ops.kernels.fused_mlp import (
         _launch_tangent_bwd,
         fused_chain_tangent_bwd_plain,
+        tangent_bwd_card,
     )
 
     n = 163840
@@ -1148,12 +1227,17 @@ def check_chain_tangents_bwd(gen, dev):
     def library():
         return torch.autograd.grad(outs, leaves, (gy, gty), retain_graph=True)
 
-    return dict(ms=time_ms(lambda: _launch_tangent_bwd(*kargs)),
-                plain_ms=time_ms(lambda: fused_chain_tangent_bwd_plain(
-                    x, tx, gy, gty, ws, bs, **plain_kw)),
-                library_ms=time_ms(library),
-                flops=tangent_flops(n, SDF_DIMS, 3, 39, 39, backward=True),
-                bytes=nbytes(x, tx, gy, gty, ws, bs, got[0], got[1], got[2], got[3]), err=err)
+    res = dict(ms=time_ms(lambda: _launch_tangent_bwd(*kargs)),
+               plain_ms=time_ms(lambda: fused_chain_tangent_bwd_plain(
+                   x, tx, gy, gty, ws, bs, **plain_kw)),
+               library_ms=time_ms(library),
+               flops=tangent_flops(n, SDF_DIMS, 3, 39, 39, backward=True),
+               bytes=nbytes(x, tx, gy, gty, ws, bs, got[0], got[1], got[2], got[3]), err=err)
+    res["wgrad"] = stacked_backward_parts(
+        f"K1t bwd N={n}", lambda count: tangent_bwd_card(*kargs, count=count),
+        lambda: _launch_tangent_bwd(*kargs), [4 * n] * len(SDF_DIMS),
+        old_atomics(n, SDF_DIMS, (4,), k=3), res)
+    return res
 
 
 def sdf_encode(kw):
@@ -1200,10 +1284,12 @@ def check_sdf_chain_jvp(gen, dev):
 
 def check_sdf_chain_jvp_bwd(gen, dev):
     """K4j's backward at one training microbatch's render samples:
-    N=163840, cotangents on sdf, geo and grad."""
+    N=163840, cotangents on sdf, geo and grad; then the backward in its
+    parts (stacked_backward_parts)."""
     from multimodalstudio_tpu_torch.ops.kernels.sdf_chain import (
         _launch_jvp_bwd,
         fused_sdf_chain_jvp_bwd_plain,
+        jvp_bwd_card,
         pe_scales,
     )
 
@@ -1229,12 +1315,17 @@ def check_sdf_chain_jvp_bwd(gen, dev):
     def library():
         return torch.autograd.grad(outs, leaves, (gsdf, ggeo, g3), retain_graph=True)
 
-    return dict(ms=time_ms(lambda: _launch_jvp_bwd(*kargs)),
-                plain_ms=time_ms(lambda: fused_sdf_chain_jvp_bwd_plain(pos, ws, bs, gsdf, ggeo,
-                                                                       g3, **SDF_KW)),
-                library_ms=time_ms(library),
-                flops=tangent_flops(n, SDF_DIMS, 3, 13, 12, backward=True),
-                bytes=nbytes(pos, ws, bs, gsdf, ggeo, g3, got[0], got[1], got[2]), err=err)
+    res = dict(ms=time_ms(lambda: _launch_jvp_bwd(*kargs)),
+               plain_ms=time_ms(lambda: fused_sdf_chain_jvp_bwd_plain(pos, ws, bs, gsdf, ggeo,
+                                                                      g3, **SDF_KW)),
+               library_ms=time_ms(library),
+               flops=tangent_flops(n, SDF_DIMS, 3, 13, 12, backward=True),
+               bytes=nbytes(pos, ws, bs, gsdf, ggeo, g3, got[0], got[1], got[2]), err=err)
+    res["wgrad"] = stacked_backward_parts(
+        f"K4j bwd N={n}", lambda count: jvp_bwd_card(*kargs, count=count),
+        lambda: _launch_jvp_bwd(*kargs), [4 * n] * len(SDF_DIMS),
+        old_atomics(n, SDF_DIMS, (4,), k=3), res)
+    return res
 
 
 def check_tangent_edges(gen, dev) -> None:
@@ -1526,9 +1617,11 @@ def check_chain_adjoint_bwd(gen, dev, dims=NOPE_DIMS, what="K5", conditioned=Fal
     """K5's backward at one training microbatch's render samples: N=163840,
     cotangents on y (bf16) and adj, on the chain `dims`. With `conditioned`
     its limits follow the plain version's spread (_plain_conditioning, a
-    generator of its own), else the plain spread is printed beside 1e-2."""
+    generator of its own), else the plain spread is printed beside 1e-2.
+    Then the backward in its parts (stacked_backward_parts)."""
     from multimodalstudio_tpu_torch.ops.kernels.sdf_chain import (
         _launch_adj_bwd,
+        adj_bwd_card,
         fused_chain_adjoint_bwd_plain,
     )
 
@@ -1558,10 +1651,15 @@ def check_chain_adjoint_bwd(gen, dev, dims=NOPE_DIMS, what="K5", conditioned=Fal
     def library():
         return torch.autograd.grad(outs, leaves, (gy, ga.to(torch.bfloat16)), retain_graph=True)
 
-    return dict(ms=time_ms(lambda: _launch_adj_bwd(*kargs)),
-                plain_ms=time_ms(lambda: fused_chain_adjoint_bwd_plain(x, ws, bs, gy, ga)),
-                library_ms=time_ms(library), flops=sdf_flops(n, dims, backward=True),
-                bytes=nbytes(x, ws, bs, gy, ga, got[0], got[1], got[2]), err=err)
+    res = dict(ms=time_ms(lambda: _launch_adj_bwd(*kargs)),
+               plain_ms=time_ms(lambda: fused_chain_adjoint_bwd_plain(x, ws, bs, gy, ga)),
+               library_ms=time_ms(library), flops=sdf_flops(n, dims, backward=True),
+               bytes=nbytes(x, ws, bs, gy, ga, got[0], got[1], got[2]), err=err)
+    res["wgrad"] = stacked_backward_parts(
+        f"{what} bwd N={n}", lambda count: adj_bwd_card(*kargs, count=count),
+        lambda: _launch_adj_bwd(*kargs), adjoint_rows(n, len(dims)),
+        old_atomics(n, dims, ()), res, gate=False)
+    return res
 
 
 def check_nope_edges(gen, dev, gspec) -> None:
@@ -2330,7 +2428,9 @@ def profile_device(fn, label: str, ref_ms: float, top: int = 12) -> float:
 
 PER_MICROBATCH = {  # kernel launches of one training microbatch (derived in PERF.md)
     # K1: one pack per forward call, whose images its backward reuses; every
-    # backward a per-tile pass and chain_wgrad
+    # backward a per-tile pass and chain_wgrad. K4's, K5's, K1t's and K4j's
+    # backwards: a pack of their own, a per-tile pass and chain_wgrad (each
+    # counted under its backward's name)
     "grid_raw_tpu": {
         "fused_chain": 5, "fused_chain_pack": 5,
         "fused_chain_bwd": 5, "chain_wgrad": 5,  # trunk, polarization head, background x3
@@ -2338,29 +2438,32 @@ PER_MICROBATCH = {  # kernel launches of one training microbatch (derived in PER
         "fused_slot_sdf_chain": 1, "fused_slot_sdf_chain_bwd": 1,
     },
     "mlp_raw_tpu": {
-        # sampler x4 (no grad), trunk, polarization head, background x3
-        "fused_chain": 9, "fused_chain_pack": 9,
+        # sampler x4 (no grad), trunk, polarization head, background x3; the
+        # K4 backward packs its own images (the tenth pack) and runs its
+        # per-tile pass and chain_wgrad on its stacks
+        "fused_chain": 9, "fused_chain_pack": 10,
         "fused_chain_bwd": 5, "chain_wgrad": 5,
-        "fused_sdf_chain": 1, "fused_sdf_chain_bwd": 1,
+        "fused_sdf_chain": 1, "fused_sdf_chain_bwd": 1, "fused_sdf_chain_wgrad": 1,
     },
     "grid_raw_tpu without PE": {
         # K1: the SDF head of the sampler x4 (no grad) and of the taps, trunk,
         # polarization head, background x3; K6: sampler x4, taps, render samples
-        "fused_chain": 10, "fused_chain_pack": 10,
+        "fused_chain": 10, "fused_chain_pack": 11,  # and the K5 backward's pack
         "fused_chain_bwd": 6, "chain_wgrad": 6,
         "slot_grid_lookup": 6, "slot_grid_lookup_bwd": 2,
-        "fused_chain_adjoint": 1, "fused_chain_adjoint_bwd": 1,
+        "fused_chain_adjoint": 1, "fused_chain_adjoint_bwd": 1, "fused_chain_adjoint_wgrad": 1,
     },
     # as mlp_raw_tpu, the render samples through K1t or K4j in place of K4
     "mlp_raw_tpu with contraction": {
-        "fused_chain": 9, "fused_chain_pack": 9,
+        "fused_chain": 9, "fused_chain_pack": 10,
         "fused_chain_bwd": 5, "chain_wgrad": 5,
         "fused_chain_tangents": 1, "fused_chain_tangents_bwd": 1,
+        "fused_chain_tangents_wgrad": 1,
     },
     "mlp_raw_tpu in jvp mode": {
-        "fused_chain": 9, "fused_chain_pack": 9,
+        "fused_chain": 9, "fused_chain_pack": 10,
         "fused_chain_bwd": 5, "chain_wgrad": 5,
-        "fused_sdf_chain_jvp": 1, "fused_sdf_chain_jvp_bwd": 1,
+        "fused_sdf_chain_jvp": 1, "fused_sdf_chain_jvp_bwd": 1, "fused_sdf_chain_jvp_wgrad": 1,
     },
     # as grid_raw_tpu, the taps' and the render samples' backwards split:
     # K2s and K3s in place of the merged K2/K3 backwards, one scatter each
@@ -2387,10 +2490,10 @@ PER_MICROBATCH = {  # kernel launches of one training microbatch (derived in PER
     },
     # as grid_raw_tpu without PE, the lookups through K6v (no launch of K6)
     "grid_raw_tpu without PE, vertex layout": {
-        "fused_chain": 10, "fused_chain_pack": 10,
+        "fused_chain": 10, "fused_chain_pack": 11,
         "fused_chain_bwd": 6, "chain_wgrad": 6,
         "slot_grid_lookup_vertex": 6, "slot_grid_lookup_vertex_bwd": 2,
-        "fused_chain_adjoint": 1, "fused_chain_adjoint_bwd": 1,
+        "fused_chain_adjoint": 1, "fused_chain_adjoint_bwd": 1, "fused_chain_adjoint_wgrad": 1,
     },
 }
 
@@ -2633,8 +2736,9 @@ def main() -> None:
         "fused_sdf_chain": check_sdf_chain(gen, dev),
         "fused_sdf_chain_bwd": check_sdf_chain_bwd(gen, dev),
     })
-    # K1's backward parts (the pack, chain_wgrad) timed inside its check
+    # K1's backward parts (the pack, chain_wgrad) timed inside its check, and K4's stacked gW
     results.update(results["fused_chain_bwd"].pop("parts"))
+    results["fused_sdf_chain_wgrad"] = results["fused_sdf_chain_bwd"].pop("wgrad")
     # the training forwards' errors
     for name in ("fused_slot_sdf_value", "fused_slot_sdf_chain", "fused_sdf_chain"):
         results[name]["err"] = max(results[name]["err"], results[name + "_bwd"].pop("fwd_err"))
@@ -2648,6 +2752,7 @@ def main() -> None:
         "fused_chain_adjoint": check_chain_adjoint(gen, dev),
         "fused_chain_adjoint_bwd": check_chain_adjoint_bwd(gen, dev),
     }))
+    results["fused_chain_adjoint_wgrad"] = results["fused_chain_adjoint_bwd"].pop("wgrad")
     print("kernel checks off the main paths' shapes:")
     phase("edge cases", lambda: (check_edge_cases(gen, dev, gspec), check_sdf_chain_edges(gen, dev),
                                  check_nope_edges(gen, dev, gspec)))
@@ -2660,6 +2765,8 @@ def main() -> None:
         "fused_sdf_chain_jvp": check_sdf_chain_jvp(gen, dev),
         "fused_sdf_chain_jvp_bwd": check_sdf_chain_jvp_bwd(gen, dev),
     }))
+    for name in ("fused_chain_tangents", "fused_sdf_chain_jvp"):
+        results[name + "_wgrad"] = results[name + "_bwd"].pop("wgrad")
     print("kernel checks of K1t and K4j off the main paths' shapes:")
     phase("K1t and K4j edge cases", check_tangent_edges, gen, dev)
     # the split phases draw from `gen` after every earlier phase
@@ -2723,6 +2830,7 @@ def main() -> None:
                                                            "K5 at 99 inputs", conditioned=True),
         **dict(zip(("fused_chain", "fused_chain_bwd"), check_sdf_head(gen, dev))),
     })
+    wide["fused_chain_adjoint_wgrad"] = wide["fused_chain_adjoint_bwd"].pop("wgrad")
     for name, r in wide.items():
         results[name]["err"] = max(results[name]["err"], r["err"])
         print_timing(f"{name} at 99 inputs ({card})", r)

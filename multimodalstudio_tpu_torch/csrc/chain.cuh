@@ -14,7 +14,7 @@
 // sum with an IEEE add (add_partial), instead of carrying the whole sum
 // through the tensor cores, whose internal additions are not IEEE
 // round-to-nearest. In one call on an H100 (chip_ab.py, PERF.md), K4's
-// backward (8 x 256, N = 163,840) agreed with its plain version to rel-L2
+// former wmma backward (8 x 256, N = 163,840) agreed with its plain version to rel-L2
 // 4.6e-3 / 6.4e-3 / 7.8e-3 (d pos / gW / gb) this way and to 7.0e-3 /
 // 9.8e-3 / 1.2e-2 the other way, at about the same kernel times.
 #pragma once
@@ -284,14 +284,5 @@ struct ColSum {
     }
   }
 };
-
-// gb[c] += sum of the tile's rows of a shared bf16 matrix M [64, ldm], c < n
-__device__ __forceinline__ void colsum_bf16(const bf16* M, int ldm, int n, float* gb) {
-  for (int c = threadIdx.x; c < n; c += NTHREADS) {
-    float s = 0.f;
-    for (int r = 0; r < TILE_M; ++r) s += bf(M[r * ldm + c]);
-    if (s != 0.f) atomicAdd(gb + c, s);
-  }
-}
 
 }  // namespace mms

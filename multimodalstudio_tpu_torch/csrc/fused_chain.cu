@@ -39,7 +39,10 @@
 //   (layer, pair of 64-row blocks of W, output piece, split of the tiles); A
 //   and B are the stacks' images, staged by bulk copies and read MN-major;
 //   each CTA adds its f32 tile to gW once (atomics: the sum's order changes
-//   from run to run).
+//   from run to run). The backward passes of K4/K5 (sdf_chain.cu) and K1t/K4j
+//   (fused_mlp.cu) leave their stacks in the same layout (two stacked tiles
+//   per row tile where the adjoint stacks a second product, Geom::sm).
+// The building blocks the kernels share with those passes are in k1.cuh.
 //
 // Bound on an H100: the tensor-core rate for the forward and the per-tile pass
 // at the main path's widths (~2 N sum(din dout) flops against 2 N (din +
@@ -48,304 +51,11 @@
 // rounding, the stores of z, gz and gx) and the loads of x and gy, which the
 // two consumers run in step with each other and not under the other's
 // products, take most of the time; PERF.md has the times.
-#include <cuda_runtime.h>
-
-#include <type_traits>
-
-#include "hopper.cuh"
+#include "k1.cuh"
 
 // a named namespace: the C entry points take its structs, so their symbols
 // must have external linkage
 namespace k1 {
-
-using bf16 = __nv_bfloat16;
-using namespace hop;
-
-constexpr int MAXL = 32;            // layers (build.py MAX_LAYERS)
-constexpr int MAXPIECES = 8;        // pieces of one product's output width
-constexpr int MAXWG = 2;            // consumer warpgroups per CTA
-constexpr int NTHREADS = (MAXWG + 1) * 128;  // consumer warpgroups and the producer warpgroup
-// registers of a consumer and of the producer warpgroup (setmaxnreg): a
-// consumer holds up to 128 accumulators
-constexpr int CONSUMER_REGS = 232, PRODUCER_REGS = 40;
-constexpr int SUM_BAR = 15;         // named barrier of all consumer threads
-constexpr size_t MAX_SMEM = 232448;  // per block
-constexpr int ERR_SMEM = -2;
-constexpr float SKIP_SCALE = 0.70710678118654752f;
-
-enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_SOFTPLUS_QUAD = 2 };
-
-// Layout of one chain (fused_mlp.py K1Geom builds it): widths padded to 64 for
-// the activation images (H, P0 = ceil64(d_in)) and to 16 for the outputs;
-// element offsets of each layer in the packed buffers, the gradients and the
-// stacks (columns of the stacks per tile).
-struct Geom {
-  long long fw_off[MAXL + 1];  // forward images (bf16 elements), [L] = total
-  long long bw_off[MAXL + 1];  // backward images of layer l, [MAXL] = total
-  long long gw_off[MAXL];      // gW_l [din_true, dout_true] f32
-  int din_pad[MAXL];           // P0, H + P0 (skip) or H
-  int din_true[MAXL];          // d_in, H + d_in (skip) or H
-  int dout_pad[MAXL];          // H, or rup16(d_out) for the last layer
-  int dout_true[MAXL];
-  int b_off[MAXL];             // padded f32 biases
-  int gb_off[MAXL];            // gb_l [dout_true] f32
-  int hs_w[MAXL + 1];          // hin stack columns before layer l
-  int gs_w[MAXL + 1];          // gz stack columns before layer l
-  int L, H, P0, d_in, d_out, skip_mask, act;
-  float quad_a;
-};
-
-struct PackArgs {
-  const float* w[MAXL];
-  const float* b[MAXL];
-  long long ws0[MAXL];  // element strides of w[l] along its rows (inputs) and columns
-  long long ws1[MAXL];
-};
-
-__device__ __forceinline__ float act_f(int act, float z, float a) {
-  if (act == ACT_RELU) return fmaxf(z, 0.f);
-  if (act == ACT_SOFTPLUS_QUAD)
-    return fabsf(z) < a ? (z + a) * (z + a) * (0.25f / a) : fmaxf(z, 0.f);
-  return z;
-}
-
-__device__ __forceinline__ float act_df(int act, float z, float a) {
-  if (act == ACT_RELU) return z > 0.f ? 1.f : 0.f;
-  if (act == ACT_SOFTPLUS_QUAD)
-    return fabsf(z) < a ? (z + a) * (0.5f / a) : (z > 0.f ? 1.f : 0.f);
-  return 1.f;
-}
-
-__device__ __forceinline__ float rbf(float x) { return __bfloat162float(__float2bfloat16(x)); }
-__device__ __forceinline__ float bf(bf16 x) { return __bfloat162float(x); }
-
-__device__ __forceinline__ uint32_t pack2(float a, float b) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);  // .x = a (low half)
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float2 unpack2(uint32_t u) {
-  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&u);
-  return make_float2(__low2float(v), __high2float(v));
-}
-
-__host__ __device__ __forceinline__ int ceil64(int w) { return (w + 63) & ~63; }
-
-// Output pieces of a width (a multiple of 16): 256-column pieces, then the
-// binary decomposition of the rest (128, 64, 32, 16).
-__host__ __device__ __forceinline__ int n_pieces(int w) {
-  const int r = (w & 255) >> 4;
-  return (w >> 8) + (r & 1) + ((r >> 1) & 1) + ((r >> 2) & 1) + ((r >> 3) & 1);
-}
-
-__host__ __device__ __forceinline__ void piece(int w, int i, int& off, int& np) {
-  const int full = w >> 8;
-  np = 0;
-  if (i < full) {
-    off = i << 8;
-    np = 256;
-    return;
-  }
-  off = full << 8;
-  i -= full;
-  const int r = (w & 255) >> 4;
-  for (int b = 3; b >= 0; --b) {
-    if ((r >> b) & 1) {
-      if (i == 0) {
-        np = 16 << b;
-        return;
-      }
-      off += 16 << b;
-      --i;
-    }
-  }
-}
-
-// Pieces of the backward product of layer l (gh over the layer's input
-// columns): the x0 part first at a skip layer (pieces of P0 at column H), then
-// the h part (one piece of H); layer 0: pieces of P0.
-__host__ __device__ __forceinline__ int bwd_n_pieces(const Geom& G, int l) {
-  if (l == 0) return n_pieces(G.P0);
-  return ((G.skip_mask >> l) & 1) ? n_pieces(G.P0) + 1 : 1;
-}
-
-// x0part: the piece lies in the layer's x0 columns (gx or gx0)
-__host__ __device__ __forceinline__ void bwd_piece(const Geom& G, int l, int i, int& off, int& np,
-                                                   bool& x0part) {
-  const bool skip = (G.skip_mask >> l) & 1;
-  if (l == 0 || (skip && i < n_pieces(G.P0))) {
-    piece(G.P0, i, off, np);
-    if (l > 0) off += G.H;
-    x0part = true;
-    return;
-  }
-  off = 0;
-  np = G.H;
-  x0part = false;
-}
-
-__host__ __device__ __forceinline__ int gcols(const Geom& G, int l) {
-  return ceil64(G.dout_pad[l]);
-}
-
-// The activation images of a tile: [h (H) | x0 (P0)] where a skip layer reads
-// x0 again; else x0 in the first columns, which layer 0's output overwrites.
-__host__ __device__ __forceinline__ int x0_col(const Geom& G) { return G.skip_mask ? G.H : 0; }
-__host__ __device__ __forceinline__ int act_cols(const Geom& G) {
-  return G.skip_mask ? G.H + G.P0 : (G.H > G.P0 ? G.H : G.P0);
-}
-
-// shared-memory element (bf16) of activation column c, row r
-__device__ __forceinline__ int act_el(int c, int r) { return (c >> 6) * 4096 + img(r, c & 63); }
-
-template <class F>
-__device__ __forceinline__ void with_n(int np, F&& f) {
-  switch (np) {
-    case 16: f(std::integral_constant<int, 16>()); break;
-    case 32: f(std::integral_constant<int, 32>()); break;
-    case 64: f(std::integral_constant<int, 64>()); break;
-    case 128: f(std::integral_constant<int, 128>()); break;
-    case 256: f(std::integral_constant<int, 256>()); break;
-    default: break;
-  }
-}
-
-// The ring of weight (or stack) stages: full[s] completes when stage s's bulk
-// copies landed, empty[s] when every consumer warpgroup is done with it.
-struct Ring {
-  uint8_t* base;
-  uint64_t* full;
-  uint64_t* empty;
-  int sb;      // bytes per stage
-  int stages;
-  int stage = 0;
-  int phase = 0;
-  __device__ __forceinline__ uint8_t* buf() const { return base + stage * sb; }
-  __device__ __forceinline__ void advance() {
-    if (++stage == stages) {
-      stage = 0;
-      phase ^= 1;
-    }
-  }
-  // producer: wait for the stage to be free and arm it for `bytes`
-  __device__ __forceinline__ void acquire(uint32_t bytes) {
-    mbar_wait(&empty[stage], phase ^ 1);
-    mbar_expect_tx(&full[stage], bytes);
-  }
-  // consumer warpgroup `wg`: after its reads of the stage retired
-  __device__ __forceinline__ void release(int wg) {
-    wg_sync(1 + wg);
-    if ((threadIdx.x & 127) == 0) mbar_arrive(&empty[stage]);
-    advance();
-  }
-};
-
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  const uint32_t a = smem_u32(p);
-  return p + (((a + 1023) & ~1023u) - a);
-}
-
-__device__ __forceinline__ int acc_col() { return (threadIdx.x & 3) << 1; }
-
-// acc[64, N] = bias + A[64, 64 kcs] B: A the kcs images from `a` in shared
-// memory, B the next kcs ring stages; bias (f32, from column 0 of the piece)
-// or zeros. The bias seeds the accumulators, so its loads are in flight
-// while the first stage lands. Releases each stage once its wgmmas retired.
-template <int N>
-__device__ __forceinline__ void mma_piece(float (&acc)[N / 2], const bf16* a, int kcs, Ring& R,
-                                          int wg, const float* bias) {
-  const int cq = acc_col();
-#pragma unroll
-  for (int j = 0; j < N / 8; ++j) {
-    const float2 b =
-        bias ? *reinterpret_cast<const float2*>(bias + 8 * j + cq) : make_float2(0.f, 0.f);
-    acc[4 * j] = acc[4 * j + 2] = b.x;
-    acc[4 * j + 1] = acc[4 * j + 3] = b.y;
-  }
-  for (int kc = 0; kc < kcs; ++kc) {
-    mbar_wait(&R.full[R.stage], R.phase);
-    const bf16* ak = a + kc * 4096;
-    const uint8_t* bk = R.buf();
-    reg_fence(acc);
-    wgmma_fence();
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      Wgmma<N>::run(acc, desc_sw128(ak + j * 16), desc_sw128(bk + j * 32), 1);
-    wgmma_commit();
-    wgmma_wait_all();
-    reg_fence(acc);
-    R.release(wg);
-  }
-}
-
-// The accumulator element of thread t: rows acc_row(t) (+ 8), columns 8 j + 2 (t % 4) (+ 1)
-__device__ __forceinline__ int acc_row() {
-  const int t = threadIdx.x & 127;
-  return ((t >> 5) << 4) + ((t & 31) >> 2);
-}
-// Rows [row0, row0 + 64) of a row-major [n, d] matrix of T (f32 or bf16, base
-// 16-byte aligned) rounded to bf16 into activation columns [c0, c0 + width),
-// zero past d and past n. The tile's rows are one contiguous run of memory,
-// read as 16-byte vectors, eight per thread in flight at a time (the loads'
-// latency, not their bytes, would bound a load-then-store loop).
-template <class T>
-__device__ __forceinline__ void load_rows_t(bf16* act, int c0, int width, const T* src, int d,
-                                            long long row0, int n) {
-  constexpr int PER = 16 / sizeof(T), B = 8;
-  const int t = threadIdx.x & 127;
-  const int rows = (int)min(64LL, max(0LL, (long long)n - row0));
-  for (int i = t; i < 64 * (width - d); i += 128) {  // columns [d, width) of every row
-    const int r = i / (width - d), c = d + i % (width - d);
-    act[act_el(c0 + c, r)] = __float2bfloat16(0.f);
-  }
-  for (int i = t; i < (64 - rows) * d; i += 128)  // the rows past n
-    act[act_el(c0 + i % d, rows + i / d)] = __float2bfloat16(0.f);
-  const T* base = src + row0 * d;
-  const int total = rows * d, nvec = total / PER;
-  const uint4* vs = reinterpret_cast<const uint4*>(base);
-  for (int v0 = t; v0 < nvec; v0 += 128 * B) {
-    uint4 buf[B];
-#pragma unroll
-    for (int b = 0; b < B; ++b)
-      if (v0 + 128 * b < nvec) buf[b] = vs[v0 + 128 * b];
-#pragma unroll
-    for (int b = 0; b < B; ++b) {
-      const int v = v0 + 128 * b;
-      if (v >= nvec) break;
-      const int e = v * PER;
-      int r = e / d, c = e - r * d;
-      const T* vals = reinterpret_cast<const T*>(&buf[b]);
-#pragma unroll
-      for (int k = 0; k < PER; ++k) {
-        act[act_el(c0 + c, r)] = __float2bfloat16((float)vals[k]);
-        if (++c == d) {
-          c = 0;
-          ++r;
-        }
-      }
-    }
-  }
-  for (int e = nvec * PER + t; e < total; e += 128)  // the last partial vector
-    act[act_el(c0 + e % d, e / d)] = __float2bfloat16((float)base[e]);
-}
-
-__device__ __forceinline__ void load_rows(bf16* act, int c0, int width, const void* src,
-                                          int is_bf16, int d, long long row0, int n) {
-  if (is_bf16)
-    load_rows_t(act, c0, width, static_cast<const bf16*>(src), d, row0, n);
-  else
-    load_rows_t(act, c0, width, static_cast<const float*>(src), d, row0, n);
-}
-
-// x0 -> bf16(x0 / sqrt 2) in place over activation columns [c0, c0 + width)
-__device__ __forceinline__ void scale_region(bf16* act, int c0, int width) {
-  uint32_t* p = reinterpret_cast<uint32_t*>(act + (c0 >> 6) * 4096);
-  const int words = width * 32;  // 64 rows x width bf16 / 2
-  for (int i = threadIdx.x & 127; i < words; i += 128) {
-    const float2 v = unpack2(p[i]);
-    p[i] = pack2(v.x * SKIP_SCALE, v.y * SKIP_SCALE);
-  }
-}
 
 // ------------------------------------------------------------------ k1_pack
 
@@ -405,10 +115,6 @@ __global__ void __launch_bounds__(256) k1_pack_kernel(const Geom G, const PackAr
 }
 
 // ------------------------------------------------------------------- k1_fwd
-
-struct Launch {
-  int nwg, stages, sb, act_bytes, smem, threads, grid;
-};
 
 __global__ void __launch_bounds__(NTHREADS, 1)
 k1_fwd_kernel(const Geom G, const void* __restrict__ x, int x_bf16, int n,
@@ -528,36 +234,6 @@ k1_fwd_kernel(const Geom G, const void* __restrict__ x, int x_bf16, int n,
 
 // ------------------------------------------------------------------- k1_bwd
 
-// A hidden layer's output from its accumulators z into the activation
-// images: bf16(act(z)), or (FROM_BF16_Z) bf16(act(bf16(z))), the stack's
-// value; times 1/sqrt(2), rounded, before a skip layer. zl (if given)
-// receives bf16(z), thread by thread in accumulator order.
-template <int N, bool FROM_BF16_Z>
-__device__ __forceinline__ void write_hidden(const float (&acc)[N / 2], bf16* act, bool scale,
-                                             int act_kind, float qa, uint32_t* zl) {
-  const int t = threadIdx.x & 127, r0 = acc_row(), cq = acc_col();
-#pragma unroll
-  for (int j = 0; j < N / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      float z0 = acc[4 * j + 2 * e], z1 = acc[4 * j + 2 * e + 1];
-      const uint32_t zb = pack2(z0, z1);
-      if (zl) zl[(2 * j + e) * 128 + t] = zb;
-      if (FROM_BF16_Z) {
-        const float2 zr = unpack2(zb);
-        z0 = zr.x;
-        z1 = zr.y;
-      }
-      uint32_t h = pack2(act_f(act_kind, z0, qa), act_f(act_kind, z1, qa));
-      if (scale) {
-        const float2 v = unpack2(h);
-        h = pack2(v.x * SKIP_SCALE, v.y * SKIP_SCALE);
-      }
-      *reinterpret_cast<uint32_t*>(act + act_el(8 * j + cq, r0 + 8 * e)) = h;
-    }
-  }
-}
-
 struct BwdScratch {
   bf16* hin;        // hin stacks: per layer, per tile, the layer input's din_pad / 64 images
   bf16* gz;         // gz stacks: per layer, per tile, gcols / 64 images of gz_l
@@ -568,25 +244,10 @@ struct BwdScratch {
 // bytes of the hin stacks, the gz stacks, the z slabs and the gx0 slabs
 __host__ __device__ inline void scratch_sizes(const Geom& G, int tiles, int ctas, int nwg,
                                               size_t* s) {
-  s[0] = ((size_t)tiles * 64 * G.hs_w[G.L] * 2 + 255) & ~size_t(255);
-  s[1] = ((size_t)tiles * 64 * G.gs_w[G.L] * 2 + 255) & ~size_t(255);
-  s[2] = ((size_t)ctas * nwg * (G.L - 1) * 64 * G.H * 2 + 255) & ~size_t(255);
-  s[3] = G.skip_mask ? (((size_t)ctas * nwg * 64 * G.P0 * 4 + 255) & ~size_t(255)) : 0;
+  stack_sizes(G, tiles, s);
+  s[2] = align256((size_t)ctas * nwg * (G.L - 1) * 64 * G.H * 2);
+  s[3] = G.skip_mask ? align256((size_t)ctas * nwg * 64 * G.P0 * 4) : 0;
 }
-
-// The stacks are the activation images themselves: thread 0 of the warpgroup
-// copies a region of them to device memory with one bulk store, and waits for
-// the store to have read shared memory before the region is written again.
-struct Stacker {
-  bool on;  // the tile is a real one (a group's spare tile stores nothing)
-  __device__ __forceinline__ void store(bf16* dst, const bf16* src, int cols) const {
-    if (on && (threadIdx.x & 127) == 0) bulk_s2g(dst, src, (uint32_t)cols * 128);
-  }
-  __device__ __forceinline__ void drain(int wg) const {
-    if ((threadIdx.x & 127) == 0) bulk_wait_read();
-    wg_sync(1 + wg);
-  }
-};
 
 __global__ void __launch_bounds__(NTHREADS, 1)
 k1_bwd_kernel(const Geom G, const void* __restrict__ x, int x_bf16, const void* __restrict__ gy,
@@ -835,13 +496,16 @@ __host__ __device__ inline int wgrad_tasks(const Geom& G, int l, int nwg) {
   return (mb + nwg - 1) / nwg * n_pieces(G.dout_pad[l]);
 }
 
-// gW_l[m, o] += sum over the tiles' samples s of hin_l[s, m] gz_l[s, o]: the
+// gW_l[m, o] += sum over the stacked rows s of hin_l[s, m] gz_l[s, o]: the
 // stacks hold the activation images (rows = samples), so both operands are
 // read MN-major: A = one 64-column image of hin, B = the images of gz that
-// hold the piece's columns.
+// hold the piece's columns. Layer l's stacks hold sm[l] tiles per row tile
+// (an adjoint backward's second product stacked under the first). With
+// `count`, every CTA adds the number of gW atomics it issued.
 __global__ void __launch_bounds__(NTHREADS, 1)
 k1_wgrad_kernel(const Geom G, int tiles, const bf16* __restrict__ hin, const bf16* __restrict__ gz,
-                float* __restrict__ gw, int nwg, int stages, int sb, int splits) {
+                float* __restrict__ gw, int nwg, int stages, int sb, int splits,
+                unsigned long long* count) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + stages * sb);
@@ -864,9 +528,9 @@ k1_wgrad_kernel(const Geom G, int tiles, const bf16* __restrict__ hin, const bf1
   const int mp = task / npc;
   int off, np;
   piece(G.dout_pad[l], task % npc, off, np);
-  const int split = blockIdx.x % splits;
-  const int t0 = (int)((long long)tiles * split / splits);
-  const int t1 = (int)((long long)tiles * (split + 1) / splits);
+  const int split = blockIdx.x % splits, lt = tiles * G.sm[l];
+  const int t0 = (int)((long long)lt * split / splits);
+  const int t1 = (int)((long long)lt * (split + 1) / splits);
   const int mblocks = G.din_pad[l] >> 6;
   const int valid_wg = min(nwg, mblocks - mp * nwg);
   const int b_imgs = ((off & 63) + np + 63) >> 6;  // gz images holding the piece
@@ -918,110 +582,20 @@ k1_wgrad_kernel(const Geom G, int tiles, const bf16* __restrict__ hin, const bf1
     const int r0 = acc_row(), cq = acc_col();
     const int din = G.din_true[l], dout = G.dout_true[l];
     float* g = gw + G.gw_off[l];
+    unsigned issued = 0;
 #pragma unroll
     for (int j = 0; j < N / 8; ++j) {
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const int row = mb * 64 + r0 + 8 * (k >> 1), col = off + 8 * j + cq + (k & 1);
-        if (row < din && col < dout) atomicAdd(g + (size_t)row * dout + col, acc[4 * j + k]);
+        if (row < din && col < dout) {
+          atomicAdd(g + (size_t)row * dout + col, acc[4 * j + k]);
+          ++issued;
+        }
       }
     }
+    if (count) atomicAdd(count, (unsigned long long)issued);
   });
-}
-
-// ------------------------------------------------------------------- launch
-
-int g_sms = 0;
-bool g_attr[3] = {false, false, false};
-
-int sm_count() {
-  if (!g_sms) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&g_sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      g_sms = 0;
-  }
-  return g_sms > 0 ? g_sms : 1;
-}
-
-cudaError_t allow_smem(int which, const void* kernel) {
-  if (g_attr[which]) return cudaSuccess;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MAX_SMEM);
-  if (err == cudaSuccess) g_attr[which] = true;
-  return err;
-}
-
-int max_piece(int w) {
-  int m = 0;
-  for (int i = 0; i < n_pieces(w); ++i) {
-    int off, np;
-    piece(w, i, off, np);
-    m = np > m ? np : m;
-  }
-  return m;
-}
-
-// Checks what the kernels take: 2..MAXL layers, H in {64, 128, 256}, at most
-// MAXPIECES pieces per product.
-bool geom_ok(const Geom& G) {
-  if (G.L < 2 || G.L > MAXL) return false;
-  if (G.H != 64 && G.H != 128 && G.H != 256) return false;
-  if (G.skip_mask & 1) return false;
-  for (int l = 0; l < G.L; ++l)
-    if (n_pieces(G.dout_pad[l]) > MAXPIECES || bwd_n_pieces(G, l) > MAXPIECES) return false;
-  return true;
-}
-
-// Warpgroups, stages and shared memory of the forward (bwd: also the column
-// sums and the backward images). nwg = 2 where two tiles per CTA leave every
-// SM a tile group and shared memory takes two activation buffers.
-int plan_chain(const Geom& G, int n, bool bwd, Launch* P) {
-  const int tiles = (n + 63) / 64;
-  int width = act_cols(G);
-  if (bwd) width = width > gcols(G, G.L - 1) ? width : gcols(G, G.L - 1);
-  // the widest image a stage holds: forward pieces, or (bwd) the hidden layers' H and
-  // the backward pieces (H, pieces of P0)
-  int npmax = G.H;
-  if (bwd) {
-    const int m = max_piece(G.P0);
-    npmax = m > npmax ? m : npmax;
-  } else {
-    for (int l = 0; l < G.L; ++l) {
-      const int m = max_piece(G.dout_pad[l]);
-      npmax = m > npmax ? m : npmax;
-    }
-  }
-  const int gb_total = G.gb_off[G.L - 1] + G.dout_true[G.L - 1];
-  const size_t extra = bwd ? (size_t)((gb_total + 3) & ~3) * 4 : 0;
-  auto smem_of = [&](int nwg, int stages) {
-    return 1024 + (size_t)nwg * width * 128 + (size_t)stages * npmax * 128 + extra + 16 * stages;
-  };
-  auto fit = [&](int nwg, size_t cap) {
-    for (int stages = 4; stages >= 2; --stages) {
-      const size_t smem = smem_of(nwg, stages);
-      if (smem <= cap) {
-        *P = Launch{nwg, stages, npmax * 128, width * 128, (int)smem, (nwg + 1) * 128, 0};
-        return true;
-      }
-    }
-    return false;
-  };
-  // two warpgroups sharing the ring where the tiles fill the card, else one
-  if (tiles >= 2 * sm_count() && fit(2, MAX_SMEM)) return 0;
-  if (fit(1, MAX_SMEM)) return 0;
-  return ERR_SMEM;
-}
-
-cudaError_t persistent(const void* kernel, Launch* P, int groups) {
-  int per_sm = 0;
-  const cudaError_t err =
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, P->threads, P->smem);
-  if (err != cudaSuccess) return err;
-  const int g = (per_sm > 0 ? per_sm : 1) * sm_count();
-  P->grid = g < groups ? g : groups;
-  if (P->grid < 1) P->grid = 1;
-  return cudaSuccess;
 }
 
 }  // namespace k1
@@ -1043,7 +617,7 @@ extern "C" int mms_k1_fwd(const Geom* G, const void* x, int x_bf16, int n, const
                           const void* bpk, void* y, void* stream) {
   if (!geom_ok(*G) || n < 1) return -1;
   Launch P;
-  if (plan_chain(*G, n, false, &P)) return ERR_SMEM;
+  if (plan_chain(*G, (n + 63) / 64, false, 0, &P)) return ERR_SMEM;
   cudaError_t err = allow_smem(0, (const void*)k1_fwd_kernel);
   if (err != cudaSuccess) return (int)err;
   const int groups = ((n + 63) / 64 + P.nwg - 1) / P.nwg;
@@ -1059,7 +633,7 @@ extern "C" int mms_k1_fwd(const Geom* G, const void* x, int x_bf16, int n, const
 extern "C" long long mms_k1_bwd_bytes(const Geom* G, int n) {
   if (!geom_ok(*G) || n < 1) return -1;
   Launch P;
-  if (plan_chain(*G, n, true, &P)) return ERR_SMEM;
+  if (plan_chain(*G, (n + 63) / 64, true, 0, &P)) return ERR_SMEM;
   if (allow_smem(1, (const void*)k1_bwd_kernel) != cudaSuccess) return -1;
   const int groups = ((n + 63) / 64 + P.nwg - 1) / P.nwg;
   if (persistent((const void*)k1_bwd_kernel, &P, groups) != cudaSuccess) return -1;
@@ -1082,7 +656,7 @@ extern "C" int mms_k1_bwd(const Geom* G, const void* x, int x_bf16, const void* 
                           void* gb, void* scratch, void* stream) {
   if (!geom_ok(*G) || n < 1) return -1;
   Launch P;
-  if (plan_chain(*G, n, true, &P)) return ERR_SMEM;
+  if (plan_chain(*G, (n + 63) / 64, true, 0, &P)) return ERR_SMEM;
   cudaError_t err = allow_smem(1, (const void*)k1_bwd_kernel);
   if (err != cudaSuccess) return (int)err;
   const int groups = ((n + 63) / 64 + P.nwg - 1) / P.nwg;
@@ -1094,20 +668,19 @@ extern "C" int mms_k1_bwd(const Geom* G, const void* x, int x_bf16, const void* 
   return (int)cudaGetLastError();
 }
 
-// gW of every layer from the stacks the per-tile pass left in scratch (accumulated).
-extern "C" int mms_k1_wgrad(const Geom* G, int n, void* scratch, void* gw, void* stream) {
-  if (!geom_ok(*G) || n < 1) return -1;
-  Launch B;
-  if (plan_chain(*G, n, true, &B)) return ERR_SMEM;
-  cudaError_t err = allow_smem(1, (const void*)k1_bwd_kernel);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles = (n + 63) / 64;
-  err = persistent((const void*)k1_bwd_kernel, &B, (tiles + B.nwg - 1) / B.nwg);
-  if (err != cudaSuccess) return (int)err;
-  const BwdScratch S = split_scratch(*G, n, B, scratch);
+// gW of every layer (accumulated) from the stacks of `tiles` row tiles that a
+// backward pass left at the start of scratch (K1's, K4/K5's, K1t/K4j's);
+// count (or null) receives the number of gW atomics issued.
+extern "C" int mms_k1_wgrad(const Geom* G, int tiles, void* scratch, void* gw, void* count,
+                            void* stream) {
+  if (!geom_ok(*G) || tiles < 1) return -1;
+  size_t s[2];
+  stack_sizes(*G, tiles, s);
+  const bf16* hin = (const bf16*)scratch;
+  const bf16* gz = (const bf16*)((uint8_t*)scratch + s[0]);
   const int nwg = 2, stages = 4, sb = nwg * 8192 + 4 * 8192;  // B: the <= 4 images of a piece
   const int smem = 1024 + stages * sb + 16 * stages;
-  err = allow_smem(2, (const void*)k1_wgrad_kernel);
+  cudaError_t err = allow_smem(2, (const void*)k1_wgrad_kernel);
   if (err != cudaSuccess) return (int)err;
   int tasks = 0;
   for (int l = 0; l < G->L; ++l) tasks += wgrad_tasks(*G, l, nwg);
@@ -1115,6 +688,6 @@ extern "C" int mms_k1_wgrad(const Geom* G, int n, void* scratch, void* gw, void*
   if (splits > tiles) splits = tiles;
   if (splits < 1) splits = 1;
   k1_wgrad_kernel<<<tasks * splits, (nwg + 1) * 128, smem, (cudaStream_t)stream>>>(
-      *G, tiles, S.hin, S.gz, (float*)gw, nwg, stages, sb, splits);
+      *G, tiles, hin, gz, (float*)gw, nwg, stages, sb, splits, (unsigned long long*)count);
   return (int)cudaGetLastError();
 }

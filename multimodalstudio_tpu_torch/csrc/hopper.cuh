@@ -88,6 +88,12 @@ __device__ __forceinline__ void bulk_s2g(void* dst, const void* src, uint32_t by
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
 
+// bytes (a multiple of 16, 16-byte aligned) of device memory into L2, without
+// waiting: a slab that an epilogue will read while the products run
+__device__ __forceinline__ void bulk_prefetch_l2(const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src), "r"(bytes) : "memory");
+}
+
 // wait until the calling thread's bulk stores have read their shared memory
 __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");

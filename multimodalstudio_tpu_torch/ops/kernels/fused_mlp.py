@@ -22,8 +22,10 @@ last layer's f32 tangents, [N, K] f32. On the card a tile is 64 rows of
 the same products: the primal rows of b samples and the K tangent rows of
 each (b = 16 for K = 2, 3; 32 for K = 1), since u = t W shares W with z =
 h W + b (csrc/fused_mlp.cu). The backward (reverse over the tangent chain,
-act'' term included) is its own kernel with the z and u stacks in device
-scratch.
+act'' term included) runs on K1's building blocks: the pack, a per-tile
+pass on the same 64-row tiles (csrc/fused_mlp.cu) that writes gx, gtx, gb
+and the stacks of every layer's gW operands (the primal and tangent rows'
+inputs and cotangents), and chain_wgrad over them.
 
 Arithmetic (the JAX kernel's cast points, chain_reference :1263-1302):
 inputs and weights bf16, products accumulated in f32 plus an f32 bias,
@@ -96,6 +98,11 @@ TANGENT_BWD_KERNEL = build.register(
     "fused_chain_tangents_bwd",
     source="multimodalstudio_tpu_torch/csrc/fused_mlp.cu",
     replaces="multimodalstudio_tpu/ops/pallas/fused_mlp.py:607",
+)
+TANGENT_WGRAD_KERNEL = build.register(  # chain_wgrad on K1t's stacks
+    "fused_chain_tangents_wgrad",
+    source="multimodalstudio_tpu_torch/csrc/fused_chain.cu",
+    replaces="multimodalstudio_tpu/ops/pallas/fused_mlp.py:732",
 )
 MAX_TANGENTS = 3  # a 64-row tile holds the primal rows and at most 3 tangent rows per sample
 
@@ -187,7 +194,7 @@ def adjoint_sweep(x0, zs, weights, skip, activation, beta, channel=0):
     return adj, ss
 
 
-def ga_forward(ga, zs, ss, weights, skip, activation, beta, channel=0, qs=None):
+def ga_forward(ga, zs, ss, weights, skip, activation, beta, channel=0, qs=None, stacks=None):
     """The forward chain of the adjoint's cotangent ga [N, D_in] f32 in a
     reverse-over-reverse backward (_bwd_adj_kernel :489-524): qin_0 = ga, ga
     re-injected at a skip like x0; v_l = s_l * act'(z_l) (e_c at the last
@@ -195,7 +202,8 @@ def ga_forward(ga, zs, ss, weights, skip, activation, beta, channel=0, qs=None):
     e_l = bf16(m * s_l * act''(z_l)); q = m * act'(z_l). zs, ss: the bf16
     pre-activations and adjoint rows. Returns (gW list, the injections e_l
     or None where act'' is 0); a list `qs` receives bf16(q) of each hidden
-    layer (the split backward's q stack, slot_fused.py:895-896)."""
+    layer (the split backward's q stack, slot_fused.py:895-896), a list
+    `stacks` the operands (qin_l, bf16(v_l)) of each layer's gW."""
     _, df = act_pair(activation, beta)
     ddf = ddf_of(activation, beta)
     zs, ss = [z.float() for z in zs], [s.float() for s in ss]
@@ -209,6 +217,8 @@ def ga_forward(ga, zs, ss, weights, skip, activation, beta, channel=0, qs=None):
         else:
             v = ss[l] * df(zs[l])
         gws.append(qb.T @ bf16_round(v))
+        if stacks is not None:
+            stacks.append((qb, bf16_round(v)))
         if l < n_layers - 1:
             m = qb @ bf16_round(weights[l].float())
             if ddf is not None:
@@ -220,14 +230,16 @@ def ga_forward(ga, zs, ss, weights, skip, activation, beta, channel=0, qs=None):
 
 
 def reverse_sweep(x0, zs, gy, weights, skip, activation, beta, inject=None, gw_extra=None,
-                  gzs=None):
+                  gzs=None, stacks=None):
     """The chain's reverse sweep from the last layer's cotangent gy (f32):
     gz_{L-1} = gy; gz_l = gh * act'(z_l) (+ inject[l]); gW_l = hin_l^T
     bf16(gz_l) (+ gw_extra[l]); gb_l = sum of the f32 gz_l; gh = bf16(gz_l)
     W_l^T, a skip layer's x0 part added to gx0. zs: the bf16 hidden
     pre-activations. Returns (cotangent of x0 [N, D_in] f32, gW list, gb
     list); a list `gzs` receives bf16(gz_l) of each hidden layer, first
-    layer first (the split backward's gz stack, slot_fused.py:910)."""
+    layer first (the split backward's gz stack, slot_fused.py:910), a list
+    `stacks` the operands (hin_l, bf16(gz_l)) of every layer's gW, first
+    layer first."""
     f, df = act_pair(activation, beta)
     zs = [z.float() for z in zs]
     n_layers, d_in = len(weights), x0.shape[1]
@@ -242,6 +254,8 @@ def reverse_sweep(x0, zs, gy, weights, skip, activation, beta, inject=None, gw_e
         if gzs is not None and l < n_layers - 1:
             gzs.insert(0, gzb)
         hin = layer_input(l, x0, x0 if l == 0 else bf16_round(f(zs[l - 1])), skip)
+        if stacks is not None:
+            stacks.insert(0, (hin, gzb))
         gws[l] = hin.T @ gzb if gw_extra is None else gw_extra[l] + hin.T @ gzb
         gbs[l] = gz.sum(0)
         ghp = gzb @ bf16_round(weights[l].float()).T
@@ -356,7 +370,21 @@ def chain_wgrad_plain(hins: Sequence[torch.Tensor], gzs: Sequence[torch.Tensor])
     return [h.float().T @ g.float() for h, g in zip(hins, gzs)]
 
 
-def tangent_backward(x0, t0, gh, gt, weights, biases, skip, activation, beta):
+def tangent_bwd_tile_plain(x0, t0, gh, gt, weights, biases, skip, activation, beta):
+    """Plain version of the tangent backward's per-tile pass (csrc/fused_mlp.cu
+    tan_bwd_pass_kernel), tangent_backward's arguments: the recompute and the
+    reverse sweep without the weight gradients. Returns (gx0 [N, D_in] f32,
+    gtx0 [K, N, D_in] f32, the stacks of each layer's gW operands as rows:
+    Hin_l = [hin_l; tin_l of every tangent] [(1 + K) N, din_l] and G_l =
+    [bf16(gz_l); bf16(gu_l) of every tangent], gb list f32); chain_wgrad_plain
+    of the stacks gives gW."""
+    stacks = []
+    gx0, gtx0, _, gbs = tangent_backward(x0, t0, gh, gt, weights, biases, skip, activation, beta,
+                                         stacks)
+    return gx0, gtx0, [h for h, _ in stacks], [g for _, g in stacks], gbs
+
+
+def tangent_backward(x0, t0, gh, gt, weights, biases, skip, activation, beta, stacks=None):
     """The backward of the chain with K forward tangents (_bwd_kernel
     :636-789) at its cast points: x0 [N, D_in] and t0 [K, N, D_in] as bf16
     values, the last layer's cotangents gh [N, D_out] and gt [K, N, D_out]
@@ -364,7 +392,9 @@ def tangent_backward(x0, t0, gh, gt, weights, biases, skip, activation, beta):
     stored in bf16, then per layer gz = gh act'(z) + (sum_k gt_k u_k)
     act''(z), gu = gt act'(z), gW = hin^T bf16(gz) + sum_k tin_k^T
     bf16(gu_k), gb = sum gz, gh = bf16(gz) W^T, gt = bf16(gu) W^T. Returns
-    (gx0 [N, D_in] f32, gtx0 [K, N, D_in] f32, gW list, gb list)."""
+    (gx0 [N, D_in] f32, gtx0 [K, N, D_in] f32, gW list, gb list); a list
+    `stacks` receives each layer's gW operands as rows, ([hin; tin_k...],
+    [bf16(gz); bf16(gu_k)...]), first layer first."""
     f, df = act_pair(activation, beta)
     ddf = ddf_of(activation, beta)
     n_layers, d_in = len(weights), x0.shape[-1]
@@ -396,6 +426,9 @@ def tangent_backward(x0, t0, gh, gt, weights, biases, skip, activation, beta):
         hin, tin = layer_input(l, x0, hin, skip), layer_input(l, t0, tin, skip)
         gzb, gub = bf16_round(gz), bf16_round(gu)
         gws[l] = hin.T @ gzb + tin.reshape(-1, tin.shape[-1]).T @ gub.reshape(-1, gub.shape[-1])
+        if stacks is not None:
+            stacks.insert(0, (torch.cat([hin, tin.reshape(-1, tin.shape[-1])]),
+                              torch.cat([gzb, gub.reshape(-1, gub.shape[-1])])))
         gbs[l] = gz.sum(0)
         ghp, gtp = gzb @ wb[l].T, gub @ wb[l].T
         if l in skip:
@@ -434,6 +467,20 @@ def fused_chain_tangent_bwd_plain(x, tangents, gy, gty, weights, biases, *, skip
                                          bf16_round(gy.float()), gt, weights, biases, skip,
                                          activation, beta)
     return gx.to(torch.bfloat16), gtx.to(torch.bfloat16), gws, gbs
+
+
+def fused_chain_tangent_bwd_tile_plain(x, tangents, gy, gty, weights, biases, *, skip=(),
+                                       activation="ReLU", beta=100.0, tangent_out_channel=None):
+    """Plain version of K1t's per-tile backward pass, fused_chain_tangent_bwd_plain's
+    arguments. Returns (gx bf16, gtx bf16, the Hin and G stacks of every layer as
+    rows, gb list f32); chain_wgrad_plain of the stacks gives gW."""
+    skip = tuple(sorted(skip))
+    k, n = tangents.shape[0], x.shape[0]
+    gt = last_tangent_cotangent(gty, tangent_out_channel, k, n, weights[-1].shape[1])
+    gx, gtx, hins, gzs, gbs = tangent_bwd_tile_plain(
+        bf16_round(x.float()), bf16_round(tangents.float()), bf16_round(gy.float()), gt, weights,
+        biases, skip, activation, beta)
+    return gx.to(torch.bfloat16), gtx.to(torch.bfloat16), hins, gzs, gbs
 
 
 def rup16(n: int) -> int:
@@ -554,6 +601,7 @@ class ChainLayout:
     gb_off: Tuple[int, ...]  # [L + 1]
     hs_w: Tuple[int, ...]  # [L + 1]
     gs_w: Tuple[int, ...]  # [L + 1]
+    sm: Tuple[int, ...]  # stack tiles per row tile of each layer
 
     @property
     def n_layers(self) -> int:
@@ -575,10 +623,13 @@ class ChainLayout:
         return [(self.hidden + o, n) for o, n in pieces(self.p0)] + h if l in self.skip else h
 
 
-def chain_layout(d_in: int, shapes: Sequence[Tuple[int, int]],
-                 skip: Tuple[int, ...]) -> ChainLayout:
+def chain_layout(d_in: int, shapes: Sequence[Tuple[int, int]], skip: Tuple[int, ...],
+                 adjoint: bool = False) -> ChainLayout:
     """The layout of one chain ([din, dout] per layer), or ValueError naming
-    the bound the card's kernels set."""
+    the bound the card's kernels set. `adjoint`: the stacks of the adjoint
+    backward (csrc/sdf_chain.cu), where every layer below the last stacks its
+    ga-forward operands (qin_l, v_l) under its reverse-sweep ones (hin_l,
+    gz_l), two stack tiles per row tile."""
     n_layers = len(shapes)
     if not 2 <= n_layers <= build.MAX_LAYERS:
         raise ValueError(f"fused_chain: the card's kernel takes chains of 2 to {build.MAX_LAYERS} "
@@ -605,13 +656,15 @@ def chain_layout(d_in: int, shapes: Sequence[Tuple[int, int]],
         raise ValueError(f"fused_chain: widths {d_in} in, {d_out} out need more than {MAX_PIECES} "
                          "pieces of at most 256 columns")
     cum = lambda xs: tuple(sum(xs[:i]) for i in range(len(xs) + 1))  # noqa: E731
+    sm = [2 if adjoint and l < n_layers - 1 else 1 for l in range(n_layers)]
     layout = ChainLayout(
         d_in=d_in, d_out=d_out, hidden=hidden, p0=p0, skip=tuple(skip),
         din_pad=tuple(din_pad), din_true=tuple(din_true), dout_pad=tuple(dout_pad),
         dout_true=tuple(dout_true),
         fw_off=cum([a * b for a, b in zip(din_pad, dout_pad)]), bw_off=(),
         gw_off=cum([a * b for a, b in zip(din_true, dout_true)]), b_off=cum(dout_pad),
-        gb_off=cum(dout_true), hs_w=cum(din_pad), gs_w=cum([ceil64(d) for d in dout_pad]))
+        gb_off=cum(dout_true), hs_w=cum([m * d for m, d in zip(sm, din_pad)]),
+        gs_w=cum([m * ceil64(d) for m, d in zip(sm, dout_pad)]), sm=tuple(sm))
     sizes = [sum(n for _, n in layout.bwd_pieces(l)) * layout.gcols(l) for l in range(n_layers)]
     bw_off, off = [0] * (n_layers + 1), 0
     for l in reversed(range(n_layers)):
@@ -675,7 +728,8 @@ class _Geom(ctypes.Structure):
         ("din_true", ctypes.c_int * _MAXL), ("dout_pad", ctypes.c_int * _MAXL),
         ("dout_true", ctypes.c_int * _MAXL), ("b_off", ctypes.c_int * _MAXL),
         ("gb_off", ctypes.c_int * _MAXL), ("hs_w", ctypes.c_int * (_MAXL + 1)),
-        ("gs_w", ctypes.c_int * (_MAXL + 1)), ("L", ctypes.c_int), ("H", ctypes.c_int),
+        ("gs_w", ctypes.c_int * (_MAXL + 1)), ("sm", ctypes.c_int * _MAXL),
+        ("L", ctypes.c_int), ("H", ctypes.c_int),
         ("P0", ctypes.c_int), ("d_in", ctypes.c_int), ("d_out", ctypes.c_int),
         ("skip_mask", ctypes.c_int), ("act", ctypes.c_int), ("quad_a", ctypes.c_float),
     ]
@@ -689,12 +743,26 @@ class _PackArgs(ctypes.Structure):
 
 
 _CHAINS: Dict[tuple, Tuple[ChainLayout, _Geom]] = {}
-_ENTRY = {  # csrc/fused_chain.cu's entry points: argument types, result type
-    "mms_k1_pack": (("ptr",) * 6, ctypes.c_int),
-    "mms_k1_fwd": (("ptr", "ptr", "int", "int", "ptr", "ptr", "ptr", "ptr"), ctypes.c_int),
-    "mms_k1_bwd_bytes": (("ptr", "int"), ctypes.c_longlong),
-    "mms_k1_bwd": (("ptr", "ptr", "int", "ptr", "int", "int") + ("ptr",) * 7, ctypes.c_int),
-    "mms_k1_wgrad": (("ptr", "int", "ptr", "ptr", "ptr"), ctypes.c_int),
+_ENTRY = {  # entry points on K1's layout: library, argument types, result type
+    "mms_k1_pack": ("fused_chain", ("ptr",) * 6, ctypes.c_int),
+    "mms_k1_fwd": ("fused_chain", ("ptr", "ptr", "int", "int", "ptr", "ptr", "ptr", "ptr"),
+                   ctypes.c_int),
+    "mms_k1_bwd_bytes": ("fused_chain", ("ptr", "int"), ctypes.c_longlong),
+    "mms_k1_bwd": ("fused_chain", ("ptr", "ptr", "int", "ptr", "int", "int") + ("ptr",) * 7,
+                   ctypes.c_int),
+    "mms_k1_wgrad": ("fused_chain", ("ptr", "int", "ptr", "ptr", "ptr", "ptr"), ctypes.c_int),
+    # the tangent backward's pass (csrc/fused_mlp.cu)
+    "mms_tangent_bwd_bytes": ("fused_mlp", ("ptr", "int", "int"), ctypes.c_longlong),
+    "mms_chain_tangent_bwd": ("fused_mlp", ("ptr", "ptr", "ptr", "int", "int", "ptr", "ptr", "int")
+                              + ("ptr",) * 8, ctypes.c_int),
+    "mms_sdf_chain_jvp_bwd": ("fused_mlp", ("ptr", "ptr", "int", "int", "ptr", "ptr", "ptr", "int")
+                              + ("ptr",) * 8, ctypes.c_int),
+    # the adjoint backward's pass (csrc/sdf_chain.cu)
+    "mms_adj_bwd_bytes": ("sdf_chain", ("ptr", "int"), ctypes.c_longlong),
+    "mms_sdf_chain_bwd": ("sdf_chain", ("ptr", "ptr", "int", "int", "ptr", "ptr", "ptr", "int")
+                          + ("ptr",) * 10, ctypes.c_int),
+    "mms_chain_adj_bwd": ("sdf_chain", ("ptr", "ptr", "int", "int") + ("ptr",) * 11,
+                          ctypes.c_int),
 }
 _ENTRIES: Dict[str, object] = {}
 
@@ -704,24 +772,28 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _entry(name: str):
-    """A C entry point of the fused_chain library, looked up once."""
+def entry(name: str):
+    """A C entry point that takes K1's Geom (fused_chain, and the backward
+    passes of fused_mlp and sdf_chain), looked up once."""
     fn = _ENTRIES.get(name)
     if fn is None:
-        types, restype = _ENTRY[name]
-        fn = _ENTRIES[name] = build.function("fused_chain", name, *types, restype=restype)
+        library, types, restype = _ENTRY[name]
+        fn = _ENTRIES[name] = build.function(library, name, *types, restype=restype)
     return fn
 
 
-def _chain(d_in: int, weights, skip, activation: str, beta: float) -> Tuple[ChainLayout, _Geom]:
+
+def chain_of(d_in: int, weights, skip, activation: str, beta: float,
+             adjoint: bool = False) -> Tuple[ChainLayout, _Geom]:
     """The layout and the kernels' Geom of a chain, built once per shape."""
-    key = (d_in, tuple(w.shape for w in weights), skip, activation, beta)
+    key = (d_in, tuple(w.shape for w in weights), skip, activation, beta, adjoint)
     hit = _CHAINS.get(key)
     if hit is None:
-        layout = chain_layout(d_in, [tuple(w.shape) for w in weights], skip)
+        layout = chain_layout(d_in, [tuple(w.shape) for w in weights], skip, adjoint)
         g = _Geom()
         bw_total = layout.bw_off[-1]
-        for name in ("din_pad", "din_true", "dout_pad", "dout_true", "b_off", "gb_off", "gw_off"):
+        for name in ("din_pad", "din_true", "dout_pad", "dout_true", "b_off", "gb_off", "gw_off",
+                     "sm"):
             getattr(g, name)[: layout.n_layers] = getattr(layout, name)[: layout.n_layers]
         for name in ("fw_off", "hs_w", "gs_w"):
             getattr(g, name)[: layout.n_layers + 1] = getattr(layout, name)
@@ -735,6 +807,7 @@ def _chain(d_in: int, weights, skip, activation: str, beta: float) -> Tuple[Chai
     return hit
 
 
+
 @dataclasses.dataclass
 class Packed:
     """What the pack kernel wrote for one call: the forward images, the
@@ -745,12 +818,13 @@ class Packed:
     bpk: torch.Tensor
 
 
-def _check_card(x: torch.Tensor, activation: str, n_layers: int) -> None:
+def check_card(x: torch.Tensor, activation: str, n_layers: int, what: str = "fused_chain") -> None:
+    """Raise unless x lies on the card and the chain is one the kernels take."""
     if x.device.type != "cuda":
-        raise ValueError(f"fused_chain: unsupported device {x.device}")
+        raise ValueError(f"{what}: unsupported device {x.device}")
     if activation not in ACTIVATIONS:
         raise ValueError(f"unsupported fused activation {activation}")
-    build.check_layers(n_layers, "fused_chain")
+    build.check_layers(n_layers, what)
 
 
 def _card_operand(t: torch.Tensor) -> torch.Tensor:
@@ -780,7 +854,7 @@ def _launch_pack(layout: ChainLayout, geom: _Geom, weights, biases, backward: bo
     args.ws0[:n_layers] = [w.stride(0) for w in ws]
     args.ws1[:n_layers] = [w.stride(1) for w in ws]
     wbw = None if packed.wbw is None else packed.wbw.data_ptr()
-    status = _entry("mms_k1_pack")(ctypes.byref(geom), ctypes.byref(args), packed.wfw.data_ptr(),
+    status = entry("mms_k1_pack")(ctypes.byref(geom), ctypes.byref(args), packed.wfw.data_ptr(),
                                    wbw, packed.bpk.data_ptr(), _stream(dev))
     build.check(status, "fused_chain pack")
     PACK_KERNEL.launches += 1
@@ -792,14 +866,14 @@ def _fwd_launcher(geom: _Geom, x, n: int, packed: Packed, y):
     (uncounted: its callers count)."""
     args = (ctypes.byref(geom), x.data_ptr(), int(x.dtype == torch.bfloat16), n,
             packed.wfw.data_ptr(), packed.bpk.data_ptr(), y.data_ptr(), _stream(x.device))
-    return lambda: build.check(_entry("mms_k1_fwd")(*args), "fused_chain")
+    return lambda: build.check(entry("mms_k1_fwd")(*args), "fused_chain")
 
 
 def _launch_fwd(x, weights, biases, skip, activation, beta, backward_images=False):
     """K1's forward on the card: (y [N, D_out] bf16, the Packed images, or
     None for N = 0)."""
-    _check_card(x, activation, len(weights))
-    layout, geom = _chain(x.shape[1], weights, skip, activation, beta)
+    check_card(x, activation, len(weights))
+    layout, geom = chain_of(x.shape[1], weights, skip, activation, beta)
     n = x.shape[0]
     y = torch.empty((n, layout.d_out), dtype=torch.bfloat16, device=x.device)
     if n == 0:
@@ -811,21 +885,27 @@ def _launch_fwd(x, weights, biases, skip, activation, beta, backward_images=Fals
     return y, packed
 
 
-_SCRATCH_BYTES: Dict[Tuple[int, int], int] = {}
+_SCRATCH_BYTES: Dict[tuple, int] = {}
 
 
-def _bwd_scratch(geom: _Geom, n: int, dev) -> torch.Tensor:
-    """The backward's device scratch (stacks and per-CTA slabs) for n rows."""
-    key = (id(geom), n)  # a Geom lives as long as the process (_CHAINS)
+def _scratch(bytes_entry: str, geom: _Geom, dev, *args) -> torch.Tensor:
+    """A backward's device scratch (stacks and per-CTA slabs), its size from
+    the library's entry point bytes_entry(geom, *args)."""
+    key = (bytes_entry, id(geom), args)  # a Geom lives as long as the process (_CHAINS)
     size = _SCRATCH_BYTES.get(key)
     if size is None:
-        size = int(_entry("mms_k1_bwd_bytes")(ctypes.byref(geom), n))
+        size = int(entry(bytes_entry)(ctypes.byref(geom), *args))
         if size < 0:
-            build.check(size, "fused_chain backward")
+            build.check(size, f"{bytes_entry}")
         if len(_SCRATCH_BYTES) > 1024:  # many batch sizes: start over
             _SCRATCH_BYTES.clear()
         _SCRATCH_BYTES[key] = size
     return torch.empty(size, dtype=torch.uint8, device=dev)
+
+
+def _bwd_scratch(geom: _Geom, n: int, dev) -> torch.Tensor:
+    """K1's backward scratch for n rows."""
+    return _scratch("mms_k1_bwd_bytes", geom, dev, n)
 
 
 def _bwd_launchers(geom: _Geom, x, gy, n: int, packed: Packed, gx, gw, gb, scratch):
@@ -836,9 +916,9 @@ def _bwd_launchers(geom: _Geom, x, gy, n: int, packed: Packed, gx, gw, gb, scrat
     tile = (g, x.data_ptr(), int(x.dtype == torch.bfloat16), gy.data_ptr(),
             int(gy.dtype == torch.bfloat16), n, packed.wfw.data_ptr(), packed.wbw.data_ptr(),
             packed.bpk.data_ptr(), gx.data_ptr(), gb.data_ptr(), scratch.data_ptr(), st)
-    wgrad = (g, n, scratch.data_ptr(), gw.data_ptr(), st)
-    return (lambda: build.check(_entry("mms_k1_bwd")(*tile), "fused_chain backward"),
-            lambda: build.check(_entry("mms_k1_wgrad")(*wgrad), "chain_wgrad"))
+    wgrad = (g, -(-n // 64), scratch.data_ptr(), gw.data_ptr(), None, st)
+    return (lambda: build.check(entry("mms_k1_bwd")(*tile), "fused_chain backward"),
+            lambda: build.check(entry("mms_k1_wgrad")(*wgrad), "chain_wgrad"))
 
 
 def _grad_buffers(layout: ChainLayout, dev):
@@ -851,11 +931,16 @@ def _grad_buffers(layout: ChainLayout, dev):
     return gw, gb, gws, list(gb.split(layout.dout_true))
 
 
+def zero_grads(layout: ChainLayout, dev):
+    """(gW list, gb list) of zeros: the gradients of a call with no rows."""
+    return _grad_buffers(layout, dev)[2:]
+
+
 def _launch_bwd(x, gy, weights, biases, skip, activation, beta, packed=None):
     """K1's backward on the card: (gx in x's dtype, rounded to bf16; gW list
     f32; gb list f32). Reuses the forward's images when given them."""
-    _check_card(x, activation, len(weights))
-    layout, geom = _chain(x.shape[1], weights, skip, activation, beta)
+    check_card(x, activation, len(weights))
+    layout, geom = chain_of(x.shape[1], weights, skip, activation, beta)
     gw, gb, gws, gbs = _grad_buffers(layout, x.device)
     x = _card_operand(x)
     n = x.shape[0]
@@ -877,7 +962,7 @@ def bare_forward(x, weights, biases, skip, activation, beta):
     """The forward chain kernel on one card input, packed once and its
     output preallocated, for timing the kernel alone: a closure that
     launches it as the wrapper does, uncounted."""
-    layout, geom = _chain(x.shape[1], weights, tuple(sorted(skip)), activation, beta)
+    layout, geom = chain_of(x.shape[1], weights, tuple(sorted(skip)), activation, beta)
     x = _card_operand(x)
     packed = _launch_pack(layout, geom, weights, biases, False)
     y = torch.empty((x.shape[0], layout.d_out), dtype=torch.bfloat16, device=x.device)
@@ -889,7 +974,7 @@ def bare_backward(x, gy, weights, biases, skip, activation, beta):
     preallocated, for checking and timing them alone: (layout, packed, gx,
     gw, gb, scratch, tile, wgrad), the last two the closures that launch the
     per-tile pass and chain_wgrad as the wrapper does, uncounted."""
-    layout, geom = _chain(x.shape[1], weights, tuple(sorted(skip)), activation, beta)
+    layout, geom = chain_of(x.shape[1], weights, tuple(sorted(skip)), activation, beta)
     x, gy = _card_operand(x), _card_operand(gy)
     n = x.shape[0]
     packed = _launch_pack(layout, geom, weights, biases, True)
@@ -900,22 +985,72 @@ def bare_backward(x, gy, weights, biases, skip, activation, beta):
     return layout, packed, gx, gw, gb, scratch, tile, wgrad
 
 
-def stacks_of(layout: ChainLayout, scratch: torch.Tensor, n: int):
-    """The hin and gz stacks that the per-tile pass left in scratch, as rows
-    [n, din_l] and [n, dout_l] per layer (bf16)."""
-    tiles = -(-n // 64)
+def stacks_of(layout: ChainLayout, scratch: torch.Tensor, n: int, tiles: Optional[int] = None):
+    """The hin and gz stacks that a per-tile pass left in scratch, as rows
+    [n, din_l] and [n, dout_l] per layer (bf16): K1's. With `tiles`, every
+    row of layer l's sm[l] * tiles stacked tiles, padding rows included."""
+    rows = None if tiles is None else n
+    tiles = -(-n // 64) if tiles is None else tiles
     flat = scratch.view(torch.bfloat16)
     hins, gzs, pos = [], [], 0
     for l in range(layout.n_layers):
-        cols = layout.din_pad[l]
-        hins.append(stack_rows(flat[pos:], tiles, cols)[:n, :layout.din_true[l]])
-        pos += tiles * 64 * cols
+        cols, t = layout.din_pad[l], tiles * layout.sm[l]
+        m = stack_rows(flat[pos:], t, cols)[:, :layout.din_true[l]]
+        hins.append(m if rows is not None else m[:n])
+        pos += t * 64 * cols
     pos = (2 * pos + 255) // 256 * 256 // 2  # the gz stacks start 256-byte aligned
     for l in range(layout.n_layers):
-        cols = layout.gcols(l)
-        gzs.append(stack_rows(flat[pos:], tiles, cols)[:n, :layout.dout_true[l]])
-        pos += tiles * 64 * cols
+        cols, t = layout.gcols(l), tiles * layout.sm[l]
+        m = stack_rows(flat[pos:], t, cols)[:, :layout.dout_true[l]]
+        gzs.append(m if rows is not None else m[:n])
+        pos += t * 64 * cols
     return hins, gzs
+
+
+@dataclasses.dataclass
+class Backward:
+    """A backward on K1's layout prepared for one call (K1t's, K4j's, K4's,
+    K5's): the images of its pack, its gradient buffers (packed, and views
+    per layer), its scratch, its row tiles, and closures that launch
+    (uncounted) its per-tile pass and chain_wgrad over the pass's stacks."""
+
+    layout: ChainLayout
+    packed: Packed
+    gw: torch.Tensor
+    gb: torch.Tensor
+    gws: List[torch.Tensor]
+    gbs: List[torch.Tensor]
+    scratch: torch.Tensor
+    tiles: int
+    tile: object
+    wgrad: object
+    keep: tuple = ()  # the operands the closures point to
+
+
+def prepare_backward(layout: ChainLayout, geom: _Geom, weights, biases, dev, scratch_bytes,
+                     pass_args, tiles: int, what: str, count=None) -> Backward:
+    """Pack the chain (one launch), allocate the gradients and the scratch
+    (scratch_bytes: the bytes entry point and its arguments after the Geom)
+    and bind the pass (pass_args(packed, gw, gb, scratch): its entry point
+    and arguments between the Geom and the stream) and chain_wgrad over
+    `tiles` row tiles; count (an int64 tensor or None) receives the number
+    of gW atomics chain_wgrad issues."""
+    packed = _launch_pack(layout, geom, weights, biases, True)
+    gw, gb, gws, gbs = _grad_buffers(layout, dev)
+    scratch = _scratch(scratch_bytes[0], geom, dev, *scratch_bytes[1:])
+    g, st = ctypes.byref(geom), _stream(dev)
+    name, *args = pass_args(packed, gw, gb, scratch)
+    tile = (g, *args, st)
+    wgrad = (g, tiles, scratch.data_ptr(), gw.data_ptr(),
+             None if count is None else count.data_ptr(), st)
+    return Backward(layout, packed, gw, gb, gws, gbs, scratch, tiles,
+                    lambda: build.check(entry(name)(*tile), what),
+                    lambda: build.check(entry("mms_k1_wgrad")(*wgrad), what + " chain_wgrad"))
+
+
+def tangent_samples(k: int) -> int:
+    """Samples per 64-row tile of the tangent kernels (csrc/fused_mlp.cu)."""
+    return 32 if k == 1 else 16
 
 
 def _check_tangents(tangents: torch.Tensor, x: torch.Tensor) -> int:
@@ -929,7 +1064,7 @@ def _check_tangents(tangents: torch.Tensor, x: torch.Tensor) -> int:
 def _launch_tangent_fwd(x, tx, weights, biases, skip, activation, beta, channel):
     """K1t's forward kernel: (y [N, D_out] bf16, ty [N, K] f32 with a
     channel or [K, N, D_out] bf16 without)."""
-    _check_card(x, activation, len(weights))
+    check_card(x, activation, len(weights))
     k = _check_tangents(tx, x)
     n, d_in = x.shape
     d_out = weights[-1].shape[1]
@@ -959,43 +1094,52 @@ def _launch_tangent_fwd(x, tx, weights, biases, skip, activation, beta, channel)
     return y, ty
 
 
-def _launch_tangent_bwd(x, tx, gy, gty, weights, biases, skip, activation, beta, channel):
-    """K1t's backward kernel: (gx bf16, gtx bf16, gW list f32, gb list f32)."""
-    _check_card(x, activation, len(weights))
+def tangent_bwd_card(x, tx, gy, gty, weights, biases, skip, activation, beta, channel,
+                     count=None):
+    """K1t's backward on the card, prepared (n > 0): (Backward, gx, gtx), the
+    pass writing gx and gtx (bf16) and gb and leaving the Hin and G stacks of
+    every layer in scratch, chain_wgrad writing gW."""
+    check_card(x, activation, len(weights))
     k = _check_tangents(tx, x)
-    if 0 in skip:
-        raise ValueError("fused_chain: layer 0 cannot be a skip layer")
+    layout, geom = chain_of(x.shape[1], weights, skip, activation, beta)
     n, d_in = x.shape
-    d_out = weights[-1].shape[1]
-    in_dims, out_dims, p0, hidden = chain_geometry(d_in, weights, skip)
-    wpack, bpack = pack_chain(weights, biases, in_dims, out_dims, hidden, skip)
     xb, txb = x.to(torch.bfloat16).contiguous(), tx.to(torch.bfloat16).contiguous()
     gyb = gy.to(torch.bfloat16).contiguous()
     gtyc = (gty.to(torch.bfloat16) if channel is None else gty.float()).contiguous()
     gx = torch.empty((n, d_in), dtype=torch.bfloat16, device=x.device)
     gtx = torch.empty((k, n, d_in), dtype=torch.bfloat16, device=x.device)
-    gw = torch.zeros(sum(a * b for a, b in zip(in_dims, out_dims)), device=x.device)
-    gb = torch.zeros(sum(out_dims), device=x.device)
-    if n:
-        scratch, ctas = build.persistent_scratch(
-            "fused_mlp", "mms_chain_tangent_bwd_slab", (len(weights), hidden, p0), x.device, n)
-        fn = build.function(
-            "fused_mlp", "mms_chain_tangent_bwd", "ptr", "ptr", "int", "int", "ptr", "ptr", "int",
-            "ptr", "ptr", "ptr", "ptr", "ptr", "ptr", "int", "int", "int", "ptr", "ptr", "int",
-            "int", "int", "int", "float", "ptr", "int", "ptr",
-        )
-        status = fn(
-            build.ptr(xb), build.ptr(txb), d_in, k, build.ptr(gyb), build.ptr(gtyc),
-            -1 if channel is None else channel, build.ptr(wpack), build.ptr(bpack),
-            build.ptr(gx), build.ptr(gtx), build.ptr(gw), build.ptr(gb), d_out, n, len(weights),
-            build.int_array(in_dims), build.int_array(out_dims), sum(1 << l for l in skip),
-            hidden, p0, ACTIVATIONS[activation], 2.0 / beta, build.ptr(scratch), ctas,
-            build.stream_of(x),
-        )
-        build.check(status, "fused_chain with tangents, backward")
-        TANGENT_BWD_KERNEL.launches += 1
-    gws, gbs = unpack_grads(gw, gb, weights, in_dims, out_dims, hidden, skip)
-    return gx, gtx, gws, gbs
+
+    def pass_args(packed, gw, gb, scratch):
+        return ("mms_chain_tangent_bwd", xb.data_ptr(), txb.data_ptr(), k, n, gyb.data_ptr(),
+                gtyc.data_ptr(), -1 if channel is None else channel, packed.wfw.data_ptr(),
+                packed.wbw.data_ptr(), packed.bpk.data_ptr(), gx.data_ptr(), gtx.data_ptr(),
+                gb.data_ptr(), scratch.data_ptr())
+
+    bw = prepare_backward(layout, geom, weights, biases, x.device,
+                          ("mms_tangent_bwd_bytes", n, k), pass_args,
+                          -(-n // tangent_samples(k)), "fused_chain with tangents, backward",
+                          count)
+    bw.keep = (xb, txb, gyb, gtyc)
+    return bw, gx, gtx
+
+
+def _launch_tangent_bwd(x, tx, gy, gty, weights, biases, skip, activation, beta, channel):
+    """K1t's backward: the per-tile pass and chain_wgrad over its stacks
+    (and the pack of the weight images). Returns (gx bf16, gtx bf16, gW list
+    f32, gb list f32)."""
+    if x.shape[0] == 0:
+        check_card(x, activation, len(weights))
+        layout, _ = chain_of(x.shape[1], weights, skip, activation, beta)
+        return (torch.empty(x.shape, dtype=torch.bfloat16, device=x.device),
+                torch.empty(tx.shape, dtype=torch.bfloat16, device=x.device),
+                *zero_grads(layout, x.device))
+    bw, gx, gtx = tangent_bwd_card(x, tx, gy, gty, weights, biases, skip, activation, beta,
+                                   channel)
+    bw.tile()
+    TANGENT_BWD_KERNEL.launches += 1
+    bw.wgrad()
+    TANGENT_WGRAD_KERNEL.launches += 1
+    return gx, gtx, bw.gws, bw.gbs
 
 
 def _forward(x, weights, biases, skip, activation, beta):

@@ -12,9 +12,12 @@ multimodalstudio_tpu/ops/pallas/fused_mlp.py::_fwd_adj_kernel (:362),
 reached through fused_sdf_chain (:1145, mode="adjoint", built by
 _build_adj_chain :930). With grad enabled it runs as an autograd Function
 that saves only the positions and the parameters, as chain_fwd (:1004)
-does; its backward is the second kernel of the file, replacing
-_bwd_adj_kernel (:410): reverse over reverse, recomputing the primal and
-adjoint stacks per tile.
+does; its backward replaces _bwd_adj_kernel (:410), reverse over
+reverse: on K1's building blocks (fused_mlp.py), the pack of the weight
+images, a per-tile pass (csrc/sdf_chain.cu) that recomputes the primal and
+adjoint rows, runs the ga-forward chain and the reverse sweep and writes d
+pos, gb and the stacks of every gW operand (hin over qin, gz over v), and
+chain_wgrad over the stacks.
 
 `fused_chain_adjoint` (K5) is the same pair of kernels without the
 encoding (fused_chain_adjoint :1215, enc=None): x [N, D] in (rounded to
@@ -50,8 +53,10 @@ the same outputs from the encoding, its 3 bf16 basis tangents (_enc_fwd
 encoding front end (csrc/fused_mlp.cu), sdf the last layer's f32 column 0,
 grad column 0 of its three f32 tangents. Its backward ends in _enc_bwd
 (:215-239): d pos = J_enc^T gh0 + the tangent cotangents through the
-encoding's Hessian diagonal. MMS_SDF_CHAIN_MODE, read at call time as the
-reference reads it (:1177), overrides `mode`.
+encoding's Hessian diagonal; on the card it is the tangent backward's
+pass (K1t's) with the encoding in front, and chain_wgrad.
+MMS_SDF_CHAIN_MODE, read at call time as the reference reads it (:1177),
+overrides `mode`.
 
 Bound on an H100: forward, the primal chain and the adjoint sweep through
 the hidden layers and layer 0 (the last layer's adjoint product is a column
@@ -79,12 +84,18 @@ from multimodalstudio_tpu_torch.ops.kernels.fused_mlp import (
     bf16_round,
     chain_forward,
     chain_geometry,
+    chain_of,
+    chain_wgrad_plain,
+    check_card,
     ga_forward,
     pack_chain,
+    prepare_backward,
     reverse_sweep,
     tangent_backward,
+    tangent_bwd_tile_plain,
     tangent_forward,
-    unpack_grads,
+    tangent_samples,
+    zero_grads,
 )
 from multimodalstudio_tpu_torch.ops.kernels.slot_fused import PEncoding, pe_scales
 
@@ -117,6 +128,22 @@ JVP_BWD_KERNEL = build.register(
     "fused_sdf_chain_jvp_bwd",
     source="multimodalstudio_tpu_torch/csrc/fused_mlp.cu",
     replaces="multimodalstudio_tpu/ops/pallas/fused_mlp.py:607",
+)
+# chain_wgrad (csrc/fused_chain.cu) on each backward pass's stacks
+WGRAD_KERNEL = build.register(
+    "fused_sdf_chain_wgrad",
+    source="multimodalstudio_tpu_torch/csrc/fused_chain.cu",
+    replaces="multimodalstudio_tpu/ops/pallas/fused_mlp.py:546",
+)
+ADJ_WGRAD_KERNEL = build.register(
+    "fused_chain_adjoint_wgrad",
+    source="multimodalstudio_tpu_torch/csrc/fused_chain.cu",
+    replaces="multimodalstudio_tpu/ops/pallas/fused_mlp.py:546",
+)
+JVP_WGRAD_KERNEL = build.register(
+    "fused_sdf_chain_jvp_wgrad",
+    source="multimodalstudio_tpu_torch/csrc/fused_chain.cu",
+    replaces="multimodalstudio_tpu/ops/pallas/fused_mlp.py:732",
 )
 
 
@@ -163,6 +190,63 @@ def fused_sdf_chain_bwd_plain(positions, weights, biases, gsdf, ggeo, g3, *, num
     return enc.jt(ghin) + g3 * enc.hess(adj), gws, gbs
 
 
+def adjoint_bwd_tile_plain(x0, zs, ss, ga, gy, weights, skip, activation, beta, channel=0):
+    """Plain version of the adjoint backward's per-tile pass (csrc/sdf_chain.cu
+    adj_bwd_pass_kernel) from the recomputed z and s stacks: the ga-forward
+    chain and the reverse sweep without the weight gradients. Returns (the
+    cotangent of x0 f32, the stacks of each layer's gW operands as rows: A_l
+    = [hin_l; qin_l] and B_l = [bf16(gz_l); bf16(v_l)] (layer L-1: hin and
+    gz only), gb list f32, the column sums of qin_{L-1}, its gW's term in
+    column `channel`)."""
+    fwd, rev = [], []
+    _, inject = ga_forward(ga, zs, ss, weights, skip, activation, beta, channel, stacks=fwd)
+    ghin, _, gbs = reverse_sweep(x0, zs, gy, weights, skip, activation, beta, inject=inject,
+                                 stacks=rev)
+    last = len(weights) - 1
+    a = [torch.cat([rev[l][0], fwd[l][0]]) for l in range(last)] + [rev[last][0]]
+    b = [torch.cat([rev[l][1], fwd[l][1]]) for l in range(last)] + [rev[last][1]]
+    return ghin, a, b, gbs, fwd[last][0].sum(0)
+
+
+def adjoint_wgrad_plain(a, b, col, channel=0):
+    """Plain version of the adjoint backward's gW: chain_wgrad_plain of the
+    pass's stacks, and the last layer's column-sum term in column `channel`."""
+    gws = chain_wgrad_plain(a, b)
+    gws[-1][:, channel] += col
+    return gws
+
+
+def fused_sdf_chain_bwd_tile_plain(positions, weights, biases, gsdf, ggeo, g3, *,
+                                   num_frequencies, min_freq_exp, max_freq_exp, skip=(),
+                                   activation="SoftplusQuad", beta=100.0):
+    """Plain version of K4's per-tile backward pass, fused_sdf_chain_bwd_plain's
+    arguments: (d_pos [N, 3] f32, the A and B stacks, gb list f32, the last
+    layer's column term); adjoint_wgrad_plain of the rest gives gW."""
+    skip = tuple(sorted(skip))
+    enc = PEncoding(positions.float(), pe_scales(num_frequencies, min_freq_exp, max_freq_exp))
+    _, zs = chain_forward(enc.x0, weights, biases, skip, activation, beta)
+    adj, ss = adjoint_sweep(enc.x0, zs, weights, skip, activation, beta)
+    g3 = g3.float()
+    gy = torch.cat([gsdf.float()[:, None], bf16_round(ggeo.float())], dim=-1)
+    ghin, a, b, gbs, col = adjoint_bwd_tile_plain(enc.x0, zs, ss, enc.tangent_cotangent(g3), gy,
+                                                  weights, skip, activation, beta)
+    return enc.jt(ghin) + g3 * enc.hess(adj), a, b, gbs, col
+
+
+def fused_chain_adjoint_bwd_tile_plain(x, weights, biases, gy, ga, *, skip=(),
+                                       activation="SoftplusQuad", beta=100.0, channel=0):
+    """Plain version of K5's per-tile backward pass, fused_chain_adjoint_bwd_plain's
+    arguments: (gx [N, D_in] bf16, the A and B stacks, gb list f32, the last
+    layer's column term); adjoint_wgrad_plain of the rest gives gW."""
+    skip = tuple(sorted(skip))
+    x0 = bf16_round(x.float())
+    _, zs = chain_forward(x0, weights, biases, skip, activation, beta)
+    _, ss = adjoint_sweep(x0, zs, weights, skip, activation, beta, channel)
+    ghin, a, b, gbs, col = adjoint_bwd_tile_plain(x0, zs, ss, ga.float(), bf16_round(gy.float()),
+                                                  weights, skip, activation, beta, channel)
+    return ghin.to(torch.bfloat16), a, b, gbs, col
+
+
 class _CardArgs:
     """The packed operands and geometry arguments every entry point of
     csrc/sdf_chain.cu takes first: the chain input (K4's positions [N, 3]
@@ -185,18 +269,10 @@ class _CardArgs:
         ]
         self.stream = build.stream_of(x)
 
-    def scratch(self, backward: bool):
+    def scratch(self):
         return build.persistent_scratch(
-            "sdf_chain", "mms_sdf_chain_slab", (len(self.in_dims), self.hidden, int(backward)),
+            "sdf_chain", "mms_sdf_chain_slab", (len(self.in_dims), self.hidden),
             self.keep[0].device, self.n)
-
-    def grads(self, weights, skip):
-        """Zeroed packed gradient buffers (gw, gb) and their unpacker."""
-        dev = self.keep[0].device
-        gw = torch.zeros(sum(a * b for a, b in zip(self.in_dims, self.out_dims)), device=dev)
-        gb = torch.zeros(sum(self.out_dims), device=dev)
-        return gw, gb, lambda: unpack_grads(gw, gb, weights, self.in_dims, self.out_dims,
-                                            self.hidden, skip)
 
 
 def _k4_args(positions, weights, biases, skip, activation, beta, pe):
@@ -221,7 +297,7 @@ def _launch_fwd(positions, weights, biases, skip, activation, beta, pe):
     geo = torch.empty((n, geo_width), dtype=torch.bfloat16, device=dev)
     grad = torch.empty((n, 3), dtype=torch.float32, device=dev)
     if n:
-        scratch, ctas = ca.scratch(backward=False)
+        scratch, ctas = ca.scratch()
         fn = build.function("sdf_chain", "mms_sdf_chain_fwd", *_K4_TYPES, "ptr", "ptr", "int",
                             "ptr", "ptr", "int", "ptr")
         status = fn(*ca.args, build.ptr(sdf), build.ptr(geo), geo_width, build.ptr(grad),
@@ -231,23 +307,55 @@ def _launch_fwd(positions, weights, biases, skip, activation, beta, pe):
     return sdf, geo, grad
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous operand at a 16-byte aligned address (read as vectors)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def sdf_bwd_card(positions, weights, biases, skip, activation, beta, pe, gsdf, ggeo, g3,
+                 count=None):
+    """K4's backward on the card, prepared (N > 0): (Backward, d_pos), the pass
+    writing d_pos [N, 3] f32, gb and the last layer's column term of gW and
+    leaving the A and B stacks in scratch, chain_wgrad adding the stacked gW.
+    count (an int64 tensor or None) receives the gW atomics of both."""
+    check_card(positions, activation, len(weights), "fused_sdf_chain backward")
+    pos = positions.float().contiguous()
+    n = pos.shape[0]
+    layout, geom = chain_of(3 + 6 * len(pe), weights, skip, activation, beta, adjoint=True)
+    pe_arr = build.float_array(pe)
+    cot = (gsdf.float().contiguous(), ggeo.to(torch.bfloat16).contiguous(),
+           g3.float().contiguous())
+    d_pos = torch.empty((n, 3), dtype=torch.float32, device=pos.device)
+    cp = None if count is None else count.data_ptr()
+
+    def pass_args(packed, gw, gb, scratch):
+        return ("mms_sdf_chain_bwd", pos.data_ptr(), n, len(pe), pe_arr, cot[0].data_ptr(),
+                cot[1].data_ptr(), ggeo.shape[1], cot[2].data_ptr(), packed.wfw.data_ptr(),
+                packed.wbw.data_ptr(), packed.bpk.data_ptr(), d_pos.data_ptr(), gw.data_ptr(),
+                gb.data_ptr(), scratch.data_ptr(), cp)
+
+    bw = prepare_backward(layout, geom, weights, biases, pos.device, ("mms_adj_bwd_bytes", n),
+                          pass_args, -(-n // 64), "fused_sdf_chain backward", count)
+    bw.keep = (pos, pe_arr, *cot)
+    return bw, d_pos
+
+
 def _launch_bwd(positions, weights, biases, skip, activation, beta, pe, gsdf, ggeo, g3):
-    """K4's backward kernel: (d_pos, gW list, gb list)."""
-    ca = _k4_args(positions, weights, biases, skip, activation, beta, pe)
-    d_pos = torch.empty((ca.n, 3), dtype=torch.float32, device=positions.device)
-    gw, gb, unpack = ca.grads(weights, skip)
-    if ca.n:
-        scratch, ctas = ca.scratch(backward=True)
-        fn = build.function("sdf_chain", "mms_sdf_chain_bwd", *_K4_TYPES, "ptr", "ptr", "int",
-                            "ptr", "ptr", "ptr", "ptr", "ptr", "int", "ptr")
-        cot = (gsdf.float().contiguous(), ggeo.to(torch.bfloat16).contiguous(),
-               g3.float().contiguous())
-        status = fn(*ca.args, build.ptr(cot[0]), build.ptr(cot[1]), ggeo.shape[1],
-                    build.ptr(cot[2]), build.ptr(d_pos), build.ptr(gw), build.ptr(gb),
-                    build.ptr(scratch), ctas, ca.stream)
-        build.check(status, "fused_sdf_chain backward")
-        BWD_KERNEL.launches += 1
-    return (d_pos, *unpack())
+    """K4's backward: the per-tile pass and chain_wgrad over its stacks (and
+    the pack of the weight images). Returns (d_pos, gW list, gb list)."""
+    if positions.shape[0] == 0:
+        check_card(positions, activation, len(weights), "fused_sdf_chain backward")
+        return (torch.empty((0, 3), device=positions.device),
+                *zero_grads(chain_of(3 + 6 * len(pe), weights, skip, activation, beta, True)[0],
+                            positions.device))
+    bw, d_pos = sdf_bwd_card(positions, weights, biases, skip, activation, beta, pe, gsdf, ggeo,
+                             g3)
+    bw.tile()
+    BWD_KERNEL.launches += 1
+    bw.wgrad()
+    WGRAD_KERNEL.launches += 1
+    return d_pos, bw.gws, bw.gbs
 
 
 # ---------------------------------------------------------------- K4j
@@ -283,6 +391,24 @@ def fused_sdf_chain_jvp_bwd_plain(positions, weights, biases, gsdf, ggeo, g3, *,
     return enc.jt(ghx) + hess, gws, gbs
 
 
+def fused_sdf_chain_jvp_bwd_tile_plain(positions, weights, biases, gsdf, ggeo, g3, *,
+                                       num_frequencies, min_freq_exp, max_freq_exp, skip=(),
+                                       activation="SoftplusQuad", beta=100.0):
+    """Plain version of K4j's per-tile backward pass, fused_sdf_chain_jvp_bwd_plain's
+    arguments: (d_pos [N, 3] f32, the Hin and G stacks of every layer as rows,
+    gb list f32); chain_wgrad_plain of the stacks gives gW."""
+    skip = tuple(sorted(skip))
+    enc = PEncoding(positions.float(), pe_scales(num_frequencies, min_freq_exp, max_freq_exp))
+    n, d_out = positions.shape[0], weights[-1].shape[1]
+    gh = torch.cat([gsdf.float()[:, None], bf16_round(ggeo.float())], dim=-1)
+    gt = gh.new_zeros((3, n, d_out))
+    gt[:, :, 0] = g3.float().T
+    ghx, gtx, hins, gzs, gbs = tangent_bwd_tile_plain(enc.x0, enc.basis_tangents(), gh, gt,
+                                                      weights, biases, skip, activation, beta)
+    hess = torch.stack([enc.hess(gtx[k])[:, k] for k in range(3)], dim=-1)
+    return enc.jt(ghx) + hess, hins, gzs, gbs
+
+
 def _launch_jvp_fwd(positions, weights, biases, skip, activation, beta, pe):
     """K4j's forward kernel: (sdf, geo, grad)."""
     ca = _k4_args(positions, weights, biases, skip, activation, beta, pe)
@@ -301,25 +427,48 @@ def _launch_jvp_fwd(positions, weights, biases, skip, activation, beta, pe):
     return sdf, geo, grad
 
 
+def jvp_bwd_card(positions, weights, biases, skip, activation, beta, pe, gsdf, ggeo, g3,
+                 count=None):
+    """K4j's backward on the card, prepared (N > 0): (Backward, d_pos), the
+    pass writing d_pos [N, 3] f32 and gb and leaving the Hin and G stacks in
+    scratch, chain_wgrad writing gW."""
+    check_card(positions, activation, len(weights), "fused_sdf_chain (jvp mode) backward")
+    pos = positions.float().contiguous()
+    n = pos.shape[0]
+    layout, geom = chain_of(3 + 6 * len(pe), weights, skip, activation, beta)
+    pe_arr = build.float_array(pe)
+    cot = (gsdf.float().contiguous(), ggeo.to(torch.bfloat16).contiguous(),
+           g3.float().contiguous())
+    d_pos = torch.empty((n, 3), dtype=torch.float32, device=pos.device)
+
+    def pass_args(packed, gw, gb, scratch):
+        return ("mms_sdf_chain_jvp_bwd", pos.data_ptr(), n, len(pe), pe_arr, cot[0].data_ptr(),
+                cot[1].data_ptr(), ggeo.shape[1], cot[2].data_ptr(), packed.wfw.data_ptr(),
+                packed.wbw.data_ptr(), packed.bpk.data_ptr(), d_pos.data_ptr(), gb.data_ptr(),
+                scratch.data_ptr())
+
+    bw = prepare_backward(layout, geom, weights, biases, pos.device,
+                          ("mms_tangent_bwd_bytes", n, 3), pass_args,
+                          -(-n // tangent_samples(3)), "fused_sdf_chain (jvp mode) backward", count)
+    bw.keep = (pos, pe_arr, *cot)
+    return bw, d_pos
+
+
 def _launch_jvp_bwd(positions, weights, biases, skip, activation, beta, pe, gsdf, ggeo, g3):
-    """K4j's backward kernel: (d_pos, gW list, gb list)."""
-    ca = _k4_args(positions, weights, biases, skip, activation, beta, pe)
-    d_pos = torch.empty((ca.n, 3), dtype=torch.float32, device=positions.device)
-    gw, gb, unpack = ca.grads(weights, skip)
-    if ca.n:
-        scratch, ctas = build.persistent_scratch(
-            "fused_mlp", "mms_chain_tangent_bwd_slab",
-            (len(weights), ca.hidden, ca.in_dims[0]), positions.device, ca.n)
-        fn = build.function("fused_mlp", "mms_sdf_chain_jvp_bwd", *_K4_TYPES, "ptr", "ptr", "int",
-                            "ptr", "ptr", "ptr", "ptr", "ptr", "int", "ptr")
-        cot = (gsdf.float().contiguous(), ggeo.to(torch.bfloat16).contiguous(),
-               g3.float().contiguous())
-        status = fn(*ca.args, build.ptr(cot[0]), build.ptr(cot[1]), ggeo.shape[1],
-                    build.ptr(cot[2]), build.ptr(d_pos), build.ptr(gw), build.ptr(gb),
-                    build.ptr(scratch), ctas, ca.stream)
-        build.check(status, "fused_sdf_chain (jvp mode) backward")
-        JVP_BWD_KERNEL.launches += 1
-    return (d_pos, *unpack())
+    """K4j's backward: the per-tile pass and chain_wgrad over its stacks (and
+    the pack of the weight images). Returns (d_pos, gW list, gb list)."""
+    if positions.shape[0] == 0:
+        check_card(positions, activation, len(weights), "fused_sdf_chain (jvp mode) backward")
+        return (torch.empty((0, 3), device=positions.device),
+                *zero_grads(chain_of(3 + 6 * len(pe), weights, skip, activation, beta)[0],
+                            positions.device))
+    bw, d_pos = jvp_bwd_card(positions, weights, biases, skip, activation, beta, pe, gsdf, ggeo,
+                             g3)
+    bw.tile()
+    JVP_BWD_KERNEL.launches += 1
+    bw.wgrad()
+    JVP_WGRAD_KERNEL.launches += 1
+    return d_pos, bw.gws, bw.gbs
 
 
 # (plain forward, plain backward, forward kernel, backward kernel) per mode
@@ -446,7 +595,7 @@ def _launch_adj_fwd(x, weights, biases, skip, activation, beta, channel):
     y = torch.empty((n, d_out), dtype=torch.bfloat16, device=dev)
     adj = torch.empty((n, x.shape[1]), dtype=torch.float32, device=dev)
     if n:
-        scratch, ctas = ca.scratch(backward=False)
+        scratch, ctas = ca.scratch()
         fn = build.function("sdf_chain", "mms_chain_adj_fwd", *_K5_TYPES, "ptr", "int", "ptr",
                             "ptr", "int", "ptr")
         status = fn(*ca.args, build.ptr(y), d_out, build.ptr(adj), build.ptr(scratch), ctas,
@@ -456,22 +605,45 @@ def _launch_adj_fwd(x, weights, biases, skip, activation, beta, channel):
     return y, adj
 
 
+def adj_bwd_card(x, weights, biases, skip, activation, beta, channel, gy, ga, count=None):
+    """K5's backward on the card, prepared (N > 0): (Backward, gx), the pass
+    writing gx [N, D_in] bf16, gb and the last layer's column term of gW and
+    leaving the A and B stacks in scratch, chain_wgrad adding the stacked gW.
+    count (an int64 tensor or None) receives the gW atomics of both."""
+    check_card(x, activation, len(weights), "fused_chain_adjoint backward")
+    n, d_in = x.shape
+    layout, geom = chain_of(d_in, weights, skip, activation, beta, adjoint=True)
+    xb = _aligned(x.to(torch.bfloat16))
+    cot = (_aligned(gy.to(torch.bfloat16)), _aligned(ga.float()))
+    gx = torch.empty((n, d_in), dtype=torch.bfloat16, device=x.device)
+    cp = None if count is None else count.data_ptr()
+
+    def pass_args(packed, gw, gb, scratch):
+        return ("mms_chain_adj_bwd", xb.data_ptr(), n, channel, cot[0].data_ptr(),
+                cot[1].data_ptr(), packed.wfw.data_ptr(), packed.wbw.data_ptr(),
+                packed.bpk.data_ptr(), gx.data_ptr(), gw.data_ptr(), gb.data_ptr(),
+                scratch.data_ptr(), cp)
+
+    bw = prepare_backward(layout, geom, weights, biases, x.device, ("mms_adj_bwd_bytes", n),
+                          pass_args, -(-n // 64), "fused_chain_adjoint backward", count)
+    bw.keep = (xb, *cot)
+    return bw, gx
+
+
 def _launch_adj_bwd(x, weights, biases, skip, activation, beta, channel, gy, ga):
-    """K5's backward kernel: (gx, gW list, gb list)."""
-    ca = _k5_args(x, weights, biases, skip, activation, beta, channel)
-    d_out = weights[-1].shape[1]
-    gx = torch.empty((ca.n, x.shape[1]), dtype=torch.bfloat16, device=x.device)
-    gw, gb, unpack = ca.grads(weights, skip)
-    if ca.n:
-        scratch, ctas = ca.scratch(backward=True)
-        fn = build.function("sdf_chain", "mms_chain_adj_bwd", *_K5_TYPES, "ptr", "int", "ptr",
-                            "ptr", "ptr", "ptr", "ptr", "int", "ptr")
-        cot = (gy.to(torch.bfloat16).contiguous(), ga.float().contiguous())
-        status = fn(*ca.args, build.ptr(cot[0]), d_out, build.ptr(cot[1]), build.ptr(gx),
-                    build.ptr(gw), build.ptr(gb), build.ptr(scratch), ctas, ca.stream)
-        build.check(status, "fused_chain_adjoint backward")
-        ADJ_BWD_KERNEL.launches += 1
-    return (gx, *unpack())
+    """K5's backward: the per-tile pass and chain_wgrad over its stacks (and
+    the pack of the weight images). Returns (gx, gW list, gb list)."""
+    if x.shape[0] == 0:
+        check_card(x, activation, len(weights), "fused_chain_adjoint backward")
+        return (torch.empty(x.shape, dtype=torch.bfloat16, device=x.device),
+                *zero_grads(chain_of(x.shape[1], weights, skip, activation, beta, True)[0],
+                            x.device))
+    bw, gx = adj_bwd_card(x, weights, biases, skip, activation, beta, channel, gy, ga)
+    bw.tile()
+    ADJ_BWD_KERNEL.launches += 1
+    bw.wgrad()
+    ADJ_WGRAD_KERNEL.launches += 1
+    return gx, bw.gws, bw.gbs
 
 
 def _adj_forward(x, weights, biases, kw):
