@@ -36,7 +36,12 @@
    -> 128 -> 128 -> 257): K5 forward at the render samples of a chunk and
    of a microbatch and backward at a microbatch's, K1 forward at the
    sampler's queries and the taps and backward at the taps, the SoftplusQuad
-   backwards' limits following the plain version's spread.
+   backwards' limits following the plain version's spread. Then hidden
+   widths 384 and 512: K1 forward and backward and the K4, K5, K1t and K4j
+   backwards, each against its plain version. The K2/K2f checks (their
+   eval calls, the training forward, the split's forward and the level
+   edges) print the kernel alone (profiler) and the device ops of one
+   wrapper call beside the wrapper's time.
 3. For grid_raw_tpu, mlp_raw_tpu, grid_raw_tpu with
    model.surface.surface_field.use_position_encoding = False (through
    load_config's overrides: its SDF runs the slot-grid lookup K6 and the
@@ -162,6 +167,41 @@ def device_ops(fn) -> int:
         fail(f"cudaGraphGetNodes failed with status {status}")
     graph.reset()
     return count.value
+
+
+def kernel_alone_ms(fn, names, reps=10) -> float:
+    """Device milliseconds per call of fn spent in the kernels whose names
+    contain one of `names` (torch.profiler over reps calls after warm-up):
+    a wrapper's kernel alone, whatever the wrapper launches around it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and any(s in e.key for s in names))
+    if us <= 0:
+        fail(f"the profiler saw no device time of {names}")
+    return us / reps / 1e3
+
+
+# the K2/K2f forward's kernel, by its name in a profile: the wgmma design's,
+# or the first design's slot_sdf_kernel, which a parent checkout launches
+SLOT_VALUE_KERNELS = ("slot_value_kernel", "slot_sdf_kernel")
+
+
+def slot_value_parts(what, fn):
+    """K2's (K2f's) forward kernel alone (ms per call, profiler) and the
+    device ops of one wrapper call fn; printed beside each other."""
+    kernel_ms = kernel_alone_ms(fn, SLOT_VALUE_KERNELS)
+    ops = device_ops(fn)
+    print(f"  {what}: kernel alone {kernel_ms:.3f} ms, {ops} device ops per call")
+    return kernel_ms, ops
 
 
 def k1_forward_parts(what, x, ws, bs, kw):
@@ -382,6 +422,15 @@ def slot_inputs(gen, dev, gspec):
     return table, ws, bs
 
 
+def f32_spec():
+    """The slot grid of grid_raw_tpu with an f32 table: 6 levels of 512
+    entries, F = 16 (K2f, K3f)."""
+    from multimodalstudio_tpu_torch.ops.kernels.slot_grid import SlotGridSpec
+
+    return SlotGridSpec(num_levels=6, min_res=16, max_res=512, rows_per_level=512, layout="cell",
+                        feats=16, table_dtype="f32")
+
+
 def slot_d_in(gspec):
     """The slot chain's input width: 3 + 36 PE columns and the grid's."""
     return 39 + gspec.out_dim
@@ -423,10 +472,16 @@ def check_slot_value(gen, dev, gspec):
             fail("fused_slot_sdf_value disagrees with its plain version")
         tot["ms"] += count * time_ms(lambda: fused_slot_sdf_value(*args, **kw))
         tot["plain_ms"] += count * time_ms(lambda: slot_sdf_value_plain(*args, **kw))
+        kernel_ms, ops = slot_value_parts(f"{slot_tag('K2', gspec)} N={n}",
+                                          lambda: fused_slot_sdf_value(*args, **kw))
+        tot["kernel_ms"] = tot.get("kernel_ms", 0.0) + count * kernel_ms
+        tot["ops"] = max(tot.get("ops", 0), ops)
         # sdf needs column 0 of the last layer only
         tot["flops"] += count * 2.0 * n * (slot_d_in(gspec) * 128 + 128 * 128 + 128 * 1)
         tot["bytes"] += count * nbytes(pos, table, mask, ws, bs, sdf)
         tot["err"] = max(tot["err"], err)
+    print(f"  {slot_tag('K2', gspec)} per chunk: wrapper {tot['ms']:.3f} ms, kernel alone "
+          f"{tot['kernel_ms']:.3f} ms, at most {tot['ops']} device ops per call")
     return tot
 
 
@@ -585,6 +640,9 @@ def check_slot_value_bwd(gen, dev, gspec):
     sdf_p, zs_p, _ = _value_fwd_plain(*fwd)
     fwd_err = _compare_outputs(f"{what} training fwd N={n}", ("sdf", "zs"), (sdf, zs),
                                (sdf_p, zs_p))
+    fwd_ms = time_ms(lambda: _launch(*fwd, False, resid=True))
+    slot_value_parts(f"{what} training fwd N={n} (wrapper {fwd_ms:.3f} ms)",
+                     lambda: _launch(*fwd, False, resid=True))
     gsdf = torch.randn(n, generator=gen, device=dev)
     args = (*fwd, zs, gsdf)
     plain_kw = dict(SLOT_KW, level_mask=mask)
@@ -1385,6 +1443,114 @@ def check_tangent_edges(gen, dev) -> None:
                    fused_sdf_chain_jvp_bwd_plain(pos, ws, bs, gsdf, ggeo, g3, **kw))
 
 
+def check_wide_hidden(gen, dev) -> None:
+    """Hidden widths 384 and 512, which JAX's can_fuse sends to its fused
+    kernels: K1 forward and backward (a skip chain, and at 384 a chain of
+    20,000 rows, where two consumer warpgroups share a CTA), and the K4, K5,
+    K1t and K4j backwards (their per-tile passes and chain_wgrad), each
+    against its plain version on a ragged N; the SoftplusQuad backwards'
+    limits follow their plain versions' spread, from a generator of their
+    own, as the deep chains' do."""
+    from multimodalstudio_tpu_torch.ops.kernels.fused_mlp import (
+        _launch_bwd,
+        _launch_tangent_bwd,
+        fused_chain,
+        fused_chain_bwd_plain,
+        fused_chain_plain,
+        fused_chain_tangent_bwd_plain,
+    )
+    from multimodalstudio_tpu_torch.ops.kernels.sdf_chain import (
+        _launch_adj_bwd,
+        _launch_bwd as _launch_sdf_bwd,
+        _launch_jvp_bwd,
+        fused_chain_adjoint_bwd_plain,
+        fused_sdf_chain_bwd_plain,
+        fused_sdf_chain_jvp_bwd_plain,
+        pe_scales,
+    )
+
+    spread_gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def limits(what, names, plain, args, bs, kw, ref):
+        if kw.get("activation") != "SoftplusQuad":
+            return 1e-2
+        return _plain_conditioning(what, names, plain, args, bs, kw, spread_gen, dev, ref)
+
+    n, pe = 1000, pe_scales(6, 0.0, 5.0)
+    for h in (384, 512):
+        # K1: a SoftplusQuad chain with a skip, and a ReLU one
+        for act, skip, dims, rows in (
+                ("SoftplusQuad", (2,), [(39, h), (h, h), (h + 39, h), (h, 65)], n),
+                ("ReLU", (), [(285, h), (h, h), (h, 3)], 20000 if h == 384 else n)):
+            ws, bs = random_chain(gen, dims, dev)
+            x = torch.rand(rows, dims[0][0], generator=gen, device=dev) * 2 - 1
+            kw = dict(skip=skip, activation=act)
+            what = f"K1 H={h} {act} skip={skip} N={rows}"
+            rel = rel_l2(fused_chain(x, ws, bs, **kw).float(),
+                         fused_chain_plain(x, ws, bs, **kw).float())
+            print(f"  {what}: rel_l2={rel:.3e} (tolerance rel_l2 <= 1e-2)")
+            if not rel <= 1e-2:
+                fail(f"fused_chain disagrees with its plain version at {what}")
+            gy = torch.randn(rows, dims[-1][1], generator=gen, device=dev)
+            ref = fused_chain_bwd_plain(x, gy, ws, bs, **kw)
+            tol = limits(what + " bwd", CHAIN_GRADS, fused_chain_bwd_plain,
+                         lambda b: (x, gy, ws, b), bs, kw, ref)
+            _compare_grads(what + " bwd", CHAIN_GRADS, _launch_bwd(x, gy, ws, bs, skip, act, 100.0),
+                           ref, tol=tol)
+        dims = [(39, h), (h, h), (h + 39, h), (h, 257)]
+        # K4 (adjoint, the encoding in front)
+        ws, bs = random_chain(gen, dims, dev)
+        pos = torch.rand(n, 3, generator=gen, device=dev) * 2.2 - 1.1
+        gsdf = torch.randn(n, generator=gen, device=dev)
+        ggeo = torch.randn(n, 256, generator=gen, device=dev).to(torch.bfloat16)
+        g3 = torch.randn(n, 3, generator=gen, device=dev)
+        kw = dict(SDF_KW, skip=(2,))
+        what = f"K4 bwd H={h} skip=(2,) N={n}"
+        ref = fused_sdf_chain_bwd_plain(pos, ws, bs, gsdf, ggeo, g3, **kw)
+        tol = limits(what, CHAIN_GRADS, fused_sdf_chain_bwd_plain,
+                     lambda b: (pos, ws, b, gsdf, ggeo, g3), bs, kw, ref)
+        _compare_grads(what, CHAIN_GRADS, _launch_sdf_bwd(pos, ws, bs, (2,), "SoftplusQuad", 100.0,
+                                                          pe, gsdf, ggeo, g3), ref, tol=tol)
+        # K4j (jvp mode)
+        what = f"K4j bwd H={h} skip=(2,) N={n}"
+        ref = fused_sdf_chain_jvp_bwd_plain(pos, ws, bs, gsdf, ggeo, g3, **kw)
+        tol = limits(what, CHAIN_GRADS, fused_sdf_chain_jvp_bwd_plain,
+                     lambda b: (pos, ws, b, gsdf, ggeo, g3), bs, kw, ref)
+        _compare_grads(what, CHAIN_GRADS, _launch_jvp_bwd(pos, ws, bs, (2,), "SoftplusQuad", 100.0,
+                                                          pe, gsdf, ggeo, g3), ref, tol=tol)
+        # K5 (adjoint of an encoded input) at channel 1
+        dims = [(15, h), (h, h), (h + 15, h), (h, 33)]
+        ws, bs = random_chain(gen, dims, dev)
+        x = torch.rand(n, 15, generator=gen, device=dev) * 2 - 1
+        gy = torch.randn(n, 33, generator=gen, device=dev).to(torch.bfloat16)
+        ga = torch.randn(n, 15, generator=gen, device=dev)
+        kw = dict(skip=(2,), activation="SoftplusQuad", beta=100.0, channel=1)
+        what = f"K5 bwd H={h} skip=(2,) channel 1 N={n}"
+        ref = fused_chain_adjoint_bwd_plain(x, ws, bs, gy, ga, **kw)
+        tol = limits(what, CHAIN_GRADS, fused_chain_adjoint_bwd_plain,
+                     lambda b: (x, ws, b, gy, ga), bs, kw, ref)
+        _compare_grads(what, CHAIN_GRADS, _launch_adj_bwd(x, ws, bs, (2,), "SoftplusQuad", 100.0,
+                                                          1, gy, ga), ref, tol=tol)
+        # K1t (forward tangents), 3 tangents on channel 0, and the full ty with 2
+        for k, channel in ((3, 0), (2, None)):
+            dims = [(39, h), (h, h), (h + 39, h), (h, 17)]
+            ws, bs = random_chain(gen, dims, dev)
+            x = torch.rand(n, 39, generator=gen, device=dev) * 2 - 1
+            tx = torch.randn(k, n, 39, generator=gen, device=dev)
+            gy = torch.randn(n, 17, generator=gen, device=dev).to(torch.bfloat16)
+            gty = (torch.randn(n, k, generator=gen, device=dev) if channel is not None else
+                   torch.randn(k, n, 17, generator=gen, device=dev).to(torch.bfloat16))
+            kw = dict(skip=(2,), activation="SoftplusQuad", beta=100.0,
+                      tangent_out_channel=channel)
+            what = f"K1t bwd H={h} skip=(2,) K={k} channel={channel} N={n}"
+            ref = fused_chain_tangent_bwd_plain(x, tx, gy, gty, ws, bs, **kw)
+            tol = limits(what, TANGENT_GRADS, fused_chain_tangent_bwd_plain,
+                         lambda b: (x, tx, gy, gty, ws, b), bs, kw, ref)
+            _compare_grads(what, TANGENT_GRADS,
+                           _launch_tangent_bwd(x, tx, gy, gty, ws, bs, (2,), "SoftplusQuad", 100.0,
+                                               channel), ref, tol=tol)
+
+
 # grid_raw_tpu's slot grid without its position encoding: the SDF head takes
 # [xyz, 6 levels x F = 2] into 128 -> 128 -> 257 SoftplusQuad
 NOPE_DIMS = [(15, 128), (128, 128), (128, 257)]
@@ -1792,6 +1958,10 @@ def _split_forward(what, fwd, launch_args, plain):
 
     out_k = _launch(*launch_args, resid=True, x0=True)
     outs_p, res_p = plain(*fwd)
+    if not launch_args[-1]:  # K2's forward (no gradient)
+        fwd_ms = time_ms(lambda: _launch(*launch_args, resid=True, x0=True))
+        slot_value_parts(f"{what} training fwd with x0 (wrapper {fwd_ms:.3f} ms)",
+                         lambda: _launch(*launch_args, resid=True, x0=True))
     x0, x0_p = out_k[6], res_p[-1]
     err = _compare_outputs(f"{what} training fwd with x0", ("sdf", "zs", "x0"),
                            (out_k[0], out_k[3], x0[:, : x0_p.shape[1]]), (outs_p, res_p[0], x0_p))
@@ -2100,6 +2270,9 @@ def check_slot_levels(gen, dev, gspec, n, hidden_layers=1) -> None:
     sdf, _, _, zs, _, _, _ = _launch(*fwd, False, resid=True)
     sdf_p, zs_p, _ = _value_fwd_plain(*fwd)
     _compare_outputs(f"K2 training fwd {what}", ("sdf", "zs"), (sdf, zs), (sdf_p, zs_p))
+    fwd_ms = time_ms(lambda: _launch(*fwd, False, resid=True))
+    slot_value_parts(f"K2 training fwd {what} (wrapper {fwd_ms:.3f} ms)",
+                     lambda: _launch(*fwd, False, resid=True))
     gsdf = torch.randn(n, generator=gen, device=dev)
 
     def value_zs(b):
@@ -2232,9 +2405,10 @@ def check_skip_edges(gen, dev, gspecs) -> None:
 
 
 PER_CHUNK = {  # kernel launches of one 1024-ray eval chunk (derived in PERF.md)
-    # every K1 forward call launches the pack of its weights, then the chain
+    # every K1 forward call launches the pack of its weights, then the chain,
+    # and so does every K2 call (its chain cut to the sdf column)
     # trunk, polarization head, background x3; sampler x4; render samples
-    "grid_raw_tpu": {"fused_chain": 5, "fused_chain_pack": 5, "fused_slot_sdf_value": 4,
+    "grid_raw_tpu": {"fused_chain": 5, "fused_chain_pack": 9, "fused_slot_sdf_value": 4,
                      "fused_slot_sdf_chain": 1},
     # sampler x4 and the five chains above through K1; render samples through K4
     "mlp_raw_tpu": {"fused_chain": 9, "fused_chain_pack": 9, "fused_sdf_chain": 1},
@@ -2247,10 +2421,10 @@ PER_CHUNK = {  # kernel launches of one 1024-ray eval chunk (derived in PERF.md)
                                      "fused_chain_tangents": 1},
     "mlp_raw_tpu in jvp mode": {"fused_chain": 9, "fused_chain_pack": 9, "fused_sdf_chain_jvp": 1},
     # the split backward changes nothing a render runs
-    "grid_raw_tpu with split backward": {"fused_chain": 5, "fused_chain_pack": 5,
+    "grid_raw_tpu with split backward": {"fused_chain": 5, "fused_chain_pack": 9,
                                          "fused_slot_sdf_value": 4, "fused_slot_sdf_chain": 1},
     # as grid_raw_tpu, through the f32 table's K2f and K3f
-    "grid_raw_tpu with f32 table": {"fused_chain": 5, "fused_chain_pack": 5,
+    "grid_raw_tpu with f32 table": {"fused_chain": 5, "fused_chain_pack": 9,
                                     "fused_slot_sdf_value_f32": 4, "fused_slot_sdf_chain_f32": 1},
     # as grid_raw_tpu without PE, the lookups through K6v
     "grid_raw_tpu without PE, vertex layout": {"fused_chain": 9, "fused_chain_pack": 9,
@@ -2401,10 +2575,11 @@ def run_slice(dev, card, method):
     return launches, n_rays / seconds
 
 
-def profile_device(fn, label: str, ref_ms: float, top: int = 12) -> float:
+def profile_device(fn, label: str, ref_ms: float, top: int = 12):
     """Device time by kernel over one call of fn (torch.profiler), and the
     share of its wall time the card was busy, under the profiler and
-    against an unprofiled call's time `ref_ms`; returns the latter share."""
+    against an unprofiled call's time `ref_ms`; returns the latter share,
+    the busy ms and the device ops."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2423,16 +2598,16 @@ def profile_device(fn, label: str, ref_ms: float, top: int = 12) -> float:
           f"call's {ref_ms:.2f} ms), {sum(r[1] for r in rows)} device ops")
     for ms, count, key in sorted(rows, reverse=True)[:top]:
         print(f"    {ms:9.3f} ms {count:6d}x {key[:90]}")
-    return busy_ms / ref_ms
+    return busy_ms / ref_ms, busy_ms, sum(r[1] for r in rows)
 
 
 PER_MICROBATCH = {  # kernel launches of one training microbatch (derived in PERF.md)
     # K1: one pack per forward call, whose images its backward reuses; every
     # backward a per-tile pass and chain_wgrad. K4's, K5's, K1t's and K4j's
     # backwards: a pack of their own, a per-tile pass and chain_wgrad (each
-    # counted under its backward's name)
+    # counted under its backward's name). K2: one pack per call
     "grid_raw_tpu": {
-        "fused_chain": 5, "fused_chain_pack": 5,
+        "fused_chain": 5, "fused_chain_pack": 10,
         "fused_chain_bwd": 5, "chain_wgrad": 5,  # trunk, polarization head, background x3
         "fused_slot_sdf_value": 5, "fused_slot_sdf_value_bwd": 1,  # sampler x4, taps
         "fused_slot_sdf_chain": 1, "fused_slot_sdf_chain_bwd": 1,
@@ -2468,7 +2643,7 @@ PER_MICROBATCH = {  # kernel launches of one training microbatch (derived in PER
     # as grid_raw_tpu, the taps' and the render samples' backwards split:
     # K2s and K3s in place of the merged K2/K3 backwards, one scatter each
     "grid_raw_tpu with split backward": {
-        "fused_chain": 5, "fused_chain_pack": 5,
+        "fused_chain": 5, "fused_chain_pack": 10,
         "fused_chain_bwd": 5, "chain_wgrad": 5,
         "fused_slot_sdf_value": 5, "fused_slot_sdf_value_bwd_sample": 1,
         "fused_slot_sdf_chain": 1, "fused_slot_sdf_chain_bwd_sample": 1,
@@ -2476,13 +2651,13 @@ PER_MICROBATCH = {  # kernel launches of one training microbatch (derived in PER
     },
     # as grid_raw_tpu and its split, through the f32 table's kernels
     "grid_raw_tpu with f32 table": {
-        "fused_chain": 5, "fused_chain_pack": 5,
+        "fused_chain": 5, "fused_chain_pack": 10,
         "fused_chain_bwd": 5, "chain_wgrad": 5,
         "fused_slot_sdf_value_f32": 5, "fused_slot_sdf_value_f32_bwd": 1,
         "fused_slot_sdf_chain_f32": 1, "fused_slot_sdf_chain_f32_bwd": 1,
     },
     "grid_raw_tpu with f32 table and split backward": {
-        "fused_chain": 5, "fused_chain_pack": 5,
+        "fused_chain": 5, "fused_chain_pack": 10,
         "fused_chain_bwd": 5, "chain_wgrad": 5,
         "fused_slot_sdf_value_f32": 5, "fused_slot_sdf_value_f32_bwd_sample": 1,
         "fused_slot_sdf_chain_f32": 1, "fused_slot_sdf_chain_f32_bwd_sample": 1,
@@ -2524,16 +2699,16 @@ def _param_groups(named):
     return groups
 
 
-def run_training(dev, card, method, steps=5):
+def timed_training(dev, card, method, steps=5):
     """Train `method` (a label of CONFIGS) at the bench geometry through
-    train_steps and check losses, gradients, parameter motion and launch
-    counts; then hold one small microbatch on the card against the plain
-    versions on the CPU."""
-    import dataclasses
-
+    train_steps: 2 warm-up steps, then `steps` timed ones, each checked for
+    finite losses and gradients, and one profiled step. Returns (the run's
+    objects, its stats: launches, rays/s, step ms, busy share, busy ms and
+    device ops of the profiled step). chip_ab.py --train times this alone,
+    for a paired run of two commits."""
     from multimodalstudio_tpu_torch.cameras.camera_optimizer import init_camera_poses
     from multimodalstudio_tpu_torch.configs.methods import FIVE_MODALITIES
-    from multimodalstudio_tpu_torch.data.device_cache import build_device_cache, sample_pixel_batch
+    from multimodalstudio_tpu_torch.data.device_cache import build_device_cache
     from multimodalstudio_tpu_torch.data.synthetic import make_synthetic_dataset
     from multimodalstudio_tpu_torch.engine import train as T
     from multimodalstudio_tpu_torch.models.model import MMSModel
@@ -2581,6 +2756,33 @@ def run_training(dev, card, method, steps=5):
             f"{k}={float(v):.5g}" for k, v in sorted(aux["losses"].items())))
     seconds = sum(step_s)
     launches = {name: info.launches for name, info in build.KERNELS.items()}
+    rays = dm.num_rays_per_modality * len(FIVE_MODALITIES) * steps
+    rays_per_s = rays / seconds
+    print(f"  trained {rays} rays in {seconds:.3f} s: {rays_per_s:.1f} rays/s (train, {method},"
+          f" 5 modalities, 2048 rays per modality in {microbatches} microbatches, {card})")
+    busy, busy_ms, ops = profile_device(lambda: train_steps(state, cache, gen, 1),
+                                        "one training step", 1e3 * seconds / steps, top=20)
+    stats = dict(launches=launches, rays_per_s=rays_per_s, step_ms=1e3 * seconds / steps,
+                 busy=busy, busy_ms=busy_ms, ops=ops)
+    return (cfg, model, cams, state, cache, gen, before), stats
+
+
+def run_training(dev, card, method, steps=5):
+    """timed_training, then check its launch counts and that every parameter
+    moved; then hold one small microbatch on the card against the plain
+    versions on the CPU."""
+    import dataclasses
+
+    from multimodalstudio_tpu_torch.configs.methods import FIVE_MODALITIES
+    from multimodalstudio_tpu_torch.data.device_cache import sample_pixel_batch
+    from multimodalstudio_tpu_torch.engine import train as T
+    from multimodalstudio_tpu_torch.models.model import MMSModel
+    from multimodalstudio_tpu_torch.ops.kernels import build
+
+    (cfg, model, cams, state, cache, gen, before), stats = timed_training(dev, card, method, steps)
+    dm = cfg.datamanager
+    microbatches = dm.num_rays_per_modality // dm.microbatch_rays
+    launches = stats["launches"]
     want = {name: PER_MICROBATCH[method].get(name, 0) * microbatches * steps
             for name in build.KERNELS}
     print(f"  launches {launches}, expected {want} ({microbatches} microbatches x {steps} steps)")
@@ -2591,14 +2793,6 @@ def run_training(dev, card, method, steps=5):
           f"update count {state.opt_state.count}")
     if len(moved) < len(before) or state.opt_state.count != state.step:
         fail("the parameters did not all move")
-    rays = dm.num_rays_per_modality * len(FIVE_MODALITIES) * steps
-    rays_per_s = rays / seconds
-    print(f"  trained {rays} rays in {seconds:.3f} s: {rays_per_s:.1f} rays/s (train, {method},"
-          f" 5 modalities, 2048 rays per modality in {microbatches} microbatches, {card})")
-    busy = profile_device(lambda: train_steps(state, cache, gen, 1), "one training step",
-                          1e3 * seconds / steps, top=20)
-    stats = dict(launches=launches, rays_per_s=rays_per_s, step_ms=1e3 * seconds / steps,
-                 busy=busy)
     if CONFIGS[method][1] == CONTRACTION:
         cross_check_k4(cfg, model, cams, state, cache, gen, dev)
 
@@ -2780,8 +2974,7 @@ def main() -> None:
     print("kernel checks deeper than the registered methods (10 layers; 9 and 16 grid levels):")
     phase("depth edge cases", check_depth_edges, gen, dev)
     # the f32 table's phases draw from `gen` after every earlier phase
-    f32spec = SlotGridSpec(num_levels=6, min_res=16, max_res=512, rows_per_level=512,
-                           layout="cell", feats=16, table_dtype="f32")
+    f32spec = f32_spec()
     print("kernel checks of K2f and K3f (grid_raw_tpu with f32 table; forward: per 1024-ray eval "
           "chunk; backward: per 512-ray training microbatch):")
     f32 = phase("K2f and K3f", lambda: {
@@ -2834,6 +3027,10 @@ def main() -> None:
     for name, r in wide.items():
         results[name]["err"] = max(results[name]["err"], r["err"])
         print_timing(f"{name} at 99 inputs ({card})", r)
+    # hidden widths 384 and 512 draw from `gen` after every earlier phase
+    print("kernel checks at hidden widths 384 and 512 (K1 forward and backward; K4, K5, K1t and "
+          "K4j backwards):")
+    phase("hidden widths 384 and 512", check_wide_hidden, gen, dev)
     rays_per_s, train, launches = {}, {}, {}
     for method in CONFIGS:
         with config_env(method):

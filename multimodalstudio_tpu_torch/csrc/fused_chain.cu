@@ -116,120 +116,41 @@ __global__ void __launch_bounds__(256) k1_pack_kernel(const Geom G, const PackAr
 
 // ------------------------------------------------------------------- k1_fwd
 
+template <bool WIDE>
 __global__ void __launch_bounds__(NTHREADS, 1)
 k1_fwd_kernel(const Geom G, const void* __restrict__ x, int x_bf16, int n,
               const bf16* __restrict__ wfw, const float* __restrict__ bpk, bf16* __restrict__ y,
               int nwg, int stages, int sb, int act_bytes) {
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = align1024(smem_raw);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + nwg * act_bytes + stages * sb);
-  Ring R{smem + nwg * act_bytes, bars, bars + stages, sb, stages};
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < stages; ++s) {
-      mbar_init(&R.full[s], 1);
-      mbar_init(&R.empty[s], nwg);
-    }
-    fence_mbar_init();
-  }
-  __syncthreads();
-  const int L = G.L, H = G.H, P0 = G.P0;
-  const int x0c = x0_col(G);
-  const int tiles = (n + 63) / 64, groups = (tiles + nwg - 1) / nwg;
-  const int warp = threadIdx.x >> 5;
-  if (warp >= nwg * 4) {  // producer: the forward images, in order, once per tile group
-    setmaxnreg_dec<PRODUCER_REGS>();
-    if (threadIdx.x == nwg * 128) {
-      for (int grp = blockIdx.x; grp < groups; grp += gridDim.x) {
-        const uint8_t* src = reinterpret_cast<const uint8_t*>(wfw);
-        for (int l = 0; l < L; ++l) {
-          const int kcs = G.din_pad[l] >> 6, npc = n_pieces(G.dout_pad[l]);
-          for (int p = 0; p < npc; ++p) {
-            int off, np;
-            piece(G.dout_pad[l], p, off, np);
-            for (int kc = 0; kc < kcs; ++kc) {
-              R.acquire(np * 128);
-              bulk_g2s(R.buf(), src, np * 128, &R.full[R.stage]);
-              R.advance();
-              src += np * 128;
+  const int r0 = acc_row(), cq = acc_col();
+  chain_forward<WIDE>(
+      align1024(smem_raw), G, n, wfw, bpk, nwg, stages, sb, act_bytes,
+      [&](bf16* act, int c0, long long row0) {
+        load_rows(act, c0, G.P0, x, x_bf16, G.d_in, row0, n);
+      },
+      [](int, int, auto, const auto&, long long) {},
+      [&](int off, auto NC, const auto& acc, long long row0) {  // y = bf16(z)
+        constexpr int N = decltype(NC)::value;
+        const bool pairs = !(G.d_out & 1);
+#pragma unroll
+        for (int j = 0; j < N / 8; ++j) {
+          const int c = off + 8 * j + cq;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const long long gr = row0 + r0 + 8 * e;
+            if (gr >= n || c >= G.d_out) continue;
+            bf16* yr = y + gr * G.d_out + c;
+            const uint32_t v = pack2(acc[4 * j + 2 * e], acc[4 * j + 2 * e + 1]);
+            if (pairs) {
+              *reinterpret_cast<uint32_t*>(yr) = v;
+            } else {
+              *reinterpret_cast<unsigned short*>(yr) = (unsigned short)(v & 0xffff);
+              if (c + 1 < G.d_out)
+                *reinterpret_cast<unsigned short*>(yr + 1) = (unsigned short)(v >> 16);
             }
           }
         }
-      }
-    }
-    return;
-  }
-  setmaxnreg_inc<CONSUMER_REGS>();
-  const int wg = warp >> 2;
-  bf16* act = reinterpret_cast<bf16*>(smem + wg * act_bytes);
-  {
-    uint4* p = reinterpret_cast<uint4*>(act);
-    for (int i = threadIdx.x & 127; i < act_bytes / 16; i += 128) p[i] = make_uint4(0, 0, 0, 0);
-  }
-  wg_sync(1 + wg);
-  const int r0 = acc_row(), cq = acc_col();
-  for (int grp = blockIdx.x; grp < groups; grp += gridDim.x) {
-    const long long row0 = (long long)(grp * nwg + wg) * 64;
-    load_rows(act, x0c, P0, x, x_bf16, G.d_in, row0, n);
-    fence_async_smem();
-    wg_sync(1 + wg);
-    for (int l = 0; l < L; ++l) {
-      const bf16* a = act + (l == 0 ? (x0c >> 6) * 4096 : 0);
-      const int kcs = G.din_pad[l] >> 6, npc = n_pieces(G.dout_pad[l]);
-      const bool last = l == L - 1;
-      const bool next_skip = !last && ((G.skip_mask >> (l + 1)) & 1);
-      const float* B = bpk + G.b_off[l];
-      for (int p = 0; p < npc; ++p) {
-        int off, np;
-        piece(G.dout_pad[l], p, off, np);
-        with_n(np, [&](auto NC) {
-          constexpr int N = decltype(NC)::value;
-          float acc[N / 2];
-          mma_piece<N>(acc, a, kcs, R, wg, B + off);
-          if (last) {  // y = bf16(z)
-            const bool pairs = !(G.d_out & 1);
-#pragma unroll
-            for (int j = 0; j < N / 8; ++j) {
-              const int c = off + 8 * j + cq;
-#pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                const long long gr = row0 + r0 + 8 * e;
-                if (gr >= n || c >= G.d_out) continue;
-                bf16* yr = y + gr * G.d_out + c;
-                const uint32_t v = pack2(acc[4 * j + 2 * e], acc[4 * j + 2 * e + 1]);
-                if (pairs) {
-                  *reinterpret_cast<uint32_t*>(yr) = v;
-                } else {
-                  *reinterpret_cast<unsigned short*>(yr) = (unsigned short)(v & 0xffff);
-                  if (c + 1 < G.d_out)
-                    *reinterpret_cast<unsigned short*>(yr + 1) = (unsigned short)(v >> 16);
-                }
-              }
-            }
-          } else {  // h = bf16(act(z)) (times 1/sqrt 2, rounded, before a skip layer), in place
-            const int act_kind = G.act;
-            const float qa = G.quad_a;
-#pragma unroll
-            for (int j = 0; j < N / 8; ++j) {
-              const int c = 8 * j + cq;
-#pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                uint32_t h = pack2(act_f(act_kind, acc[4 * j + 2 * e], qa),
-                                   act_f(act_kind, acc[4 * j + 2 * e + 1], qa));
-                if (next_skip) {
-                  const float2 v = unpack2(h);
-                  h = pack2(v.x * SKIP_SCALE, v.y * SKIP_SCALE);
-                }
-                *reinterpret_cast<uint32_t*>(act + act_el(c, r0 + 8 * e)) = h;
-              }
-            }
-          }
-        });
-      }
-      if (l == 0 && G.skip_mask) scale_region(act, H, P0);
-      fence_async_smem();
-      wg_sync(1 + wg);
-    }
-  }
+      });
 }
 
 // ------------------------------------------------------------------- k1_bwd
@@ -249,6 +170,7 @@ __host__ __device__ inline void scratch_sizes(const Geom& G, int tiles, int ctas
   s[3] = G.skip_mask ? align256((size_t)ctas * nwg * 64 * G.P0 * 4) : 0;
 }
 
+template <bool WIDE>
 __global__ void __launch_bounds__(NTHREADS, 1)
 k1_bwd_kernel(const Geom G, const void* __restrict__ x, int x_bf16, const void* __restrict__ gy,
               int gy_bf16, int n, const bf16* __restrict__ wfw, const bf16* __restrict__ wbw,
@@ -277,30 +199,8 @@ k1_bwd_kernel(const Geom G, const void* __restrict__ x, int x_bf16, const void* 
     setmaxnreg_dec<PRODUCER_REGS>();
     if (threadIdx.x == nwg * 128) {
       for (int grp = blockIdx.x; grp < groups; grp += gridDim.x) {
-        const uint8_t* src = reinterpret_cast<const uint8_t*>(wfw);
-        for (int l = 0; l < L - 1; ++l) {
-          for (int kc = 0; kc < (G.din_pad[l] >> 6); ++kc) {  // one piece: H
-            R.acquire(H * 128);
-            bulk_g2s(R.buf(), src, H * 128, &R.full[R.stage]);
-            R.advance();
-            src += H * 128;
-          }
-        }
-        src = reinterpret_cast<const uint8_t*>(wbw);
-        for (int l = L - 1; l >= 0; --l) {
-          const int kcs = gcols(G, l) >> 6, npc = bwd_n_pieces(G, l);
-          for (int p = 0; p < npc; ++p) {
-            int off, np;
-            bool x0part;
-            bwd_piece(G, l, p, off, np, x0part);
-            for (int kc = 0; kc < kcs; ++kc) {
-              R.acquire(np * 128);
-              bulk_g2s(R.buf(), src, np * 128, &R.full[R.stage]);
-              R.advance();
-              src += np * 128;
-            }
-          }
-        }
+        stream_hidden_fwd(R, G, wfw);
+        stream_bwd(R, G, wbw, L - 1);
       }
     }
     return;
@@ -327,6 +227,7 @@ k1_bwd_kernel(const Geom G, const void* __restrict__ x, int x_bf16, const void* 
     const int tile = grp * nwg + wg;
     const long long row0 = (long long)tile * 64;
     const Stacker st{tile < tiles};
+    constexpr int nph = WIDE ? 2 : 1;  // pieces of a hidden-width product
     auto hin_at = [&](int l) {
       return S.hin + (size_t)tiles * 64 * G.hs_w[l] + (size_t)tile * 64 * G.din_pad[l];
     };
@@ -347,27 +248,37 @@ k1_bwd_kernel(const Geom G, const void* __restrict__ x, int x_bf16, const void* 
       // layer l + 1's product reads (own_hin: unless it is the last, not recomputed)
       const bool need_h = !own_hin || l + 1 < L - 1;
       const float* B = bpk + G.b_off[l];
-      uint32_t* zl = zs + (size_t)l * (H / 4) * 128;
-      with_n(H, [&](auto NC) {
-        constexpr int N = decltype(NC)::value;
-        float acc[N / 2];
-        mma_piece<N>(acc, a, G.din_pad[l] >> 6, R, wg, B);
-        st.drain(wg);  // the stack stores of x0 or of this layer's input have read them
-        if (l == 0 && G.skip_mask) scale_region(act, H, P0);  // x0 -> xs, once layer 0 read x0
-        // no loop around the two passes: acc stays in registers
-        if (own_hin) {
-          write_hidden<N, true>(acc, act, next_skip, act_kind, qa, zl);
-          fence_async_smem();
-          wg_sync(1 + wg);
-          st.store(hin_at(l + 1), act, G.din_pad[l + 1]);
-          if (need_h) st.drain(wg);
-        }
-        if (need_h) {
-          write_hidden<N, false>(acc, act, next_skip, act_kind, qa, own_hin ? nullptr : zl);
-          fence_async_smem();
-          wg_sync(1 + wg);
-        }
-      });
+      for (int p = 0; p < nph; ++p) {
+        int off, np;
+        hidden_piece<WIDE>(H, p, off, np);
+        bf16* dst = piece_dst<WIDE>(act, act_bytes, p, nph, off);
+        uint32_t* zl = zs + (size_t)l * (H / 4) * 128 + (off >> 2) * 128;
+        with_n64(np, [&](auto NC) {
+          constexpr int N = decltype(NC)::value;
+          float acc[N / 2];
+          mma_piece<N>(acc, a, G.din_pad[l] >> 6, R, wg, B + off);
+          st.drain(wg);  // the stack stores of x0 or of this layer's input have read them
+          // x0 -> xs, once layer 0's last product read x0
+          if (l == 0 && G.skip_mask && p + 1 == nph) scale_region(act, H, P0);
+          // no loop around the two passes: acc stays in registers
+          if (own_hin) {
+            write_hidden<N, true>(acc, dst, next_skip, act_kind, qa, zl);
+            fence_async_smem();
+            wg_sync(1 + wg);
+            // the side piece's columns, or the rest of layer l + 1's input
+            st.store(hin_at(l + 1) + off * 64, dst, p + 1 < nph ? N : G.din_pad[l + 1] - off);
+            if (need_h) st.drain(wg);
+          }
+          if (need_h) {
+            write_hidden<N, false>(acc, dst, next_skip, act_kind, qa, own_hin ? nullptr : zl);
+            if (p + 1 == nph) {
+              side_back<WIDE>(act, act_bytes, nph, wg);
+              fence_async_smem();
+              wg_sync(1 + wg);
+            }
+          }
+        });
+      }
     }
     if (!own_hin) st.store(hin_at(L - 1), act, G.din_pad[L - 1]);
     st.drain(wg);
@@ -435,9 +346,12 @@ k1_bwd_kernel(const Geom G, const void* __restrict__ x, int x_bf16, const void* 
                 g[(4 * j0 + i) * 128] = first ? v : old[i] + v;
               }
             }
-          } else {  // gz_{l-1} = bf16(gh act'(z_{l-1})), in place, and its column sums
-            const uint32_t* zl = zs + (size_t)(l - 1) * (H / 4) * 128;
-            float* cs = csum + G.gb_off[l - 1];
+          } else {  // gz_{l-1} = bf16(gh act'(z_{l-1})) (the first of two pieces to the side
+                    // images), and its column sums
+            const int hoff = WIDE ? off : 0;  // the h part's one piece starts at 0
+            const uint32_t* zl = zs + (size_t)(l - 1) * (H / 4) * 128 + (hoff >> 2) * 128;
+            float* cs = csum + G.gb_off[l - 1] + hoff;
+            bf16* dst = piece_dst<WIDE>(act, act_bytes, p, npc, hoff);
             st.drain(wg);  // the stack store of gz_l has read the region
 #pragma unroll
             for (int j0 = 0; j0 < N / 8; j0 += JB) {
@@ -460,7 +374,7 @@ k1_bwd_kernel(const Geom G, const void* __restrict__ x, int x_bf16, const void* 
                   g1 *= act_df(act_kind, z.y, qa);
                   s0 += g0;
                   s1 += g1;
-                  *reinterpret_cast<uint32_t*>(act + act_el(c, r0 + 8 * e)) = pack2(g0, g1);
+                  *reinterpret_cast<uint32_t*>(dst + act_el(c, r0 + 8 * e)) = pack2(g0, g1);
                 }
 #pragma unroll
                 for (int m = 4; m < 32; m <<= 1) {
@@ -476,6 +390,7 @@ k1_bwd_kernel(const Geom G, const void* __restrict__ x, int x_bf16, const void* 
           }
         });
       }
+      if (l > 0) side_back<WIDE>(act, act_bytes, nph, wg);
       fence_async_smem();
       wg_sync(1 + wg);
       if (l > 0) st.store(gz_at(l - 1), act, H);
@@ -613,30 +528,48 @@ extern "C" int mms_k1_pack(const Geom* G, const PackArgs* P, void* wfw, void* wb
   return (int)cudaGetLastError();
 }
 
+template <bool WIDE>
+static int launch_fwd(const Geom& G, const void* x, int x_bf16, int n, const void* wfw,
+                      const void* bpk, void* y, cudaStream_t stream) {
+  const void* kernel = (const void*)k1_fwd_kernel<WIDE>;
+  Launch P;
+  if (plan_chain(G, (n + 63) / 64, false, 0, &P)) return ERR_SMEM;
+  cudaError_t err = allow_smem(WIDE ? 3 : 0, kernel);
+  if (err != cudaSuccess) return (int)err;
+  const int groups = ((n + 63) / 64 + P.nwg - 1) / P.nwg;
+  err = persistent(kernel, &P, groups);
+  if (err != cudaSuccess) return (int)err;
+  k1_fwd_kernel<WIDE><<<P.grid, P.threads, P.smem, stream>>>(
+      G, x, x_bf16, n, (const bf16*)wfw, (const float*)bpk, (bf16*)y, P.nwg, P.stages, P.sb,
+      P.act_bytes);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int mms_k1_fwd(const Geom* G, const void* x, int x_bf16, int n, const void* wfw,
                           const void* bpk, void* y, void* stream) {
   if (!geom_ok(*G) || n < 1) return -1;
-  Launch P;
-  if (plan_chain(*G, (n + 63) / 64, false, 0, &P)) return ERR_SMEM;
-  cudaError_t err = allow_smem(0, (const void*)k1_fwd_kernel);
+  return is_wide(*G) ? launch_fwd<true>(*G, x, x_bf16, n, wfw, bpk, y, (cudaStream_t)stream)
+                     : launch_fwd<false>(*G, x, x_bf16, n, wfw, bpk, y, (cudaStream_t)stream);
+}
+
+// The backward pass of G's width and its launch plan over n rows (0, or a status).
+static int bwd_plan(const Geom& G, int n, const void** kernel, Launch* P) {
+  const bool wide = is_wide(G);
+  *kernel = wide ? (const void*)k1_bwd_kernel<true> : (const void*)k1_bwd_kernel<false>;
+  if (plan_chain(G, (n + 63) / 64, true, 0, P)) return ERR_SMEM;
+  cudaError_t err = allow_smem(wide ? 4 : 1, *kernel);
   if (err != cudaSuccess) return (int)err;
-  const int groups = ((n + 63) / 64 + P.nwg - 1) / P.nwg;
-  err = persistent((const void*)k1_fwd_kernel, &P, groups);
-  if (err != cudaSuccess) return (int)err;
-  k1_fwd_kernel<<<P.grid, P.threads, P.smem, (cudaStream_t)stream>>>(
-      *G, x, x_bf16, n, (const bf16*)wfw, (const float*)bpk, (bf16*)y, P.nwg, P.stages, P.sb,
-      P.act_bytes);
-  return (int)cudaGetLastError();
+  const int groups = ((n + 63) / 64 + P->nwg - 1) / P->nwg;
+  return (int)persistent(*kernel, P, groups);
 }
 
 // Bytes of the backward's device scratch (stacks and per-CTA slabs) for n rows.
 extern "C" long long mms_k1_bwd_bytes(const Geom* G, int n) {
   if (!geom_ok(*G) || n < 1) return -1;
   Launch P;
-  if (plan_chain(*G, (n + 63) / 64, true, 0, &P)) return ERR_SMEM;
-  if (allow_smem(1, (const void*)k1_bwd_kernel) != cudaSuccess) return -1;
-  const int groups = ((n + 63) / 64 + P.nwg - 1) / P.nwg;
-  if (persistent((const void*)k1_bwd_kernel, &P, groups) != cudaSuccess) return -1;
+  const void* kernel;
+  const int status = bwd_plan(*G, n, &kernel, &P);
+  if (status) return status == ERR_SMEM ? ERR_SMEM : -1;
   size_t s[4];
   scratch_sizes(*G, (n + 63) / 64, P.grid, P.nwg, s);
   return (long long)(s[0] + s[1] + s[2] + s[3]);
@@ -656,15 +589,18 @@ extern "C" int mms_k1_bwd(const Geom* G, const void* x, int x_bf16, const void* 
                           void* gb, void* scratch, void* stream) {
   if (!geom_ok(*G) || n < 1) return -1;
   Launch P;
-  if (plan_chain(*G, (n + 63) / 64, true, 0, &P)) return ERR_SMEM;
-  cudaError_t err = allow_smem(1, (const void*)k1_bwd_kernel);
-  if (err != cudaSuccess) return (int)err;
-  const int groups = ((n + 63) / 64 + P.nwg - 1) / P.nwg;
-  err = persistent((const void*)k1_bwd_kernel, &P, groups);
-  if (err != cudaSuccess) return (int)err;
-  k1_bwd_kernel<<<P.grid, P.threads, P.smem, (cudaStream_t)stream>>>(
-      *G, x, x_bf16, gy, gy_bf16, n, (const bf16*)wfw, (const bf16*)wbw, (const float*)bpk, gx,
-      (float*)gb, split_scratch(*G, n, P, scratch), P.nwg, P.stages, P.sb, P.act_bytes);
+  const void* kernel;
+  const int status = bwd_plan(*G, n, &kernel, &P);
+  if (status) return status;
+  const BwdScratch S = split_scratch(*G, n, P, scratch);
+  if (is_wide(*G))
+    k1_bwd_kernel<true><<<P.grid, P.threads, P.smem, (cudaStream_t)stream>>>(
+        *G, x, x_bf16, gy, gy_bf16, n, (const bf16*)wfw, (const bf16*)wbw, (const float*)bpk, gx,
+        (float*)gb, S, P.nwg, P.stages, P.sb, P.act_bytes);
+  else
+    k1_bwd_kernel<false><<<P.grid, P.threads, P.smem, (cudaStream_t)stream>>>(
+        *G, x, x_bf16, gy, gy_bf16, n, (const bf16*)wfw, (const bf16*)wbw, (const float*)bpk, gx,
+        (float*)gb, S, P.nwg, P.stages, P.sb, P.act_bytes);
   return (int)cudaGetLastError();
 }
 

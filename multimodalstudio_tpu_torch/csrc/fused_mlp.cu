@@ -337,6 +337,7 @@ __device__ __forceinline__ void tan_hidden(const float (&acc)[N / 2], bf16* act,
   }
 }
 
+template <bool WIDE>
 __global__ void __launch_bounds__(NTHREADS, 1)
 tan_bwd_pass_kernel(const Geom G, const mms::Enc E, const TanIo I, int n,
                     const bf16* __restrict__ wfw, const bf16* __restrict__ wbw,
@@ -399,6 +400,7 @@ tan_bwd_pass_kernel(const Geom G, const mms::Enc E, const TanIo I, int n,
     const long long s0 = (long long)tile * b;
     const long long srow = s0 + samp;  // the thread's sample
     const Stacker st{tile < tiles};
+    constexpr int nph = WIDE ? 2 : 1;  // pieces of a hidden-width product
     auto hin_at = [&](int l) {
       return S.hin + (size_t)tiles * 64 * G.hs_w[l] + (size_t)tile * 64 * G.din_pad[l];
     };
@@ -415,28 +417,37 @@ tan_bwd_pass_kernel(const Geom G, const mms::Enc E, const TanIo I, int n,
       if (l > 0 && !own_hin) st.store(hin_at(l), act, G.din_pad[l]);
       const bool next_skip = (G.skip_mask >> (l + 1)) & 1;
       const bool need_h = !own_hin || l + 1 < L - 1;
-      uint32_t* zl = zs + l * zwords;
-      with_n64(H, [&](auto NC) {
-        constexpr int N = decltype(NC)::value;
-        float acc[N / 2];
-        mma_piece<N>(acc, a, G.din_pad[l] >> 6, R, wg, bpk + G.b_off[l], kind0 == 0 ? 1 : 0);
+      for (int p = 0; p < nph; ++p) {
+        int off, np;
+        hidden_piece<WIDE>(H, p, off, np);
+        bf16* dst = piece_dst<WIDE>(act, act_bytes, p, nph, off);
+        uint32_t* zl = zs + l * zwords + (off >> 2) * 128;
+        with_n64(np, [&](auto NC) {
+          constexpr int N = decltype(NC)::value;
+          float acc[N / 2];
+          mma_piece<N>(acc, a, G.din_pad[l] >> 6, R, wg, bpk + G.b_off[l] + off,
+                       kind0 == 0 ? 1 : 0);
 #pragma unroll
-        for (int i = 0; i < N / 4; ++i) zl[i * 128 + t] = pack2(acc[2 * i], acc[2 * i + 1]);
-        st.drain(wg);  // the stack stores have read act
-        if (l == 0 && G.skip_mask) scale_region(act, H, P0);
-        if (own_hin) {
-          tan_hidden<N, true>(acc, act, next_skip, act_kind, qa, K, kind0, kind1);
-          fence_async_smem();
-          wg_sync(1 + wg);
-          st.store(hin_at(l + 1), act, G.din_pad[l + 1]);
-          if (need_h) st.drain(wg);
-        }
-        if (need_h) {
-          tan_hidden<N, false>(acc, act, next_skip, act_kind, qa, K, kind0, kind1);
-          fence_async_smem();
-          wg_sync(1 + wg);
-        }
-      });
+          for (int i = 0; i < N / 4; ++i) zl[i * 128 + t] = pack2(acc[2 * i], acc[2 * i + 1]);
+          st.drain(wg);  // the stack stores have read act
+          if (l == 0 && G.skip_mask && p + 1 == nph) scale_region(act, H, P0);
+          if (own_hin) {
+            tan_hidden<N, true>(acc, dst, next_skip, act_kind, qa, K, kind0, kind1);
+            fence_async_smem();
+            wg_sync(1 + wg);
+            st.store(hin_at(l + 1) + off * 64, dst, p + 1 < nph ? N : G.din_pad[l + 1] - off);
+            if (need_h) st.drain(wg);
+          }
+          if (need_h) {
+            tan_hidden<N, false>(acc, dst, next_skip, act_kind, qa, K, kind0, kind1);
+            if (p + 1 == nph) {
+              side_back<WIDE>(act, act_bytes, nph, wg);
+              fence_async_smem();
+              wg_sync(1 + wg);
+            }
+          }
+        });
+      }
     }
     if (!own_hin) st.store(hin_at(L - 1), act, G.din_pad[L - 1]);
     st.drain(wg);
@@ -512,11 +523,14 @@ tan_bwd_pass_kernel(const Geom G, const mms::Enc E, const TanIo I, int n,
             }
           } else if (x0part) {  // a skip layer's x0 columns: gx0 += gh / sqrt 2
             slab_accumulate<N>(gx0, off - H, acc, SKIP_SCALE, l == top_skip);
-          } else {  // gz (primal rows) and gu (tangent rows) of layer l - 1, in place
-            const uint32_t* zl = zs + (l - 1) * zwords;
+          } else {  // gz (primal rows) and gu (tangent rows) of layer l - 1 (the first of
+                    // two pieces to the side images)
+            const int hoff = WIDE ? off : 0;  // the h part's one piece starts at 0
+            const uint32_t* zl = zs + (l - 1) * zwords + (hoff >> 2) * 128;
             const float sc = skip ? SKIP_SCALE : 1.f;
+            bf16* dst = piece_dst<WIDE>(act, act_bytes, p, npc, hoff);
             st.drain(wg);  // the stack store of G has read act
-            float* cs = csum + G.gb_off[l - 1];
+            float* cs = csum + G.gb_off[l - 1] + hoff;
 #pragma unroll
             for (int j = 0; j < N / 8; ++j) {
               const uint32_t w0 = zl[(2 * j) * 128 + t], w1 = zl[(2 * j + 1) * 128 + t];
@@ -542,8 +556,8 @@ tan_bwd_pass_kernel(const Geom G, const mms::Enc E, const TanIo I, int n,
                   o01 += t1 * act_ddf(act_kind, zp.y, qa);
                 }
               }
-              *reinterpret_cast<uint32_t*>(act + act_el(8 * j + cq, r0)) = pack2(o00, o01);
-              *reinterpret_cast<uint32_t*>(act + act_el(8 * j + cq, r0 + 8)) = pack2(o10, o11);
+              *reinterpret_cast<uint32_t*>(dst + act_el(8 * j + cq, r0)) = pack2(o00, o01);
+              *reinterpret_cast<uint32_t*>(dst + act_el(8 * j + cq, r0 + 8)) = pack2(o10, o11);
               // gb_{l-1}: the primal rows' f32 gz
               float s0c = kind0 == 0 ? o00 : 0.f, s1c = kind0 == 0 ? o01 : 0.f;
 #pragma unroll
@@ -559,6 +573,7 @@ tan_bwd_pass_kernel(const Geom G, const mms::Enc E, const TanIo I, int n,
           }
         });
       }
+      if (l > 0) side_back<WIDE>(act, act_bytes, nph, wg);
       fence_async_smem();
       wg_sync(1 + wg);
       if (l > 0) st.store(gz_at(l - 1), act, H);
@@ -590,9 +605,10 @@ tan_bwd_pass_kernel(const Geom G, const mms::Enc E, const TanIo I, int n,
 }
 
 static int tan_plan(const Geom& G, int tiles, Launch* P) {
-  const void* kernel = (const void*)tan_bwd_pass_kernel;
+  const void* kernel = is_wide(G) ? (const void*)tan_bwd_pass_kernel<true>
+                                  : (const void*)tan_bwd_pass_kernel<false>;
   if (plan_chain(G, tiles, true, (size_t)MAXWG * 256 * 4, P)) return ERR_SMEM;
-  if (allow_smem(0, kernel) != cudaSuccess) return -1;
+  if (allow_smem(is_wide(G), kernel) != cudaSuccess) return -1;
   if (persistent(kernel, P, (tiles + P->nwg - 1) / P->nwg) != cudaSuccess) return -1;
   return 0;
 }
@@ -704,9 +720,14 @@ static int tan_bwd_launch(const k1::Geom& G, const Enc& E, const k1::TanIo& I, i
   uint8_t* p = (uint8_t*)scratch;
   const k1::TanScratch S{(bf16*)p, (bf16*)(p + s[0]), (uint32_t*)(p + s[0] + s[1]),
                          s[3] ? (float*)(p + s[0] + s[1] + s[2]) : nullptr};
-  k1::tan_bwd_pass_kernel<<<P.grid, P.threads, P.smem, (cudaStream_t)stream>>>(
-      G, E, I, n, (const bf16*)wfw, (const bf16*)wbw, (const float*)bpk, (float*)gb, S, P.nwg,
-      P.stages, P.sb, P.act_bytes);
+  if (k1::is_wide(G))
+    k1::tan_bwd_pass_kernel<true><<<P.grid, P.threads, P.smem, (cudaStream_t)stream>>>(
+        G, E, I, n, (const bf16*)wfw, (const bf16*)wbw, (const float*)bpk, (float*)gb, S, P.nwg,
+        P.stages, P.sb, P.act_bytes);
+  else
+    k1::tan_bwd_pass_kernel<false><<<P.grid, P.threads, P.smem, (cudaStream_t)stream>>>(
+        G, E, I, n, (const bf16*)wfw, (const bf16*)wbw, (const float*)bpk, (float*)gb, S, P.nwg,
+        P.stages, P.sb, P.act_bytes);
   return (int)cudaGetLastError();
 }
 

@@ -130,10 +130,11 @@ __host__ __device__ __forceinline__ void piece(int w, int i, int& off, int& np) 
 
 // Pieces of the backward product of layer l (gh over the layer's input
 // columns): the x0 part first at a skip layer (pieces of P0 at column H), then
-// the h part (one piece of H); layer 0: pieces of P0.
+// the h part (the pieces of H: one, or 256 and H - 256 columns); layer 0:
+// pieces of P0.
 __host__ __device__ __forceinline__ int bwd_n_pieces(const Geom& G, int l) {
   if (l == 0) return n_pieces(G.P0);
-  return ((G.skip_mask >> l) & 1) ? n_pieces(G.P0) + 1 : 1;
+  return ((G.skip_mask >> l) & 1) ? n_pieces(G.P0) + n_pieces(G.H) : n_pieces(G.H);
 }
 
 // x0part: the piece lies in the layer's x0 columns (gx or gx0)
@@ -146,8 +147,7 @@ __host__ __device__ __forceinline__ void bwd_piece(const Geom& G, int l, int i, 
     x0part = true;
     return;
   }
-  off = 0;
-  np = G.H;
+  piece(G.H, skip ? i - n_pieces(G.P0) : i, off, np);
   x0part = false;
 }
 
@@ -164,6 +164,43 @@ __host__ __device__ __forceinline__ int act_cols(const Geom& G) {
 
 // shared-memory element (bf16) of activation column c, row r
 __device__ __forceinline__ int act_el(int c, int r) { return (c >> 6) * 4096 + img(r, c & 63); }
+
+// A product of hidden width H > 256 runs as two output pieces, 256 and H - 256
+// columns. Its output replaces the columns its input occupies, which the second
+// piece's product still reads, so the first piece's epilogue writes 256 side
+// columns after the activation images instead (the last side_cols columns of
+// the buffer), and side_back copies them to columns [0, 256) once the last
+// product retired. The last piece writes in place. The kernels that run hidden
+// layers take this as a template flag WIDE (H > 256), so that a narrower chain
+// compiles to one piece per layer, its offsets constant, and keeps its
+// registers: the piece loop's live values cost spills at 168 registers.
+__host__ __device__ __forceinline__ int side_cols(const Geom& G) { return G.H > 256 ? 256 : 0; }
+
+__host__ __device__ __forceinline__ bool is_wide(const Geom& G) { return G.H > 256; }
+
+// piece p (off, np) of a hidden-width product's WIDE ? 2 : 1 pieces
+template <bool WIDE>
+__device__ __forceinline__ void hidden_piece(int H, int p, int& off, int& np) {
+  off = WIDE ? p << 8 : 0;
+  np = WIDE ? min(256, H - off) : H;
+}
+
+// the images that piece p of npc hidden-width pieces (at column off) writes
+template <bool WIDE>
+__device__ __forceinline__ bf16* piece_dst(bf16* act, int act_bytes, int p, int npc, int off) {
+  if (!WIDE) return act;
+  return p + 1 < npc ? act + (act_bytes / 128 - 256) / 64 * 4096 : act + (off >> 6) * 4096;
+}
+
+// after the last of npc hidden-width pieces: the side images to columns [0, 256)
+template <bool WIDE>
+__device__ __forceinline__ void side_back(bf16* act, int act_bytes, int npc, int wg) {
+  if (!WIDE || npc < 2) return;
+  wg_sync(1 + wg);
+  const uint4* s = reinterpret_cast<const uint4*>(act + (act_bytes / 128 - 256) / 64 * 4096);
+  uint4* d = reinterpret_cast<uint4*>(act);
+  for (int i = threadIdx.x & 127; i < 256 * 64 * 2 / 16; i += 128) d[i] = s[i];
+}
 
 template <class F>
 __device__ __forceinline__ void with_n(int np, F&& f) {
@@ -399,11 +436,21 @@ __device__ __forceinline__ void stream_images(Ring& R, const uint8_t* src, uint3
   R.advance();
 }
 
-__device__ __forceinline__ void stream_hidden_fwd(Ring& R, const Geom& G, const bf16* wfw) {
+// forward images of layers [0, nl): per layer, per output piece, per 64-deep k-chunk
+__device__ __forceinline__ void stream_fwd(Ring& R, const Geom& G, const bf16* wfw, int nl) {
   const uint8_t* src = reinterpret_cast<const uint8_t*>(wfw);
-  for (int l = 0; l < G.L - 1; ++l)
-    for (int kc = 0; kc < (G.din_pad[l] >> 6); ++kc, src += G.H * 128)
-      stream_images(R, src, G.H * 128);
+  for (int l = 0; l < nl; ++l) {
+    for (int p = 0; p < n_pieces(G.dout_pad[l]); ++p) {
+      int off, np;
+      piece(G.dout_pad[l], p, off, np);
+      for (int kc = 0; kc < (G.din_pad[l] >> 6); ++kc, src += np * 128)
+        stream_images(R, src, np * 128);
+    }
+  }
+}
+
+__device__ __forceinline__ void stream_hidden_fwd(Ring& R, const Geom& G, const bf16* wfw) {
+  stream_fwd(R, G, wfw, G.L - 1);
 }
 
 // backward images of layers top .. 0
@@ -416,6 +463,106 @@ __device__ __forceinline__ void stream_bwd(Ring& R, const Geom& G, const bf16* w
       bool x0part;
       bwd_piece(G, l, p, off, np, x0part);
       for (int kc = 0; kc < kcs; ++kc, src += np * 128) stream_images(R, src, np * 128);
+    }
+  }
+}
+
+// The forward of a chain over n rows on one CTA of a persistent grid (K1's
+// forward, and K2's with the slot grid in front): the producer warpgroup
+// streams every layer's forward images, once per tile group, through the
+// ring; each consumer warpgroup owns a 64-row tile, its activations in one
+// buffer of 64-column images that each layer's epilogue overwrites from its
+// accumulators (the first of two hidden-width pieces through the side images)
+// once the layer's wgmmas retired; the bias seeds the accumulators.
+//   front(act, c0, row0): the tile's chain input, bf16, into activation
+//     columns [c0, c0 + P0), zero past the input's width and past n, by the
+//     warpgroup's 128 threads (the caller fences and synchronises);
+//   hidden(l, off, NC, acc, row0): a hidden layer's piece (NC its width as an
+//     integral_constant) before its epilogue;
+//   last(off, NC, acc, row0): a piece of the last layer.
+// WIDE: the chain's hidden width is over 256 (is_wide).
+template <bool WIDE, class Front, class Hidden, class Last>
+__device__ __forceinline__ void chain_forward(uint8_t* smem, const Geom& G, int n,
+                                              const bf16* __restrict__ wfw,
+                                              const float* __restrict__ bpk, int nwg, int stages,
+                                              int sb, int act_bytes, const Front& front,
+                                              const Hidden& hidden, const Last& last) {
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + nwg * act_bytes + stages * sb);
+  Ring R{smem + nwg * act_bytes, bars, bars + stages, sb, stages};
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&R.full[s], 1);
+      mbar_init(&R.empty[s], nwg);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+  const int L = G.L, H = G.H, P0 = G.P0;
+  const int x0c = x0_col(G);
+  const int tiles = (n + 63) / 64, groups = (tiles + nwg - 1) / nwg;
+  const int warp = threadIdx.x >> 5;
+  if (warp >= nwg * 4) {  // producer: the forward images, in order, once per tile group
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == nwg * 128)
+      for (int grp = blockIdx.x; grp < groups; grp += gridDim.x) stream_fwd(R, G, wfw, L);
+    return;
+  }
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int wg = warp >> 2;
+  bf16* act = reinterpret_cast<bf16*>(smem + wg * act_bytes);
+  {
+    uint4* p = reinterpret_cast<uint4*>(act);
+    for (int i = threadIdx.x & 127; i < act_bytes / 16; i += 128) p[i] = make_uint4(0, 0, 0, 0);
+  }
+  wg_sync(1 + wg);
+  const int r0 = acc_row(), cq = acc_col();
+  const int act_kind = G.act;
+  const float qa = G.quad_a;
+  for (int grp = blockIdx.x; grp < groups; grp += gridDim.x) {
+    const long long row0 = (long long)(grp * nwg + wg) * 64;
+    front(act, x0c, row0);
+    fence_async_smem();
+    wg_sync(1 + wg);
+    for (int l = 0; l < L; ++l) {
+      const bf16* a = act + (l == 0 ? (x0c >> 6) * 4096 : 0);
+      const int kcs = G.din_pad[l] >> 6, npc = n_pieces(G.dout_pad[l]);
+      const bool is_last = l == L - 1;
+      const bool next_skip = !is_last && ((G.skip_mask >> (l + 1)) & 1);
+      const float* B = bpk + G.b_off[l];
+      for (int p = 0; p < npc; ++p) {
+        int off, np;
+        piece(G.dout_pad[l], p, off, np);
+        with_n(np, [&](auto NC) {
+          constexpr int N = decltype(NC)::value;
+          float acc[N / 2];
+          mma_piece<N>(acc, a, kcs, R, wg, B + off);
+          if (is_last) {
+            last(off, NC, acc, row0);
+            return;
+          }
+          hidden(l, off, NC, acc, row0);
+          // h = bf16(act(z)) (times 1/sqrt 2, rounded, before a skip layer)
+          bf16* dst = piece_dst<WIDE>(act, act_bytes, p, npc, off);
+#pragma unroll
+          for (int j = 0; j < N / 8; ++j) {
+            const int c = 8 * j + cq;
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              uint32_t h = pack2(act_f(act_kind, acc[4 * j + 2 * e], qa),
+                                 act_f(act_kind, acc[4 * j + 2 * e + 1], qa));
+              if (next_skip) {
+                const float2 v = unpack2(h);
+                h = pack2(v.x * SKIP_SCALE, v.y * SKIP_SCALE);
+              }
+              *reinterpret_cast<uint32_t*>(dst + act_el(c, r0 + 8 * e)) = h;
+            }
+          }
+        });
+      }
+      if (!is_last) side_back<WIDE>(act, act_bytes, npc, wg);
+      if (l == 0 && G.skip_mask) scale_region(act, H, P0);
+      fence_async_smem();
+      wg_sync(1 + wg);
     }
   }
 }
@@ -471,11 +618,12 @@ static int max_piece(int w) {
   return m;
 }
 
-// Checks what the kernels take: 2..MAXL layers, H in {64, 128, 256}, at most
+// Checks what the kernels take: 2..MAXL layers, H in {64, 128, 256, 384, 512}
+// (at most two pieces of a hidden-width product: one side image), at most
 // MAXPIECES pieces per product.
 static bool geom_ok(const Geom& G) {
   if (G.L < 2 || G.L > MAXL) return false;
-  if (G.H != 64 && G.H != 128 && G.H != 256) return false;
+  if (G.H != 64 && G.H != 128 && G.H != 256 && G.H != 384 && G.H != 512) return false;
   if (G.skip_mask & 1) return false;
   for (int l = 0; l < G.L; ++l)
     if (n_pieces(G.dout_pad[l]) > MAXPIECES || bwd_n_pieces(G, l) > MAXPIECES) return false;
@@ -490,9 +638,10 @@ static bool geom_ok(const Geom& G) {
 static int plan_chain(const Geom& G, int tiles, bool bwd, size_t extra_bytes, Launch* P) {
   int width = act_cols(G);
   if (bwd) width = width > gcols(G, G.L - 1) ? width : gcols(G, G.L - 1);
-  // the widest image a stage holds: forward pieces, or (bwd) the hidden layers' H and
-  // the backward pieces (H, pieces of P0)
-  int npmax = G.H;
+  width += side_cols(G);
+  // the widest image a stage holds: forward pieces, or (bwd) the hidden layers' pieces
+  // and the backward pieces (pieces of H and of P0)
+  int npmax = max_piece(G.H);
   if (bwd) {
     const int m = max_piece(G.P0);
     npmax = m > npmax ? m : npmax;

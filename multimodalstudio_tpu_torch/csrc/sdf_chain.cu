@@ -366,6 +366,7 @@ __device__ __forceinline__ void adjoint_h(const float (&acc)[N / 2], bf16* act, 
   wg_sync(1 + wg);
 }
 
+template <bool WIDE>
 __global__ void __launch_bounds__(NTHREADS, 1)
 adj_bwd_pass_kernel(const Geom G, const mms::Enc E, const AdjIo I, int n,
                     const bf16* __restrict__ wfw, const bf16* __restrict__ wbw,
@@ -439,6 +440,7 @@ adj_bwd_pass_kernel(const Geom G, const mms::Enc E, const AdjIo I, int n,
     const int tile = grp * nwg + wg;
     const long long row0 = (long long)tile * 64;
     const Stacker st{tile < tiles};
+    constexpr int nph = WIDE ? 2 : 1;  // pieces of a hidden-width product
     // stack tiles: [first | second] per layer, tiles each
     auto a_at = [&](int l, int half) {
       return S.hin + (size_t)tiles * 64 * G.hs_w[l] +
@@ -458,26 +460,34 @@ adj_bwd_pass_kernel(const Geom G, const mms::Enc E, const AdjIo I, int n,
       if (l > 0 && !own_hin) st.store(a_at(l, 0), act, G.din_pad[l]);
       const bool next_skip = (G.skip_mask >> (l + 1)) & 1;
       const bool need_h = !own_hin || l + 1 < L - 1;
-      uint32_t* zl = zs + l * zwords;
-      with_n64(H, [&](auto NC) {
-        constexpr int N = decltype(NC)::value;
-        float acc[N / 2];
-        mma_piece<N>(acc, a, G.din_pad[l] >> 6, R, wg, bpk + G.b_off[l]);
-        st.drain(wg);
-        if (l == 0 && G.skip_mask) scale_region(act, H, P0);
-        if (own_hin) {
-          write_hidden<N, true>(acc, act, next_skip, act_kind, qa, zl);
-          fence_async_smem();
-          wg_sync(1 + wg);
-          st.store(a_at(l + 1, 0), act, G.din_pad[l + 1]);
-          if (need_h) st.drain(wg);
-        }
-        if (need_h) {
-          write_hidden<N, false>(acc, act, next_skip, act_kind, qa, own_hin ? nullptr : zl);
-          fence_async_smem();
-          wg_sync(1 + wg);
-        }
-      });
+      for (int p = 0; p < nph; ++p) {
+        int off, np;
+        hidden_piece<WIDE>(H, p, off, np);
+        bf16* dst = piece_dst<WIDE>(act, act_bytes, p, nph, off);
+        uint32_t* zl = zs + l * zwords + (off >> 2) * 128;
+        with_n64(np, [&](auto NC) {
+          constexpr int N = decltype(NC)::value;
+          float acc[N / 2];
+          mma_piece<N>(acc, a, G.din_pad[l] >> 6, R, wg, bpk + G.b_off[l] + off);
+          st.drain(wg);
+          if (l == 0 && G.skip_mask && p + 1 == nph) scale_region(act, H, P0);
+          if (own_hin) {
+            write_hidden<N, true>(acc, dst, next_skip, act_kind, qa, zl);
+            fence_async_smem();
+            wg_sync(1 + wg);
+            st.store(a_at(l + 1, 0) + off * 64, dst, p + 1 < nph ? N : G.din_pad[l + 1] - off);
+            if (need_h) st.drain(wg);
+          }
+          if (need_h) {
+            write_hidden<N, false>(acc, dst, next_skip, act_kind, qa, own_hin ? nullptr : zl);
+            if (p + 1 == nph) {
+              side_back<WIDE>(act, act_bytes, nph, wg);
+              fence_async_smem();
+              wg_sync(1 + wg);
+            }
+          }
+        });
+      }
     }
     if (!own_hin) st.store(a_at(L - 1, 0), act, G.din_pad[L - 1]);
     // ---- 2. adjoint sweep; the last layer's s is column `channel` of W_{L-1}
@@ -485,17 +495,23 @@ adj_bwd_pass_kernel(const Geom G, const mms::Enc E, const AdjIo I, int n,
     {
       const bool skip = (G.skip_mask >> (L - 1)) & 1;
       const float sc = skip ? SKIP_SCALE : 1.f;
-      with_n64(H, [&](auto NC) {
-        constexpr int N = decltype(NC)::value;
-        float acc[N / 2];
+      for (int p = 0; p < nph; ++p) {  // no product reads act here: every piece in place
+        int off, np;
+        hidden_piece<WIDE>(H, p, off, np);
+        with_n64(np, [&](auto NC) {
+          constexpr int N = decltype(NC)::value;
+          float acc[N / 2];
 #pragma unroll
-        for (int j = 0; j < N / 8; ++j) {
+          for (int j = 0; j < N / 8; ++j) {
 #pragma unroll
-          for (int q = 0; q < 2; ++q) acc[4 * j + q] = acc[4 * j + 2 + q] = sc * wc[8 * j + cq + q];
-        }
-        adjoint_h<N>(acc, act, zs + (L - 2) * zwords, ss + (L - 2) * zwords, act_kind, qa, st,
-                     b_at(L - 2, 1), wg);
-      });
+            for (int q = 0; q < 2; ++q)
+              acc[4 * j + q] = acc[4 * j + 2 + q] = sc * wc[off + 8 * j + cq + q];
+          }
+          const size_t w0 = (L - 2) * zwords + (off >> 2) * 128;
+          adjoint_h<N>(acc, act + (off >> 6) * 4096, zs + w0, ss + w0, act_kind, qa, st,
+                       b_at(L - 2, 1) + off * 64, wg);
+        });
+      }
       if (skip) {
         for (int p = 0; p < n_pieces(P0); ++p) {
           int off, np;
@@ -535,10 +551,17 @@ adj_bwd_pass_kernel(const Geom G, const mms::Enc E, const AdjIo I, int n,
 #pragma unroll
               for (int i = 0; i < N / 2; ++i) acc[i] *= SKIP_SCALE;
             }
-            adjoint_h<N>(acc, act, zs + (l - 1) * zwords, ss + (l - 1) * zwords, act_kind, qa, st,
-                         b_at(l - 1, 1), wg);
+            const int hoff = WIDE ? off : 0;  // the h part's one piece starts at 0
+            const size_t w0 = (l - 1) * zwords + (hoff >> 2) * 128;
+            adjoint_h<N>(acc, piece_dst<WIDE>(act, act_bytes, p, npc, hoff), zs + w0, ss + w0,
+                         act_kind, qa, st, b_at(l - 1, 1) + hoff * 64, wg);
           }
         });
+      }
+      if (WIDE && l > 0) {
+        side_back<WIDE>(act, act_bytes, nph, wg);
+        fence_async_smem();
+        wg_sync(1 + wg);
       }
     }
     // ---- 3. the ga-forward chain; stacks qin_l
@@ -549,36 +572,44 @@ adj_bwd_pass_kernel(const Geom G, const mms::Enc E, const AdjIo I, int n,
       const bf16* a = act + (l == 0 ? (x0c >> 6) * 4096 : 0);
       st.store(a_at(l, 1), a, G.din_pad[l]);
       const bool next_skip = (G.skip_mask >> (l + 1)) & 1;
-      uint32_t* zl = zs + l * zwords;
-      uint32_t* sl = ss + l * zwords;
-      prefetch(zl);
-      prefetch(sl);
-      with_n64(H, [&](auto NC) {
-        constexpr int N = decltype(NC)::value;
-        float acc[N / 2];
-        mma_piece<N>(acc, a, G.din_pad[l] >> 6, R, wg, nullptr);
-        st.drain(wg);
-        if (l == 0 && G.skip_mask) load_ga(G, E, I, act, H, row0, n, SKIP_SCALE);
+      prefetch(zs + l * zwords);
+      prefetch(ss + l * zwords);
+      for (int p = 0; p < nph; ++p) {
+        int off, np;
+        hidden_piece<WIDE>(H, p, off, np);
+        bf16* dst = piece_dst<WIDE>(act, act_bytes, p, nph, off);
+        uint32_t* zl = zs + l * zwords + (off >> 2) * 128;
+        uint32_t* sl = ss + l * zwords + (off >> 2) * 128;
+        with_n64(np, [&](auto NC) {
+          constexpr int N = decltype(NC)::value;
+          float acc[N / 2];
+          mma_piece<N>(acc, a, G.din_pad[l] >> 6, R, wg, nullptr);
+          st.drain(wg);
+          // the x0 part again, scaled, once layer 0's last product read x0
+          if (l == 0 && G.skip_mask && p + 1 == nph)
+            load_ga(G, E, I, act, H, row0, n, SKIP_SCALE);
 #pragma unroll
-        for (int j = 0; j < N / 8; ++j) {
+          for (int j = 0; j < N / 8; ++j) {
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int w = (2 * j + e) * 128 + t;
-            const float2 z = unpack2(zl[w]), s = unpack2(sl[w]);
-            const float m0 = acc[4 * j + 2 * e], m1 = acc[4 * j + 2 * e + 1];
-            sl[w] = pack2(m0 * s.x * act_ddf(act_kind, z.x, qa),
-                          m1 * s.y * act_ddf(act_kind, z.y, qa));
-            float q0 = m0 * act_df(act_kind, z.x, qa), q1 = m1 * act_df(act_kind, z.y, qa);
-            if (next_skip) {
-              q0 *= SKIP_SCALE;
-              q1 *= SKIP_SCALE;
+            for (int e = 0; e < 2; ++e) {
+              const int w = (2 * j + e) * 128 + t;
+              const float2 z = unpack2(zl[w]), s = unpack2(sl[w]);
+              const float m0 = acc[4 * j + 2 * e], m1 = acc[4 * j + 2 * e + 1];
+              sl[w] = pack2(m0 * s.x * act_ddf(act_kind, z.x, qa),
+                            m1 * s.y * act_ddf(act_kind, z.y, qa));
+              float q0 = m0 * act_df(act_kind, z.x, qa), q1 = m1 * act_df(act_kind, z.y, qa);
+              if (next_skip) {
+                q0 *= SKIP_SCALE;
+                q1 *= SKIP_SCALE;
+              }
+              *reinterpret_cast<uint32_t*>(dst + act_el(8 * j + cq, r0 + 8 * e)) = pack2(q0, q1);
             }
-            *reinterpret_cast<uint32_t*>(act + act_el(8 * j + cq, r0 + 8 * e)) = pack2(q0, q1);
           }
-        }
-        fence_async_smem();
-        wg_sync(1 + wg);
-      });
+        });
+      }
+      side_back<WIDE>(act, act_bytes, nph, wg);
+      fence_async_smem();
+      wg_sync(1 + wg);
     }
     // the last layer's v is e_channel: gW_{L-1}[:, channel] += column sums of qin_{L-1}
     for (int c = t; c < dlast; c += 128) {
@@ -652,10 +683,13 @@ adj_bwd_pass_kernel(const Geom G, const mms::Enc E, const AdjIo I, int n,
             }
           } else if (x0part) {  // a skip layer's x0 columns: gx0 += gh / sqrt 2
             slab_accumulate<N>(gx0, off - H, acc, SKIP_SCALE, l == top_skip);
-          } else {  // gz_{l-1} = bf16(gh act'(z_{l-1}) + e_{l-1}), in place, and its column sums
-            const uint32_t* zl = zs + (l - 1) * zwords;
-            const uint32_t* el = ss + (l - 1) * zwords;
-            float* cs = csum + G.gb_off[l - 1];
+          } else {  // gz_{l-1} = bf16(gh act'(z_{l-1}) + e_{l-1}) (the first of two pieces to
+                    // the side images), and its column sums
+            const int hoff = WIDE ? off : 0;  // the h part's one piece starts at 0
+            const uint32_t* zl = zs + (l - 1) * zwords + (hoff >> 2) * 128;
+            const uint32_t* el = ss + (l - 1) * zwords + (hoff >> 2) * 128;
+            float* cs = csum + G.gb_off[l - 1] + hoff;
+            bf16* dst = piece_dst<WIDE>(act, act_bytes, p, npc, hoff);
             st.drain(wg);
 #pragma unroll
             for (int j = 0; j < N / 8; ++j) {
@@ -673,7 +707,7 @@ adj_bwd_pass_kernel(const Geom G, const mms::Enc E, const AdjIo I, int n,
                 g1 = g1 * act_df(act_kind, z.y, qa) + ev.y;
                 s0 += g0;
                 s1 += g1;
-                *reinterpret_cast<uint32_t*>(act + act_el(8 * j + cq, r0 + 8 * e)) = pack2(g0, g1);
+                *reinterpret_cast<uint32_t*>(dst + act_el(8 * j + cq, r0 + 8 * e)) = pack2(g0, g1);
               }
 #pragma unroll
               for (int m = 4; m < 32; m <<= 1) {
@@ -688,6 +722,7 @@ adj_bwd_pass_kernel(const Geom G, const mms::Enc E, const AdjIo I, int n,
           }
         });
       }
+      if (l > 0) side_back<WIDE>(act, act_bytes, nph, wg);
       fence_async_smem();
       wg_sync(1 + wg);
       if (l > 0) st.store(b_at(l - 1, 0), act, H);
@@ -729,11 +764,12 @@ adj_bwd_pass_kernel(const Geom G, const mms::Enc E, const AdjIo I, int n,
 // qin_{L-1} and the last layer's weight column in shared memory beside K1's
 // backward layout.
 static int adj_plan(const Geom& G, int n, Launch* P) {
-  const void* kernel = (const void*)adj_bwd_pass_kernel;
+  const void* kernel = is_wide(G) ? (const void*)adj_bwd_pass_kernel<true>
+                                  : (const void*)adj_bwd_pass_kernel<false>;
   const int tiles = (n + 63) / 64;
   const size_t extra = ((size_t)((G.din_true[G.L - 1] + 3) & ~3) + G.din_pad[G.L - 1]) * 4;
   if (plan_chain(G, tiles, true, extra, P)) return ERR_SMEM;
-  if (allow_smem(0, kernel) != cudaSuccess) return -1;
+  if (allow_smem(is_wide(G), kernel) != cudaSuccess) return -1;
   if (persistent(kernel, P, (tiles + P->nwg - 1) / P->nwg) != cudaSuccess) return -1;
   return 0;
 }
@@ -855,9 +891,14 @@ static int adj_bwd_launch(const k1::Geom& G, const Enc& E, const k1::AdjIo& I, i
   const k1::AdjScratch S{(bf16*)p, (bf16*)(p + s[0]), (uint32_t*)(p + s[0] + s[1]),
                          (uint32_t*)(p + s[0] + s[1] + s[2]),
                          (float*)(p + s[0] + s[1] + s[2] + s[3])};
-  k1::adj_bwd_pass_kernel<<<P.grid, P.threads, P.smem, (cudaStream_t)stream>>>(
-      G, E, I, n, (const bf16*)wfw, (const bf16*)wbw, (const float*)bpk, (float*)gw, (float*)gb,
-      S, P.nwg, P.stages, P.sb, P.act_bytes, (unsigned long long*)count);
+  if (k1::is_wide(G))
+    k1::adj_bwd_pass_kernel<true><<<P.grid, P.threads, P.smem, (cudaStream_t)stream>>>(
+        G, E, I, n, (const bf16*)wfw, (const bf16*)wbw, (const float*)bpk, (float*)gw,
+        (float*)gb, S, P.nwg, P.stages, P.sb, P.act_bytes, (unsigned long long*)count);
+  else
+    k1::adj_bwd_pass_kernel<false><<<P.grid, P.threads, P.smem, (cudaStream_t)stream>>>(
+        G, E, I, n, (const bf16*)wfw, (const bf16*)wbw, (const float*)bpk, (float*)gw,
+        (float*)gb, S, P.nwg, P.stages, P.sb, P.act_bytes, (unsigned long long*)count);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
-// Fused slot-grid + NeRF encoding + MLP chain SDF forward for Hopper.
+// Fused slot-grid + NeRF encoding + MLP chain SDF forward with its gradient for Hopper
+// (the first design; K2, the value-only forward, runs on K1's wgmma forward in
+// slot_value.cu).
 //
-// Replaces two Pallas TPU kernels of multimodalstudio_tpu/ops/pallas/slot_fused.py:
-//   K2 _value_fwd_kernel (:1307), reached through fused_slot_sdf_value (:1772): sdf only;
+// Replaces the Pallas TPU kernel of multimodalstudio_tpu/ops/pallas/slot_fused.py
 //   K3 _fused_fwd_kernel (:353), reached through fused_slot_sdf_chain (:1197): sdf, the
 //      geometric features and d sdf / d x from one reverse (adjoint) sweep of the chain.
 //
@@ -15,20 +16,20 @@
 //
 // Cast points follow the JAX kernel: with a bf16 table, table and trilerp weight rounded
 // to bf16, their product rounded to bf16 before the 8-corner f32 sum, the sum times the
-// coarse-to-fine mask rounded to bf16 into the chain input; with an f32 table (K2f / K3f,
-// the same Pallas bodies with SlotGeom.bf16 False) the grid side stays f32 up to that last
+// coarse-to-fine mask rounded to bf16 into the chain input; with an f32 table (K3f, the
+// same Pallas body with SlotGeom.bf16 False) the grid side stays f32 up to that last
 // rounding (slot.cuh); the NeRF encoding uses sinf / cosf (no fast math); a skip layer's
 // input is concat(h, x0) / sqrt(2) rounded to bf16 (slot_fused.py:423, 642), its adjoint
 // sweep row split into the h part and the x0 part added to adj; the last layer stays f32
 // (sdf) and geo is rounded to bf16; the adjoint sweep evaluates act' on the bf16-stored
 // pre-activations.
 //
-// Training mode (the forward of the autograd Functions) also writes what the backward
+// Training mode (the forward of the autograd Function) also writes what the backward
 // kernels (slot_fused_bwd.cu) read, as the reference's forward does (slot_fused.py:
-// 1092-1094, 1622-1625): the bf16 pre-activations zs [L-1, N, H], and with the gradient
-// the bf16 adjoint-sweep rows ss [L-1, N, H] and the f32 adjoint adj [N, d_in]. For the
-// split backward it also writes the chain input x0 [N, p0] bf16 (slot_fused.py:1028-1032,
-// 1626-1630), which the weight-gradient products read.
+// 1092-1094): the bf16 pre-activations zs [L-1, N, H], the bf16 adjoint-sweep rows ss
+// [L-1, N, H] and the f32 adjoint adj [N, d_in]. For the split backward it also writes
+// the chain input x0 [N, p0] bf16 (slot_fused.py:1028-1032), which the weight-gradient
+// products read.
 //
 // Bound on an H100: the chain's tensor-core work (2 * N * sum(din * dout) flops) against
 // N * (12 + 4 [+ 2 * 256 + 12]) bytes of positions and outputs plus the table: the tensor
@@ -39,7 +40,7 @@
 
 using namespace mms;
 
-template <class TT, bool GRAD>
+template <class TT>
 __global__ void __launch_bounds__(NTHREADS)
 slot_sdf_kernel(const float* __restrict__ pos, int n, const TT* __restrict__ table,
                 const float* __restrict__ lmask, const bf16* __restrict__ wpack,
@@ -50,18 +51,17 @@ slot_sdf_kernel(const float* __restrict__ pos, int n, const TT* __restrict__ tab
                 bf16* __restrict__ scratch, long long slab) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int L = C.n_layers, p0 = C.p0;
-  const bool keep_z = GRAD || zs_out != nullptr;
   const bool skips = C.skip_mask != 0;
   bf16* buf0 = reinterpret_cast<bf16*>(smem);
   bf16* buf1 = buf0 + TILE_M * lds;
   bf16* X = buf1 + TILE_M * lds;  // skip chains: x0 [64, ldx], read again by the skip layers
   bf16* after_x = X + (skips ? TILE_M * ldx : 0);
-  // keep_z: the z stack (L-1) x [64, ldz] after the tile's buffers, or in this CTA's slab of
+  // the z stack (L-1) x [64, ldz] after the tile's buffers, or in this CTA's slab of
   // device scratch when it does not fit in shared memory (then the grid is persistent)
   bf16* zs = scratch ? scratch + blockIdx.x * slab : after_x;
-  bf16* sT = scratch || !keep_z ? after_x : zs + (L - 1) * TILE_M * ldz;  // bf16: [64, K, 8F]
+  bf16* sT = scratch ? after_x : zs + (L - 1) * TILE_M * ldz;  // bf16: [64, K, 8F]
   float* sAdj = reinterpret_cast<float*>(sT + (kStaged<TT> ? TILE_M * P.levels * 8 * P.feats : 0));
-  float* stage = sAdj + (GRAD ? TILE_M * p0 : 0);  // sAdj: GRAD, [64, p0]
+  float* stage = sAdj + TILE_M * p0;  // sAdj: [64, p0]
   const int lane = threadIdx.x & 31;
   const int H = C.hidden;
 
@@ -77,7 +77,7 @@ slot_sdf_kernel(const float* __restrict__ pos, int n, const TT* __restrict__ tab
       __syncthreads();
     }
     const bf16* h = run_hidden_layers(C, wpack, bpack, buf0, buf1, lds, skips ? X : buf0,
-                                      skips ? ldx : lds, keep_z ? zs : nullptr, ldz, stage);
+                                      skips ? ldx : lds, zs, ldz, stage);
     if (zs_out) {
       for (int i = threadIdx.x; i < (L - 1) * TILE_M * H; i += NTHREADS) {
         const int l = i / (TILE_M * H), r = (i / H) % TILE_M, c = i % H;
@@ -85,20 +85,19 @@ slot_sdf_kernel(const float* __restrict__ pos, int n, const TT* __restrict__ tab
       }
     }
     const float* BL = bpack + C.b_off[L - 1];
-    // sdf is column 0 in f32; without GRAD only the first 16-column tile is computed
+    // sdf is column 0 in f32
     mma_tile64<false>(h, lds, C.in_dims[L - 1], wpack + C.w_off[L - 1], C.out_dims[L - 1],
-                      GRAD ? C.out_dims[L - 1] : 16, stage, [&](int r0, int c0, const float* t) {
+                      C.out_dims[L - 1], stage, [&](int r0, int c0, const float* t) {
                         for (int i = lane; i < 256; i += 32) {
                           const int r = r0 + (i >> 4), c = c0 + (i & 15);
                           if (row0 + r >= n) continue;
                           const float z = t[i] + BL[c];
                           if (c == 0) sdf[row0 + r] = z;
-                          else if (GRAD && c <= geo_width)
+                          else if (c <= geo_width)
                             geo[(row0 + r) * geo_width + c - 1] = __float2bfloat16(z);
                         }
                       });
     __syncthreads();
-    if (!GRAD) continue;
 
     // adjoint sweep (fused_mlp.py:327-359): v = e_0; s = bf16(v) W_l^T; a skip layer's s
     // splits into its h part (scaled by 1/sqrt 2) and its x0 part (scaled, added to adj);
@@ -187,14 +186,14 @@ slot_sdf_kernel(const float* __restrict__ pos, int n, const TT* __restrict__ tab
   }
 }
 
-// Row strides and shared memory of the forward: the tile's buffers (smem) and, when the
-// z stack is kept, the stack's bytes (stack), which go to device scratch if smem + stack
-// exceeds MAX_SMEM. A skip chain's activation rows hold [h | x0] and it keeps x0 apart.
+// Row strides and shared memory of the forward: the tile's buffers (smem) and the z
+// stack's bytes (stack), which go to device scratch if smem + stack exceeds MAX_SMEM. A
+// skip chain's activation rows hold [h | x0] and it keeps x0 apart.
 static void fwd_geometry(int n_layers, int hidden, int p0, int levels, int feats, int d_out,
-                         int with_grad, int keep_z, int skips, int table_f32, int& lds, int& ldz,
-                         int& ldx, size_t& smem, size_t& stack) {
+                         int skips, int table_f32, int& lds, int& ldz, int& ldx, size_t& smem,
+                         size_t& stack) {
   int width = p0 > hidden ? p0 : hidden;
-  if (with_grad && d_out > width) width = d_out;
+  if (d_out > width) width = d_out;
   if (skips && hidden + p0 > width) width = hidden + p0;
   lds = width + PAD;
   ldz = hidden + PAD;
@@ -202,60 +201,43 @@ static void fwd_geometry(int n_layers, int hidden, int p0, int levels, int feats
   smem = 2 * (size_t)TILE_M * lds * sizeof(bf16) + staged_bytes(levels, feats, table_f32) +
          NWARPS * 256 * sizeof(float);
   if (skips) smem += (size_t)TILE_M * ldx * sizeof(bf16);
-  if (with_grad) smem += (size_t)TILE_M * p0 * sizeof(float);
-  stack = keep_z ? (size_t)(n_layers - 1) * TILE_M * ldz * sizeof(bf16) : 0;
+  smem += (size_t)TILE_M * p0 * sizeof(float);
+  stack = (size_t)(n_layers - 1) * TILE_M * ldz * sizeof(bf16);
 }
 
 // bf16 elements of device scratch per CTA the forward needs for its z stack: 0 when the
 // stack fits in shared memory beside the tile's buffers.
 extern "C" long long mms_slot_fwd_slab(int n_layers, int hidden, int p0, int levels, int feats,
-                                       int d_out, int with_grad, int keep_z, int skips,
-                                       int table_f32) {
+                                       int d_out, int skips, int table_f32) {
   int lds, ldz, ldx;
   size_t smem, stack;
-  fwd_geometry(n_layers, hidden, p0, levels, feats, d_out, with_grad, keep_z, skips, table_f32,
-               lds, ldz, ldx, smem, stack);
+  fwd_geometry(n_layers, hidden, p0, levels, feats, d_out, skips, table_f32, lds, ldz, ldx, smem,
+               stack);
   return smem + stack <= MAX_SMEM ? 0 : (long long)stack / (long long)sizeof(bf16);
 }
 
-template <class TT, bool GRAD>
+template <class TT>
 static int launch_fwd(size_t smem, int n, int max_ctas, void* scratch, void* stream,
                       const void* pos, const void* table, const void* lmask, const void* wpack,
                       const void* bpack, const Chain& C, const SlotParams& P, int lds, int ldz,
                       int ldx, void* sdf, void* geo, int geo_width, void* grad, void* zs_out,
                       void* ss_out, void* adj_out, int adj_width, void* x0_out) {
   if (smem > MAX_SMEM) return ERR_SMEM;
-  cudaError_t err = cudaFuncSetAttribute(slot_sdf_kernel<TT, GRAD>,
+  cudaError_t err = cudaFuncSetAttribute(slot_sdf_kernel<TT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   int grid = (n + TILE_M - 1) / TILE_M;
   if (scratch) {
-    err = persistent_grid((const void*)slot_sdf_kernel<TT, GRAD>, smem, n, max_ctas, &grid);
+    err = persistent_grid((const void*)slot_sdf_kernel<TT>, smem, n, max_ctas, &grid);
     if (err != cudaSuccess) return (int)err;
   }
   const long long slab = (long long)(C.n_layers - 1) * TILE_M * ldz;
-  slot_sdf_kernel<TT, GRAD><<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
+  slot_sdf_kernel<TT><<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
       (const float*)pos, n, (const TT*)table, (const float*)lmask, (const bf16*)wpack,
       (const float*)bpack, C, P, lds, ldz, ldx, (float*)sdf, (bf16*)geo, geo_width, (float*)grad,
       (bf16*)zs_out, (bf16*)ss_out, (float*)adj_out, adj_width, (bf16*)x0_out, (bf16*)scratch,
       slab);
   return (int)cudaGetLastError();
-}
-
-template <class TT>
-static int launch_fwd_mode(int with_grad, size_t smem, int n, int max_ctas, void* scratch,
-                           void* stream, const void* pos, const void* table, const void* lmask,
-                           const void* wpack, const void* bpack, const Chain& C,
-                           const SlotParams& P, int lds, int ldz, int ldx, void* sdf, void* geo,
-                           int geo_width, void* grad, void* zs_out, void* ss_out, void* adj_out,
-                           int adj_width, void* x0_out) {
-  if (with_grad)
-    return launch_fwd<TT, true>(smem, n, max_ctas, scratch, stream, pos, table, lmask, wpack,
-                                bpack, C, P, lds, ldz, ldx, sdf, geo, geo_width, grad, zs_out,
-                                ss_out, adj_out, adj_width, x0_out);
-  return launch_fwd<TT, false>(smem, n, max_ctas, scratch, stream, pos, table, lmask, wpack,
-                               bpack, C, P, lds, ldz, ldx, sdf, nullptr, 0, nullptr, zs_out,
-                               nullptr, nullptr, 0, x0_out);
 }
 
 // scratch: null, or max_ctas slabs of mms_slot_fwd_slab elements for the z stack.
@@ -268,9 +250,9 @@ extern "C" int mms_slot_sdf_fwd(const void* pos, int n, const void* table, const
                                 const int* res, const int* dense, const int* ent_mask,
                                 const int* row_off, float radius, float clip_hi, int smooth,
                                 int pe_freqs, const float* pe_scale, int skip_mask, int table_f32,
-                                void* sdf, void* geo, int geo_width, void* grad, int with_grad,
-                                void* zs_out, void* ss_out, void* adj_out, int adj_width,
-                                void* x0_out, void* scratch, int max_ctas, void* stream) {
+                                void* sdf, void* geo, int geo_width, void* grad, void* zs_out,
+                                void* ss_out, void* adj_out, int adj_width, void* x0_out,
+                                void* scratch, int max_ctas, void* stream) {
   Chain C;
   if (fill_chain(C, n_layers, in_dims, out_dims, skip_mask, hidden, p0, act, quad_a) ||
       (skip_mask & 1))
@@ -282,14 +264,14 @@ extern "C" int mms_slot_sdf_fwd(const void* pos, int n, const void* table, const
   if (scratch && max_ctas < 1) return -1;
   int lds, ldz, ldx;
   size_t smem, stack;
-  fwd_geometry(n_layers, hidden, p0, levels, feats, out_dims[n_layers - 1], with_grad,
-               with_grad || zs_out, skip_mask != 0, table_f32, lds, ldz, ldx, smem, stack);
+  fwd_geometry(n_layers, hidden, p0, levels, feats, out_dims[n_layers - 1], skip_mask != 0,
+               table_f32, lds, ldz, ldx, smem, stack);
   if (!scratch) smem += stack;
   if (table_f32)
-    return launch_fwd_mode<float>(with_grad, smem, n, max_ctas, scratch, stream, pos, table,
-                                  lmask, wpack, bpack, C, P, lds, ldz, ldx, sdf, geo, geo_width,
-                                  grad, zs_out, ss_out, adj_out, adj_width, x0_out);
-  return launch_fwd_mode<bf16>(with_grad, smem, n, max_ctas, scratch, stream, pos, table, lmask,
-                               wpack, bpack, C, P, lds, ldz, ldx, sdf, geo, geo_width, grad,
-                               zs_out, ss_out, adj_out, adj_width, x0_out);
+    return launch_fwd<float>(smem, n, max_ctas, scratch, stream, pos, table, lmask, wpack, bpack,
+                             C, P, lds, ldz, ldx, sdf, geo, geo_width, grad, zs_out, ss_out,
+                             adj_out, adj_width, x0_out);
+  return launch_fwd<bf16>(smem, n, max_ctas, scratch, stream, pos, table, lmask, wpack, bpack, C,
+                          P, lds, ldz, ldx, sdf, geo, geo_width, grad, zs_out, ss_out, adj_out,
+                          adj_width, x0_out);
 }

@@ -4,7 +4,7 @@ Each library under `csrc/` is one .cu source with a plain C interface
 (fused_chain: K1 forward and backward, the weight pack and chain_wgrad, on
 wgmma; fused_mlp: K1t, the chain with forward tangents, forward and
 backward, and K4j, the tangent kernels with the encoding in front;
-slot_fused: K2/K3 forward;
+slot_value: K2 forward, on K1's wgmma forward; slot_fused: K3 forward;
 slot_fused_bwd: K2/K3 merged backward; slot_split: K2s/K3s per-sample passes
 and the table scatter of the split backward, the slot kernels each for a bf16
 and an f32 table (K2f/K3f); sdf_chain: K4 and K5 forward and
@@ -34,8 +34,8 @@ import torch
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 LIBRARIES = (
-    "fused_chain", "fused_mlp", "slot_fused", "slot_fused_bwd", "slot_split", "sdf_chain",
-    "slot_grid",
+    "fused_chain", "fused_mlp", "slot_value", "slot_fused", "slot_fused_bwd", "slot_split",
+    "sdf_chain", "slot_grid",
 )
 TILE_M = 64  # samples per CTA tile of every kernel (csrc/chain.cuh)
 MAX_LAYERS = 32  # layers of a chain a kernel takes (csrc/chain.cuh MAXL)

@@ -552,14 +552,15 @@ def unpack_grads(gw: torch.Tensor, gb: torch.Tensor, weights, in_dims, out_dims,
 # ------------------------------------------------------------- K1 on the card
 #
 # The layout of csrc/fused_chain.cu. Activation columns come in 64-wide
-# images: [h (H) | x0 (P0 = ceil64(d_in))]; hidden widths are 64, 128 or 256
-# (one wgmma of at most 256 columns per hidden layer). A product's output
-# width (padded to 16) is cut into pieces of 256 columns, then 128, 64, 32,
-# 16. An image is R rows of 64 bf16 (one 64-deep k-chunk), its 16-byte units
+# images: [h (H) | x0 (P0 = ceil64(d_in))]; hidden widths are 64, 128, 256,
+# 384 or 512 (a hidden layer's product runs as at most two wgmma pieces of at
+# most 256 columns, the first written to a 256-column side image until the
+# second's product retired). A product's output width (padded to 16) is cut
+# into pieces of 256 columns, then 128, 64, 32, 16. An image is R rows of 64 bf16 (one 64-deep k-chunk), its 16-byte units
 # permuted by unit ^ (row % 8) (the 128-byte swizzle of wgmma).
 
 MAX_PIECES = 8  # csrc/fused_chain.cu MAXPIECES
-HIDDEN_WIDTHS = (64, 128, 256)
+HIDDEN_WIDTHS = (64, 128, 256, 384, 512)
 
 
 def ceil64(n: int) -> int:
@@ -619,7 +620,7 @@ class ChainLayout:
         columns: a skip layer's x0 part first (at column H), then its h part."""
         if l == 0:
             return pieces(self.p0)
-        h = [(0, self.hidden)]
+        h = pieces(self.hidden)
         return [(self.hidden + o, n) for o, n in pieces(self.p0)] + h if l in self.skip else h
 
 
@@ -638,8 +639,11 @@ def chain_layout(d_in: int, shapes: Sequence[Tuple[int, int]], skip: Tuple[int, 
         raise ValueError("fused_chain: layer 0 cannot be a skip layer")
     hidden, d_out = shapes[0][1], shapes[-1][1]
     if hidden not in HIDDEN_WIDTHS:
-        raise ValueError(f"fused_chain: hidden width {hidden}; the card's kernel takes "
-                         f"{HIDDEN_WIDTHS} (one wgmma of at most 256 columns per hidden layer)")
+        raise ValueError(f"fused_chain: hidden width {hidden}; the card's kernels take "
+                         f"{HIDDEN_WIDTHS}: a hidden layer runs as at most two pieces of 256 "
+                         "columns, the first held in one 256-column side image beside the 64-row "
+                         "tile's activation images, all within the 232,448 bytes of shared "
+                         "memory a CTA has")
     p0 = ceil64(d_in)
     din_pad, din_true = [], []
     for l, (din, dout) in enumerate(shapes):
@@ -757,6 +761,9 @@ _ENTRY = {  # entry points on K1's layout: library, argument types, result type
                               + ("ptr",) * 8, ctypes.c_int),
     "mms_sdf_chain_jvp_bwd": ("fused_mlp", ("ptr", "ptr", "int", "int", "ptr", "ptr", "ptr", "int")
                               + ("ptr",) * 8, ctypes.c_int),
+    # K2's forward on K1's forward (csrc/slot_value.cu)
+    "mms_slot_value_fwd": ("slot_value", ("ptr", "ptr", "ptr", "int", "ptr", "int") + ("ptr",) * 6
+                           + ("int", "ptr"), ctypes.c_int),
     # the adjoint backward's pass (csrc/sdf_chain.cu)
     "mms_adj_bwd_bytes": ("sdf_chain", ("ptr", "int"), ctypes.c_longlong),
     "mms_sdf_chain_bwd": ("sdf_chain", ("ptr", "ptr", "int", "int", "ptr", "ptr", "ptr", "int")

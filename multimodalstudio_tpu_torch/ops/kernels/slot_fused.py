@@ -1,22 +1,28 @@
 """Fused slot-grid + MLP SDF: kernels K2 and K3, forward and backward, and
 their plain versions.
 
-One CUDA kernel (csrc/slot_fused.cu) runs, for a tile of samples, the cell
-geometry from raw positions, the packed-entry table read and trilerp, the
-coarse-to-fine mask, the in-kernel NeRF encoding and the dense chain:
+Two CUDA kernels run, for a tile of samples, the cell geometry from raw
+positions, the packed-entry table read and trilerp, the coarse-to-fine
+mask, the in-kernel NeRF encoding and the dense chain:
 
 * `fused_slot_sdf_value` (K2) emits sdf only. It replaces the Pallas TPU
   kernel multimodalstudio_tpu/ops/pallas/slot_fused.py::_value_fwd_kernel
-  (:1307), reached through fused_slot_sdf_value (:1772).
+  (:1307), reached through fused_slot_sdf_value (:1772). Its kernel
+  (csrc/slot_value.cu) is K1's wgmma forward (csrc/k1.cuh chain_forward)
+  with the grid and the encoding in front of the chain: the wrapper packs
+  the chain, its last layer cut to the sdf column, with K1's pack kernel and
+  launches the kernel, two device operations a call; the grid's geometry
+  struct is built once per (grid, levels, radius, encoding).
 * `fused_slot_sdf_chain` (K3) also emits the geometric features and d sdf/dx
   from one reverse sweep of the chain. It replaces _fused_fwd_kernel (:353),
-  reached through fused_slot_sdf_chain (:1197).
+  reached through fused_slot_sdf_chain (:1197). Its kernel
+  (csrc/slot_fused.cu) is the first design: wmma with weights from L2; a
+  tile keeps the chain's residual stacks in shared memory, or, where they do
+  not fit (deeper chains), in a per-CTA slab of device scratch that a
+  persistent grid reuses tile after tile.
 
-Both are bound on an H100 by the chain's tensor-core work; the bf16 table
-(768 KB at the flagship size) stays in L2, and each (sample, level) reads
-one 32-byte entry. A tile keeps the chain's residual stacks in shared
-memory, or, where they do not fit (deeper chains), in a per-CTA slab of
-device scratch that a persistent grid reuses tile after tile.
+The bf16 table (768 KB at the flagship size) stays in L2, and each (sample,
+level) reads one 32-byte entry.
 
 The plain versions repeat the JAX kernel's cast points (slot_fused.py:399-
 416, 427-458): table and trilerp weight rounded to bf16, their product
@@ -95,6 +101,7 @@ the f32 gz.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 from typing import Optional, Sequence, Tuple
 
@@ -104,11 +111,14 @@ import torch
 from multimodalstudio_tpu_torch.ops.kernels import build
 from multimodalstudio_tpu_torch.ops.kernels.fused_mlp import (
     ACTIVATIONS,
+    _launch_pack,
     act_pair,
     adjoint_sweep,
     bf16_round,
     chain_forward,
     chain_geometry,
+    chain_of,
+    entry,
     ga_forward,
     layer_input,
     pack_chain,
@@ -135,7 +145,7 @@ def _register(name: str, f32_name: str, source: str, line: int):
 
 
 VALUE_KERNEL, VALUE_F32_KERNEL = _register(
-    "fused_slot_sdf_value", "fused_slot_sdf_value_f32", "slot_fused.cu", 1307)
+    "fused_slot_sdf_value", "fused_slot_sdf_value_f32", "slot_value.cu", 1307)
 CHAIN_KERNEL, CHAIN_F32_KERNEL = _register(
     "fused_slot_sdf_chain", "fused_slot_sdf_chain_f32", "slot_fused.cu", 353)
 VALUE_BWD_KERNEL, VALUE_BWD_F32_KERNEL = _register(
@@ -161,8 +171,10 @@ def bwd_split(n_layers: int) -> bool:
     return os.environ.get("MMS_SLOT_BWD_SPLIT", "0") == "1" and n_layers > 1
 
 
+@functools.lru_cache(maxsize=64)
 def pe_scales(num_frequencies: int, min_freq_exp: float, max_freq_exp: float) -> np.ndarray:
-    """Frequency scale 2^(min + i * step) per frequency, in f32."""
+    """Frequency scale 2^(min + i * step) per frequency, in f32 (computed
+    once per encoding; callers do not modify it)."""
     step = 0.0 if num_frequencies == 1 else (max_freq_exp - min_freq_exp) / (num_frequencies - 1)
     exps = np.float32(min_freq_exp) + np.arange(num_frequencies, dtype=np.float32) * np.float32(step)
     return np.exp2(exps).astype(np.float32)
@@ -623,15 +635,23 @@ _COMMON_TYPES = ("ptr", "int", "ptr", "ptr", "ptr", "ptr", "int", "ptr", "ptr", 
 _GRID_TYPES = ("int", "int", "int", "ptr", "ptr", "ptr", "ptr", "float", "float")
 
 
+def _grid_geometry(gspec: SlotGridSpec, k: int):
+    """The cell geometry of the first k levels: log2(entries per row), and
+    per level the resolution, the dense flag, the entry mask and the row
+    offset (lists of ints)."""
+    res = gspec.resolutions[:k]
+    return (gspec.entries_per_row.bit_length() - 1, [int(r) for r in res],
+            [int(d) for d in res.astype(np.int64) ** 3 <= gspec.rows_per_level],
+            [int(e) - 1 for e in gspec.level_entries[:k]],
+            [int(o) for o in gspec.level_offsets[:k]])
+
+
 def _grid_args(gspec: SlotGridSpec, k: int, radius: float) -> list:
     """The cell geometry of the first k levels, as the entry points take it:
     levels, F, log2(entries per row), resolutions, dense flags, entry masks,
     row offsets, radius, the clip bound."""
-    res = gspec.resolutions[:k]
-    return [k, gspec.feats, gspec.entries_per_row.bit_length() - 1, build.int_array(res),
-            build.int_array(res.astype(np.int64) ** 3 <= gspec.rows_per_level),
-            build.int_array(gspec.level_entries[:k] - 1), build.int_array(gspec.level_offsets[:k]),
-            float(radius), CLIP_HI]
+    shift, *per_level = _grid_geometry(gspec, k)
+    return [k, gspec.feats, shift, *map(build.int_array, per_level), float(radius), CLIP_HI]
 
 
 class _CardArgs:
@@ -642,27 +662,17 @@ class _CardArgs:
 
     def __init__(self, positions, table, weights, biases, gspec, k, radius, pe, activation, beta,
                  mask, skip=()):
-        _on_card(positions)
-        if len(weights) < 2:
-            raise ValueError("the fused slot kernels take chains of at least 2 layers")
-        build.check_layers(len(weights), "the fused slot kernels")
-        if gspec.num_levels > build.MAX_LEVELS:
-            raise ValueError(f"the fused slot kernels take at most {build.MAX_LEVELS} grid levels "
-                             "(csrc/slot.cuh MAXLV)")
         self.skip = tuple(sorted(skip))
-        if 0 in self.skip:
-            raise ValueError("the fused slot kernels take no skip at layer 0")
+        _check_card_value(positions, table, weights, gspec, self.skip)
         self.f32 = gspec.table_dtype == "f32"
         self.n, self.k, self.feats = positions.shape[0], k, gspec.feats
-        self.d_in = 3 + 6 * len(pe) + gspec.num_levels * gspec.feats
+        self.d_in = value_d_in(gspec, pe)
         self.in_dims, self.out_dims, self.p0, self.hidden = chain_geometry(self.d_in, weights,
                                                                            self.skip)
         wpack, bpack = pack_chain(weights, biases, self.in_dims, self.out_dims, self.hidden,
                                   self.skip)
         pos = positions.float().contiguous()
         tbl = (table.float() if self.f32 else table.to(torch.bfloat16)).contiguous()
-        if tbl.shape != (gspec.total_rows, 128):
-            raise ValueError(f"table shape {tuple(tbl.shape)} != ({gspec.total_rows}, 128)")
         self.keep = (pos, tbl, mask, wpack, bpack)
         self.args = [
             build.ptr(pos), self.n, build.ptr(tbl), build.ptr(mask), build.ptr(wpack),
@@ -693,10 +703,11 @@ class _CardArgs:
             return None, 0
         return build.persistent_scratch(library, slab_fn, args, self.keep[0].device, self.n)
 
-    def fwd_scratch(self, with_grad: bool, keep_z: bool):
+    def fwd_scratch(self):
+        """K3's forward keeps the z stack."""
         return self._scratch("slot_fused", "mms_slot_fwd_slab", (
             len(self.in_dims), self.hidden, self.p0, self.k, self.feats, self.out_dims[-1],
-            int(with_grad), int(keep_z), int(bool(self.skip)), int(self.f32)))
+            int(bool(self.skip)), int(self.f32)))
 
     def bwd_scratch(self, library: str, stacks: int):
         """K2's backwards keep one stack (zs), K3's two (zs, ss)."""
@@ -705,39 +716,149 @@ class _CardArgs:
             self.out_dims[-1], int(bool(self.skip)), int(self.f32)))
 
 
+MAX_PE = 16  # csrc/enc.cuh MAXPE
+
+
+class _SlotParams(ctypes.Structure):
+    """csrc/slot.cuh struct SlotParams: the grid's geometry of the first
+    `levels` levels and the encoding's frequency scales."""
+
+    _fields_ = [
+        ("levels", ctypes.c_int), ("feats", ctypes.c_int), ("pk_shift", ctypes.c_int),
+        ("res", ctypes.c_int * build.MAX_LEVELS), ("dense", ctypes.c_int * build.MAX_LEVELS),
+        ("ent_mask", ctypes.c_uint * build.MAX_LEVELS),
+        ("row_off", ctypes.c_int * build.MAX_LEVELS), ("radius", ctypes.c_float),
+        ("clip_hi", ctypes.c_float), ("smooth", ctypes.c_int), ("pe_freqs", ctypes.c_int),
+        ("pe_scale", ctypes.c_float * MAX_PE), ("pw", ctypes.c_int),
+    ]
+
+
+_SLOT_PARAMS = {}
+
+
+def slot_params(gspec: SlotGridSpec, k: int, radius: float, pe) -> _SlotParams:
+    """The kernels' SlotParams of the first k levels of gspec's grid and the
+    encoding scales pe, built once per (gspec, k, radius, pe)."""
+    key = (gspec, k, float(radius), np.asarray(pe, np.float32).tobytes())
+    hit = _SLOT_PARAMS.get(key)
+    if hit is None:
+        if not 1 <= len(pe) <= MAX_PE:
+            raise ValueError(f"the fused slot kernels take 1 to {MAX_PE} encoding frequencies")
+        shift, res, dense, ent_mask, row_off = _grid_geometry(gspec, k)
+        hit = _SlotParams(
+            levels=k, feats=gspec.feats, pk_shift=shift, radius=float(radius), clip_hi=CLIP_HI,
+            smooth=int(gspec.interpolation == "Smoothstep"), pe_freqs=len(pe), pw=3 + 6 * len(pe))
+        hit.res[:k], hit.dense[:k], hit.ent_mask[:k], hit.row_off[:k] = res, dense, ent_mask, row_off
+        hit.pe_scale[: len(pe)] = [float(v) for v in pe]
+        _SLOT_PARAMS[key] = hit
+    return hit
+
+
+def _check_card_value(positions, table, weights, gspec, skip) -> None:
+    """Raise unless the slot kernels' operands lie on the card in the shapes
+    they take."""
+    _on_card(positions)
+    if len(weights) < 2:
+        raise ValueError("the fused slot kernels take chains of at least 2 layers")
+    build.check_layers(len(weights), "the fused slot kernels")
+    if gspec.num_levels > build.MAX_LEVELS:
+        raise ValueError(f"the fused slot kernels take at most {build.MAX_LEVELS} grid levels "
+                         "(csrc/slot.cuh MAXLV)")
+    if 0 in skip:
+        raise ValueError("the fused slot kernels take no skip at layer 0")
+    rows = _total_rows(gspec)
+    if tuple(table.shape) != (rows, 128):
+        raise ValueError(f"table shape {tuple(table.shape)} != ({rows}, 128)")
+
+
+@functools.lru_cache(maxsize=64)
+def _total_rows(gspec: SlotGridSpec) -> int:
+    return gspec.total_rows
+
+
+def value_chain(weights, biases):
+    """K2's chain: every layer, the last cut to its sdf column (views)."""
+    return [*weights[:-1], weights[-1][:, :1]], [*biases[:-1], biases[-1][:1]]
+
+
+def value_d_in(gspec: SlotGridSpec, pe) -> int:
+    """The slot chain's input width: the encoding's and every level's columns."""
+    return 3 + 6 * len(pe) + gspec.num_levels * gspec.feats
+
+
+def value_outputs(n: int, weights, gspec: SlotGridSpec, pe, dev, resid=False, x0=False):
+    """K2's outputs as its kernel writes them, in the formats the unchanged
+    backwards read: sdf [N] f32; with `resid` the pre-activations zs
+    [L-1, N, H] bf16, row-major (csrc/slot_bwd.cuh); with `x0` the chain
+    input [N, rup16(d_in)] bf16, zero past d_in (the split's products);
+    else None."""
+    hidden = weights[0].shape[1]
+    zs = (torch.empty((len(weights) - 1, n, hidden), dtype=torch.bfloat16, device=dev)
+          if resid else None)
+    x0_width = -(-value_d_in(gspec, pe) // 16) * 16
+    x0_out = torch.empty((n, x0_width), dtype=torch.bfloat16, device=dev) if x0 else None
+    return torch.empty(n, dtype=torch.float32, device=dev), zs, x0_out
+
+
+def _launch_value(positions, table, weights, biases, gspec, k, radius, pe, activation, beta,
+                  mask, resid=False, x0=False, skip=()):
+    """K2 (K2f) on the card: K1's pack of the chain cut to its sdf column,
+    then the kernel, two device operations; returns value_outputs."""
+    skip = tuple(sorted(skip))
+    _check_card_value(positions, table, weights, gspec, skip)
+    n = positions.shape[0]
+    ws, bs = value_chain(weights, biases)
+    layout, geom = chain_of(value_d_in(gspec, pe), ws, skip, activation, beta)
+    sdf, zs, x0_out = value_outputs(n, weights, gspec, pe, positions.device, resid, x0)
+    if n:
+        # the kernel reads the f32 parameter itself, rounding it for a bf16 table
+        pos, tbl = positions.float().contiguous(), table.float().contiguous()
+        packed = _launch_pack(layout, geom, ws, bs, False)
+        status = entry("mms_slot_value_fwd")(
+            ctypes.byref(geom), ctypes.byref(slot_params(gspec, k, radius, pe)), build.ptr(pos), n,
+            build.ptr(tbl), int(gspec.table_dtype == "f32"), build.ptr(mask), build.ptr(packed.wfw),
+            build.ptr(packed.bpk), build.ptr(sdf), build.ptr(zs), build.ptr(x0_out),
+            0 if x0_out is None else x0_out.shape[1], build.stream_of(pos))
+        build.check(status, "fused slot sdf value")
+        _count((VALUE_KERNEL, VALUE_F32_KERNEL), gspec)
+    return sdf, zs, x0_out
+
+
 def _launch(positions, table, weights, biases, gspec, k, radius, pe, activation, beta,
             mask, with_grad, resid=False, x0=False, skip=()):
-    """Launch the forward kernel; returns (sdf, geo, grad, zs, ss, adj, x0):
-    geo and grad without `with_grad`, the backward's residuals without
-    `resid` (ss and adj come with the gradient only) and the chain input x0
-    [N, P0] bf16 without `x0` (the split backward's residual) are None."""
+    """Launch the forward kernel, K2 (_launch_value) without `with_grad`, K3
+    with it; returns (sdf, geo, grad, zs, ss, adj, x0): geo and grad without
+    `with_grad`, the backward's residuals without `resid` (ss and adj come
+    with the gradient only) and the chain input x0 [N, P0] bf16 without `x0`
+    (the split backward's residual) are None."""
+    if not with_grad:
+        sdf, zs, x0_out = _launch_value(positions, table, weights, biases, gspec, k, radius, pe,
+                                        activation, beta, mask, resid, x0, skip)
+        return sdf, None, None, zs, None, None, x0_out
     ca = _CardArgs(positions, table, weights, biases, gspec, k, radius, pe, activation, beta, mask,
                    skip)
     dev, n = positions.device, ca.n
     d_out = weights[-1].shape[1]
     sdf = torch.empty(n, dtype=torch.float32, device=dev)
-    geo = grad = zs = ss = adj = x0_out = None
-    if with_grad:
-        geo = torch.empty((n, d_out - 1), dtype=torch.bfloat16, device=dev)
-        grad = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    geo = torch.empty((n, d_out - 1), dtype=torch.bfloat16, device=dev)
+    grad = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    zs = ss = adj = x0_out = None
     if resid:
         zs = ca.stack(len(weights), dev)
-        if with_grad:
-            ss = torch.empty_like(zs)
-            adj = torch.empty((n, ca.d_in), dtype=torch.float32, device=dev)
+        ss = torch.empty_like(zs)
+        adj = torch.empty((n, ca.d_in), dtype=torch.float32, device=dev)
     if x0:
         x0_out = torch.empty((n, ca.p0), dtype=torch.bfloat16, device=dev)
     if n:
         fn = build.function("slot_fused", "mms_slot_sdf_fwd", *_COMMON_TYPES,
-                            "ptr", "ptr", "int", "ptr", "int", "ptr", "ptr", "ptr", "int", "ptr",
-                            "ptr", "int", "ptr")
-        scratch, ctas = ca.fwd_scratch(with_grad, with_grad or resid)
+                            "ptr", "ptr", "int", "ptr", "ptr", "ptr", "ptr", "int", "ptr", "ptr",
+                            "int", "ptr")
+        scratch, ctas = ca.fwd_scratch()
         status = fn(*ca.args, build.ptr(sdf), build.ptr(geo), d_out - 1, build.ptr(grad),
-                    int(with_grad), build.ptr(zs), build.ptr(ss), build.ptr(adj), ca.d_in,
-                    build.ptr(x0_out), build.ptr(scratch), ctas, ca.stream)
+                    build.ptr(zs), build.ptr(ss), build.ptr(adj), ca.d_in, build.ptr(x0_out),
+                    build.ptr(scratch), ctas, ca.stream)
         build.check(status, "fused slot sdf")
-        _count((CHAIN_KERNEL, CHAIN_F32_KERNEL) if with_grad else (VALUE_KERNEL, VALUE_F32_KERNEL),
-               gspec)
+        _count((CHAIN_KERNEL, CHAIN_F32_KERNEL), gspec)
     return sdf, geo, grad, zs, ss, adj, x0_out
 
 
