@@ -61,7 +61,7 @@ for name in filter(None, sys.argv[2].split(",")):
         if isinstance(part, dict):
             key = name if not isinstance(r, tuple) else f"{name}[{i}]"
             out[key] = round(part["ms"], 4)
-            for what in ("kernel", "standalone", "library"):
+            for what in ("kernel", "standalone", "library", "products"):
                 if part.get(what + "_ms") is not None:
                     out[f"{key} {what}"] = round(part[what + "_ms"], 4)
             if part.get("ops") is not None:

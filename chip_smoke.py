@@ -37,8 +37,12 @@
    of a microbatch and backward at a microbatch's, K1 forward at the
    sampler's queries and the taps and backward at the taps, the SoftplusQuad
    backwards' limits following the plain version's spread. Then hidden
-   widths 384 and 512: K1 forward and backward and the K4, K5, K1t and K4j
-   backwards, each against its plain version. The K2/K2f checks (their
+   widths 384 and 512, and 640, 768 and 1024: K1 forward and backward and
+   the K4, K5, K1t and K4j backwards, past 512 also K2's forward and K3's
+   backward, merged and split, each against its plain version. K3's
+   backward checks also run at positions ordered as the sampler emits them
+   (rays of consecutive samples) and print the pass's and chain_wgrad's
+   time alone, the device ops of a call and the table reductions issued. The K2/K2f checks (their
    eval calls, the training forward, the split's forward and the level
    edges) print the kernel alone (profiler) and the device ops of one
    wrapper call beside the wrapper's time.
@@ -597,6 +601,18 @@ def _compare_grads(what, names, out, ref, tol=1e-2):
     return err
 
 
+def _report_grads(what, names, out, ref, tol):
+    """rel-L2 of each named gradient beside the limit a held check would
+    take, printed only (check_wide_hidden past 512)."""
+    tols = tol if isinstance(tol, (list, tuple)) else [tol] * len(names)
+    for part, a, b, t in zip(names, out, ref, tols):
+        a, b = _flat(a), _flat(b)
+        if not torch.isfinite(a).all():
+            fail(f"{what}: {part} is not finite")
+        print(f"  {what} {part}: rel_l2={rel_l2(a, b):.3e} (the plain spread's limit {t:g}; "
+              "printed, held by check_padded_widths)")
+
+
 def _compare_outputs(what, names, out, ref, tol=1e-2):
     """rel-L2 of each named forward output or residual; returns the largest
     abs error."""
@@ -668,14 +684,70 @@ def check_slot_value_bwd(gen, dev, gspec):
                 err=err, fwd_err=fwd_err)
 
 
+def ray_positions(n, dev, seed, per_ray=320):
+    """Positions as the sampler emits them: rays of `per_ray` consecutive
+    samples, each ray a segment through the scene box from a uniform origin
+    in a uniform direction, its samples in order along it (N = 163840 is a
+    training microbatch's 512 rays of 320 samples). Drawn from a generator
+    of their own, so that no other check's inputs change."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rays = -(-n // per_ray)
+    o = torch.rand(rays, 1, 3, generator=g, device=dev) * 2.2 - 1.1
+    d = torch.nn.functional.normalize(torch.randn(rays, 1, 3, generator=g, device=dev), dim=-1)
+    t = torch.linspace(0.0, 1.0, per_ray, device=dev)[None, :, None]
+    return (o + 1.1 * t * d).reshape(-1, 3)[:n].clamp(-1.1, 1.1).contiguous()
+
+
+def table_reductions(d_comp, gspec):
+    """(the replaced design's table atomics: one per nonzero value, the pass's
+    vector reductions: one per four adjacent corners of a feature with a
+    nonzero value) of a merged K3 backward whose per-sample table cotangent
+    is d_comp [N, K, F, 8] (rounded by the table's type first)."""
+    from multimodalstudio_tpu_torch.ops.kernels.slot_fused import _compact
+
+    v = _compact(d_comp, gspec).float()
+    return int((v != 0).sum()), int((v.reshape(-1, 4) != 0).any(-1).sum())
+
+
+def k3_parts(what, args, gspec, split):
+    """K3's backward (merged, or the split's pass) in its parts on one call:
+    the pass and chain_wgrad alone (ms), chain_wgrad alone (ms), the device
+    ops of one wrapper call (merged: _launch_chain_bwd; split: the whole
+    split backward, the scatter included); printed beside each other."""
+    from multimodalstudio_tpu_torch.ops.kernels.slot_fused import (
+        _chain_split_card,
+        _launch_chain_bwd,
+        chain_bwd_card,
+    )
+
+    bw = chain_bwd_card(*args, split=split)[0]
+    kernel_ms = time_ms(lambda: (bw.tile(), bw.wgrad()))
+    wgrad_ms = time_ms(bw.wgrad)
+    if split:
+        ops = device_ops(lambda: _chain_split_card(*args[:13], None, *args[13:]))
+    else:
+        ops = device_ops(lambda: _launch_chain_bwd(*args))
+    print(f"  {what}: kernel alone (pass and chain_wgrad) {kernel_ms:.3f} ms, chain_wgrad "
+          f"{wgrad_ms:.3f} ms, {ops} device ops per call, scratch {bw.scratch.numel()} bytes")
+    return dict(kernel_ms=kernel_ms, wgrad_ms=wgrad_ms, ops=ops, bw=bw)
+
+
 def check_slot_chain_bwd(gen, dev, gspec):
     """K3's (K3f's) training forward and its backward at one training
     microbatch's render samples: N=163840, all 6 levels, 3 active,
     cotangents on sdf, geo and grad. The forward's sdf, geo, grad and
     residuals zs, ss and adj are held against the plain forward's; each
     backward reads its own forward's residuals. The backward's limits follow
-    the plain version's spread, as for K2."""
+    the plain version's spread, as for K2. Then the backward in its parts
+    (the pass and chain_wgrad alone, chain_wgrad against the plain product of
+    the pass's own stacks at 1e-4, the device ops, the table reductions
+    beside the replaced design's atomics), and again at positions ordered as
+    the sampler emits them (ray_positions), where neighbouring samples share
+    cells: against the plain backward at the same limits. Returns the
+    merged backward's timings and chain_wgrad's entry."""
+    from multimodalstudio_tpu_torch.ops.kernels import fused_mlp as fm
     from multimodalstudio_tpu_torch.ops.kernels.slot_fused import (
+        _chain_bwd_parts,
         _chain_fwd_plain,
         _launch,
         _launch_chain_bwd,
@@ -702,10 +774,10 @@ def check_slot_chain_bwd(gen, dev, gspec):
     args = (*fwd, zs, ss, adj, gsdf, ggeo, g3)
     plain_kw = dict(SLOT_KW, level_mask=mask)
 
-    def plain(b):
+    def plain(b, p=pos):
         """The plain forward with biases b, then the plain backward."""
-        resid = _chain_fwd_plain(pos, table, ws, b, *fwd[4:])[1][:3]
-        return slot_sdf_chain_bwd_plain(pos, table, ws, b, gspec, *resid, gsdf, ggeo, g3,
+        resid = _chain_fwd_plain(p, table, ws, b, *fwd[4:])[1][:3]
+        return slot_sdf_chain_bwd_plain(p, table, ws, b, gspec, *resid, gsdf, ggeo, g3,
                                         **plain_kw)
 
     out = _launch_chain_bwd(*args)
@@ -715,6 +787,49 @@ def check_slot_chain_bwd(gen, dev, gspec):
     limits = _plain_conditioning(f"{what} bwd N={n}", SLOT_GRADS, plain, lambda b: (b,), bs, {},
                                  torch.Generator(device=dev).manual_seed(SEED), dev, ref)
     err = _compare_grads(f"{what} bwd N={n}", SLOT_GRADS, out, ref, tol=limits)
+    parts = k3_parts(f"{what} bwd N={n}", args, gspec, False)
+    # chain_wgrad against the plain product of the pass's own stacks
+    bw = parts.pop("bw")
+    bw.gw.zero_()
+    bw.wgrad()
+    torch.cuda.synchronize()
+    lay = bw.layout
+    hins, gzs = fm.stacks_of(lay, bw.scratch, bw.tiles * 64, tiles=bw.tiles)
+    stacked = [bw.gw[lay.gw_off[l]:lay.gw_off[l + 1]].view(lay.din_true[l], lay.dout_true[l])
+               for l in range(lay.n_layers)]
+    werr = _compare_grads(f"{what} stacked gW (chain_wgrad) vs its own stacks", ("gW",),
+                          (stacked,), (fm.chain_wgrad_plain(hins, gzs),), tol=1e-4)
+    rows = [2 * n] * (lay.n_layers - 1) + [n]
+    hb, gb16 = [h.contiguous() for h in hins], [g.contiguous() for g in gzs]
+    wgrad = dict(ms=parts["wgrad_ms"], plain_ms=time_ms(lambda: fm.chain_wgrad_plain(hins, gzs)),
+                 library_ms=time_ms(lambda: [torch.matmul(h.T, g) for h, g in zip(hb, gb16)]),
+                 flops=sum(2.0 * r * a * b for r, a, b in zip(rows, lay.din_true, lay.dout_true)),
+                 bytes=sum(2.0 * r * (a + b) for r, a, b in zip(rows, lay.din_true, lay.dout_true))
+                 + 4.0 * lay.gw_off[-1], err=werr)
+    del hins, gzs, hb, gb16, stacked, bw
+    d_comp = _chain_bwd_parts(pos, table, ws, gspec, zs_p, ss_p, adj_p, gsdf, ggeo, g3, 1.0, pe,
+                              "SoftplusQuad", 100.0, mask)[1]
+    old, new = table_reductions(d_comp, gspec)
+    print(f"  {what} bwd N={n}: table reductions issued {new} (float4), the replaced design's "
+          f"f32 atomics {old}")
+    # the ray-ordered draw
+    rpos = ray_positions(n, dev, SEED + 1)
+    rfwd = (rpos, *fwd[1:])
+    r_out = _launch(*rfwd[:5], gspec.num_levels, *rfwd[5:], True, resid=True)
+    rargs = (*rfwd, *r_out[3:6], gsdf, ggeo, g3)
+    rref = plain(bs, rpos)
+    torch.cuda.synchronize()
+    _compare_grads(f"{what} bwd N={n}, ray-ordered", SLOT_GRADS, _launch_chain_bwd(*rargs), rref,
+                   tol=limits)
+    r_parts = k3_parts(f"{what} bwd N={n}, ray-ordered", rargs, gspec, False)
+    r_parts.pop("bw")
+    rzs, rss, radj = _chain_fwd_plain(*rfwd)[1][:3]
+    r_old, r_new = table_reductions(_chain_bwd_parts(rpos, table, ws, gspec, rzs, rss, radj, gsdf,
+                                                     ggeo, g3, 1.0, pe, "SoftplusQuad", 100.0,
+                                                     mask)[1], gspec)
+    print(f"  {what} bwd N={n}, ray-ordered: table reductions issued {r_new} (float4), the "
+          f"replaced design's f32 atomics {r_old}; wrapper "
+          f"{time_ms(lambda: _launch_chain_bwd(*rargs)):.3f} ms")
     hidden = [(slot_d_in(gspec), 128), (128, 128)]
     dims = hidden + [(128, 257)]
     # ga-forward (gW and mq of the hidden layers, the last layer's column
@@ -726,7 +841,8 @@ def check_slot_chain_bwd(gen, dev, gspec):
                 flops=flops,
                 bytes=nbytes(pos, table, mask, ws, bs, zs, ss, adj, gsdf, ggeo, g3, out[0],
                              out[1], out[2], out[3]),
-                err=err, fwd_err=fwd_err)
+                err=err, fwd_err=fwd_err, kernel_ms=parts["kernel_ms"], ops=parts["ops"],
+                reductions=new, old_atomics=old, wgrad=wgrad)
 
 
 def check_edge_cases(gen, dev, gspec) -> None:
@@ -1443,14 +1559,22 @@ def check_tangent_edges(gen, dev) -> None:
                    fused_sdf_chain_jvp_bwd_plain(pos, ws, bs, gsdf, ggeo, g3, **kw))
 
 
-def check_wide_hidden(gen, dev) -> None:
-    """Hidden widths 384 and 512, which JAX's can_fuse sends to its fused
-    kernels: K1 forward and backward (a skip chain, and at 384 a chain of
-    20,000 rows, where two consumer warpgroups share a CTA), and the K4, K5,
-    K1t and K4j backwards (their per-tile passes and chain_wgrad), each
-    against its plain version on a ragged N; the SoftplusQuad backwards'
-    limits follow their plain versions' spread, from a generator of their
-    own, as the deep chains' do."""
+def check_wide_hidden(gen, dev, widths=(384, 512)) -> None:
+    """Hidden widths that JAX's can_fuse sends to its fused kernels, 384 and
+    512 (csrc/k1.cuh WC_WIDE) or 640, 768 and 1024 (WC_DEV, the activation
+    images in device memory): K1 forward and backward (a skip chain, and at
+    384 a chain of 20,000 rows, where two consumer warpgroups share a CTA),
+    and the K4, K5, K1t and K4j backwards (their per-tile passes and
+    chain_wgrad), each against its plain version on a ragged N; past 512
+    also K2's forward and K3's backward pass, merged and split (check_slot_wide).
+    The SoftplusQuad backwards' limits follow their plain versions' spread,
+    from a generator of their own, as the deep chains' do. Past 512 those
+    backwards (K1's, K4's, K4j's, K5's, K1t's) are printed beside that limit
+    but held by check_padded_widths, bit for bit against the 512-wide
+    kernels: the card's f32 summation order moves z by more at these depths
+    of product than the spread's 1e-6 bias move does (ROADMAP queue 3, item
+    1): the printed distance reached 1.12 times the limit at 768 and 1024
+    on some draws while the padded check held bit for bit."""
     from multimodalstudio_tpu_torch.ops.kernels.fused_mlp import (
         _launch_bwd,
         _launch_tangent_bwd,
@@ -1476,8 +1600,14 @@ def check_wide_hidden(gen, dev) -> None:
             return 1e-2
         return _plain_conditioning(what, names, plain, args, bs, kw, spread_gen, dev, ref)
 
+    def held(what, names, out, ref, tol, act, h):
+        if h > 512 and act == "SoftplusQuad":
+            _report_grads(what, names, out, ref, tol)
+        else:
+            _compare_grads(what, names, out, ref, tol=tol)
+
     n, pe = 1000, pe_scales(6, 0.0, 5.0)
-    for h in (384, 512):
+    for h in widths:
         # K1: a SoftplusQuad chain with a skip, and a ReLU one
         for act, skip, dims, rows in (
                 ("SoftplusQuad", (2,), [(39, h), (h, h), (h + 39, h), (h, 65)], n),
@@ -1495,8 +1625,8 @@ def check_wide_hidden(gen, dev) -> None:
             ref = fused_chain_bwd_plain(x, gy, ws, bs, **kw)
             tol = limits(what + " bwd", CHAIN_GRADS, fused_chain_bwd_plain,
                          lambda b: (x, gy, ws, b), bs, kw, ref)
-            _compare_grads(what + " bwd", CHAIN_GRADS, _launch_bwd(x, gy, ws, bs, skip, act, 100.0),
-                           ref, tol=tol)
+            held(what + " bwd", CHAIN_GRADS, _launch_bwd(x, gy, ws, bs, skip, act, 100.0), ref,
+                 tol, act, h)
         dims = [(39, h), (h, h), (h + 39, h), (h, 257)]
         # K4 (adjoint, the encoding in front)
         ws, bs = random_chain(gen, dims, dev)
@@ -1509,15 +1639,15 @@ def check_wide_hidden(gen, dev) -> None:
         ref = fused_sdf_chain_bwd_plain(pos, ws, bs, gsdf, ggeo, g3, **kw)
         tol = limits(what, CHAIN_GRADS, fused_sdf_chain_bwd_plain,
                      lambda b: (pos, ws, b, gsdf, ggeo, g3), bs, kw, ref)
-        _compare_grads(what, CHAIN_GRADS, _launch_sdf_bwd(pos, ws, bs, (2,), "SoftplusQuad", 100.0,
-                                                          pe, gsdf, ggeo, g3), ref, tol=tol)
+        held(what, CHAIN_GRADS, _launch_sdf_bwd(pos, ws, bs, (2,), "SoftplusQuad", 100.0, pe, gsdf,
+                                                ggeo, g3), ref, tol, "SoftplusQuad", h)
         # K4j (jvp mode)
         what = f"K4j bwd H={h} skip=(2,) N={n}"
         ref = fused_sdf_chain_jvp_bwd_plain(pos, ws, bs, gsdf, ggeo, g3, **kw)
         tol = limits(what, CHAIN_GRADS, fused_sdf_chain_jvp_bwd_plain,
                      lambda b: (pos, ws, b, gsdf, ggeo, g3), bs, kw, ref)
-        _compare_grads(what, CHAIN_GRADS, _launch_jvp_bwd(pos, ws, bs, (2,), "SoftplusQuad", 100.0,
-                                                          pe, gsdf, ggeo, g3), ref, tol=tol)
+        held(what, CHAIN_GRADS, _launch_jvp_bwd(pos, ws, bs, (2,), "SoftplusQuad", 100.0, pe, gsdf,
+                                                ggeo, g3), ref, tol, "SoftplusQuad", h)
         # K5 (adjoint of an encoded input) at channel 1
         dims = [(15, h), (h, h), (h + 15, h), (h, 33)]
         ws, bs = random_chain(gen, dims, dev)
@@ -1529,8 +1659,8 @@ def check_wide_hidden(gen, dev) -> None:
         ref = fused_chain_adjoint_bwd_plain(x, ws, bs, gy, ga, **kw)
         tol = limits(what, CHAIN_GRADS, fused_chain_adjoint_bwd_plain,
                      lambda b: (x, ws, b, gy, ga), bs, kw, ref)
-        _compare_grads(what, CHAIN_GRADS, _launch_adj_bwd(x, ws, bs, (2,), "SoftplusQuad", 100.0,
-                                                          1, gy, ga), ref, tol=tol)
+        held(what, CHAIN_GRADS, _launch_adj_bwd(x, ws, bs, (2,), "SoftplusQuad", 100.0, 1, gy, ga),
+             ref, tol, "SoftplusQuad", h)
         # K1t (forward tangents), 3 tangents on channel 0, and the full ty with 2
         for k, channel in ((3, 0), (2, None)):
             dims = [(39, h), (h, h), (h + 39, h), (h, 17)]
@@ -1546,9 +1676,229 @@ def check_wide_hidden(gen, dev) -> None:
             ref = fused_chain_tangent_bwd_plain(x, tx, gy, gty, ws, bs, **kw)
             tol = limits(what, TANGENT_GRADS, fused_chain_tangent_bwd_plain,
                          lambda b: (x, tx, gy, gty, ws, b), bs, kw, ref)
-            _compare_grads(what, TANGENT_GRADS,
-                           _launch_tangent_bwd(x, tx, gy, gty, ws, bs, (2,), "SoftplusQuad", 100.0,
-                                               channel), ref, tol=tol)
+            held(what, TANGENT_GRADS, _launch_tangent_bwd(x, tx, gy, gty, ws, bs, (2,),
+                                                          "SoftplusQuad", 100.0, channel),
+                 ref, tol, "SoftplusQuad", h)
+        if h > 512:
+            check_slot_wide(gen, dev, h)
+    if any(h > 512 for h in widths):
+        check_padded_widths(dev, [h for h in widths if h > 512])
+
+
+def check_slot_wide(gen, dev, h) -> None:
+    """K2's forward (training mode) and K3's backward pass, merged and split,
+    at hidden width h on grid_raw_tpu's grid (6 levels of 4096 rows, F = 2,
+    3 active) at a ragged N = 1000: the chain 51 -> h -> h -> 257
+    SoftplusQuad. K3's forward (slot_fused.cu, the first design) holds its
+    tile in shared memory and takes no such width, so the backward reads the
+    plain forward's residuals, computed on the card."""
+    from multimodalstudio_tpu_torch.ops.kernels.slot_fused import (
+        _chain_fwd_plain,
+        _chain_split_card,
+        _launch,
+        _launch_chain_bwd,
+        _value_fwd_plain,
+        pe_scales,
+        slot_sdf_chain_bwd_plain,
+        slot_sdf_chain_bwd_split_plain,
+    )
+    from multimodalstudio_tpu_torch.ops.kernels.slot_grid import SlotGridSpec
+
+    gspec = SlotGridSpec(num_levels=6, min_res=16, max_res=512, rows_per_level=4096,
+                         layout="cell", feats=2, table_dtype="bf16")
+    n, pe = 1000, pe_scales(6, 0.0, 5.0)
+    table, _, _ = slot_inputs(gen, dev, gspec)
+    ws, bs = random_chain(gen, [(slot_d_in(gspec), h), (h, h), (h, 257)], dev)
+    pos = torch.rand(n, 3, generator=gen, device=dev) * 2.2 - 1.1
+    mask = (torch.arange(gspec.out_dim, device=dev) < 3 * gspec.feats).float()
+    fwd = (pos, table, ws, bs, gspec, gspec.num_levels, 1.0, pe, "SoftplusQuad", 100.0, mask)
+    sdf, _, _, zs, _, _, x0 = _launch(*fwd, False, resid=True, x0=True)
+    sdf_p, zs_p, x0_p = _value_fwd_plain(*fwd)
+    _compare_outputs(f"K2 training fwd H={h} N={n}", ("sdf", "zs", "x0"),
+                     (sdf, zs, x0[:, :x0_p.shape[1]]), (sdf_p, zs_p, x0_p))
+    cfwd = (pos, table, ws, bs, gspec, 1.0, pe, "SoftplusQuad", 100.0, mask)
+    gsdf = torch.randn(n, generator=gen, device=dev)
+    ggeo = (0.1 * torch.randn(n, 256, generator=gen, device=dev)).to(torch.bfloat16)
+    g3 = torch.randn(n, 3, generator=gen, device=dev)
+    cot = (gsdf, ggeo, g3)
+    zs_p, ss_p, adj_p, x0_p = _chain_fwd_plain(*cfwd)[1]
+    kw = dict(SLOT_KW, level_mask=mask)
+
+    def plain(b):
+        """The plain forward with biases b, then the plain backward."""
+        resid = _chain_fwd_plain(pos, table, ws, b, *cfwd[4:])[1][:3]
+        return slot_sdf_chain_bwd_plain(pos, table, ws, b, gspec, *resid, *cot, **kw)
+
+    what = f"K3 bwd H={h} N={n}"
+    ref = plain(bs)
+    tol = _plain_conditioning(what, SLOT_GRADS, plain, lambda b: (b,), bs, {},
+                              torch.Generator(device=dev).manual_seed(SEED), dev, ref)
+    merged = _launch_chain_bwd(*cfwd, zs_p, ss_p, adj_p, *cot)
+    _compare_grads(what, SLOT_GRADS, merged, ref, tol=tol)
+    split = _chain_split_card(*cfwd, zs_p, ss_p, adj_p, x0_p, *cot)
+    _compare_grads(f"K3s whole split backward H={h} N={n}", SLOT_GRADS, split,
+                   slot_sdf_chain_bwd_split_plain(pos, table, ws, bs, gspec, zs_p, ss_p, adj_p,
+                                                  x0_p, *cot, **kw), tol=tol)
+    _compare_grads(f"K3s whole split backward vs merged H={h} N={n}", SLOT_GRADS[:2], split[:2],
+                   merged[:2], tol=1e-5)
+    _compare_grads(f"K3s whole split backward vs merged H={h} N={n}", SLOT_GRADS[2:], split[2:],
+                   merged[2:], tol=2e-2)
+
+
+LIVE = 512  # the live hidden width of check_padded_widths' chains
+
+
+def pad_chain(ws, bs, skip, h, high):
+    """A chain of hidden width h that computes what (ws, bs), of hidden
+    width LIVE, computes: the live units at columns [0, LIVE), or with `high`
+    at [h - LIVE, h), the others dead (no weight in or out and bias -1, where
+    SoftplusQuad and its derivatives are 0), a skip layer's x0 rows after
+    the h rows."""
+    o, n_layers = (h - LIVE if high else 0), len(ws)
+    out_w, out_b = [], []
+    for l, (w, b) in enumerate(zip(ws, bs)):
+        last = l == n_layers - 1
+        rows = w.shape[0] if l == 0 else h + (w.shape[0] - LIVE)
+        cols = slice(None) if last else slice(o, o + LIVE)
+        wl = w.new_zeros(rows, w.shape[1] if last else h)
+        bl = b.clone() if last else b.new_full((h,), -1.0)
+        if l == 0:
+            wl[:, cols] = w
+        else:
+            wl[o:o + LIVE, cols] = w[:LIVE]
+            wl[h:, cols] = w[LIVE:]
+        if not last:
+            bl[o:o + LIVE] = b
+        out_w.append(wl)
+        out_b.append(bl)
+    return out_w, out_b
+
+
+def unpad_grads(gws, gbs, skip, h, high):
+    """pad_chain's gW and gb cut back to the live chain's."""
+    o, n_layers = (h - LIVE if high else 0), len(gws)
+    ws, bs = [], []
+    for l, (g, gb) in enumerate(zip(gws, gbs)):
+        last = l == n_layers - 1
+        cols = slice(None) if last else slice(o, o + LIVE)
+        rows = g if l == 0 else torch.cat([g[o:o + LIVE], g[h:]])
+        ws.append(rows[:, cols])
+        bs.append(gb[cols])
+    return ws, bs
+
+
+def check_padded_widths(dev, widths) -> None:
+    """The device-memory width class (csrc/k1.cuh WC_DEV) against the
+    512-wide kernels (WC_WIDE) on the same function: each chain of hidden
+    width 512 padded to h with dead units (pad_chain), its live units first
+    or last, so that every piece position carries live columns. The products
+    then add exact zeros to the same partial sums: K1's forward y, the
+    backwards' per-row outputs (gx, gtx, d pos) and K2's sdf must equal the
+    512-wide kernels' bit for bit, and gW, gb and the table gradient, summed
+    by atomics in an order that changes from run to run, within rel-L2 1e-5.
+    Covers K1 forward and backward, K1t (2 tangents, the full ty), K4, K4j,
+    K5, K2's forward and K3's backward, merged and split, on a ragged N =
+    1000 (skip chains, SoftplusQuad). Draws from a generator of its own."""
+    from multimodalstudio_tpu_torch.ops.kernels import fused_mlp as fm
+    from multimodalstudio_tpu_torch.ops.kernels import sdf_chain as sc
+    from multimodalstudio_tpu_torch.ops.kernels import slot_fused as sf
+    from multimodalstudio_tpu_torch.ops.kernels.slot_grid import SlotGridSpec
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    n, skip, act, pe = 1000, (2,), "SoftplusQuad", sc.pe_scales(6, 0.0, 5.0)
+    gspec = SlotGridSpec(num_levels=6, min_res=16, max_res=512, rows_per_level=4096,
+                         layout="cell", feats=2, table_dtype="bf16")
+    d_slot = slot_d_in(gspec)
+
+    def chain(d_in, d_out, with_skip=True):
+        dims = [(d_in, LIVE), (LIVE, LIVE), (LIVE + (d_in if with_skip else 0), LIVE),
+                (LIVE, d_out)] if with_skip else [(d_in, LIVE), (LIVE, LIVE), (LIVE, d_out)]
+        return random_chain(g, dims, dev)
+
+    x = torch.rand(n, 39, generator=g, device=dev) * 2 - 1
+    x5 = torch.rand(n, 15, generator=g, device=dev) * 2 - 1
+    pos = torch.rand(n, 3, generator=g, device=dev) * 2.2 - 1.1
+    tx = torch.randn(2, n, 39, generator=g, device=dev)
+    gy65 = torch.randn(n, 65, generator=g, device=dev)
+    gy17 = torch.randn(n, 17, generator=g, device=dev).to(torch.bfloat16)
+    gty = torch.randn(2, n, 17, generator=g, device=dev).to(torch.bfloat16)
+    gy33 = torch.randn(n, 33, generator=g, device=dev).to(torch.bfloat16)
+    ga = torch.randn(n, 15, generator=g, device=dev)
+    gsdf = torch.randn(n, generator=g, device=dev)
+    ggeo = (0.1 * torch.randn(n, 256, generator=g, device=dev)).to(torch.bfloat16)
+    g3 = torch.randn(n, 3, generator=g, device=dev)
+    table = slot_inputs(g, dev, gspec)[0]
+    mask = (torch.arange(gspec.out_dim, device=dev) < 3 * gspec.feats).float()
+    # name: (input width, output width, skip chain, run(ws, bs, skip) -> (per-row outputs,
+    # [(gW list, gb list) or None], [other summed outputs]))
+    def run_k1(ws, bs):
+        y = fm.fused_chain(x, ws, bs, skip=skip, activation=act)
+        gx, gws, gbs = fm._launch_bwd(x, gy65, ws, bs, skip, act, 100.0)
+        return (y, gx), (gws, gbs)
+
+    def rows_first(k):  # a backward's k per-row outputs, then its (gW list, gb list)
+        return lambda o: (tuple(o[:k]), tuple(o[k:]))
+
+    # name: (input width, output width, run(ws, bs) -> (per-row outputs, (gW list, gb list)))
+    runs = {
+        "K1": (39, 65, run_k1),
+        "K1t": (39, 17, lambda ws, bs: rows_first(2)(fm._launch_tangent_bwd(
+            x, tx, gy17, gty, ws, bs, skip, act, 100.0, None))),
+        "K4": (39, 257, lambda ws, bs: rows_first(1)(sc._launch_bwd(
+            pos, ws, bs, skip, act, 100.0, pe, gsdf, ggeo, g3))),
+        "K4j": (39, 257, lambda ws, bs: rows_first(1)(sc._launch_jvp_bwd(
+            pos, ws, bs, skip, act, 100.0, pe, gsdf, ggeo, g3))),
+        "K5": (15, 33, lambda ws, bs: rows_first(1)(sc._launch_adj_bwd(
+            x5, ws, bs, skip, act, 100.0, 1, gy33, ga))),
+    }
+    for name, (d_in, d_out, run) in runs.items():
+        ws, bs = chain(d_in, d_out)
+        ref_rows, ref_grads = run(ws, bs)
+        for h in widths:
+            for high in (False, True):
+                what = f"{name} H={h} live units {'last' if high else 'first'}"
+                wp, bp = pad_chain(ws, bs, skip, h, high)
+                rows, grads = run(wp, bp)
+                torch.cuda.synchronize()
+                for i, (a, b) in enumerate(zip(rows, ref_rows)):
+                    if not torch.equal(a, b):
+                        fail(f"{what}: per-row output {i} differs from the 512-wide kernel's "
+                             f"(rel_l2 {rel_l2(a.float(), b.float()):.3e})")
+                gw, gb = unpad_grads(*grads, skip, h, high)
+                _compare_grads(f"{what} vs 512 wide", ("gW", "gb"), (gw, gb), ref_grads,
+                               tol=1e-5)
+                print(f"  {what}: per-row outputs equal to the 512-wide kernel's, bit for bit")
+    # K2's forward and K3's backward on the slot chain 51 -> 512 -> 512 -> 257
+    ws, bs = chain(d_slot, 257, with_skip=False)
+    cfwd = (gspec, 1.0, pe, act, 100.0, mask)
+    sdf_ref = sf._launch(pos, table, ws, bs, gspec, gspec.num_levels, 1.0, pe, act, 100.0, mask,
+                         False)[0]
+    zs, ss, adj, _ = sf._chain_fwd_plain(pos, table, ws, bs, *cfwd)[1]
+    merged_ref = sf._launch_chain_bwd(pos, table, ws, bs, *cfwd, zs, ss, adj, gsdf, ggeo, g3)
+    split_ref = sf._chain_split_card(pos, table, ws, bs, *cfwd, zs, ss, adj, None, gsdf, ggeo, g3)
+    for h in widths:
+        for high in (False, True):
+            what = f"K2/K3 H={h} live units {'last' if high else 'first'}"
+            o = h - LIVE if high else 0
+            wp, bp = pad_chain(ws, bs, (), h, high)
+            sdf = sf._launch(pos, table, wp, bp, gspec, gspec.num_levels, 1.0, pe, act, 100.0,
+                             mask, False)[0]
+            # the residuals of the padded chain: the live ones in place, z = -1 and s = 0 dead
+            zp = torch.full((zs.shape[0], n, h), -1.0, device=dev).to(torch.bfloat16)
+            sp = torch.zeros((ss.shape[0], n, h), device=dev).to(torch.bfloat16)
+            zp[:, :, o:o + LIVE], sp[:, :, o:o + LIVE] = zs, ss
+            merged = sf._launch_chain_bwd(pos, table, wp, bp, *cfwd, zp, sp, adj, gsdf, ggeo, g3)
+            split = sf._chain_split_card(pos, table, wp, bp, *cfwd, zp, sp, adj, None, gsdf, ggeo,
+                                         g3)
+            torch.cuda.synchronize()
+            if not (torch.equal(sdf, sdf_ref) and torch.equal(merged[0], merged_ref[0])
+                    and torch.equal(split[0], split_ref[0])):
+                fail(f"{what}: sdf or d pos differs from the 512-wide kernels'")
+            for out, ref, kind in ((merged, merged_ref, "merged"), (split, split_ref, "split")):
+                gw, gb = unpad_grads(out[2], out[3], (), h, high)
+                _compare_grads(f"{what} {kind} vs 512 wide", ("d_table", "gW", "gb"),
+                               (out[1], gw, gb), (ref[1], ref[2], ref[3]), tol=1e-5)
+            print(f"  {what}: sdf and d pos equal to the 512-wide kernels', bit for bit")
 
 
 # grid_raw_tpu's slot grid without its position encoding: the SDF head takes
@@ -1939,14 +2289,10 @@ def print_timing(what, r, peak=H100_BF16_FLOPS):
 
 # ------------------------------------------------- K2s, K3s and the table scatter
 
-SPLIT_OUTPUTS = {"value": ("d_pos", "d_comp", "gz"), "chain": ("d_pos", "d_comp", "ga", "q", "gz")}
-
-
-def _padded_ga(out):
-    """K3s's plain outputs with ga padded with zero columns to the kernel's
-    16-column multiple."""
-    d_pos, d_comp, ga, qs, gzs = out
-    return d_pos, d_comp, F.pad(ga, (0, -ga.shape[1] % 16)), qs, gzs
+# the per-sample passes' outputs held against their plain versions (K3s: the
+# pass's d pos and table cotangent; its gW and gb, from chain_wgrad over its
+# stacks, are held in the whole split backward against the merged one's)
+SPLIT_OUTPUTS = {"value": ("d_pos", "d_comp", "gz"), "chain": ("d_pos", "d_comp")}
 
 
 def _split_forward(what, fwd, launch_args, plain):
@@ -2055,17 +2401,19 @@ def check_slot_value_split(gen, dev, gspec):
 def check_slot_chain_split(gen, dev, gspec):
     """K3s and the table scatter at one training microbatch's render samples
     (N=163840, all 6 levels, 3 active, cotangents on sdf, geo and grad),
-    with the products' and the whole split backward's times beside the
-    merged K3 backward's (for an f32 table: K3f's, the cotangent f32)."""
+    with the products' (chain_wgrad over the pass's stacks) and the whole
+    split backward's times beside the merged K3 backward's (for an f32
+    table: K3f's, the cotangent f32); then the whole split backward at
+    positions ordered as the sampler emits them (ray_positions) against the
+    merged backward kernel there."""
     from multimodalstudio_tpu_torch.ops.kernels.slot_fused import (
         _chain_fwd_plain,
-        _chain_gy,
         _chain_split_card,
+        _launch,
         _launch_chain_bwd,
         _launch_chain_bwd_sample,
         pe_scales,
         slot_sdf_chain_bwd_sample_plain,
-        split_weight_grads,
     )
 
     table, ws, bs = slot_inputs(gen, dev, gspec)
@@ -2083,21 +2431,37 @@ def check_slot_chain_split(gen, dev, gspec):
     g3 = torch.randn(n, 3, generator=gen, device=dev)
     skw = dict(radius=1.0, pe=pe, activation="SoftplusQuad", beta=100.0, mask=mask)
     cot = (gsdf, ggeo, g3)
+    what = f"{slot_tag('K3', gspec)}s N={n}"
     r = _split_checks(
-        f"{slot_tag('K3', gspec)}s N={n}", SPLIT_OUTPUTS["chain"],
+        what, SPLIT_OUTPUTS["chain"],
         lambda: _launch_chain_bwd_sample(*fwd, zs, ss, adj, *cot),
-        lambda: _padded_ga(slot_sdf_chain_bwd_sample_plain(pos, table, ws, gspec, zs_p, ss_p,
-                                                           adj_p, *cot, **skw)),
+        lambda: slot_sdf_chain_bwd_sample_plain(pos, table, ws, gspec, zs_p, ss_p, adj_p, *cot,
+                                                **skw),
         (pos, gspec), lambda: _launch_chain_bwd(*fwd, zs, ss, adj, *cot),
         lambda: _chain_split_card(*fwd, zs, ss, adj, x0, *cot))
-    _, _, ga, qs, gzs = r["got"]
-    r["products_ms"] = time_ms(lambda: split_weight_grads(
-        ws, x0, zs, _chain_gy(gsdf, ggeo), gzs, "SoftplusQuad", 100.0, ss=ss, ga=ga, qs=qs))
+    parts = k3_parts(f"{what} per-sample pass", (*fwd, zs, ss, adj, *cot), gspec, True)
+    parts.pop("bw")
+    r["products_ms"] = parts["wgrad_ms"]
+    r["kernel_ms"], r["ops"] = parts["kernel_ms"], parts["ops"]
+    # the ray-ordered draw, against the merged backward kernel on it
+    rpos = ray_positions(n, dev, SEED + 2)
+    rfwd = (rpos, *fwd[1:])
+    r_out = _launch(*rfwd[:5], gspec.num_levels, *rfwd[5:], True, resid=True, x0=True)
+    rres = (*r_out[3:6], *cot)
+    split, merged = _chain_split_card(*rfwd, *r_out[3:7], *cot), _launch_chain_bwd(*rfwd, *rres)
+    torch.cuda.synchronize()
+    _compare_grads(f"{what}, ray-ordered: whole split backward vs the merged backward kernel",
+                   SLOT_GRADS[:2], split[:2], merged[:2], tol=1e-5)
+    _compare_grads(f"{what}, ray-ordered: whole split backward vs the merged backward kernel",
+                   SLOT_GRADS[2:], split[2:], merged[2:], tol=2e-2)
+    print(f"  {what}, ray-ordered: per-sample pass "
+          f"{time_ms(lambda: _launch_chain_bwd_sample(*rfwd, *rres)):.3f} ms, whole split "
+          f"{time_ms(lambda: _chain_split_card(*rfwd, *r_out[3:7], *cot)):.3f} ms")
     hidden = [(slot_d_in(gspec), 128), (128, 128)]
     # the ga-forward chain's products through the hidden layers and the
     # sweep's gh products of every layer; no gW
     r["flops"] = chain_flops(n, hidden) + chain_flops(n, hidden + [(128, 257)])
-    r["bytes"] = nbytes(pos, table, mask, ws, bs, zs, ss, adj, *cot, *r["got"])
+    r["bytes"] = nbytes(pos, table, mask, ws, bs, zs, ss, adj, *cot, *r["got"][:2])
     r["scatter_bytes"] = nbytes(pos, r["got"][1]) + 4 * gspec.total_rows * 128
     r["fwd_err"] = fwd_err
     return r
@@ -2109,17 +2473,20 @@ def split_results(value, chain, f32=False):
     kernels; prints the split against the merged backward."""
     sfx = "f" if f32 else ""
     for name, r in ((f"K2{sfx}", value), (f"K3{sfx}", chain)):
+        products = ("products" if name.startswith("K2")
+                    else "products (chain_wgrad, inside the per-sample kernel's call)")
         print(f"  {name} split backward per microbatch: per-sample kernel {r['ms']:.3f} ms, "
-              f"scatter {r['scatter_ms']:.3f} ms, products {r['products_ms']:.3f} ms, whole "
+              f"scatter {r['scatter_ms']:.3f} ms, {products} {r['products_ms']:.3f} ms, whole "
               f"{r['whole_ms']:.3f} ms; merged backward kernel {r['merged_ms']:.3f} ms; table "
-              f"cotangent {r['dcomp_bytes'] / 1e6:.1f} MB, {r['atomics']} nonzero values (the "
-              "merged backward's table atomics)")
+              f"cotangent {r['dcomp_bytes'] / 1e6:.1f} MB, {r['atomics']} nonzero values")
     entries = {}
     sfx = "_f32" if f32 else ""
     for name, r in ((f"fused_slot_sdf_value{sfx}_bwd_sample", value),
                     (f"fused_slot_sdf_chain{sfx}_bwd_sample", chain)):
         entries[name] = dict(ms=r["ms"], plain_ms=r["plain_ms"], flops=r["flops"],
-                             bytes=r["bytes"], err=r["err"])
+                             bytes=r["bytes"], err=r["err"],
+                             **({"kernel_ms": r["kernel_ms"], "ops": r["ops"]} if "ops" in r
+                                else {}))
     entries[f"slot_table_scatter{sfx}"] = dict(
         ms=value["scatter_ms"] + chain["scatter_ms"],
         plain_ms=value["scatter_plain_ms"] + chain["scatter_plain_ms"],
@@ -2306,8 +2673,8 @@ def check_slot_levels(gen, dev, gspec, n, hidden_layers=1) -> None:
           lambda b: slot_sdf_chain_bwd_plain(pos, table, ws, b, gspec, *chain_resid(b), *cot,
                                              **SLOT_KW, level_mask=mask))
     check(f"K3s {what}", SPLIT_OUTPUTS["chain"], _launch_chain_bwd_sample(*cfwd, *out_k[3:6], *cot),
-          lambda b: _padded_ga(slot_sdf_chain_bwd_sample_plain(pos, table, ws, gspec,
-                                                               *chain_resid(b), *cot, **skw)))
+          lambda b: slot_sdf_chain_bwd_sample_plain(pos, table, ws, gspec, *chain_resid(b), *cot,
+                                                    **skw))
 
 
 def skip_chain(d_in, skip_layer, n_layers):
@@ -2394,9 +2761,9 @@ def check_skip_edges(gen, dev, gspecs) -> None:
         _compare_grads(f"K3 bwd {what}", SLOT_GRADS, merged, slot_sdf_chain_bwd_plain(
             pos, table, ws, bs, gspec, zs_p, ss_p, adj_p, *cot, **kw))
         got = _launch_chain_bwd_sample(*cfwd, *out_k[3:6], *cot, skip)
-        _compare_outputs(f"K3s {what}", SPLIT_OUTPUTS["chain"], got, _padded_ga(
-            slot_sdf_chain_bwd_sample_plain(pos, table, ws, gspec, zs_p, ss_p, adj_p, *cot,
-                                            **skw)))
+        _compare_outputs(f"K3s {what}", SPLIT_OUTPUTS["chain"], got,
+                         slot_sdf_chain_bwd_sample_plain(pos, table, ws, gspec, zs_p, ss_p, adj_p,
+                                                         *cot, **skw))
         split = _chain_split_card(*cfwd, *out_k[3:7], *cot, skip)
         _compare_grads(f"K3 whole split backward vs merged {what}", SLOT_GRADS[:2], split[:2],
                        merged[:2], tol=1e-5)
@@ -2603,14 +2970,15 @@ def profile_device(fn, label: str, ref_ms: float, top: int = 12):
 
 PER_MICROBATCH = {  # kernel launches of one training microbatch (derived in PERF.md)
     # K1: one pack per forward call, whose images its backward reuses; every
-    # backward a per-tile pass and chain_wgrad. K4's, K5's, K1t's and K4j's
-    # backwards: a pack of their own, a per-tile pass and chain_wgrad (each
-    # counted under its backward's name). K2: one pack per call
+    # backward a per-tile pass and chain_wgrad. K3's, K4's, K5's, K1t's and
+    # K4j's backwards: a pack of their own, a per-tile pass and chain_wgrad
+    # (each counted under its backward's name). K2: one pack per call
     "grid_raw_tpu": {
-        "fused_chain": 5, "fused_chain_pack": 10,
+        "fused_chain": 5, "fused_chain_pack": 11,
         "fused_chain_bwd": 5, "chain_wgrad": 5,  # trunk, polarization head, background x3
         "fused_slot_sdf_value": 5, "fused_slot_sdf_value_bwd": 1,  # sampler x4, taps
         "fused_slot_sdf_chain": 1, "fused_slot_sdf_chain_bwd": 1,
+        "fused_slot_sdf_chain_wgrad": 1,
     },
     "mlp_raw_tpu": {
         # sampler x4 (no grad), trunk, polarization head, background x3; the
@@ -2643,25 +3011,26 @@ PER_MICROBATCH = {  # kernel launches of one training microbatch (derived in PER
     # as grid_raw_tpu, the taps' and the render samples' backwards split:
     # K2s and K3s in place of the merged K2/K3 backwards, one scatter each
     "grid_raw_tpu with split backward": {
-        "fused_chain": 5, "fused_chain_pack": 10,
+        "fused_chain": 5, "fused_chain_pack": 11,
         "fused_chain_bwd": 5, "chain_wgrad": 5,
         "fused_slot_sdf_value": 5, "fused_slot_sdf_value_bwd_sample": 1,
         "fused_slot_sdf_chain": 1, "fused_slot_sdf_chain_bwd_sample": 1,
-        "slot_table_scatter": 2,
+        "fused_slot_sdf_chain_wgrad": 1, "slot_table_scatter": 2,
     },
     # as grid_raw_tpu and its split, through the f32 table's kernels
     "grid_raw_tpu with f32 table": {
-        "fused_chain": 5, "fused_chain_pack": 10,
+        "fused_chain": 5, "fused_chain_pack": 11,
         "fused_chain_bwd": 5, "chain_wgrad": 5,
         "fused_slot_sdf_value_f32": 5, "fused_slot_sdf_value_f32_bwd": 1,
         "fused_slot_sdf_chain_f32": 1, "fused_slot_sdf_chain_f32_bwd": 1,
+        "fused_slot_sdf_chain_wgrad": 1,
     },
     "grid_raw_tpu with f32 table and split backward": {
-        "fused_chain": 5, "fused_chain_pack": 10,
+        "fused_chain": 5, "fused_chain_pack": 11,
         "fused_chain_bwd": 5, "chain_wgrad": 5,
         "fused_slot_sdf_value_f32": 5, "fused_slot_sdf_value_f32_bwd_sample": 1,
         "fused_slot_sdf_chain_f32": 1, "fused_slot_sdf_chain_f32_bwd_sample": 1,
-        "slot_table_scatter_f32": 2,
+        "fused_slot_sdf_chain_wgrad": 1, "slot_table_scatter_f32": 2,
     },
     # as grid_raw_tpu without PE, the lookups through K6v (no launch of K6)
     "grid_raw_tpu without PE, vertex layout": {
@@ -2933,6 +3302,7 @@ def main() -> None:
     # K1's backward parts (the pack, chain_wgrad) timed inside its check, and K4's stacked gW
     results.update(results["fused_chain_bwd"].pop("parts"))
     results["fused_sdf_chain_wgrad"] = results["fused_sdf_chain_bwd"].pop("wgrad")
+    results["fused_slot_sdf_chain_wgrad"] = results["fused_slot_sdf_chain_bwd"].pop("wgrad")
     # the training forwards' errors
     for name in ("fused_slot_sdf_value", "fused_slot_sdf_chain", "fused_sdf_chain"):
         results[name]["err"] = max(results[name]["err"], results[name + "_bwd"].pop("fwd_err"))
@@ -2985,6 +3355,8 @@ def main() -> None:
     })
     for name in ("fused_slot_sdf_value_f32", "fused_slot_sdf_chain_f32"):
         f32[name]["err"] = max(f32[name]["err"], f32[name + "_bwd"].pop("fwd_err"))
+    wg = results["fused_slot_sdf_chain_wgrad"]
+    wg["err"] = max(wg["err"], f32["fused_slot_sdf_chain_f32_bwd"].pop("wgrad")["err"])
     results.update(f32)
     print("kernel checks of K2fs, K3fs and the f32 table scatter (grid_raw_tpu with f32 table and "
           "split backward; per 512-ray training microbatch):")
@@ -3031,6 +3403,10 @@ def main() -> None:
     print("kernel checks at hidden widths 384 and 512 (K1 forward and backward; K4, K5, K1t and "
           "K4j backwards):")
     phase("hidden widths 384 and 512", check_wide_hidden, gen, dev)
+    # hidden widths past 512 draw from `gen` after every earlier phase
+    print("kernel checks at hidden widths 640, 768 and 1024 (K1 forward and backward; K4, K5, K1t "
+          "and K4j backwards; K2 forward; K3 backward, merged and split):")
+    phase("hidden widths 640, 768 and 1024", check_wide_hidden, gen, dev, (640, 768, 1024))
     rays_per_s, train, launches = {}, {}, {}
     for method in CONFIGS:
         with config_env(method):

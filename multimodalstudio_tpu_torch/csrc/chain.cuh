@@ -145,9 +145,9 @@ inline cudaError_t persistent_grid(const void* kernel, size_t smem, int n, int m
 // finished tile the warp calls epi(row0, col0, tile) with the f32 tile
 // (row-major 16 x 16) in its slice of stage[NWARPS * 256]; every lane of
 // the warp takes part. One warp owns a column tile and hands its four row
-// tiles to epi in order (REV: last row tile first), so an epilogue may read
-// what the same lane wrote for an earlier row tile of the same columns.
-template <bool B_T, bool REV = false, class Epi>
+// tiles to epi in order, so an epilogue may read what the same lane wrote
+// for an earlier row tile of the same columns.
+template <bool B_T, class Epi>
 __device__ __forceinline__ void mma_tile64(const bf16* A, int lda, int kdim, const bf16* B,
                                            int ldb, int ncols, float* stage, Epi epi) {
   const int warp = threadIdx.x >> 5;
@@ -178,8 +178,7 @@ __device__ __forceinline__ void mma_tile64(const bf16* A, int lda, int kdim, con
       }
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int i = REV ? 3 - j : j;
+    for (int i = 0; i < 4; ++i) {
       wmma::store_matrix_sync(st, acc[i], 16, wmma::mem_row_major);
       __syncwarp();
       epi(i * 16, nt * 16, st);

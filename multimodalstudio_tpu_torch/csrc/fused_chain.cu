@@ -42,7 +42,10 @@
 //   from run to run). The backward passes of K4/K5 (sdf_chain.cu) and K1t/K4j
 //   (fused_mlp.cu) leave their stacks in the same layout (two stacked tiles
 //   per row tile where the adjoint stacks a second product, Geom::sm).
-// The building blocks the kernels share with those passes are in k1.cuh.
+// The building blocks the kernels share with those passes are in k1.cuh. The
+// forward and the per-tile pass compile once per width class (k1.cuh WC);
+// past a hidden width of 512 their activation images live in device scratch
+// that the wrapper allocates (mms_k1_fwd_bytes, mms_k1_bwd_bytes).
 //
 // Bound on an H100: the tensor-core rate for the forward and the per-tile pass
 // at the main path's widths (~2 N sum(din dout) flops against 2 N (din +
@@ -116,15 +119,15 @@ __global__ void __launch_bounds__(256) k1_pack_kernel(const Geom G, const PackAr
 
 // ------------------------------------------------------------------- k1_fwd
 
-template <bool WIDE>
+template <int WC>
 __global__ void __launch_bounds__(NTHREADS, 1)
 k1_fwd_kernel(const Geom G, const void* __restrict__ x, int x_bf16, int n,
               const bf16* __restrict__ wfw, const float* __restrict__ bpk, bf16* __restrict__ y,
-              int nwg, int stages, int sb, int act_bytes) {
+              bf16* dev_act, int nwg, int stages, int sb, int act_bytes) {
   extern __shared__ uint8_t smem_raw[];
   const int r0 = acc_row(), cq = acc_col();
-  chain_forward<WIDE>(
-      align1024(smem_raw), G, n, wfw, bpk, nwg, stages, sb, act_bytes,
+  chain_forward<WC>(
+      align1024(smem_raw), G, n, wfw, bpk, nwg, stages, sb, act_bytes, dev_act,
       [&](bf16* act, int c0, long long row0) {
         load_rows(act, c0, G.P0, x, x_bf16, G.d_in, row0, n);
       },
@@ -160,35 +163,40 @@ struct BwdScratch {
   bf16* gz;         // gz stacks: per layer, per tile, gcols / 64 images of gz_l
   uint32_t* zslab;  // per (CTA, warpgroup, hidden layer): 64 x H bf16 in accumulator order
   float* gx0slab;   // per (CTA, warpgroup): 64 x P0 f32 (skip chains)
+  bf16* act;        // WC_DEV: per (CTA, warpgroup) the activation images
 };
 
-// bytes of the hin stacks, the gz stacks, the z slabs and the gx0 slabs
+// bytes of the hin stacks, the gz stacks, the z slabs, the gx0 slabs and (WC_DEV)
+// the activation slabs of act_bytes each
 __host__ __device__ inline void scratch_sizes(const Geom& G, int tiles, int ctas, int nwg,
-                                              size_t* s) {
+                                              int act_bytes, size_t* s) {
   stack_sizes(G, tiles, s);
   s[2] = align256((size_t)ctas * nwg * (G.L - 1) * 64 * G.H * 2);
   s[3] = G.skip_mask ? align256((size_t)ctas * nwg * 64 * G.P0 * 4) : 0;
+  s[4] = width_class(G) == WC_DEV ? align256((size_t)ctas * nwg * act_bytes) : 0;
 }
 
-template <bool WIDE>
+template <int WC>
 __global__ void __launch_bounds__(NTHREADS, 1)
 k1_bwd_kernel(const Geom G, const void* __restrict__ x, int x_bf16, const void* __restrict__ gy,
               int gy_bf16, int n, const bf16* __restrict__ wfw, const bf16* __restrict__ wbw,
               const float* __restrict__ bpk, void* __restrict__ gx, float* __restrict__ gb,
               BwdScratch S, int nwg, int stages, int sb, int act_bytes) {
+  constexpr bool dev = WC == WC_DEV;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
-  float* csum = reinterpret_cast<float*>(smem + nwg * act_bytes + stages * sb);
+  float* csum = reinterpret_cast<float*>(smem + nwg * wg_smem<WC>(act_bytes) + stages * sb);
   const int L = G.L, H = G.H, P0 = G.P0;
   const int x0c = x0_col(G);
   const int gb_total = G.gb_off[L - 1] + G.dout_true[L - 1];
   uint64_t* bars = reinterpret_cast<uint64_t*>(csum + ((gb_total + 3) & ~3));
-  Ring R{smem + nwg * act_bytes, bars, bars + stages, sb, stages};
+  Ring R{smem + nwg * wg_smem<WC>(act_bytes), bars, bars + stages, sb, stages};
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
       mbar_init(&R.full[s], 1);
       mbar_init(&R.empty[s], nwg);
     }
+    if (dev) init_astage(bars, stages);
     fence_mbar_init();
   }
   for (int i = threadIdx.x; i < gb_total; i += blockDim.x) csum[i] = 0.f;
@@ -207,13 +215,15 @@ k1_bwd_kernel(const Geom G, const void* __restrict__ x, int x_bf16, const void* 
   }
   setmaxnreg_inc<CONSUMER_REGS>();
   const int wg = warp >> 2, t = threadIdx.x & 127, lane = threadIdx.x & 31;
-  bf16* act = reinterpret_cast<bf16*>(smem + wg * act_bytes);
+  const int slot = blockIdx.x * nwg + wg, sidec = side_cols(G);
+  bf16* act = act_images<WC>(smem, wg, act_bytes, S.act, slot);
+  AStage as = astage_of(smem, wg, bars, stages);
+  AStage* asp = dev ? &as : nullptr;
   {
     uint4* p = reinterpret_cast<uint4*>(act);
     for (int i = t; i < act_bytes / 16; i += 128) p[i] = make_uint4(0, 0, 0, 0);
   }
   wg_sync(1 + wg);
-  const int slot = blockIdx.x * nwg + wg;
   uint32_t* zs = S.zslab + (size_t)slot * (L - 1) * (H / 4) * 128;
   float* gx0 = S.gx0slab ? S.gx0slab + (size_t)slot * (P0 / 2) * 128 : nullptr;
   const int top_skip = G.skip_mask ? 31 - __clz(G.skip_mask) : -1;
@@ -226,8 +236,8 @@ k1_bwd_kernel(const Geom G, const void* __restrict__ x, int x_bf16, const void* 
   for (int grp = blockIdx.x; grp < groups; grp += gridDim.x) {
     const int tile = grp * nwg + wg;
     const long long row0 = (long long)tile * 64;
-    const Stacker st{tile < tiles};
-    constexpr int nph = WIDE ? 2 : 1;  // pieces of a hidden-width product
+    const Stacker st{tile < tiles, dev};
+    const int nph = hidden_pieces<WC>(H);  // pieces of a hidden-width product
     auto hin_at = [&](int l) {
       return S.hin + (size_t)tiles * 64 * G.hs_w[l] + (size_t)tile * 64 * G.din_pad[l];
     };
@@ -235,7 +245,7 @@ k1_bwd_kernel(const Geom G, const void* __restrict__ x, int x_bf16, const void* 
       return S.gz + (size_t)tiles * 64 * G.gs_w[l] + (size_t)tile * 64 * gcols(G, l);
     };
     load_rows(act, x0c, P0, x, x_bf16, G.d_in, row0, n);
-    fence_async_smem();
+    fence_act<WC>();
     wg_sync(1 + wg);
     st.store(hin_at(0), act + (x0c >> 6) * 4096, P0);
     // forward recompute of the hidden layers; the stack image of layer l's input
@@ -250,20 +260,20 @@ k1_bwd_kernel(const Geom G, const void* __restrict__ x, int x_bf16, const void* 
       const float* B = bpk + G.b_off[l];
       for (int p = 0; p < nph; ++p) {
         int off, np;
-        hidden_piece<WIDE>(H, p, off, np);
-        bf16* dst = piece_dst<WIDE>(act, act_bytes, p, nph, off);
+        hidden_piece<WC>(H, p, off, np);
+        bf16* dst = piece_dst<WC>(act, act_bytes, sidec, p, nph, off);
         uint32_t* zl = zs + (size_t)l * (H / 4) * 128 + (off >> 2) * 128;
         with_n64(np, [&](auto NC) {
           constexpr int N = decltype(NC)::value;
           float acc[N / 2];
-          mma_piece<N>(acc, a, G.din_pad[l] >> 6, R, wg, B + off);
+          mma_piece<N>(acc, a, G.din_pad[l] >> 6, R, wg, B + off, 3, asp);
           st.drain(wg);  // the stack stores of x0 or of this layer's input have read them
           // x0 -> xs, once layer 0's last product read x0
           if (l == 0 && G.skip_mask && p + 1 == nph) scale_region(act, H, P0);
           // no loop around the two passes: acc stays in registers
           if (own_hin) {
             write_hidden<N, true>(acc, dst, next_skip, act_kind, qa, zl);
-            fence_async_smem();
+            fence_act<WC>();
             wg_sync(1 + wg);
             // the side piece's columns, or the rest of layer l + 1's input
             st.store(hin_at(l + 1) + off * 64, dst, p + 1 < nph ? N : G.din_pad[l + 1] - off);
@@ -272,8 +282,8 @@ k1_bwd_kernel(const Geom G, const void* __restrict__ x, int x_bf16, const void* 
           if (need_h) {
             write_hidden<N, false>(acc, dst, next_skip, act_kind, qa, own_hin ? nullptr : zl);
             if (p + 1 == nph) {
-              side_back<WIDE>(act, act_bytes, nph, wg);
-              fence_async_smem();
+              side_back<WC>(act, act_bytes, sidec, wg);
+              fence_act<WC>();
               wg_sync(1 + wg);
             }
           }
@@ -285,7 +295,7 @@ k1_bwd_kernel(const Geom G, const void* __restrict__ x, int x_bf16, const void* 
     // the last layer's cotangent: bf16(gy) into columns [0, gcols), its stack and column sums
     const int dl = G.d_out, gl = gcols(G, L - 1);
     load_rows(act, 0, gl, gy, gy_bf16, dl, row0, n);
-    fence_async_smem();
+    fence_act<WC>();
     wg_sync(1 + wg);
     st.store(gz_at(L - 1), act, gl);
     for (int c = t; c < dl; c += 128) {
@@ -304,7 +314,7 @@ k1_bwd_kernel(const Geom G, const void* __restrict__ x, int x_bf16, const void* 
         with_n(np, [&](auto NC) {
           constexpr int N = decltype(NC)::value;
           float acc[N / 2];
-          mma_piece<N>(acc, act, kcs, R, wg, nullptr);
+          mma_piece<N>(acc, act, kcs, R, wg, nullptr, 3, asp);
           // slab words are loaded JB column blocks at a time, all in flight before use
           constexpr int JB = N / 8 < 8 ? N / 8 : 8;
           if (l == 0) {  // gx = bf16(gh_0 + gx0)
@@ -348,10 +358,10 @@ k1_bwd_kernel(const Geom G, const void* __restrict__ x, int x_bf16, const void* 
             }
           } else {  // gz_{l-1} = bf16(gh act'(z_{l-1})) (the first of two pieces to the side
                     // images), and its column sums
-            const int hoff = WIDE ? off : 0;  // the h part's one piece starts at 0
+            const int hoff = WC ? off : 0;  // the h part's one piece starts at 0
             const uint32_t* zl = zs + (size_t)(l - 1) * (H / 4) * 128 + (hoff >> 2) * 128;
             float* cs = csum + G.gb_off[l - 1] + hoff;
-            bf16* dst = piece_dst<WIDE>(act, act_bytes, p, npc, hoff);
+            bf16* dst = piece_dst<WC>(act, act_bytes, sidec, p, npc, hoff);
             st.drain(wg);  // the stack store of gz_l has read the region
 #pragma unroll
             for (int j0 = 0; j0 < N / 8; j0 += JB) {
@@ -390,8 +400,8 @@ k1_bwd_kernel(const Geom G, const void* __restrict__ x, int x_bf16, const void* 
           }
         });
       }
-      if (l > 0) side_back<WIDE>(act, act_bytes, nph, wg);
-      fence_async_smem();
+      if (l > 0) side_back<WC>(act, act_bytes, sidec, wg);
+      fence_act<WC>();
       wg_sync(1 + wg);
       if (l > 0) st.store(gz_at(l - 1), act, H);
     }
@@ -528,36 +538,49 @@ extern "C" int mms_k1_pack(const Geom* G, const PackArgs* P, void* wfw, void* wb
   return (int)cudaGetLastError();
 }
 
-template <bool WIDE>
-static int launch_fwd(const Geom& G, const void* x, int x_bf16, int n, const void* wfw,
-                      const void* bpk, void* y, cudaStream_t stream) {
-  const void* kernel = (const void*)k1_fwd_kernel<WIDE>;
-  Launch P;
-  if (plan_chain(G, (n + 63) / 64, false, 0, &P)) return ERR_SMEM;
-  cudaError_t err = allow_smem(WIDE ? 3 : 0, kernel);
+// The forward's launch plan over n rows (0, or a status).
+static int fwd_plan(const Geom& G, int n, const void** kernel, Launch* P) {
+  *kernel = with_wc(G, [](auto WC) { return (const void*)k1_fwd_kernel<decltype(WC)::value>; });
+  if (plan_chain(G, (n + 63) / 64, false, 0, P)) return ERR_SMEM;
+  cudaError_t err = allow_smem(3 + width_class(G), *kernel);
   if (err != cudaSuccess) return (int)err;
-  const int groups = ((n + 63) / 64 + P.nwg - 1) / P.nwg;
-  err = persistent(kernel, &P, groups);
-  if (err != cudaSuccess) return (int)err;
-  k1_fwd_kernel<WIDE><<<P.grid, P.threads, P.smem, stream>>>(
-      G, x, x_bf16, n, (const bf16*)wfw, (const float*)bpk, (bf16*)y, P.nwg, P.stages, P.sb,
-      P.act_bytes);
-  return (int)cudaGetLastError();
+  const int groups = ((n + 63) / 64 + P->nwg - 1) / P->nwg;
+  return (int)persistent(*kernel, P, groups);
 }
 
-extern "C" int mms_k1_fwd(const Geom* G, const void* x, int x_bf16, int n, const void* wfw,
-                          const void* bpk, void* y, void* stream) {
+// Bytes of the forward's device scratch for n rows: WC_DEV's activation slabs, else 0.
+extern "C" long long mms_k1_fwd_bytes(const Geom* G, int n) {
   if (!geom_ok(*G) || n < 1) return -1;
-  return is_wide(*G) ? launch_fwd<true>(*G, x, x_bf16, n, wfw, bpk, y, (cudaStream_t)stream)
-                     : launch_fwd<false>(*G, x, x_bf16, n, wfw, bpk, y, (cudaStream_t)stream);
+  if (width_class(*G) != WC_DEV) return 0;
+  Launch P;
+  const void* kernel;
+  const int status = fwd_plan(*G, n, &kernel, &P);
+  if (status) return status == ERR_SMEM ? ERR_SMEM : -1;
+  return (long long)align256((size_t)P.grid * P.nwg * P.act_bytes);
+}
+
+// The forward: y [n, d_out] bf16; scratch: mms_k1_fwd_bytes of device memory (or null).
+extern "C" int mms_k1_fwd(const Geom* G, const void* x, int x_bf16, int n, const void* wfw,
+                          const void* bpk, void* y, void* scratch, void* stream) {
+  if (!geom_ok(*G) || n < 1 || (width_class(*G) == WC_DEV && !scratch)) return -1;
+  Launch P;
+  const void* kernel;
+  const int status = fwd_plan(*G, n, &kernel, &P);
+  if (status) return status;
+  with_wc(*G, [&](auto WC) {
+    k1_fwd_kernel<decltype(WC)::value><<<P.grid, P.threads, P.smem, (cudaStream_t)stream>>>(
+        *G, x, x_bf16, n, (const bf16*)wfw, (const float*)bpk, (bf16*)y, (bf16*)scratch, P.nwg,
+        P.stages, P.sb, P.act_bytes);
+    return 0;
+  });
+  return (int)cudaGetLastError();
 }
 
 // The backward pass of G's width and its launch plan over n rows (0, or a status).
 static int bwd_plan(const Geom& G, int n, const void** kernel, Launch* P) {
-  const bool wide = is_wide(G);
-  *kernel = wide ? (const void*)k1_bwd_kernel<true> : (const void*)k1_bwd_kernel<false>;
+  *kernel = with_wc(G, [](auto WC) { return (const void*)k1_bwd_kernel<decltype(WC)::value>; });
   if (plan_chain(G, (n + 63) / 64, true, 0, P)) return ERR_SMEM;
-  cudaError_t err = allow_smem(wide ? 4 : 1, *kernel);
+  cudaError_t err = allow_smem(6 + width_class(G), *kernel);
   if (err != cudaSuccess) return (int)err;
   const int groups = ((n + 63) / 64 + P->nwg - 1) / P->nwg;
   return (int)persistent(*kernel, P, groups);
@@ -570,17 +593,18 @@ extern "C" long long mms_k1_bwd_bytes(const Geom* G, int n) {
   const void* kernel;
   const int status = bwd_plan(*G, n, &kernel, &P);
   if (status) return status == ERR_SMEM ? ERR_SMEM : -1;
-  size_t s[4];
-  scratch_sizes(*G, (n + 63) / 64, P.grid, P.nwg, s);
-  return (long long)(s[0] + s[1] + s[2] + s[3]);
+  size_t s[5];
+  scratch_sizes(*G, (n + 63) / 64, P.grid, P.nwg, P.act_bytes, s);
+  return (long long)(s[0] + s[1] + s[2] + s[3] + s[4]);
 }
 
 static BwdScratch split_scratch(const Geom& G, int n, const Launch& P, void* scratch) {
-  size_t s[4];
-  scratch_sizes(G, (n + 63) / 64, P.grid, P.nwg, s);
+  size_t s[5];
+  scratch_sizes(G, (n + 63) / 64, P.grid, P.nwg, P.act_bytes, s);
   uint8_t* p = (uint8_t*)scratch;
   return BwdScratch{(bf16*)p, (bf16*)(p + s[0]), (uint32_t*)(p + s[0] + s[1]),
-                    s[3] ? (float*)(p + s[0] + s[1] + s[2]) : nullptr};
+                    s[3] ? (float*)(p + s[0] + s[1] + s[2]) : nullptr,
+                    s[4] ? (bf16*)(p + s[0] + s[1] + s[2] + s[3]) : nullptr};
 }
 
 // The per-tile pass: gx (x's dtype), gb (accumulated) and the stacks in scratch.
@@ -593,14 +617,12 @@ extern "C" int mms_k1_bwd(const Geom* G, const void* x, int x_bf16, const void* 
   const int status = bwd_plan(*G, n, &kernel, &P);
   if (status) return status;
   const BwdScratch S = split_scratch(*G, n, P, scratch);
-  if (is_wide(*G))
-    k1_bwd_kernel<true><<<P.grid, P.threads, P.smem, (cudaStream_t)stream>>>(
+  with_wc(*G, [&](auto WC) {
+    k1_bwd_kernel<decltype(WC)::value><<<P.grid, P.threads, P.smem, (cudaStream_t)stream>>>(
         *G, x, x_bf16, gy, gy_bf16, n, (const bf16*)wfw, (const bf16*)wbw, (const float*)bpk, gx,
         (float*)gb, S, P.nwg, P.stages, P.sb, P.act_bytes);
-  else
-    k1_bwd_kernel<false><<<P.grid, P.threads, P.smem, (cudaStream_t)stream>>>(
-        *G, x, x_bf16, gy, gy_bf16, n, (const bf16*)wfw, (const bf16*)wbw, (const float*)bpk, gx,
-        (float*)gb, S, P.nwg, P.stages, P.sb, P.act_bytes);
+    return 0;
+  });
   return (int)cudaGetLastError();
 }
 

@@ -214,13 +214,16 @@ struct TanScratch {
   bf16* gz;          // gz stacks (primal gz and tangent gu rows)
   uint32_t* zslab;   // per slot: (L-1) x 64 x H bf16, z (primal rows) or u (tangent rows)
   float* gx0slab;    // per slot: 64 x P0 f32 (skip chains)
+  bf16* act;         // WC_DEV: per slot the activation images
 };
 
-// bytes of the stacks, the z/u slabs and the gx0 slabs
-static void tan_scratch_sizes(const Geom& G, int tiles, int slots, size_t* s) {
+// bytes of the stacks, the z/u slabs, the gx0 slabs and (WC_DEV) the activation
+// slabs of act_bytes each
+static void tan_scratch_sizes(const Geom& G, int tiles, int slots, int act_bytes, size_t* s) {
   stack_sizes(G, tiles, s);
   s[2] = align256((size_t)slots * (G.L - 1) * 64 * G.H * 2);
   s[3] = G.skip_mask ? align256((size_t)slots * 64 * G.P0 * 4) : 0;
+  s[4] = width_class(G) == WC_DEV ? align256((size_t)slots * act_bytes) : 0;
 }
 
 // One call's inputs, cotangents and outputs. mode 0: gy [n, width] bf16 and gty
@@ -337,27 +340,29 @@ __device__ __forceinline__ void tan_hidden(const float (&acc)[N / 2], bf16* act,
   }
 }
 
-template <bool WIDE>
+template <int WC>
 __global__ void __launch_bounds__(NTHREADS, 1)
 tan_bwd_pass_kernel(const Geom G, const mms::Enc E, const TanIo I, int n,
                     const bf16* __restrict__ wfw, const bf16* __restrict__ wbw,
                     const float* __restrict__ bpk, float* __restrict__ gb, TanScratch S, int nwg,
                     int stages, int sb, int act_bytes) {
+  constexpr bool dev = WC == WC_DEV;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
-  float* csum = reinterpret_cast<float*>(smem + nwg * act_bytes + stages * sb);
+  float* csum = reinterpret_cast<float*>(smem + nwg * wg_smem<WC>(act_bytes) + stages * sb);
   const int L = G.L, H = G.H, P0 = G.P0, K = I.K, b = I.b;
   const bool enc = E.freqs > 0;  // K4j (the encoding in front) or K1t
   const int x0c = x0_col(G);
   const int gb_total = G.gb_off[L - 1] + G.dout_true[L - 1];
   float* rowval = csum + ((gb_total + 3) & ~3);  // per warpgroup [64][4]: K4j's d pos terms
   uint64_t* bars = reinterpret_cast<uint64_t*>(rowval + MAXWG * 256);
-  Ring R{smem + nwg * act_bytes, bars, bars + stages, sb, stages};
+  Ring R{smem + nwg * wg_smem<WC>(act_bytes), bars, bars + stages, sb, stages};
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
       mbar_init(&R.full[s], 1);
       mbar_init(&R.empty[s], nwg);
     }
+    if (dev) init_astage(bars, stages);
     fence_mbar_init();
   }
   for (int i = threadIdx.x; i < gb_total; i += blockDim.x) csum[i] = 0.f;
@@ -376,14 +381,16 @@ tan_bwd_pass_kernel(const Geom G, const mms::Enc E, const TanIo I, int n,
   }
   setmaxnreg_inc<CONSUMER_REGS>();
   const int wg = warp >> 2, t = threadIdx.x & 127, lane = threadIdx.x & 31;
-  bf16* act = reinterpret_cast<bf16*>(smem + wg * act_bytes);
+  const int slot = blockIdx.x * nwg + wg, sidec = side_cols(G);
+  bf16* act = act_images<WC>(smem, wg, act_bytes, S.act, slot);
+  AStage as = astage_of(smem, wg, bars, stages);
+  AStage* asp = dev ? &as : nullptr;
   float* rv = rowval + wg * 256;
   {
     uint4* p = reinterpret_cast<uint4*>(act);
     for (int i = t; i < act_bytes / 16; i += 128) p[i] = make_uint4(0, 0, 0, 0);
   }
   wg_sync(1 + wg);
-  const int slot = blockIdx.x * nwg + wg;
   const size_t zwords = (size_t)(H / 4) * 128;
   uint32_t* zs = S.zslab + (size_t)slot * (L - 1) * zwords;
   float* gx0 = S.gx0slab ? S.gx0slab + (size_t)slot * (P0 / 2) * 128 : nullptr;
@@ -399,8 +406,8 @@ tan_bwd_pass_kernel(const Geom G, const mms::Enc E, const TanIo I, int n,
     const int tile = grp * nwg + wg;
     const long long s0 = (long long)tile * b;
     const long long srow = s0 + samp;  // the thread's sample
-    const Stacker st{tile < tiles};
-    constexpr int nph = WIDE ? 2 : 1;  // pieces of a hidden-width product
+    const Stacker st{tile < tiles, dev};
+    const int nph = hidden_pieces<WC>(H);  // pieces of a hidden-width product
     auto hin_at = [&](int l) {
       return S.hin + (size_t)tiles * 64 * G.hs_w[l] + (size_t)tile * 64 * G.din_pad[l];
     };
@@ -408,7 +415,7 @@ tan_bwd_pass_kernel(const Geom G, const mms::Enc E, const TanIo I, int n,
       return S.gz + (size_t)tiles * 64 * G.gs_w[l] + (size_t)tile * 64 * gcols(G, l);
     };
     tan_front(G, E, I, act, x0c, s0, n);
-    fence_async_smem();
+    fence_act<WC>();
     wg_sync(1 + wg);
     st.store(hin_at(0), act + (x0c >> 6) * 4096, P0);
     // recompute of the hidden layers (primal and tangent rows)
@@ -419,21 +426,21 @@ tan_bwd_pass_kernel(const Geom G, const mms::Enc E, const TanIo I, int n,
       const bool need_h = !own_hin || l + 1 < L - 1;
       for (int p = 0; p < nph; ++p) {
         int off, np;
-        hidden_piece<WIDE>(H, p, off, np);
-        bf16* dst = piece_dst<WIDE>(act, act_bytes, p, nph, off);
+        hidden_piece<WC>(H, p, off, np);
+        bf16* dst = piece_dst<WC>(act, act_bytes, sidec, p, nph, off);
         uint32_t* zl = zs + l * zwords + (off >> 2) * 128;
         with_n64(np, [&](auto NC) {
           constexpr int N = decltype(NC)::value;
           float acc[N / 2];
           mma_piece<N>(acc, a, G.din_pad[l] >> 6, R, wg, bpk + G.b_off[l] + off,
-                       kind0 == 0 ? 1 : 0);
+                       kind0 == 0 ? 1 : 0, asp);
 #pragma unroll
           for (int i = 0; i < N / 4; ++i) zl[i * 128 + t] = pack2(acc[2 * i], acc[2 * i + 1]);
           st.drain(wg);  // the stack stores have read act
           if (l == 0 && G.skip_mask && p + 1 == nph) scale_region(act, H, P0);
           if (own_hin) {
             tan_hidden<N, true>(acc, dst, next_skip, act_kind, qa, K, kind0, kind1);
-            fence_async_smem();
+            fence_act<WC>();
             wg_sync(1 + wg);
             st.store(hin_at(l + 1) + off * 64, dst, p + 1 < nph ? N : G.din_pad[l + 1] - off);
             if (need_h) st.drain(wg);
@@ -441,8 +448,8 @@ tan_bwd_pass_kernel(const Geom G, const mms::Enc E, const TanIo I, int n,
           if (need_h) {
             tan_hidden<N, false>(acc, dst, next_skip, act_kind, qa, K, kind0, kind1);
             if (p + 1 == nph) {
-              side_back<WIDE>(act, act_bytes, nph, wg);
-              fence_async_smem();
+              side_back<WC>(act, act_bytes, sidec, wg);
+              fence_act<WC>();
               wg_sync(1 + wg);
             }
           }
@@ -460,7 +467,7 @@ tan_bwd_pass_kernel(const Geom G, const mms::Enc E, const TanIo I, int n,
       const float g = k <= K && row < n ? tan_cotangent(I, n, k, row, c) : 0.f;
       act[act_el(c, r)] = __float2bfloat16(g);
     }
-    fence_async_smem();
+    fence_act<WC>();
     wg_sync(1 + wg);
     st.store(gz_at(L - 1), act, gl);
     for (int c = t; c < dl; c += 128) {
@@ -482,7 +489,7 @@ tan_bwd_pass_kernel(const Geom G, const mms::Enc E, const TanIo I, int n,
         with_n64(np, [&](auto NC) {
           constexpr int N = decltype(NC)::value;
           float acc[N / 2];
-          mma_piece<N>(acc, act, kcs, R, wg, nullptr);
+          mma_piece<N>(acc, act, kcs, R, wg, nullptr, 3, asp);
           if (l == 0) {  // gx (primal rows) and gtx (tangent rows) = gh_0 + gx0
             bf16* out[2];  // the thread's two output rows (K1t), or null
 #pragma unroll
@@ -525,10 +532,10 @@ tan_bwd_pass_kernel(const Geom G, const mms::Enc E, const TanIo I, int n,
             slab_accumulate<N>(gx0, off - H, acc, SKIP_SCALE, l == top_skip);
           } else {  // gz (primal rows) and gu (tangent rows) of layer l - 1 (the first of
                     // two pieces to the side images)
-            const int hoff = WIDE ? off : 0;  // the h part's one piece starts at 0
+            const int hoff = WC ? off : 0;  // the h part's one piece starts at 0
             const uint32_t* zl = zs + (l - 1) * zwords + (hoff >> 2) * 128;
             const float sc = skip ? SKIP_SCALE : 1.f;
-            bf16* dst = piece_dst<WIDE>(act, act_bytes, p, npc, hoff);
+            bf16* dst = piece_dst<WC>(act, act_bytes, sidec, p, npc, hoff);
             st.drain(wg);  // the stack store of G has read act
             float* cs = csum + G.gb_off[l - 1] + hoff;
 #pragma unroll
@@ -573,8 +580,8 @@ tan_bwd_pass_kernel(const Geom G, const mms::Enc E, const TanIo I, int n,
           }
         });
       }
-      if (l > 0) side_back<WIDE>(act, act_bytes, nph, wg);
-      fence_async_smem();
+      if (l > 0) side_back<WC>(act, act_bytes, sidec, wg);
+      fence_act<WC>();
       wg_sync(1 + wg);
       if (l > 0) st.store(gz_at(l - 1), act, H);
     }
@@ -605,10 +612,10 @@ tan_bwd_pass_kernel(const Geom G, const mms::Enc E, const TanIo I, int n,
 }
 
 static int tan_plan(const Geom& G, int tiles, Launch* P) {
-  const void* kernel = is_wide(G) ? (const void*)tan_bwd_pass_kernel<true>
-                                  : (const void*)tan_bwd_pass_kernel<false>;
+  const void* kernel =
+      with_wc(G, [](auto WC) { return (const void*)tan_bwd_pass_kernel<decltype(WC)::value>; });
   if (plan_chain(G, tiles, true, (size_t)MAXWG * 256 * 4, P)) return ERR_SMEM;
-  if (allow_smem(is_wide(G), kernel) != cudaSuccess) return -1;
+  if (allow_smem(width_class(G), kernel) != cudaSuccess) return -1;
   if (persistent(kernel, P, (tiles + P->nwg - 1) / P->nwg) != cudaSuccess) return -1;
   return 0;
 }
@@ -715,19 +722,19 @@ static int tan_bwd_launch(const k1::Geom& G, const Enc& E, const k1::TanIo& I, i
   k1::Launch P;
   const int st = k1::tan_plan(G, tiles, &P);
   if (st) return st;
-  size_t s[4];
-  k1::tan_scratch_sizes(G, tiles, P.grid * P.nwg, s);
+  size_t s[5];
+  k1::tan_scratch_sizes(G, tiles, P.grid * P.nwg, P.act_bytes, s);
   uint8_t* p = (uint8_t*)scratch;
   const k1::TanScratch S{(bf16*)p, (bf16*)(p + s[0]), (uint32_t*)(p + s[0] + s[1]),
-                         s[3] ? (float*)(p + s[0] + s[1] + s[2]) : nullptr};
-  if (k1::is_wide(G))
-    k1::tan_bwd_pass_kernel<true><<<P.grid, P.threads, P.smem, (cudaStream_t)stream>>>(
-        G, E, I, n, (const bf16*)wfw, (const bf16*)wbw, (const float*)bpk, (float*)gb, S, P.nwg,
-        P.stages, P.sb, P.act_bytes);
-  else
-    k1::tan_bwd_pass_kernel<false><<<P.grid, P.threads, P.smem, (cudaStream_t)stream>>>(
-        G, E, I, n, (const bf16*)wfw, (const bf16*)wbw, (const float*)bpk, (float*)gb, S, P.nwg,
-        P.stages, P.sb, P.act_bytes);
+                         s[3] ? (float*)(p + s[0] + s[1] + s[2]) : nullptr,
+                         s[4] ? (bf16*)(p + s[0] + s[1] + s[2] + s[3]) : nullptr};
+  k1::with_wc(G, [&](auto WC) {
+    k1::tan_bwd_pass_kernel<decltype(WC)::value>
+        <<<P.grid, P.threads, P.smem, (cudaStream_t)stream>>>(
+            G, E, I, n, (const bf16*)wfw, (const bf16*)wbw, (const float*)bpk, (float*)gb, S,
+            P.nwg, P.stages, P.sb, P.act_bytes);
+    return 0;
+  });
   return (int)cudaGetLastError();
 }
 
@@ -739,9 +746,9 @@ extern "C" long long mms_tangent_bwd_bytes(const k1::Geom* G, int n, int K) {
   k1::Launch P;
   const int st = k1::tan_plan(*G, tiles, &P);
   if (st) return st;
-  size_t s[4];
-  k1::tan_scratch_sizes(*G, tiles, P.grid * P.nwg, s);
-  return (long long)(s[0] + s[1] + s[2] + s[3]);
+  size_t s[5];
+  k1::tan_scratch_sizes(*G, tiles, P.grid * P.nwg, P.act_bytes, s);
+  return (long long)(s[0] + s[1] + s[2] + s[3] + s[4]);
 }
 
 // K1t's backward pass: x [n, d_in], tx [K, n, d_in], gy [n, d_out] bf16 and gty

@@ -1,10 +1,12 @@
-// The Hopper (sm_90a) building blocks that K1 (fused_chain.cu) and the
-// backward passes of K4/K5 (sdf_chain.cu) and K1t/K4j (fused_mlp.cu) share:
-// the layout of a chain (Geom), weight-image pieces, the ring of weight
-// stages that a producer warpgroup feeds with bulk copies, the wgmma product
-// of a 64-row tile (mma_piece), the activation images of shared memory and
-// their bulk stores to the stacks (Stacker), and the launch plan of a
-// persistent kernel of consumer warpgroups and one producer warpgroup.
+// The Hopper (sm_90a) building blocks that K1 (fused_chain.cu), K2's forward
+// (slot_value.cu), K3's backward pass (slot_chain_bwd.cu) and the backward
+// passes of K4/K5 (sdf_chain.cu) and K1t/K4j (fused_mlp.cu) share: the layout
+// of a chain (Geom), weight-image pieces, the ring of weight stages that a
+// producer warpgroup feeds with bulk copies, the wgmma product of a 64-row
+// tile (mma_piece), the activation images (of shared memory, or of device
+// memory past a hidden width of 512) and their stores to the stacks
+// (Stacker), and the launch plan of a persistent kernel of consumer
+// warpgroups and one producer warpgroup.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -21,7 +23,7 @@ using bf16 = __nv_bfloat16;
 using namespace hop;
 
 constexpr int MAXL = 32;            // layers (build.py MAX_LAYERS)
-constexpr int MAXPIECES = 8;        // pieces of one product's output width
+constexpr int MAXPIECES = 32;       // pieces of one product's output width
 constexpr int MAXWG = 2;            // consumer warpgroups per CTA
 constexpr int NTHREADS = (MAXWG + 1) * 128;  // consumer warpgroups and the producer warpgroup
 // registers of a consumer and of the producer warpgroup (setmaxnreg): a
@@ -165,41 +167,126 @@ __host__ __device__ __forceinline__ int act_cols(const Geom& G) {
 // shared-memory element (bf16) of activation column c, row r
 __device__ __forceinline__ int act_el(int c, int r) { return (c >> 6) * 4096 + img(r, c & 63); }
 
-// A product of hidden width H > 256 runs as two output pieces, 256 and H - 256
-// columns. Its output replaces the columns its input occupies, which the second
-// piece's product still reads, so the first piece's epilogue writes 256 side
-// columns after the activation images instead (the last side_cols columns of
-// the buffer), and side_back copies them to columns [0, 256) once the last
-// product retired. The last piece writes in place. The kernels that run hidden
-// layers take this as a template flag WIDE (H > 256), so that a narrower chain
-// compiles to one piece per layer, its offsets constant, and keeps its
-// registers: the piece loop's live values cost spills at 168 registers.
-__host__ __device__ __forceinline__ int side_cols(const Geom& G) { return G.H > 256 ? 256 : 0; }
+// Width classes of the kernels that run hidden layers, a template argument WC
+// of each, so that a narrower chain compiles to its own code and keeps its
+// registers (the piece loop's live values cost spills at 168 registers):
+//   WC_NARROW (H <= 256): one output piece per hidden layer, written in place;
+//   WC_WIDE (H 384, 512): two pieces, 256 and H - 256 columns. The product's
+//     output replaces the columns its input occupies, which the second
+//     piece's product still reads, so the first piece's epilogue writes 256
+//     side columns after the activation images instead (the last side_cols
+//     columns of the buffer), and side_back copies them to columns [0, 256)
+//     once the last product retired. The last piece writes in place;
+//   WC_DEV (H > 512, a multiple of 128): ceil(H / 256) pieces, all but the last
+//     to (pieces - 1) x 256 side columns, as WC_WIDE. A 64-row tile's
+//     activation images no longer fit in shared memory beside the ring (at H =
+//     1024 the images alone take 128 KB and their side columns 96 KB more), so
+//     they live in a per-(CTA, warpgroup) slab of device memory in the same
+//     swizzled image layout, written and read through generic pointers as the
+//     shared images are; a product stages its A images one 64-column chunk at
+//     a time into two 8 KB shared buffers of its warpgroup by bulk copies
+//     (AStage), which one thread issues a chunk ahead, and a stack store
+//     becomes a copy loop of the warpgroup (Stacker).
+constexpr int WC_NARROW = 0, WC_WIDE = 1, WC_DEV = 2;
 
-__host__ __device__ __forceinline__ bool is_wide(const Geom& G) { return G.H > 256; }
+__host__ __device__ __forceinline__ int width_class(const Geom& G) {
+  return G.H <= 256 ? WC_NARROW : G.H <= 512 ? WC_WIDE : WC_DEV;
+}
 
-// piece p (off, np) of a hidden-width product's WIDE ? 2 : 1 pieces
-template <bool WIDE>
+__host__ __device__ __forceinline__ int side_cols(const Geom& G) {
+  return G.H > 256 ? (n_pieces(G.H) - 1) * 256 : 0;
+}
+
+// pieces of a hidden-width product
+template <int WC>
+__host__ __device__ __forceinline__ int hidden_pieces(int H) {
+  return WC == WC_NARROW ? 1 : WC == WC_WIDE ? 2 : (H + 255) >> 8;
+}
+
+// piece p (off, np) of a hidden-width product
+template <int WC>
 __device__ __forceinline__ void hidden_piece(int H, int p, int& off, int& np) {
-  off = WIDE ? p << 8 : 0;
-  np = WIDE ? min(256, H - off) : H;
+  off = WC ? p << 8 : 0;
+  np = WC ? min(256, H - off) : H;
 }
 
-// the images that piece p of npc hidden-width pieces (at column off) writes
-template <bool WIDE>
-__device__ __forceinline__ bf16* piece_dst(bf16* act, int act_bytes, int p, int npc, int off) {
-  if (!WIDE) return act;
-  return p + 1 < npc ? act + (act_bytes / 128 - 256) / 64 * 4096 : act + (off >> 6) * 4096;
+// where a hidden-width piece at column off writes: the side images, unless it
+// is the last (p + 1 == npc) of its product's pieces; sidec side columns
+template <int WC>
+__device__ __forceinline__ bf16* piece_dst(bf16* act, int act_bytes, int sidec, int p, int npc,
+                                           int off) {
+  if (WC == WC_NARROW) return act;
+  const int base = p + 1 < npc ? act_bytes / 128 - sidec : 0;
+  return act + ((base + off) >> 6) * 4096;
 }
 
-// after the last of npc hidden-width pieces: the side images to columns [0, 256)
-template <bool WIDE>
-__device__ __forceinline__ void side_back(bf16* act, int act_bytes, int npc, int wg) {
-  if (!WIDE || npc < 2) return;
+// after the last hidden-width piece: the sidec side columns to columns [0, sidec)
+template <int WC>
+__device__ __forceinline__ void side_back(bf16* act, int act_bytes, int sidec, int wg) {
+  if (WC == WC_NARROW) return;
   wg_sync(1 + wg);
-  const uint4* s = reinterpret_cast<const uint4*>(act + (act_bytes / 128 - 256) / 64 * 4096);
+  const uint4* s = reinterpret_cast<const uint4*>(act + (act_bytes / 128 - sidec) / 64 * 4096);
   uint4* d = reinterpret_cast<uint4*>(act);
-  for (int i = threadIdx.x & 127; i < 256 * 64 * 2 / 16; i += 128) d[i] = s[i];
+  for (int i = threadIdx.x & 127; i < sidec * 64 * 2 / 16; i += 128) d[i] = s[i];
+}
+
+// generic-proxy writes of the activation images made visible to the async
+// proxy (wgmma's reads of shared memory; WC_DEV: the bulk copies that stage a
+// chunk of the device-memory images)
+template <int WC>
+__device__ __forceinline__ void fence_act() {
+  if (WC == WC_DEV)
+    asm volatile("fence.proxy.async;\n" ::: "memory");
+  else
+    fence_async_smem();
+}
+
+// shared memory of a consumer warpgroup: its activation images, or (WC_DEV)
+// its two A staging buffers
+constexpr int ASTAGE_BYTES = 2 * 8192;
+template <int WC>
+__host__ __device__ __forceinline__ int wg_smem(int act_bytes) {
+  return WC == WC_DEV ? ASTAGE_BYTES : act_bytes;
+}
+
+// WC_DEV: a warpgroup's two A staging buffers and their barriers; chunk i of
+// the warpgroup's sequence goes to buffer i % 2 and completes phase (i / 2) % 2
+// of its barrier
+struct AStage {
+  uint8_t* buf;
+  uint64_t* bar;
+  uint32_t issued = 0, used = 0;
+  __device__ __forceinline__ void issue(const bf16* src) {
+    if ((threadIdx.x & 127) == 0) {
+      mbar_expect_tx(&bar[issued & 1], 8192);
+      bulk_g2s(buf + (issued & 1) * 8192, src, 8192, &bar[issued & 1]);
+    }
+    ++issued;
+  }
+  __device__ __forceinline__ const uint8_t* wait() {
+    mbar_wait(&bar[used & 1], (used >> 1) & 1);
+    return buf + (used++ & 1) * 8192;
+  }
+};
+
+// the activation images of consumer warpgroup wg: in shared memory, or (WC_DEV)
+// its slab of device memory, slot = CTA * nwg + wg
+template <int WC>
+__device__ __forceinline__ bf16* act_images(uint8_t* smem, int wg, int act_bytes, bf16* dev_act,
+                                            int slot) {
+  if (WC == WC_DEV) return dev_act + (size_t)slot * (act_bytes / 2);
+  return reinterpret_cast<bf16*>(smem + wg * act_bytes);
+}
+
+// WC_DEV's staging buffers and barriers of warpgroup wg: the buffers in place of
+// the shared activation images, the barriers after the ring's (initialised by
+// init_astage)
+__device__ __forceinline__ AStage astage_of(uint8_t* smem, int wg, uint64_t* bars, int stages) {
+  return AStage{smem + wg * ASTAGE_BYTES, bars + 2 * stages + 2 * wg};
+}
+
+__device__ __forceinline__ void init_astage(uint64_t* bars, int stages) {
+  for (int i = 0; i < 2 * MAXWG; ++i) mbar_init(&bars[2 * stages + i], 1);
 }
 
 template <class F>
@@ -211,6 +298,16 @@ __device__ __forceinline__ void with_n(int np, F&& f) {
     case 128: f(std::integral_constant<int, 128>()); break;
     case 256: f(std::integral_constant<int, 256>()); break;
     default: break;
+  }
+}
+
+// f(WC) with G's width class as an integral_constant
+template <class F>
+__host__ __forceinline__ auto with_wc(const Geom& G, F&& f) {
+  switch (width_class(G)) {
+    case WC_NARROW: return f(std::integral_constant<int, WC_NARROW>());
+    case WC_WIDE: return f(std::integral_constant<int, WC_WIDE>());
+    default: return f(std::integral_constant<int, WC_DEV>());
   }
 }
 
@@ -270,13 +367,16 @@ __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
 __device__ __forceinline__ int acc_col() { return (threadIdx.x & 3) << 1; }
 
 // acc[64, N] = bias + A[64, 64 kcs] B: A the kcs images from `a` in shared
-// memory, B the next kcs ring stages; bias (f32, from column 0 of the piece)
-// or zeros, on the thread's rows whose bit (row r0: 1, r0 + 8: 2) is set in
-// bias_rows. The bias seeds the accumulators, so its loads are in flight
-// while the first stage lands. Releases each stage once its wgmmas retired.
+// memory (or, with `as`, in device memory, staged chunk by chunk), B the next
+// kcs ring stages; bias (f32, from column 0 of the piece) or zeros, on the
+// thread's rows whose bit (row r0: 1, r0 + 8: 2) is set in bias_rows. The bias
+// seeds the accumulators, so its loads are in flight while the first stage
+// lands. Releases each stage once its wgmmas retired (the release's
+// warpgroup barrier also frees the staging buffer for the chunk after next).
 template <int N>
 __device__ __forceinline__ void mma_piece(float (&acc)[N / 2], const bf16* a, int kcs, Ring& R,
-                                          int wg, const float* bias, int bias_rows = 3) {
+                                          int wg, const float* bias, int bias_rows = 3,
+                                          AStage* as = nullptr) {
   const int cq = acc_col();
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {
@@ -287,9 +387,14 @@ __device__ __forceinline__ void mma_piece(float (&acc)[N / 2], const bf16* a, in
     acc[4 * j + 2] = bias_rows & 2 ? b.x : 0.f;
     acc[4 * j + 3] = bias_rows & 2 ? b.y : 0.f;
   }
+  if (as) as->issue(a);
   for (int kc = 0; kc < kcs; ++kc) {
-    mbar_wait(&R.full[R.stage], R.phase);
     const bf16* ak = a + kc * 4096;
+    if (as) {
+      if (kc + 1 < kcs) as->issue(a + (kc + 1) * 4096);
+      ak = reinterpret_cast<const bf16*>(as->wait());
+    }
+    mbar_wait(&R.full[R.stage], R.phase);
     const uint8_t* bk = R.buf();
     reg_fence(acc);
     wgmma_fence();
@@ -405,10 +510,20 @@ __device__ __forceinline__ void write_hidden(const float (&acc)[N / 2], bf16* ac
 // The stacks are the activation images themselves: thread 0 of the warpgroup
 // copies a region of them to device memory with one bulk store, and waits for
 // the store to have read shared memory before the region is written again.
+// WC_DEV: the images are in device memory, and the warpgroup copies them
+// (every thread calls store and drain).
 struct Stacker {
-  bool on;  // the tile is a real one (a group's spare tile stores nothing)
+  bool on;           // the tile is a real one (a group's spare tile stores nothing)
+  bool dev = false;  // WC_DEV
   __device__ __forceinline__ void store(bf16* dst, const bf16* src, int cols) const {
-    if (on && (threadIdx.x & 127) == 0) bulk_s2g(dst, src, (uint32_t)cols * 128);
+    if (!on) return;
+    if (dev) {
+      const uint4* s = reinterpret_cast<const uint4*>(src);
+      uint4* d = reinterpret_cast<uint4*>(dst);
+      for (int i = threadIdx.x & 127; i < cols * 8; i += 128) d[i] = s[i];
+    } else if ((threadIdx.x & 127) == 0) {
+      bulk_s2g(dst, src, (uint32_t)cols * 128);
+    }
   }
   __device__ __forceinline__ void drain(int wg) const {
     if ((threadIdx.x & 127) == 0) bulk_wait_read();
@@ -480,25 +595,30 @@ __device__ __forceinline__ void stream_bwd(Ring& R, const Geom& G, const bf16* w
 //   hidden(l, off, NC, acc, row0): a hidden layer's piece (NC its width as an
 //     integral_constant) before its epilogue;
 //   last(off, NC, acc, row0): a piece of the last layer.
-// WIDE: the chain's hidden width is over 256 (is_wide).
-template <bool WIDE, class Front, class Hidden, class Last>
+// WC: the chain's width class (width_class); dev_act: WC_DEV's activation
+// slabs, act_bytes per (CTA, warpgroup).
+template <int WC, class Front, class Hidden, class Last>
 __device__ __forceinline__ void chain_forward(uint8_t* smem, const Geom& G, int n,
                                               const bf16* __restrict__ wfw,
                                               const float* __restrict__ bpk, int nwg, int stages,
-                                              int sb, int act_bytes, const Front& front,
-                                              const Hidden& hidden, const Last& last) {
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + nwg * act_bytes + stages * sb);
-  Ring R{smem + nwg * act_bytes, bars, bars + stages, sb, stages};
+                                              int sb, int act_bytes, bf16* dev_act,
+                                              const Front& front, const Hidden& hidden,
+                                              const Last& last) {
+  constexpr bool dev = WC == WC_DEV;
+  uint8_t* ring = smem + nwg * wg_smem<WC>(act_bytes);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + stages * sb);
+  Ring R{ring, bars, bars + stages, sb, stages};
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
       mbar_init(&R.full[s], 1);
       mbar_init(&R.empty[s], nwg);
     }
+    if (dev) init_astage(bars, stages);
     fence_mbar_init();
   }
   __syncthreads();
   const int L = G.L, H = G.H, P0 = G.P0;
-  const int x0c = x0_col(G);
+  const int x0c = x0_col(G), sidec = side_cols(G);
   const int tiles = (n + 63) / 64, groups = (tiles + nwg - 1) / nwg;
   const int warp = threadIdx.x >> 5;
   if (warp >= nwg * 4) {  // producer: the forward images, in order, once per tile group
@@ -509,7 +629,9 @@ __device__ __forceinline__ void chain_forward(uint8_t* smem, const Geom& G, int 
   }
   setmaxnreg_inc<CONSUMER_REGS>();
   const int wg = warp >> 2;
-  bf16* act = reinterpret_cast<bf16*>(smem + wg * act_bytes);
+  bf16* act = act_images<WC>(smem, wg, act_bytes, dev_act, blockIdx.x * nwg + wg);
+  AStage as = astage_of(smem, wg, bars, stages);
+  AStage* asp = dev ? &as : nullptr;
   {
     uint4* p = reinterpret_cast<uint4*>(act);
     for (int i = threadIdx.x & 127; i < act_bytes / 16; i += 128) p[i] = make_uint4(0, 0, 0, 0);
@@ -521,7 +643,7 @@ __device__ __forceinline__ void chain_forward(uint8_t* smem, const Geom& G, int 
   for (int grp = blockIdx.x; grp < groups; grp += gridDim.x) {
     const long long row0 = (long long)(grp * nwg + wg) * 64;
     front(act, x0c, row0);
-    fence_async_smem();
+    fence_act<WC>();
     wg_sync(1 + wg);
     for (int l = 0; l < L; ++l) {
       const bf16* a = act + (l == 0 ? (x0c >> 6) * 4096 : 0);
@@ -535,14 +657,14 @@ __device__ __forceinline__ void chain_forward(uint8_t* smem, const Geom& G, int 
         with_n(np, [&](auto NC) {
           constexpr int N = decltype(NC)::value;
           float acc[N / 2];
-          mma_piece<N>(acc, a, kcs, R, wg, B + off);
+          mma_piece<N>(acc, a, kcs, R, wg, B + off, 3, asp);
           if (is_last) {
             last(off, NC, acc, row0);
             return;
           }
           hidden(l, off, NC, acc, row0);
           // h = bf16(act(z)) (times 1/sqrt 2, rounded, before a skip layer)
-          bf16* dst = piece_dst<WIDE>(act, act_bytes, p, npc, off);
+          bf16* dst = piece_dst<WC>(act, act_bytes, sidec, p, npc, off);
 #pragma unroll
           for (int j = 0; j < N / 8; ++j) {
             const int c = 8 * j + cq;
@@ -559,9 +681,9 @@ __device__ __forceinline__ void chain_forward(uint8_t* smem, const Geom& G, int 
           }
         });
       }
-      if (!is_last) side_back<WIDE>(act, act_bytes, npc, wg);
+      if (!is_last) side_back<WC>(act, act_bytes, sidec, wg);
       if (l == 0 && G.skip_mask) scale_region(act, H, P0);
-      fence_async_smem();
+      fence_act<WC>();
       wg_sync(1 + wg);
     }
   }
@@ -588,7 +710,7 @@ struct Launch {
 };
 
 static int g_sms = 0;
-static bool g_attr[8] = {false, false, false, false, false, false, false, false};
+static bool g_attr[16] = {};
 
 static int sm_count() {
   if (!g_sms) {
@@ -619,11 +741,12 @@ static int max_piece(int w) {
 }
 
 // Checks what the kernels take: 2..MAXL layers, H in {64, 128, 256, 384, 512}
-// (at most two pieces of a hidden-width product: one side image), at most
-// MAXPIECES pieces per product.
+// or (WC_DEV) a multiple of 128 over 512, at most MAXPIECES pieces per product.
 static bool geom_ok(const Geom& G) {
   if (G.L < 2 || G.L > MAXL) return false;
-  if (G.H != 64 && G.H != 128 && G.H != 256 && G.H != 384 && G.H != 512) return false;
+  if (G.H != 64 && G.H != 128 && G.H != 256 && G.H != 384 && G.H != 512 &&
+      (G.H < 512 || G.H % 128))
+    return false;
   if (G.skip_mask & 1) return false;
   for (int l = 0; l < G.L; ++l)
     if (n_pieces(G.dout_pad[l]) > MAXPIECES || bwd_n_pieces(G, l) > MAXPIECES) return false;
@@ -634,7 +757,9 @@ static bool geom_ok(const Geom& G) {
 // sums of gb and the backward images) over `tiles` 64-row tiles, with `extra`
 // more bytes of shared memory (a backward's own sums). nwg = 2 where two
 // tiles per CTA leave every SM a tile group and shared memory takes two
-// activation buffers.
+// activation buffers. act_bytes: one warpgroup's activation images (WC_DEV:
+// its slab of device memory, its shared memory the two A staging buffers and
+// their barriers after the ring's).
 static int plan_chain(const Geom& G, int tiles, bool bwd, size_t extra_bytes, Launch* P) {
   int width = act_cols(G);
   if (bwd) width = width > gcols(G, G.L - 1) ? width : gcols(G, G.L - 1);
@@ -653,8 +778,10 @@ static int plan_chain(const Geom& G, int tiles, bool bwd, size_t extra_bytes, La
   }
   const int gb_total = G.gb_off[G.L - 1] + G.dout_true[G.L - 1];
   const size_t extra = (bwd ? (size_t)((gb_total + 3) & ~3) * 4 : 0) + extra_bytes;
+  const bool dev = width_class(G) == WC_DEV;
   auto smem_of = [&](int nwg, int stages) {
-    return 1024 + (size_t)nwg * width * 128 + (size_t)stages * npmax * 128 + extra + 16 * stages;
+    return 1024 + (size_t)nwg * (dev ? ASTAGE_BYTES : width * 128) + (size_t)stages * npmax * 128 +
+           extra + 16 * stages + (dev ? 16 * MAXWG : 0);
   };
   auto fit = [&](int nwg, size_t cap) {
     for (int stages = 4; stages >= 2; --stages) {

@@ -153,6 +153,12 @@ __device__ __forceinline__ float corner_axis_factor(const float wa[3][2], const 
   return dwa[t][(c >> t) & 1] * wa[u][(c >> u) & 1] * wa[v][(c >> v) & 1];
 }
 
+// 1 where coordinate p was not clipped to the grid, else 0 (_cell_coords)
+__device__ __forceinline__ float clip_gate(const SlotParams& P, float p) {
+  const float g = (p + P.radius) / (2.f * P.radius);
+  return (g > 0.f && g < P.clip_hi) ? 1.f : 0.f;
+}
+
 __device__ __forceinline__ void load_pos(const float* pos, int n, long long row, float p[3]) {
 #pragma unroll
   for (int t = 0; t < 3; ++t) p[t] = row < n ? pos[row * 3 + t] : 0.f;

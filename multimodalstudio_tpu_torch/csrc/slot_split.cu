@@ -1,19 +1,16 @@
 // The split backward of the fused slot-grid SDF chains for Hopper (MMS_SLOT_BWD_SPLIT=1):
-// its per-sample passes and its table scatter. The weight gradients are dense products
-// over the passes' stacks, left to PyTorch's matrix products as the JAX package leaves
-// them to XLA (_wgrads_xla :938, _value_wgrads_xla :1567).
+// K2's per-sample pass and the table scatter of both chains. The value chain's weight
+// gradients are dense products over the pass's stack, left to PyTorch's matrix products
+// as the JAX package leaves them to XLA (_value_wgrads_xla :1567); K3's per-sample pass
+// and its weight gradients are slot_chain_bwd.cu's pass and chain_wgrad.
 //
-// Replaces three Pallas TPU kernels of multimodalstudio_tpu/ops/pallas/slot_fused.py:
+// Replaces two Pallas TPU kernels of multimodalstudio_tpu/ops/pallas/slot_fused.py:
 //   K2s _value_bwd_sample_kernel (:1485): K2's backward per sample, without the weight
 //       gradient and table accumulators: d pos, the table cotangent, the gz stack;
-//   K3s _bwd_sample_kernel (:758): the same for K3 (reverse over reverse), with the ga and
-//       q stacks of the adjoint path;
 //   _bwd_scatter_kernel (:925): the table cotangent added into the f32 table gradient.
-// The per-sample passes are the merged backward's tile code without its atomics
-// (slot_bwd.cuh, SPLIT = true).
-//
-// The per-sample passes write each (sample, level)'s table cotangent in the table's type:
-// bf16 for a bf16 table, f32 for an f32 one (K2s/K3s of K2f/K3f, slot_fused.py:1055, 1652).
+// The per-sample pass is the merged backward's tile code without its atomics
+// (slot_bwd.cuh, SPLIT = true). It writes each (sample, level)'s table cotangent in the
+// table's type: bf16 for a bf16 table, f32 for an f32 one (slot_fused.py:1652).
 //
 // The scatter: one thread per (sample, level) recomputes the cell entry from the position
 // (as the TPU kernel recomputes its rows, :925-935) and adds the entry's 8F cotangent values
@@ -57,28 +54,12 @@ slot_table_scatter_kernel(const float* __restrict__ pos, int n, const DT* __rest
 extern "C" int mms_slot_value_bwd_sample(SLOT_COMMON_PARAMS, const void* zs, const void* gsdf,
                                          void* d_pos, void* dcomp, void* gzs, void* scratch,
                                          int max_ctas, void* stream) {
-  const SplitOut so{dcomp, nullptr, nullptr, (bf16*)gzs};
+  const SplitOut so{dcomp, (bf16*)gzs};
   return launch_value_bwd<true>(pos, n, table, lmask, wpack, bpack, n_layers, in_dims, out_dims,
                                 hidden, p0, act, quad_a, levels, feats, pk_shift, res, dense,
                                 ent_mask, row_off, radius, clip_hi, smooth, pe_freqs, pe_scale,
                                 skip_mask, table_f32, zs, gsdf, d_pos, nullptr, nullptr, nullptr,
                                 so, scratch, max_ctas, stream);
-}
-
-// K3s: d pos [N, 3] f32, d_comp [N, K, 8F] (bf16, f32 for an f32 table), ga [N, p0] bf16, q
-// and gz [L-1, N, H] bf16.
-extern "C" int mms_slot_chain_bwd_sample(SLOT_COMMON_PARAMS, const void* zs, const void* ss,
-                                         const void* adj, int adj_width, const void* gsdf,
-                                         const void* ggeo, int geo_width, const void* g3,
-                                         void* d_pos, void* dcomp, void* ga, void* qs, void* gzs,
-                                         void* scratch, int max_ctas, void* stream) {
-  const SplitOut so{dcomp, (bf16*)ga, (bf16*)qs, (bf16*)gzs};
-  return launch_chain_bwd<true>(pos, n, table, lmask, wpack, bpack, n_layers, in_dims, out_dims,
-                                hidden, p0, act, quad_a, levels, feats, pk_shift, res, dense,
-                                ent_mask, row_off, radius, clip_hi, smooth, pe_freqs, pe_scale,
-                                skip_mask, table_f32, zs, ss, adj, adj_width, gsdf, ggeo,
-                                geo_width, g3, d_pos, nullptr, nullptr, nullptr, so, scratch,
-                                max_ctas, stream);
 }
 
 // The scatter: d_table [rows, 128] f32 (zeroed by the caller) += d_comp [N, K, 8F], bf16 or

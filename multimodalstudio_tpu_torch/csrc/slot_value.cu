@@ -34,67 +34,9 @@
 // flops) against 16 bytes of position and sdf per sample and the table, which
 // stays in L2; both are far under the time the front's lookups and the
 // layers' epilogues take (PERF.md has the times).
-#include "k1.cuh"
-#include "slot.cuh"
+#include "slot_rows.cuh"
 
 namespace k1 {
-
-// the 8 corner values of one feature of an entry
-__device__ __forceinline__ void corners(const float* p, float (&v)[8]) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
-  v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
-}
-
-// The tile's chain input x0 = [pos, sin, cos, grid of the active levels, 0]
-// rounded to bf16 into activation columns [c0, c0 + P0), zero past n, by the
-// warpgroup's 128 threads. TT: the table's type, which sets the grid side's
-// roundings; the table arrives as its f32 parameter.
-template <class TT>
-__device__ __forceinline__ void slot_rows(const mms::SlotParams& P, const float* __restrict__ pos,
-                                          int n, long long row0, const float* __restrict__ table,
-                                          const float* __restrict__ lmask, bf16* act, int c0,
-                                          int P0) {
-  const int t = threadIdx.x & 127;
-  const int k = P.levels, F = P.feats, pw = P.pw, grid_end = pw + k * F;
-  for (int i = t; i < 64 * k; i += 128) {  // grid: one (sample, level) per thread
-    const int r = i / k, l = i - r * k;
-    const long long row = row0 + r;
-    if (row >= n) {
-      for (int f = 0; f < F; ++f) act[act_el(c0 + pw + l * F + f, r)] = __float2bfloat16(0.f);
-      continue;
-    }
-    float p[3];
-    mms::load_pos(pos, n, row, p);
-    float wa[3][2], dwa[3][2], ddwa[3][2];
-    const unsigned e = mms::cell_geom(P, l, p, wa, dwa, ddwa);
-    float wb[8];
-#pragma unroll
-    for (int c = 0; c < 8; ++c) wb[c] = mms::corner_weight<TT>(wa, c);
-    const float* T = table + mms::entry_offset(P, l, e);
-    for (int f = 0; f < F; ++f) {
-      float v[8];
-      corners(T + f * 8, v);
-      float acc = 0.f;
-#pragma unroll
-      for (int c = 0; c < 8; ++c)
-        acc += mms::grid_round<TT>(mms::grid_round<TT>(v[c]) * wb[c]);
-      act[act_el(c0 + pw + l * F + f, r)] = __float2bfloat16(acc * lmask[l * F + f]);
-    }
-  }
-  for (int i = t; i < 64 * pw; i += 128) {  // the NeRF encoding
-    const int r = i / pw, c = i - r * pw;
-    const long long row = row0 + r;
-    const float v = row < n ? mms::pe_col(pos + row * 3, P.pe_freqs, P.pe_scale, c) : 0.f;
-    act[act_el(c0 + c, r)] = __float2bfloat16(v);
-  }
-  const int rest = P0 - grid_end;  // the inactive levels and the padding
-  for (int i = t; i < 64 * rest; i += 128) {
-    const int r = i / rest;
-    act[act_el(c0 + grid_end + i - r * rest, r)] = __float2bfloat16(0.f);
-  }
-}
 
 // What a launch writes: sdf [n] f32; in training mode (or null) zs [L-1, n, H]
 // bf16 and x0 [n, x0_width] bf16.
@@ -105,16 +47,16 @@ struct ValueOut {
   int x0_width;
 };
 
-template <class TT, bool WIDE>
+template <class TT, int WC>
 __global__ void __launch_bounds__(NTHREADS, 1)
 slot_value_kernel(const Geom G, const mms::SlotParams P, const float* __restrict__ pos, int n,
                   const float* __restrict__ table, const float* __restrict__ lmask,
                   const bf16* __restrict__ wfw, const float* __restrict__ bpk, const ValueOut O,
-                  int nwg, int stages, int sb, int act_bytes) {
+                  bf16* dev_act, int nwg, int stages, int sb, int act_bytes) {
   extern __shared__ uint8_t smem_raw[];
   const int r0 = acc_row(), cq = acc_col();
-  chain_forward<WIDE>(
-      align1024(smem_raw), G, n, wfw, bpk, nwg, stages, sb, act_bytes,
+  chain_forward<WC>(
+      align1024(smem_raw), G, n, wfw, bpk, nwg, stages, sb, act_bytes, dev_act,
       [&](bf16* act, int c0, long long row0) {
         slot_rows<TT>(P, pos, n, row0, table, lmask, act, c0, G.P0);
         if (!O.x0) return;
@@ -149,43 +91,72 @@ slot_value_kernel(const Geom G, const mms::SlotParams P, const float* __restrict
       });
 }
 
-template <class TT, bool WIDE>
-static int launch_value(const Geom& G, const mms::SlotParams& P, const float* pos, int n,
-                        const float* table, const float* lmask, const bf16* wfw, const float* bpk,
-                        const ValueOut& O, cudaStream_t stream) {
-  const void* kernel = (const void*)slot_value_kernel<TT, WIDE>;
+// The kernel of G's width class and table type, and its launch plan over n rows.
+static int value_plan(const Geom& G, int table_f32, int n, const void** kernel, Launch* L) {
+  *kernel = with_wc(G, [&](auto WC) {
+    constexpr int wc = decltype(WC)::value;
+    return table_f32 ? (const void*)slot_value_kernel<float, wc>
+                     : (const void*)slot_value_kernel<bf16, wc>;
+  });
   const int tiles = (n + 63) / 64;
-  Launch L;
-  if (plan_chain(G, tiles, false, 0, &L)) return ERR_SMEM;
-  cudaError_t err = allow_smem(2 * std::is_same<TT, float>::value + WIDE, kernel);
+  if (plan_chain(G, tiles, false, 0, L)) return ERR_SMEM;
+  cudaError_t err = allow_smem(3 * table_f32 + width_class(G), *kernel);
   if (err != cudaSuccess) return (int)err;
-  err = persistent(kernel, &L, (tiles + L.nwg - 1) / L.nwg);
-  if (err != cudaSuccess) return (int)err;
-  slot_value_kernel<TT, WIDE><<<L.grid, L.threads, L.smem, stream>>>(
-      G, P, pos, n, table, lmask, wfw, bpk, O, L.nwg, L.stages, L.sb, L.act_bytes);
-  return (int)cudaGetLastError();
+  return (int)persistent(*kernel, L, (tiles + L->nwg - 1) / L->nwg);
 }
 
 }  // namespace k1
+
+static bool value_ok(const k1::Geom* G, const mms::SlotParams* P, int n) {
+  return k1::geom_ok(*G) && n >= 1 && P->levels >= 1 && P->levels <= mms::MAXLV &&
+         P->feats >= 1 && P->feats <= 16 && P->pe_freqs >= 1 && P->pe_freqs <= mms::MAXPE &&
+         P->pw + P->levels * P->feats <= G->d_in;
+}
+
+// Bytes of device scratch a launch over n rows needs: the activation slabs of a
+// hidden width over 512 (k1.cuh WC_DEV), else 0.
+extern "C" long long mms_slot_value_fwd_bytes(const k1::Geom* G, const mms::SlotParams* P, int n,
+                                              int table_f32) {
+  if (!value_ok(G, P, n)) return -1;
+  if (k1::width_class(*G) != k1::WC_DEV) return 0;
+  k1::Launch L;
+  const void* kernel;
+  const int status = k1::value_plan(*G, table_f32, n, &kernel, &L);
+  if (status) return status == k1::ERR_SMEM ? k1::ERR_SMEM : -1;
+  return (long long)k1::align256((size_t)L.grid * L.nwg * L.act_bytes);
+}
 
 // One launch of K2 (table_f32 0) or K2f (1): sdf [n] f32 and, where given, zs
 // and x0. G: the chain with its last layer cut to column 0 (fused_mlp.py
 // chain_layout); P: the grid and the encoding (slot.cuh); table: [rows, 128]
 // f32, rounded to bf16 as it is read for K2; wfw, bpk: k1_pack's forward images
-// and biases of that chain.
+// and biases of that chain; scratch: mms_slot_value_fwd_bytes of device memory
+// (or null).
 extern "C" int mms_slot_value_fwd(const k1::Geom* G, const mms::SlotParams* P, const void* pos,
                                   int n, const void* table, int table_f32, const void* lmask,
                                   const void* wfw, const void* bpk, void* sdf, void* zs, void* x0,
-                                  int x0_width, void* stream) {
-  if (!k1::geom_ok(*G) || n < 1 || P->levels < 1 || P->levels > mms::MAXLV || P->feats < 1 ||
-      P->feats > 16 || P->pe_freqs < 1 || P->pe_freqs > mms::MAXPE ||
-      P->pw + P->levels * P->feats > G->d_in || (x0 && (x0_width < G->d_in || x0_width > G->P0)))
+                                  int x0_width, void* scratch, void* stream) {
+  if (!value_ok(G, P, n) || (x0 && (x0_width < G->d_in || x0_width > G->P0)) ||
+      (k1::width_class(*G) == k1::WC_DEV && !scratch))
     return -1;
   const k1::ValueOut O{(float*)sdf, (k1::bf16*)zs, (k1::bf16*)x0, x0_width};
-  const auto launch = table_f32 ? (k1::is_wide(*G) ? k1::launch_value<float, true>
-                                                   : k1::launch_value<float, false>)
-                                : (k1::is_wide(*G) ? k1::launch_value<k1::bf16, true>
-                                                   : k1::launch_value<k1::bf16, false>);
-  return launch(*G, *P, (const float*)pos, n, (const float*)table, (const float*)lmask,
-                (const k1::bf16*)wfw, (const float*)bpk, O, (cudaStream_t)stream);
+  k1::Launch L;
+  const void* kernel;
+  const int status = k1::value_plan(*G, table_f32, n, &kernel, &L);
+  if (status) return status;
+  k1::with_wc(*G, [&](auto WC) {
+    constexpr int wc = decltype(WC)::value;
+    const auto args = [&](auto kern) {
+      kern<<<L.grid, L.threads, L.smem, (cudaStream_t)stream>>>(
+          *G, *P, (const float*)pos, n, (const float*)table, (const float*)lmask,
+          (const k1::bf16*)wfw, (const float*)bpk, O, (k1::bf16*)scratch, L.nwg, L.stages, L.sb,
+          L.act_bytes);
+    };
+    if (table_f32)
+      args(k1::slot_value_kernel<float, wc>);
+    else
+      args(k1::slot_value_kernel<k1::bf16, wc>);
+    return 0;
+  });
+  return (int)cudaGetLastError();
 }

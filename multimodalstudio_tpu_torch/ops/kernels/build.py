@@ -5,10 +5,11 @@ Each library under `csrc/` is one .cu source with a plain C interface
 wgmma; fused_mlp: K1t, the chain with forward tangents, forward and
 backward, and K4j, the tangent kernels with the encoding in front;
 slot_value: K2 forward, on K1's wgmma forward; slot_fused: K3 forward;
-slot_fused_bwd: K2/K3 merged backward; slot_split: K2s/K3s per-sample passes
-and the table scatter of the split backward, the slot kernels each for a bf16
-and an f32 table (K2f/K3f); sdf_chain: K4 and K5 forward and
-backward; slot_grid: K6 forward and backward),
+slot_fused_bwd: K2 merged backward; slot_split: K2s's per-sample pass and
+the table scatter of the split backward; slot_chain_bwd: K3's backward pass,
+merged and split, on K1's blocks; the slot kernels each for a bf16 and an
+f32 table (K2f/K3f); sdf_chain: K4 and K5 forward and backward; slot_grid:
+K6 forward and backward),
 compiled by nvcc for sm_90a into `build/torch_kernels/` at the repository
 root and loaded with ctypes. The library name carries a hash of every file
 in `csrc/`, so an edited source rebuilds and a stale library is never
@@ -35,8 +36,13 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 LIBRARIES = (
     "fused_chain", "fused_mlp", "slot_value", "slot_fused", "slot_fused_bwd", "slot_split",
-    "sdf_chain", "slot_grid",
+    "slot_chain_bwd", "sdf_chain", "slot_grid",
 )
+# Libraries built from more than one source: each source compiles on its own
+# (nvcc -c, at once with every other library's), then the objects link into
+# the library. A heavy width class (csrc/k1.cuh WC_DEV) compiles this way
+# beside the rest of its library.
+PARTS = {"sdf_chain": ("sdf_chain", "sdf_chain_dev")}
 TILE_M = 64  # samples per CTA tile of every kernel (csrc/chain.cuh)
 MAX_LAYERS = 32  # layers of a chain a kernel takes (csrc/chain.cuh MAXL)
 MAX_LEVELS = 32  # grid levels a slot kernel takes (csrc/slot.cuh MAXLV)
@@ -97,39 +103,67 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only on a machine with the CUDA toolkit")
 
 
+def _tmp(suffix: str) -> str:
+    fd, tmp = tempfile.mkstemp(suffix=suffix, dir=BUILD_DIR)
+    os.close(fd)
+    return tmp
+
+
 def _start(name: str):
-    """Start nvcc for one library; returns (process, tmp path, target) or None
-    when the library is already built."""
+    """Start nvcc for one library (one process per source); returns
+    (processes, their objects or None, tmp path, target) or None when the
+    library is already built."""
     target = library_path(name)
     if target.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    return proc, tmp, target
+    tmp, parts = _tmp(".so"), PARTS.get(name, (name,))
+    if len(parts) == 1:
+        cmds, objs = [[_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]], None
+    else:
+        flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        objs = [_tmp(".o") for _ in parts]
+        cmds = [[_nvcc(), *flags, "-c", "-o", o, str(CSRC / f"{p}.cu")] for p, o in zip(parts, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    return procs, objs, tmp, target
 
 
-def _finish(name: str, started) -> None:
-    proc, tmp, target = started
-    out, err = proc.communicate()
-    if proc.returncode != 0:
+BUILD_SECONDS: Dict[str, float] = {}  # seconds from the start of build_all to each library's end
+
+
+def _finish(name: str, started, t0: float) -> None:
+    procs, objs, tmp, target = started
+    report, failed = [], []
+    for proc in procs:
+        out, err = proc.communicate()
+        report.append(err)
+        if proc.returncode != 0:
+            failed.append(f"exit {proc.returncode}:\n{err}{out}")
+    if not failed and objs:
+        link = subprocess.run([_nvcc(), NVCC_FLAGS[0], NVCC_FLAGS[1], "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            failed.append(f"link exit {link.returncode}:\n{link.stderr}{link.stdout}")
+    for o in objs or ():
+        os.unlink(o)
+    BUILD_SECONDS[name] = time.perf_counter() - t0
+    if failed:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {name} (exit {proc.returncode}):\n{err}{out}")
-    target.with_suffix(".ptxas.txt").write_text(err)
+        raise RuntimeError(f"nvcc failed for {name} ({'; '.join(failed)})")
+    target.with_suffix(".ptxas.txt").write_text("".join(report))
     os.replace(tmp, target)
 
 
 def build_all() -> float:
-    """Build every library in parallel (one nvcc each); returns seconds."""
+    """Build every library in parallel (one nvcc per source); returns seconds."""
     t0 = time.perf_counter()
     started = {n: _start(n) for n in LIBRARIES}
     errors = []
     for n, s in started.items():
         if s is not None:
             try:
-                _finish(n, s)
+                _finish(n, s, t0)
             except RuntimeError as e:
                 errors.append(str(e))
     if errors:

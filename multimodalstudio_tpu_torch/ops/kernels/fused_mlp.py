@@ -553,14 +553,21 @@ def unpack_grads(gw: torch.Tensor, gb: torch.Tensor, weights, in_dims, out_dims,
 #
 # The layout of csrc/fused_chain.cu. Activation columns come in 64-wide
 # images: [h (H) | x0 (P0 = ceil64(d_in))]; hidden widths are 64, 128, 256,
-# 384 or 512 (a hidden layer's product runs as at most two wgmma pieces of at
-# most 256 columns, the first written to a 256-column side image until the
-# second's product retired). A product's output width (padded to 16) is cut
-# into pieces of 256 columns, then 128, 64, 32, 16. An image is R rows of 64 bf16 (one 64-deep k-chunk), its 16-byte units
+# 384, 512 or any multiple of 128 above (a hidden layer's product runs as
+# ceil(H / 256) wgmma pieces of at most 256 columns, all but the last written
+# to side images until the last product retired; past 512 the activation
+# images live in device memory, csrc/k1.cuh WC_DEV). A product's output width
+# (padded to 16) is cut into pieces of 256 columns, then 128, 64, 32, 16. An
+# image is R rows of 64 bf16 (one 64-deep k-chunk), its 16-byte units
 # permuted by unit ^ (row % 8) (the 128-byte swizzle of wgmma).
 
-MAX_PIECES = 8  # csrc/fused_chain.cu MAXPIECES
-HIDDEN_WIDTHS = (64, 128, 256, 384, 512)
+MAX_PIECES = 32  # csrc/k1.cuh MAXPIECES
+HIDDEN_WIDTHS = (64, 128, 256, 384, 512)  # and every multiple of 128 above 512
+
+
+def hidden_width_ok(hidden: int) -> bool:
+    """Whether the card's chain kernels take a hidden width (csrc/k1.cuh geom_ok)."""
+    return hidden in HIDDEN_WIDTHS or (hidden > 512 and hidden % 128 == 0)
 
 
 def ceil64(n: int) -> int:
@@ -638,12 +645,11 @@ def chain_layout(d_in: int, shapes: Sequence[Tuple[int, int]], skip: Tuple[int, 
     if 0 in skip:
         raise ValueError("fused_chain: layer 0 cannot be a skip layer")
     hidden, d_out = shapes[0][1], shapes[-1][1]
-    if hidden not in HIDDEN_WIDTHS:
+    if not hidden_width_ok(hidden):
         raise ValueError(f"fused_chain: hidden width {hidden}; the card's kernels take "
-                         f"{HIDDEN_WIDTHS}: a hidden layer runs as at most two pieces of 256 "
-                         "columns, the first held in one 256-column side image beside the 64-row "
-                         "tile's activation images, all within the 232,448 bytes of shared "
-                         "memory a CTA has")
+                         f"{HIDDEN_WIDTHS} and every multiple of 128 above 512: a hidden layer "
+                         "runs as wgmma pieces of 256 columns and a last one of 128 or 256, and "
+                         "JAX's can_fuse sends only multiples of 128 to the fused kernels")
     p0 = ceil64(d_in)
     din_pad, din_true = [], []
     for l, (din, dout) in enumerate(shapes):
@@ -656,9 +662,10 @@ def chain_layout(d_in: int, shapes: Sequence[Tuple[int, int]], skip: Tuple[int, 
         din_true.append(din)
     dout_true = [hidden] * (n_layers - 1) + [d_out]
     dout_pad = [hidden] * (n_layers - 1) + [rup16(d_out)]
-    if len(pieces(dout_pad[-1])) > MAX_PIECES or len(pieces(p0)) + 1 > MAX_PIECES:
-        raise ValueError(f"fused_chain: widths {d_in} in, {d_out} out need more than {MAX_PIECES} "
-                         "pieces of at most 256 columns")
+    if (len(pieces(dout_pad[-1])) > MAX_PIECES
+            or len(pieces(p0)) + len(pieces(hidden)) > MAX_PIECES):
+        raise ValueError(f"fused_chain: widths {d_in} in, {hidden} hidden, {d_out} out need more "
+                         f"than {MAX_PIECES} pieces of at most 256 columns")
     cum = lambda xs: tuple(sum(xs[:i]) for i in range(len(xs) + 1))  # noqa: E731
     sm = [2 if adjoint and l < n_layers - 1 else 1 for l in range(n_layers)]
     layout = ChainLayout(
@@ -749,7 +756,8 @@ class _PackArgs(ctypes.Structure):
 _CHAINS: Dict[tuple, Tuple[ChainLayout, _Geom]] = {}
 _ENTRY = {  # entry points on K1's layout: library, argument types, result type
     "mms_k1_pack": ("fused_chain", ("ptr",) * 6, ctypes.c_int),
-    "mms_k1_fwd": ("fused_chain", ("ptr", "ptr", "int", "int", "ptr", "ptr", "ptr", "ptr"),
+    "mms_k1_fwd_bytes": ("fused_chain", ("ptr", "int"), ctypes.c_longlong),
+    "mms_k1_fwd": ("fused_chain", ("ptr", "ptr", "int", "int", "ptr", "ptr", "ptr", "ptr", "ptr"),
                    ctypes.c_int),
     "mms_k1_bwd_bytes": ("fused_chain", ("ptr", "int"), ctypes.c_longlong),
     "mms_k1_bwd": ("fused_chain", ("ptr", "ptr", "int", "ptr", "int", "int") + ("ptr",) * 7,
@@ -762,8 +770,13 @@ _ENTRY = {  # entry points on K1's layout: library, argument types, result type
     "mms_sdf_chain_jvp_bwd": ("fused_mlp", ("ptr", "ptr", "int", "int", "ptr", "ptr", "ptr", "int")
                               + ("ptr",) * 8, ctypes.c_int),
     # K2's forward on K1's forward (csrc/slot_value.cu)
+    "mms_slot_value_fwd_bytes": ("slot_value", ("ptr", "ptr", "int", "int"), ctypes.c_longlong),
     "mms_slot_value_fwd": ("slot_value", ("ptr", "ptr", "ptr", "int", "ptr", "int") + ("ptr",) * 6
-                           + ("int", "ptr"), ctypes.c_int),
+                           + ("int", "ptr", "ptr"), ctypes.c_int),
+    # K3's backward pass (csrc/slot_chain_bwd.cu)
+    "mms_slot_chain_pass_bytes": ("slot_chain_bwd", ("ptr", "int"), ctypes.c_longlong),
+    "mms_slot_chain_pass": ("slot_chain_bwd", ("ptr", "ptr", "ptr", "int") + ("ptr",) * 6,
+                            ctypes.c_int),
     # the adjoint backward's pass (csrc/sdf_chain.cu)
     "mms_adj_bwd_bytes": ("sdf_chain", ("ptr", "int"), ctypes.c_longlong),
     "mms_sdf_chain_bwd": ("sdf_chain", ("ptr", "ptr", "int", "int", "ptr", "ptr", "ptr", "int")
@@ -869,10 +882,13 @@ def _launch_pack(layout: ChainLayout, geom: _Geom, weights, biases, backward: bo
 
 
 def _fwd_launcher(geom: _Geom, x, n: int, packed: Packed, y):
-    """The chain kernel's launch on prepared operands, as a closure
-    (uncounted: its callers count)."""
+    """The chain kernel's launch on prepared operands (and its device
+    scratch, past a hidden width of 512), as a closure (uncounted: its
+    callers count)."""
+    scratch = _scratch("mms_k1_fwd_bytes", geom, x.device, n)
     args = (ctypes.byref(geom), x.data_ptr(), int(x.dtype == torch.bfloat16), n,
-            packed.wfw.data_ptr(), packed.bpk.data_ptr(), y.data_ptr(), _stream(x.device))
+            packed.wfw.data_ptr(), packed.bpk.data_ptr(), y.data_ptr(),
+            scratch.data_ptr() if scratch.numel() else None, _stream(x.device))
     return lambda: build.check(entry("mms_k1_fwd")(*args), "fused_chain")
 
 
@@ -896,7 +912,7 @@ _SCRATCH_BYTES: Dict[tuple, int] = {}
 
 
 def _scratch(bytes_entry: str, geom: _Geom, dev, *args) -> torch.Tensor:
-    """A backward's device scratch (stacks and per-CTA slabs), its size from
+    """A kernel's device scratch (stacks and per-CTA slabs), its size from
     the library's entry point bytes_entry(geom, *args)."""
     key = (bytes_entry, id(geom), args)  # a Geom lives as long as the process (_CHAINS)
     size = _SCRATCH_BYTES.get(key)
@@ -928,19 +944,22 @@ def _bwd_launchers(geom: _Geom, x, gy, n: int, packed: Packed, gx, gw, gb, scrat
             lambda: build.check(entry("mms_k1_wgrad")(*wgrad), "chain_wgrad"))
 
 
-def _grad_buffers(layout: ChainLayout, dev):
-    """gW and gb of every layer, zeroed in one fill, with their per-layer views."""
+def _grad_buffers(layout: ChainLayout, dev, extra: int = 0):
+    """gW and gb of every layer, zeroed in one fill, with their per-layer
+    views, and `extra` more zeroed f32 (a table gradient, which the kernels
+    update 16 bytes at a time) of the same fill, 256-byte aligned."""
     nw, nb = layout.gw_off[-1], layout.gb_off[-1]
-    buf = torch.zeros(nw + nb, device=dev)
-    gw, gb = buf[:nw], buf[nw:]
+    start = -(-(nw + nb) // 64) * 64
+    buf = torch.zeros(start + extra if extra else nw + nb, device=dev)
+    gw, gb = buf[:nw], buf[nw:nw + nb]
     gws = [g.view(a, b) for g, a, b in zip(gw.split(layout.gw_sizes), layout.din_true,
                                            layout.dout_true)]
-    return gw, gb, gws, list(gb.split(layout.dout_true))
+    return gw, gb, gws, list(gb.split(layout.dout_true)), buf[start:start + extra]
 
 
 def zero_grads(layout: ChainLayout, dev):
     """(gW list, gb list) of zeros: the gradients of a call with no rows."""
-    return _grad_buffers(layout, dev)[2:]
+    return _grad_buffers(layout, dev)[2:4]
 
 
 def _launch_bwd(x, gy, weights, biases, skip, activation, beta, packed=None):
@@ -948,7 +967,7 @@ def _launch_bwd(x, gy, weights, biases, skip, activation, beta, packed=None):
     f32; gb list f32). Reuses the forward's images when given them."""
     check_card(x, activation, len(weights))
     layout, geom = chain_of(x.shape[1], weights, skip, activation, beta)
-    gw, gb, gws, gbs = _grad_buffers(layout, x.device)
+    gw, gb, gws, gbs, _ = _grad_buffers(layout, x.device)
     x = _card_operand(x)
     n = x.shape[0]
     if n == 0:
@@ -986,7 +1005,7 @@ def bare_backward(x, gy, weights, biases, skip, activation, beta):
     n = x.shape[0]
     packed = _launch_pack(layout, geom, weights, biases, True)
     gx = torch.empty_like(x)
-    gw, gb, _, _ = _grad_buffers(layout, x.device)
+    gw, gb, _, _, _ = _grad_buffers(layout, x.device)
     scratch = _bwd_scratch(geom, n, x.device)
     tile, wgrad = _bwd_launchers(geom, x, gy, n, packed, gx, gw, gb, scratch)
     return layout, packed, gx, gw, gb, scratch, tile, wgrad
@@ -1032,27 +1051,30 @@ class Backward:
     tile: object
     wgrad: object
     keep: tuple = ()  # the operands the closures point to
+    extra: Optional[torch.Tensor] = None  # the zeroed f32 beside the gradients
 
 
 def prepare_backward(layout: ChainLayout, geom: _Geom, weights, biases, dev, scratch_bytes,
-                     pass_args, tiles: int, what: str, count=None) -> Backward:
-    """Pack the chain (one launch), allocate the gradients and the scratch
-    (scratch_bytes: the bytes entry point and its arguments after the Geom)
-    and bind the pass (pass_args(packed, gw, gb, scratch): its entry point
-    and arguments between the Geom and the stream) and chain_wgrad over
-    `tiles` row tiles; count (an int64 tensor or None) receives the number
-    of gW atomics chain_wgrad issues."""
+                     pass_args, tiles: int, what: str, count=None, extra: int = 0) -> Backward:
+    """Pack the chain (one launch), allocate the gradients (and `extra` more
+    zeroed f32, in the same fill) and the scratch (scratch_bytes: the bytes
+    entry point and its arguments after the Geom) and bind the pass
+    (pass_args(packed, gw, gb, scratch, extra): its entry point and
+    arguments between the Geom and the stream) and chain_wgrad over `tiles`
+    row tiles; count (an int64 tensor or None) receives the number of gW
+    atomics chain_wgrad issues."""
     packed = _launch_pack(layout, geom, weights, biases, True)
-    gw, gb, gws, gbs = _grad_buffers(layout, dev)
+    gw, gb, gws, gbs, ext = _grad_buffers(layout, dev, extra)
     scratch = _scratch(scratch_bytes[0], geom, dev, *scratch_bytes[1:])
     g, st = ctypes.byref(geom), _stream(dev)
-    name, *args = pass_args(packed, gw, gb, scratch)
+    name, *args = pass_args(packed, gw, gb, scratch, ext)
     tile = (g, *args, st)
     wgrad = (g, tiles, scratch.data_ptr(), gw.data_ptr(),
              None if count is None else count.data_ptr(), st)
     return Backward(layout, packed, gw, gb, gws, gbs, scratch, tiles,
                     lambda: build.check(entry(name)(*tile), what),
-                    lambda: build.check(entry("mms_k1_wgrad")(*wgrad), what + " chain_wgrad"))
+                    lambda: build.check(entry("mms_k1_wgrad")(*wgrad), what + " chain_wgrad"),
+                    extra=ext)
 
 
 def tangent_samples(k: int) -> int:
@@ -1116,7 +1138,7 @@ def tangent_bwd_card(x, tx, gy, gty, weights, biases, skip, activation, beta, ch
     gx = torch.empty((n, d_in), dtype=torch.bfloat16, device=x.device)
     gtx = torch.empty((k, n, d_in), dtype=torch.bfloat16, device=x.device)
 
-    def pass_args(packed, gw, gb, scratch):
+    def pass_args(packed, gw, gb, scratch, _extra):
         return ("mms_chain_tangent_bwd", xb.data_ptr(), txb.data_ptr(), k, n, gyb.data_ptr(),
                 gtyc.data_ptr(), -1 if channel is None else channel, packed.wfw.data_ptr(),
                 packed.wbw.data_ptr(), packed.bpk.data_ptr(), gx.data_ptr(), gtx.data_ptr(),

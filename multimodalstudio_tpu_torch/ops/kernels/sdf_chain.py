@@ -329,7 +329,7 @@ def sdf_bwd_card(positions, weights, biases, skip, activation, beta, pe, gsdf, g
     d_pos = torch.empty((n, 3), dtype=torch.float32, device=pos.device)
     cp = None if count is None else count.data_ptr()
 
-    def pass_args(packed, gw, gb, scratch):
+    def pass_args(packed, gw, gb, scratch, _extra):
         return ("mms_sdf_chain_bwd", pos.data_ptr(), n, len(pe), pe_arr, cot[0].data_ptr(),
                 cot[1].data_ptr(), ggeo.shape[1], cot[2].data_ptr(), packed.wfw.data_ptr(),
                 packed.wbw.data_ptr(), packed.bpk.data_ptr(), d_pos.data_ptr(), gw.data_ptr(),
@@ -441,7 +441,7 @@ def jvp_bwd_card(positions, weights, biases, skip, activation, beta, pe, gsdf, g
            g3.float().contiguous())
     d_pos = torch.empty((n, 3), dtype=torch.float32, device=pos.device)
 
-    def pass_args(packed, gw, gb, scratch):
+    def pass_args(packed, gw, gb, scratch, _extra):
         return ("mms_sdf_chain_jvp_bwd", pos.data_ptr(), n, len(pe), pe_arr, cot[0].data_ptr(),
                 cot[1].data_ptr(), ggeo.shape[1], cot[2].data_ptr(), packed.wfw.data_ptr(),
                 packed.wbw.data_ptr(), packed.bpk.data_ptr(), d_pos.data_ptr(), gb.data_ptr(),
@@ -618,7 +618,7 @@ def adj_bwd_card(x, weights, biases, skip, activation, beta, channel, gy, ga, co
     gx = torch.empty((n, d_in), dtype=torch.bfloat16, device=x.device)
     cp = None if count is None else count.data_ptr()
 
-    def pass_args(packed, gw, gb, scratch):
+    def pass_args(packed, gw, gb, scratch, _extra):
         return ("mms_chain_adj_bwd", xb.data_ptr(), n, channel, cot[0].data_ptr(),
                 cot[1].data_ptr(), packed.wfw.data_ptr(), packed.wbw.data_ptr(),
                 packed.bpk.data_ptr(), gx.data_ptr(), gw.data_ptr(), gb.data_ptr(),

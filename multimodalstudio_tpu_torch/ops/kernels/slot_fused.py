@@ -52,14 +52,17 @@ concat(h, x0) / sqrt(2) rounded to bf16 (slot_fused.py:423, 642), as K1.
 With grad enabled both run as autograd Functions. Their forward launches
 the same kernel in a training mode that also writes the residuals the
 backward reads (bf16 pre-activations zs; for K3 the adjoint-sweep rows ss
-and the f32 adjoint adj, slot_fused.py:1092-1094). The backwards are the
-CUDA kernels of csrc/slot_bwd.cuh, entered through csrc/slot_fused_bwd.cu:
+and the f32 adjoint adj, slot_fused.py:1092-1094). The backwards:
 
-* K2's replaces _value_bwd_kernel (:1370, via op_bwd :1737): one reverse
-  sweep from the sdf cotangent, the grid slice of the input cotangent
-  scattered into the table through the bf16 trilerp weights, and the
-  trilerp weight cotangent folded into d pos (_fold_pos_cotangent :330).
-* K3's replaces _fused_bwd_kernel (:474, via op_bwd :1149): reverse over
+* K2's (csrc/slot_bwd.cuh via csrc/slot_fused_bwd.cu) replaces
+  _value_bwd_kernel (:1370, via op_bwd :1737): one reverse sweep from the
+  sdf cotangent, the grid slice of the input cotangent scattered into the
+  table through the bf16 trilerp weights, and the trilerp weight
+  cotangent folded into d pos (_fold_pos_cotangent :330).
+* K3's (csrc/slot_chain_bwd.cu, a per-tile pass on K1's building blocks,
+  then chain_wgrad over its stacks: the pack, one fill of gW, gb and the
+  table gradient, the pass and chain_wgrad, four device operations)
+  replaces _fused_bwd_kernel (:474, via op_bwd :1149): reverse over
   reverse, since the outputs include d sdf / dx. The cotangent of the
   adjoint (through the PE and grid tangents) runs a forward chain that
   gives the adjoint path's weight gradients and the act'' injections e_l;
@@ -78,24 +81,26 @@ MMS_SLOT_BWD_SPLIT=1, read at call time as the JAX package reads it
 least 2 layers. The forward then also keeps the chain input x0 (bf16
 [N, P0], :1028-1032, 1626-1630), and the backward runs in three parts:
 
-* (a) a per-sample pass, the CUDA kernels of csrc/slot_split.cu replacing
-  _bwd_sample_kernel (:758, K3s) and _value_bwd_sample_kernel (:1485, K2s):
-  everything the merged backward does per sample, without its weight
-  gradient and table atomics. It writes d pos, each (sample, level)'s table
-  cotangent compact as [N, K, 8F], bf16 (f32 for an f32 table; the TPU's
-  lane-padded [N, K*128] is a mechanism of its one-hot MXU scatter), and
-  the stacks the weight gradients contract: gz [L-1, N, H] bf16, for K3
-  also ga [N, P0] and q [L-1, N, H] bf16;
+* (a) a per-sample pass replacing _value_bwd_sample_kernel (:1485, K2s;
+  csrc/slot_split.cu) and _bwd_sample_kernel (:758, K3s; K3's pass of
+  csrc/slot_chain_bwd.cu with its split flag): everything the merged
+  backward does per sample, without the table atomics. It writes d pos and
+  each (sample, level)'s table cotangent compact as [N, K, 8F], bf16 (f32
+  for an f32 table; the TPU's lane-padded [N, K*128] is a mechanism of its
+  one-hot MXU scatter); K2s also the gz [L-1, N, H] bf16 stack;
 * (b) a scatter of that cotangent into the f32 table gradient
   (csrc/slot_split.cu, replacing _bwd_scatter_kernel :925), recomputing
   each sample's entry from its position;
-* (c) the weight gradients as dense products over the stacks
-  (_wgrads_xla :938-977, _value_wgrads_xla :1567-1590), PyTorch matrix
-  products on either device, as the JAX package leaves them to XLA.
+* (c) the weight gradients (_wgrads_xla :938-977, _value_wgrads_xla
+  :1567-1590, XLA in the JAX package): K2s's as PyTorch matrix products
+  over its stack, K3s's chain_wgrad over its pass's stacks.
 
 The split differs from the merged backward in one rounding: gb of a hidden
-layer sums the gz read back from the bf16 stack, where the merged one sums
-the f32 gz.
+layer sums the bf16 gz, where the merged one sums the f32 gz. K3s's gW at
+a skip layer takes the merged pass's qin, bf16(concat(q, ga) / sqrt 2),
+where _wgrads_xla re-forms it from the bf16 q and ga stacks: one rounding
+apart, at a skip layer only (split_weight_grads, its plain version, keeps
+_wgrads_xla's).
 """
 
 from __future__ import annotations
@@ -122,8 +127,10 @@ from multimodalstudio_tpu_torch.ops.kernels.fused_mlp import (
     ga_forward,
     layer_input,
     pack_chain,
+    prepare_backward,
     reverse_sweep,
     unpack_grads,
+    zero_grads,
 )
 from multimodalstudio_tpu_torch.ops.kernels.slot_grid import (
     CLIP_HI,
@@ -151,14 +158,19 @@ CHAIN_KERNEL, CHAIN_F32_KERNEL = _register(
 VALUE_BWD_KERNEL, VALUE_BWD_F32_KERNEL = _register(
     "fused_slot_sdf_value_bwd", "fused_slot_sdf_value_f32_bwd", "slot_fused_bwd.cu", 1370)
 CHAIN_BWD_KERNEL, CHAIN_BWD_F32_KERNEL = _register(
-    "fused_slot_sdf_chain_bwd", "fused_slot_sdf_chain_f32_bwd", "slot_fused_bwd.cu", 474)
+    "fused_slot_sdf_chain_bwd", "fused_slot_sdf_chain_f32_bwd", "slot_chain_bwd.cu", 474)
 VALUE_SPLIT_KERNEL, VALUE_SPLIT_F32_KERNEL = _register(
     "fused_slot_sdf_value_bwd_sample", "fused_slot_sdf_value_f32_bwd_sample", "slot_split.cu",
     1485)
 CHAIN_SPLIT_KERNEL, CHAIN_SPLIT_F32_KERNEL = _register(
-    "fused_slot_sdf_chain_bwd_sample", "fused_slot_sdf_chain_f32_bwd_sample", "slot_split.cu", 758)
+    "fused_slot_sdf_chain_bwd_sample", "fused_slot_sdf_chain_f32_bwd_sample", "slot_chain_bwd.cu",
+    758)
 SCATTER_KERNEL, SCATTER_F32_KERNEL = _register(
     "slot_table_scatter", "slot_table_scatter_f32", "slot_split.cu", 925)
+# chain_wgrad (csrc/fused_chain.cu) on the stacks of K3's backward pass, merged and split
+CHAIN_WGRAD_KERNEL = build.register(
+    "fused_slot_sdf_chain_wgrad", source="multimodalstudio_tpu_torch/csrc/fused_chain.cu",
+    replaces="multimodalstudio_tpu/ops/pallas/slot_fused.py:621")
 
 
 def _count(kernels, gspec: SlotGridSpec) -> None:
@@ -422,10 +434,13 @@ def slot_sdf_value_bwd_plain(
 
 
 def _chain_bwd_parts(positions, table, weights, gspec, zs, ss, adj, gsdf, ggeo, g3, radius, pe,
-                     activation, beta, mask, skip=()):
+                     activation, beta, mask, skip=(), stacks=None):
     """The per-sample math of K3's backward: (d_pos [N, 3] f32, the table
     cotangent d_comp [N, K, F, 8] f32, the entry indices [N, K], gW list, gb
-    list, and the split's stacks: bf16 ga [N, D_in], q and gz [L-1, N, H])."""
+    list, and the split's stacks: bf16 ga [N, D_in], q and gz [L-1, N, H]).
+    A pair of lists `stacks` receives the gW operands of the ga-forward chain
+    and of the reverse sweep (fused_mlp.ga_forward, reverse_sweep)."""
+    fwd, rev = stacks if stacks is not None else (None, None)
     k, feats = gspec.num_levels, gspec.feats
     kf = k * feats
     pw = 3 + 6 * len(pe)
@@ -453,10 +468,10 @@ def _chain_bwd_parts(positions, table, weights, gspec, zs, ss, adj, gsdf, ggeo, 
     # ga-forward chain (:603-638), then the standard reverse sweep with its
     # act'' injections (:648-694)
     qs, gzs = [], []
-    gwd, inject = ga_forward(ga, zs, ss, weights, skip, activation, beta, qs=qs)
+    gwd, inject = ga_forward(ga, zs, ss, weights, skip, activation, beta, qs=qs, stacks=fwd)
     gy = torch.cat([gsdf.float()[:, None], ggeo.float()], dim=-1)
     ghin, gws, gbs = reverse_sweep(front.x0, zs, gy, weights, skip, activation, beta,
-                                   inject=inject, gw_extra=gwd, gzs=gzs)
+                                   inject=inject, gw_extra=gwd, gzs=gzs, stacks=rev)
 
     # grid slice of the input cotangent -> the table cotangent (:696-708)
     gt0 = rnd(ghin[:, pw : pw + kf].reshape(n, k, feats) * mask)
@@ -501,6 +516,35 @@ def slot_sdf_chain_bwd_plain(
         positions, table, weights, gspec, zs, ss, adj, gsdf, ggeo, g3, radius, pe, activation,
         beta, mask, skip)
     return d_pos, _scatter_table(gspec, idx, d_comp), gws, gbs
+
+
+def slot_chain_bwd_tile_plain(
+    positions, table, weights, gspec: SlotGridSpec, zs, ss, adj, gsdf, ggeo, g3, *, radius,
+    num_frequencies, min_freq_exp, max_freq_exp, skip=(), activation="SoftplusQuad", beta=100.0,
+    level_mask=None, split=False,
+):
+    """Plain version of K3's backward pass (csrc/slot_chain_bwd.cu), merged or
+    split, with slot_sdf_chain_bwd_plain's arguments: (d_pos [N, 3] f32,
+    d_table [rows, 128] f32 (merged) or d_comp [N, K, 8F] (split, bf16; f32
+    for an f32 table), the A and B stacks of each layer's gW operands as rows
+    (sdf_chain.adjoint_bwd_tile_plain), gb list f32 (split: the hidden
+    layers' sums of the bf16 gz), the last layer's column term of gW[:, 0]);
+    sdf_chain.adjoint_wgrad_plain of the stacks and the term gives gW."""
+    _check(gspec, skip, activation)
+    skip = tuple(sorted(skip))
+    pe = pe_scales(num_frequencies, min_freq_exp, max_freq_exp)
+    mask = _mask(level_mask, gspec.num_levels * gspec.feats, positions)
+    fwd, rev = [], []
+    d_pos, d_comp, idx, _, gbs, _ = _chain_bwd_parts(
+        positions, table, weights, gspec, zs, ss, adj, gsdf, ggeo, g3, radius, pe, activation,
+        beta, mask, skip, stacks=(fwd, rev))
+    last = len(weights) - 1
+    a = [torch.cat([rev[l][0], fwd[l][0]]) for l in range(last)] + [rev[last][0]]
+    b = [torch.cat([rev[l][1], fwd[l][1]]) for l in range(last)] + [rev[last][1]]
+    if split:
+        gbs = [rev[l][1].sum(0) for l in range(last)] + [gbs[last]]
+        return d_pos, _compact(d_comp, gspec), a, b, gbs, fwd[last][0].sum(0)
+    return d_pos, _scatter_table(gspec, idx, d_comp), a, b, gbs, fwd[last][0].sum(0)
 
 
 # ------------------------------------------------------------ split backward
@@ -709,11 +753,11 @@ class _CardArgs:
             len(self.in_dims), self.hidden, self.p0, self.k, self.feats, self.out_dims[-1],
             int(bool(self.skip)), int(self.f32)))
 
-    def bwd_scratch(self, library: str, stacks: int):
-        """K2's backwards keep one stack (zs), K3's two (zs, ss)."""
+    def bwd_scratch(self, library: str):
+        """K2's backwards keep the z stack."""
         return self._scratch(library, "mms_slot_bwd_slab", (
-            stacks, len(self.in_dims), self.hidden, self.p0, self.k, self.feats,
-            self.out_dims[-1], int(bool(self.skip)), int(self.f32)))
+            len(self.in_dims), self.hidden, self.p0, self.k, self.feats, self.out_dims[-1],
+            int(bool(self.skip)), int(self.f32)))
 
 
 MAX_PE = 16  # csrc/enc.cuh MAXPE
@@ -800,6 +844,25 @@ def value_outputs(n: int, weights, gspec: SlotGridSpec, pe, dev, resid=False, x0
     return torch.empty(n, dtype=torch.float32, device=dev), zs, x0_out
 
 
+_VALUE_SCRATCH = {}
+
+
+def _value_scratch(geom, params, n: int, f32: int, dev) -> Optional[torch.Tensor]:
+    """K2's device scratch for n rows: the activation slabs of a hidden width
+    over 512 (csrc/k1.cuh WC_DEV), else None; its size asked once per shape."""
+    key = (id(geom), id(params), n, f32)  # both live as long as the process
+    size = _VALUE_SCRATCH.get(key)
+    if size is None:
+        size = int(entry("mms_slot_value_fwd_bytes")(ctypes.byref(geom), ctypes.byref(params), n,
+                                                     f32))
+        if size < 0:
+            build.check(size, "fused slot sdf value scratch")
+        if len(_VALUE_SCRATCH) > 1024:  # many batch sizes: start over
+            _VALUE_SCRATCH.clear()
+        _VALUE_SCRATCH[key] = size
+    return torch.empty(size, dtype=torch.uint8, device=dev) if size else None
+
+
 def _launch_value(positions, table, weights, biases, gspec, k, radius, pe, activation, beta,
                   mask, resid=False, x0=False, skip=()):
     """K2 (K2f) on the card: K1's pack of the chain cut to its sdf column,
@@ -813,12 +876,14 @@ def _launch_value(positions, table, weights, biases, gspec, k, radius, pe, activ
     if n:
         # the kernel reads the f32 parameter itself, rounding it for a bf16 table
         pos, tbl = positions.float().contiguous(), table.float().contiguous()
+        params, f32 = slot_params(gspec, k, radius, pe), int(gspec.table_dtype == "f32")
         packed = _launch_pack(layout, geom, ws, bs, False)
+        scratch = _value_scratch(geom, params, n, f32, pos.device)
         status = entry("mms_slot_value_fwd")(
-            ctypes.byref(geom), ctypes.byref(slot_params(gspec, k, radius, pe)), build.ptr(pos), n,
-            build.ptr(tbl), int(gspec.table_dtype == "f32"), build.ptr(mask), build.ptr(packed.wfw),
-            build.ptr(packed.bpk), build.ptr(sdf), build.ptr(zs), build.ptr(x0_out),
-            0 if x0_out is None else x0_out.shape[1], build.stream_of(pos))
+            ctypes.byref(geom), ctypes.byref(params), build.ptr(pos), n, build.ptr(tbl), f32,
+            build.ptr(mask), build.ptr(packed.wfw), build.ptr(packed.bpk), build.ptr(sdf),
+            build.ptr(zs), build.ptr(x0_out), 0 if x0_out is None else x0_out.shape[1],
+            build.ptr(scratch), build.stream_of(pos))
         build.check(status, "fused slot sdf value")
         _count((VALUE_KERNEL, VALUE_F32_KERNEL), gspec)
     return sdf, zs, x0_out
@@ -875,7 +940,7 @@ def _launch_value_bwd(positions, table, weights, biases, gspec, k, radius, pe, a
         fn = build.function("slot_fused_bwd", "mms_slot_value_bwd", *_COMMON_TYPES,
                             "ptr", "ptr", "ptr", "ptr", "ptr", "ptr", "ptr", "int", "ptr")
         g = gsdf.float().contiguous()
-        scratch, ctas = ca.bwd_scratch("slot_fused_bwd", 1)
+        scratch, ctas = ca.bwd_scratch("slot_fused_bwd")
         status = fn(*ca.args, build.ptr(zs), build.ptr(g), build.ptr(d_pos), build.ptr(d_table),
                     build.ptr(gw), build.ptr(gb), build.ptr(scratch), ctas, ca.stream)
         build.check(status, "fused slot sdf value backward")
@@ -887,28 +952,92 @@ def _chain_cotangents(gsdf, ggeo, g3):
     return gsdf.float().contiguous(), ggeo.to(torch.bfloat16).contiguous(), g3.float().contiguous()
 
 
+class _SlotBwdIo(ctypes.Structure):
+    """csrc/slot_chain_bwd.cu struct SlotBwdIo."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "pos", "table", "lmask", "zs", "ss", "adj", "gsdf", "ggeo", "g3", "d_pos", "d_table",
+        "dcomp")] + [(name, ctypes.c_int) for name in (
+            "adj_width", "geo_width", "table_f32", "split")]
+
+
+def chain_bwd_card(positions, table, weights, biases, gspec, radius, pe, activation, beta, mask,
+                   zs, ss, adj, gsdf, ggeo, g3, skip=(), split=False):
+    """K3's backward on the card, prepared (N > 0): (Backward, d_pos, d_table
+    [rows, 128] f32 zeroed in the gradients' fill, d_comp or None). The pass
+    (csrc/slot_chain_bwd.cu) writes d_pos, and d_table's cotangents (merged)
+    or d_comp [N, K, 8F] (split, bf16; f32 for an f32 table), accumulates gb
+    and the last layer's column term of gW, and leaves the [hin | qin] and
+    [gz | v] stacks in scratch; chain_wgrad adds the stacked gW."""
+    skip = tuple(sorted(skip))
+    _check_card_value(positions, table, weights, gspec, skip)
+    k, n = gspec.num_levels, positions.shape[0]
+    layout, geom = chain_of(value_d_in(gspec, pe), weights, skip, activation, beta, adjoint=True)
+    params = slot_params(gspec, k, radius, pe)
+    pos, tbl = positions.float().contiguous(), table.float().contiguous()
+    cot = _chain_cotangents(gsdf, ggeo, g3)
+    zs, ss = zs.to(torch.bfloat16).contiguous(), ss.to(torch.bfloat16).contiguous()
+    adj = adj.float().contiguous()
+    dev = pos.device
+    d_pos = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    d_comp = (torch.empty((n, k, NSLOT * gspec.feats), dtype=_dcomp_dtype(gspec), device=dev)
+              if split else None)
+    rows = _total_rows(gspec)
+    io = _SlotBwdIo(pos=pos.data_ptr(), table=tbl.data_ptr(), lmask=mask.data_ptr(),
+                    zs=zs.data_ptr(), ss=ss.data_ptr(), adj=adj.data_ptr(),
+                    gsdf=cot[0].data_ptr(), ggeo=cot[1].data_ptr(), g3=cot[2].data_ptr(),
+                    d_pos=d_pos.data_ptr(), dcomp=build.ptr(d_comp).value, adj_width=adj.shape[1],
+                    geo_width=ggeo.shape[1], table_f32=int(gspec.table_dtype == "f32"),
+                    split=int(split))
+
+    def pass_args(packed, gw, gb, scratch, d_table):
+        io.d_table = d_table.data_ptr()
+        return ("mms_slot_chain_pass", ctypes.byref(params), ctypes.byref(io), n,
+                packed.wfw.data_ptr(), packed.wbw.data_ptr(), gw.data_ptr(), gb.data_ptr(),
+                scratch.data_ptr())
+
+    bw = prepare_backward(layout, geom, weights, biases, dev, ("mms_slot_chain_pass_bytes", n),
+                          pass_args, -(-n // 64), "fused slot sdf chain backward",
+                          extra=rows * LANE)
+    bw.keep = (pos, tbl, mask, zs, ss, adj, *cot, io, params)
+    return bw, d_pos, bw.extra.view(rows, LANE), d_comp
+
+
+def _chain_bwd(positions, table, weights, biases, gspec, radius, pe, activation, beta, mask, zs,
+               ss, adj, gsdf, ggeo, g3, skip, split):
+    """K3's backward pass and chain_wgrad on the card: (d_pos, d_table, d_comp
+    or None, gW list, gb list); d_table holds the table gradient (merged) or
+    zeros for the scatter (split)."""
+    n = positions.shape[0]
+    if n == 0:
+        _check_card_value(positions, table, weights, gspec, tuple(sorted(skip)))
+        layout = chain_of(value_d_in(gspec, pe), weights, tuple(sorted(skip)), activation, beta,
+                          True)[0]
+        d_comp = torch.zeros((0, gspec.num_levels, NSLOT * gspec.feats),
+                             dtype=_dcomp_dtype(gspec), device=positions.device)
+        return (torch.empty((0, 3), device=positions.device),
+                torch.zeros(table.shape, device=positions.device), d_comp if split else None,
+                *zero_grads(layout, positions.device))
+    bw, d_pos, d_table, d_comp = chain_bwd_card(positions, table, weights, biases, gspec, radius,
+                                                pe, activation, beta, mask, zs, ss, adj, gsdf,
+                                                ggeo, g3, skip, split)
+    bw.tile()
+    _count((CHAIN_SPLIT_KERNEL, CHAIN_SPLIT_F32_KERNEL) if split
+           else (CHAIN_BWD_KERNEL, CHAIN_BWD_F32_KERNEL), gspec)
+    bw.wgrad()
+    CHAIN_WGRAD_KERNEL.launches += 1
+    return d_pos, d_table, d_comp, bw.gws, bw.gbs
+
+
 def _launch_chain_bwd(positions, table, weights, biases, gspec, radius, pe, activation, beta,
                       mask, zs, ss, adj, gsdf, ggeo, g3, skip=()):
-    """K3's backward kernel: (d_pos, d_table, gW list, gb list)."""
-    ca = _CardArgs(positions, table, weights, biases, gspec, gspec.num_levels, radius, pe,
-                   activation, beta, mask, skip)
-    dev = positions.device
-    d_pos = torch.empty((ca.n, 3), dtype=torch.float32, device=dev)
-    d_table = torch.zeros(table.shape, dtype=torch.float32, device=dev)
-    gw, gb, unpack = ca.grads(weights, dev)
-    if ca.n:
-        fn = build.function("slot_fused_bwd", "mms_slot_chain_bwd", *_COMMON_TYPES,
-                            "ptr", "ptr", "ptr", "int", "ptr", "ptr", "int", "ptr", "ptr", "ptr",
-                            "ptr", "ptr", "ptr", "int", "ptr")
-        cot = _chain_cotangents(gsdf, ggeo, g3)
-        scratch, ctas = ca.bwd_scratch("slot_fused_bwd", 2)
-        status = fn(*ca.args, build.ptr(zs), build.ptr(ss), build.ptr(adj), ca.d_in,
-                    build.ptr(cot[0]), build.ptr(cot[1]), ggeo.shape[1], build.ptr(cot[2]),
-                    build.ptr(d_pos), build.ptr(d_table), build.ptr(gw), build.ptr(gb),
-                    build.ptr(scratch), ctas, ca.stream)
-        build.check(status, "fused slot sdf chain backward")
-        _count((CHAIN_BWD_KERNEL, CHAIN_BWD_F32_KERNEL), gspec)
-    return (d_pos, d_table, *unpack())
+    """K3's merged backward: the pass and chain_wgrad (and the pack of the
+    weight images and one fill of the gradients), four device operations.
+    Returns (d_pos, d_table, gW list, gb list)."""
+    d_pos, d_table, _, gws, gbs = _chain_bwd(positions, table, weights, biases, gspec, radius, pe,
+                                             activation, beta, mask, zs, ss, adj, gsdf, ggeo, g3,
+                                             skip, False)
+    return d_pos, d_table, gws, gbs
 
 
 def _launch_value_bwd_sample(positions, table, weights, biases, gspec, k, radius, pe, activation,
@@ -925,7 +1054,7 @@ def _launch_value_bwd_sample(positions, table, weights, biases, gspec, k, radius
         fn = build.function("slot_split", "mms_slot_value_bwd_sample", *_COMMON_TYPES,
                             "ptr", "ptr", "ptr", "ptr", "ptr", "ptr", "int", "ptr")
         g = gsdf.float().contiguous()
-        scratch, ctas = ca.bwd_scratch("slot_split", 1)
+        scratch, ctas = ca.bwd_scratch("slot_split")
         status = fn(*ca.args, build.ptr(zs), build.ptr(g), build.ptr(d_pos), build.ptr(d_comp),
                     build.ptr(gzs), build.ptr(scratch), ctas, ca.stream)
         build.check(status, "fused slot sdf value backward, per-sample pass")
@@ -935,34 +1064,19 @@ def _launch_value_bwd_sample(positions, table, weights, biases, gspec, k, radius
 
 def _launch_chain_bwd_sample(positions, table, weights, biases, gspec, radius, pe, activation,
                              beta, mask, zs, ss, adj, gsdf, ggeo, g3, skip=()):
-    """K3s's per-sample kernel: (d_pos [N, 3] f32, d_comp [N, K, 8F] (bf16,
-    f32 for an f32 table), ga [N, P0] bf16, q and gz [L-1, N, H] bf16)."""
-    k = gspec.num_levels
-    ca = _CardArgs(positions, table, weights, biases, gspec, k, radius, pe, activation, beta, mask,
-                   skip)
-    dev = positions.device
-    d_pos = torch.empty((ca.n, 3), dtype=torch.float32, device=dev)
-    d_comp = torch.empty((ca.n, k, NSLOT * gspec.feats), dtype=_dcomp_dtype(gspec), device=dev)
-    ga = torch.empty((ca.n, ca.p0), dtype=torch.bfloat16, device=dev)
-    qs, gzs = ca.stack(len(weights), dev), ca.stack(len(weights), dev)
-    if ca.n:
-        fn = build.function("slot_split", "mms_slot_chain_bwd_sample", *_COMMON_TYPES,
-                            "ptr", "ptr", "ptr", "int", "ptr", "ptr", "int", "ptr", "ptr", "ptr",
-                            "ptr", "ptr", "ptr", "ptr", "int", "ptr")
-        cot = _chain_cotangents(gsdf, ggeo, g3)
-        scratch, ctas = ca.bwd_scratch("slot_split", 2)
-        status = fn(*ca.args, build.ptr(zs), build.ptr(ss), build.ptr(adj), ca.d_in,
-                    build.ptr(cot[0]), build.ptr(cot[1]), ggeo.shape[1], build.ptr(cot[2]),
-                    build.ptr(d_pos), build.ptr(d_comp), build.ptr(ga), build.ptr(qs),
-                    build.ptr(gzs), build.ptr(scratch), ctas, ca.stream)
-        build.check(status, "fused slot sdf chain backward, per-sample pass")
-        _count((CHAIN_SPLIT_KERNEL, CHAIN_SPLIT_F32_KERNEL), gspec)
-    return d_pos, d_comp, ga, qs, gzs
+    """K3s's per-sample pass and the split's weight gradients (chain_wgrad
+    over the pass's stacks, in place of _wgrads_xla's products): (d_pos
+    [N, 3] f32, d_comp [N, K, 8F] (bf16, f32 for an f32 table), gW list, gb
+    list)."""
+    d_pos, _, d_comp, gws, gbs = _chain_bwd(positions, table, weights, biases, gspec, radius, pe,
+                                            activation, beta, mask, zs, ss, adj, gsdf, ggeo, g3,
+                                            skip, True)
+    return d_pos, d_comp, gws, gbs
 
 
-def _launch_table_scatter(positions, d_comp, gspec, radius):
-    """The split's scatter kernel: d_table [rows, 128] f32 from d_comp
-    [N, k, 8F] (bf16, f32 for an f32 table)."""
+def _launch_table_scatter(positions, d_comp, gspec, radius, d_table=None):
+    """The split's scatter kernel: d_table [rows, 128] f32 (given zeroed, or
+    allocated) from d_comp [N, k, 8F] (bf16, f32 for an f32 table)."""
     _on_card(positions)
     n, k = d_comp.shape[:2]
     dtype = _dcomp_dtype(gspec)
@@ -971,7 +1085,8 @@ def _launch_table_scatter(positions, d_comp, gspec, radius):
                          f"[N, k, {NSLOT * gspec.feats}]")
     pos = positions.float().contiguous()
     dc = d_comp.contiguous()
-    d_table = torch.zeros((gspec.total_rows, LANE), dtype=torch.float32, device=pos.device)
+    if d_table is None:
+        d_table = torch.zeros((gspec.total_rows, LANE), dtype=torch.float32, device=pos.device)
     if n:
         fn = build.function("slot_split", "mms_slot_table_scatter", "ptr", "int", "ptr", "int",
                             *_GRID_TYPES, "ptr", "ptr")
@@ -998,13 +1113,13 @@ def _value_split_card(positions, table, weights, biases, gspec, k, radius, pe, a
 
 def _chain_split_card(positions, table, weights, biases, gspec, radius, pe, activation, beta,
                       mask, zs, ss, adj, x0, gsdf, ggeo, g3, skip=()):
-    """K3's split backward on the card, as _value_split_card."""
-    d_pos, d_comp, ga, qs, gzs = _launch_chain_bwd_sample(
-        positions, table, weights, biases, gspec, radius, pe, activation, beta, mask, zs, ss, adj,
-        gsdf, ggeo, g3, skip)
-    d_table = _launch_table_scatter(positions, d_comp, gspec, radius)
-    gws, gbs = split_weight_grads(weights, x0, zs, _chain_gy(gsdf, ggeo), gzs, activation, beta,
-                                  ss=ss, ga=ga, qs=qs, skip=skip)
+    """K3's split backward on the card: the per-sample pass, chain_wgrad over
+    its stacks and the scatter kernel (x0, the split's residual, is in the
+    pass's stacks already). Returns (d_pos, d_table, gW list, gb list)."""
+    d_pos, d_table, d_comp, gws, gbs = _chain_bwd(positions, table, weights, biases, gspec, radius,
+                                                  pe, activation, beta, mask, zs, ss, adj, gsdf,
+                                                  ggeo, g3, skip, True)
+    d_table = _launch_table_scatter(positions, d_comp, gspec, radius, d_table)
     return d_pos, d_table, gws, gbs
 
 

@@ -134,9 +134,16 @@ def test_outputs_are_the_residuals_the_backwards_read(name):
 
 
 def test_wider_value_chain_is_refused_naming_the_bound():
+    """K2's chain takes the widths JAX fuses (640 among them) and refuses a
+    width JAX's can_fuse never sends to the fused kernels (576)."""
     gspec = BF16
     d_in = sf.value_d_in(gspec, PE)
-    ws = [torch.zeros(d_in, 640), torch.zeros(640, 640), torch.zeros(640, 257)]
-    bs = [torch.zeros(640), torch.zeros(640), torch.zeros(257)]
-    with pytest.raises(ValueError, match="hidden width 640.*shared memory"):
-        fm.chain_of(d_in, sf.value_chain(ws, bs)[0], (), "SoftplusQuad", 100.0)
+    for width in (640, 576):
+        ws = [torch.zeros(d_in, width), torch.zeros(width, width), torch.zeros(width, 257)]
+        bs = [torch.zeros(width), torch.zeros(width), torch.zeros(257)]
+        if width == 640:
+            layout = fm.chain_of(d_in, sf.value_chain(ws, bs)[0], (), "SoftplusQuad", 100.0)[0]
+            assert layout.hidden == 640 and layout.dout_pad[-1] == 16
+            continue
+        with pytest.raises(ValueError, match="hidden width 576.*multiples of 128"):
+            fm.chain_of(d_in, sf.value_chain(ws, bs)[0], (), "SoftplusQuad", 100.0)

@@ -1,12 +1,13 @@
-"""Hidden widths 384 and 512 on the card's chain kernels, on the CPU.
+"""Hidden widths past 256 on the card's chain kernels, on the CPU.
 
-The card runs a hidden layer wider than 256 columns as two wgmma pieces
-(256, then the rest), its first piece's output held in a side image until
-the second's product retired (csrc/k1.cuh). chain_layout must lay such a
-chain out as the kernels walk it: forward images per piece, the backward
-product's h part in the same two pieces, and refuse a wider chain, naming
-the shared-memory bound. The pack's images must give back the padded
-weights bit for bit.
+The card runs a hidden layer wider than 256 columns as wgmma pieces of 256
+columns and a last one of the rest, all but the last piece's output held in
+side images until the last product retired (csrc/k1.cuh); past 512 the
+activation images live in device memory. chain_layout must lay such a chain
+out as the kernels walk it: forward images per piece, the backward
+product's h part in the same pieces, and refuse a width that JAX's can_fuse
+never sends to the fused kernels (not a multiple of 128), naming why. The
+pack's images must give back the padded weights bit for bit.
 
 The plain versions (what a CPU tensor runs, and what chip_smoke.py holds
 the kernels against) must match JAX's fused_chain in Pallas interpret mode
@@ -14,7 +15,8 @@ at those widths: the forward within rel-L2 1e-2 (bf16 output, another
 summation order), the backward against jax.vjp within 1e-3, and K1's
 per-tile pass and chain_wgrad, composed, within 1e-6 of the plain backward
 (the same f32 products), as tests/test_torch_chain_wgrad.py holds them at
-128. Inputs: 2 and 3 layers (one with a skip), N = 29.
+128. Inputs: 2 and 3 layers (some with a skip), N = 29; widths 384, 512
+and 640.
 """
 
 import numpy as np
@@ -39,6 +41,7 @@ CHAINS = {  # name: (d_in, hidden, d_out, layers, skip, activation)
     "384, 3 layers, skip": (39, 384, 65, 3, (2,), "ReLU"),
     "512, 2 layers": (51, 512, 3, 2, (), "ReLU"),
     "512, 3 layers, skip": (39, 512, 257, 3, (2,), "SoftplusQuad"),
+    "640, 3 layers, skip": (39, 640, 65, 3, (2,), "SoftplusQuad"),
 }
 
 
@@ -63,7 +66,22 @@ def test_layout_cuts_wide_hidden_layers_into_two_pieces(hidden):
     assert layout.bw_off[-1] == sum(a * layout.gcols(l) for l, a in enumerate(layout.din_pad))
 
 
-@pytest.mark.parametrize("hidden", [384, 512])
+@pytest.mark.parametrize("hidden", [640, 768, 1024])
+def test_layout_takes_widths_past_512_in_pieces_of_256(hidden):
+    d_in, skip = 39, (2,)
+    shapes = [(d_in, hidden), (hidden, hidden), (hidden + d_in, hidden), (hidden, 257)]
+    layout = fm.chain_layout(d_in, shapes, skip)
+    want = [(off, min(256, hidden - off)) for off in range(0, hidden, 256)]
+    assert fm.pieces(hidden) == want
+    assert layout.din_pad == (64, hidden, hidden + 64, hidden)
+    assert layout.bwd_pieces(1) == want
+    assert layout.bwd_pieces(2) == [(hidden, 64)] + want
+    assert layout.fw_off[-1] == sum(a * b for a, b in zip(layout.din_pad, layout.dout_pad))
+    assert layout.bw_off[-1] == sum(a * layout.gcols(l) for l, a in enumerate(layout.din_pad))
+    assert fm.hidden_width_ok(hidden)
+
+
+@pytest.mark.parametrize("hidden", [384, 512, 640, 768, 1024])
 def test_pack_round_trip_at_wide_widths(hidden):
     _, _, ws, bs = make_chain(21, 39, hidden, 65, 3, (2,), n=1)
     tw, tb = _torch(ws, bs)
@@ -84,9 +102,11 @@ def test_pack_round_trip_at_wide_widths(hidden):
         assert not back[din:].any() and not back[:, dout:].any(), l
 
 
-@pytest.mark.parametrize("hidden", [640, 1024, 96])
+@pytest.mark.parametrize("hidden", [576, 1000, 96])
 def test_layout_refuses_wider_chains_naming_the_bound(hidden):
-    with pytest.raises(ValueError, match=f"hidden width {hidden}.*shared memory"):
+    """A width JAX's can_fuse never sends to the fused kernels is refused."""
+    assert not fm.hidden_width_ok(hidden)
+    with pytest.raises(ValueError, match=f"hidden width {hidden}.*multiples of 128"):
         fm.chain_layout(39, [(39, hidden), (hidden, hidden), (hidden, 3)], ())
 
 
