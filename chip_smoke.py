@@ -38,14 +38,17 @@
    sampler's queries and the taps and backward at the taps, the SoftplusQuad
    backwards' limits following the plain version's spread. Then hidden
    widths 384 and 512, and 640, 768 and 1024: K1 forward and backward and
-   the K4, K5, K1t and K4j backwards, past 512 also K2's forward and K3's
-   backward, merged and split, each against its plain version. K3's
-   backward checks also run at positions ordered as the sampler emits them
-   (rays of consecutive samples) and print the pass's and chain_wgrad's
-   time alone, the device ops of a call and the table reductions issued. The K2/K2f checks (their
-   eval calls, the training forward, the split's forward and the level
-   edges) print the kernel alone (profiler) and the device ops of one
-   wrapper call beside the wrapper's time.
+   the K4, K5, K1t and K4j forwards and backwards, past 512 also K2's and
+   K3's forwards and backwards, merged and split, on both tables, each
+   against its plain version, and every one bit for bit against the
+   512-wide kernel on chains padded with dead units. K3's backward checks
+   also run at positions ordered as the sampler emits them (rays of
+   consecutive samples) and print the pass's and chain_wgrad's time alone,
+   the device ops of a call and the table reductions issued. The forward
+   checks (K1's, K2's and the adjoint and tangent forwards of K3, K4, K5,
+   K1t and K4j) and K2's backward print the kernel alone and the device ops
+   of one wrapper call beside the wrapper's time; every backward is timed
+   on its forward's images, as the main path runs it.
 3. For grid_raw_tpu, mlp_raw_tpu, grid_raw_tpu with
    model.surface.surface_field.use_position_encoding = False (through
    load_config's overrides: its SDF runs the slot-grid lookup K6 and the
@@ -204,6 +207,22 @@ def slot_value_parts(what, fn):
     device ops of one wrapper call fn; printed beside each other."""
     kernel_ms = kernel_alone_ms(fn, SLOT_VALUE_KERNELS)
     ops = device_ops(fn)
+    print(f"  {what}: kernel alone {kernel_ms:.3f} ms, {ops} device ops per call")
+    return kernel_ms, ops
+
+
+# the adjoint and tangent forwards' kernels by their names in a profile: the passes on
+# K1's blocks, or the first designs', which a parent checkout launches
+ADJ_FWD_KERNELS = ("adj_fwd_kernel", "adj_chain_fwd_kernel", "slot_sdf_kernel")
+TAN_FWD_KERNELS = ("tan_fwd_kernel", "chain_tangent_fwd_kernel")
+
+
+def fwd_parts(what, fn, names):
+    """A forward wrapper's kernel alone (ms per call, profiler) and the device
+    ops of one call of fn without grad; printed beside each other."""
+    with torch.no_grad():
+        kernel_ms = kernel_alone_ms(fn, names)
+        ops = device_ops(fn)
     print(f"  {what}: kernel alone {kernel_ms:.3f} ms, {ops} device ops per call")
     return kernel_ms, ops
 
@@ -517,9 +536,12 @@ def check_slot_chain(gen, dev, gspec):
             fail(f"fused_slot_sdf_chain disagrees with its plain version on {name}")
     d_in = slot_d_in(gspec)
     flops = 2.0 * n * (d_in * 128 + 128 * 128 + 128 * 257) + 2.0 * n * (128 * 128 + 128 * d_in)
-    return dict(ms=time_ms(lambda: fused_slot_sdf_chain(*args, **kw)),
-                plain_ms=time_ms(lambda: slot_sdf_chain_plain(*args, **kw)),
-                flops=flops, bytes=nbytes(pos, table, mask, ws, bs, out), err=err)
+    ms = time_ms(lambda: fused_slot_sdf_chain(*args, **kw))
+    kernel_ms, ops = fwd_parts(f"{slot_tag('K3', gspec)} fwd N={n} (wrapper {ms:.3f} ms)",
+                               lambda: fused_slot_sdf_chain(*args, **kw), ADJ_FWD_KERNELS)
+    return dict(ms=ms, plain_ms=time_ms(lambda: slot_sdf_chain_plain(*args, **kw)),
+                flops=flops, bytes=nbytes(pos, table, mask, ws, bs, out), err=err,
+                kernel_ms=kernel_ms, ops=ops)
 
 
 def chain_flops(n, dims):
@@ -639,6 +661,7 @@ def check_slot_value_bwd(gen, dev, gspec):
     another draw."""
     from multimodalstudio_tpu_torch.ops.kernels.slot_fused import (
         _launch,
+        _launch_value,
         _launch_value_bwd,
         _value_fwd_plain,
         pe_scales,
@@ -652,7 +675,8 @@ def check_slot_value_bwd(gen, dev, gspec):
     mask = (torch.arange(gspec.out_dim, device=dev) < 3 * gspec.feats).float()
     pe = pe_scales(6, 0.0, 5.0)
     fwd = (pos, table, ws, bs, gspec, gspec.num_levels, 1.0, pe, "SoftplusQuad", 100.0, mask)
-    sdf, _, _, zs, _, _, _ = _launch(*fwd, False, resid=True)
+    # the training forward, its pack writing the backward images the backward reuses
+    (sdf, zs, _), packed = _launch_value(*fwd, resid=True, backward_images=True)
     sdf_p, zs_p, _ = _value_fwd_plain(*fwd)
     fwd_err = _compare_outputs(f"{what} training fwd N={n}", ("sdf", "zs"), (sdf, zs),
                                (sdf_p, zs_p))
@@ -668,20 +692,59 @@ def check_slot_value_bwd(gen, dev, gspec):
         zs_b = _value_fwd_plain(pos, table, ws, b, *fwd[4:])[1]
         return slot_sdf_value_bwd_plain(pos, table, ws, b, gspec, zs_b, gsdf, **plain_kw)
 
-    out = _launch_value_bwd(*args)
+    out = _launch_value_bwd(*args, packed=packed)
     ref = slot_sdf_value_bwd_plain(pos, table, ws, bs, gspec, zs_p, gsdf, **plain_kw)
     torch.cuda.synchronize()
     limits = _plain_conditioning(f"{what} bwd N={n}", SLOT_GRADS, plain, lambda b: (b,), bs, {},
                                  torch.Generator(device=dev).manual_seed(SEED), dev, ref)
     err = _compare_grads(f"{what} bwd N={n}", SLOT_GRADS, out, ref, tol=limits)
+    ms = time_ms(lambda: _launch_value_bwd(*args, packed=packed))
+    parts = k2_parts(f"{what} bwd N={n} (wrapper {ms:.3f} ms with the forward's images, "
+                     f"{time_ms(lambda: _launch_value_bwd(*args)):.3f} ms packing its own)",
+                     fwd, zs, gsdf, packed)
     # the last layer's cotangent is sdf's column only
     dims = [(slot_d_in(gspec), 128), (128, 128), (128, 1)]
-    return dict(ms=time_ms(lambda: _launch_value_bwd(*args)),
+    return dict(ms=ms,
                 plain_ms=time_ms(lambda: slot_sdf_value_bwd_plain(
                     pos, table, ws, bs, gspec, zs_p, gsdf, **plain_kw)),
                 flops=2 * chain_flops(n, dims),
                 bytes=nbytes(pos, table, mask, ws, bs, zs, gsdf, out[0], out[1], out[2], out[3]),
-                err=err, fwd_err=fwd_err)
+                err=err, fwd_err=fwd_err, **parts)
+
+
+def k2_parts(what, fwd, zs, gsdf, packed):
+    """K2's merged backward in its parts on one call, as the main path calls
+    it (on its forward's images `packed`): the value mode of the pass and
+    chain_wgrad alone (ms), the device ops of one wrapper call, and
+    chain_wgrad against the plain product of the pass's own stacks (rel-L2
+    1e-4: the same bf16 products, summed in f32 in another order); printed.
+    Returns kernel_ms, ops and chain_wgrad's entry (wgrad)."""
+    from multimodalstudio_tpu_torch.ops.kernels import fused_mlp as fm
+    from multimodalstudio_tpu_torch.ops.kernels.slot_fused import _launch_value_bwd, value_bwd_card
+
+    bw = value_bwd_card(*fwd, zs, gsdf, packed=packed)[0]
+    kernel_ms = time_ms(lambda: (bw.tile(), bw.wgrad()))
+    wgrad_ms = time_ms(bw.wgrad)
+    ops = device_ops(lambda: _launch_value_bwd(*fwd, zs, gsdf, packed=packed))
+    bw.gw.zero_()
+    bw.wgrad()
+    torch.cuda.synchronize()
+    lay = bw.layout
+    hins, gzs = fm.stacks_of(lay, bw.scratch, bw.tiles * 64, tiles=bw.tiles)
+    stacked = [bw.gw[lay.gw_off[l]:lay.gw_off[l + 1]].view(lay.din_true[l], lay.dout_true[l])
+               for l in range(lay.n_layers)]
+    werr = _compare_grads(f"{what.split(' (')[0]} stacked gW (chain_wgrad) vs its own stacks",
+                          ("gW",), (stacked,), (fm.chain_wgrad_plain(hins, gzs),), tol=1e-4)
+    n = zs.shape[1]
+    hb, gb16 = [h.contiguous() for h in hins], [g.contiguous() for g in gzs]
+    wgrad = dict(ms=wgrad_ms, plain_ms=time_ms(lambda: fm.chain_wgrad_plain(hins, gzs)),
+                 library_ms=time_ms(lambda: [torch.matmul(h.T, g) for h, g in zip(hb, gb16)]),
+                 flops=sum(2.0 * n * a * b for a, b in zip(lay.din_true, lay.dout_true)),
+                 bytes=sum(2.0 * n * (a + b) for a, b in zip(lay.din_true, lay.dout_true))
+                 + 4.0 * lay.gw_off[-1], err=werr)
+    print(f"  {what}: kernel alone (pass and chain_wgrad) {kernel_ms:.3f} ms, chain_wgrad "
+          f"{wgrad_ms:.3f} ms, {ops} device ops per call, scratch {bw.scratch.numel()} bytes")
+    return dict(kernel_ms=kernel_ms, ops=ops, wgrad=wgrad)
 
 
 def ray_positions(n, dev, seed, per_ray=320):
@@ -709,24 +772,25 @@ def table_reductions(d_comp, gspec):
     return int((v != 0).sum()), int((v.reshape(-1, 4) != 0).any(-1).sum())
 
 
-def k3_parts(what, args, gspec, split):
+def k3_parts(what, args, gspec, split, packed=None):
     """K3's backward (merged, or the split's pass) in its parts on one call:
     the pass and chain_wgrad alone (ms), chain_wgrad alone (ms), the device
     ops of one wrapper call (merged: _launch_chain_bwd; split: the whole
-    split backward, the scatter included); printed beside each other."""
+    split backward, the scatter included) on the forward's images `packed`
+    where given; printed beside each other."""
     from multimodalstudio_tpu_torch.ops.kernels.slot_fused import (
         _chain_split_card,
         _launch_chain_bwd,
         chain_bwd_card,
     )
 
-    bw = chain_bwd_card(*args, split=split)[0]
+    bw = chain_bwd_card(*args, split=split, packed=packed)[0]
     kernel_ms = time_ms(lambda: (bw.tile(), bw.wgrad()))
     wgrad_ms = time_ms(bw.wgrad)
     if split:
-        ops = device_ops(lambda: _chain_split_card(*args[:13], None, *args[13:]))
+        ops = device_ops(lambda: _chain_split_card(*args, packed=packed))
     else:
-        ops = device_ops(lambda: _launch_chain_bwd(*args))
+        ops = device_ops(lambda: _launch_chain_bwd(*args, packed=packed))
     print(f"  {what}: kernel alone (pass and chain_wgrad) {kernel_ms:.3f} ms, chain_wgrad "
           f"{wgrad_ms:.3f} ms, {ops} device ops per call, scratch {bw.scratch.numel()} bytes")
     return dict(kernel_ms=kernel_ms, wgrad_ms=wgrad_ms, ops=ops, bw=bw)
@@ -750,6 +814,7 @@ def check_slot_chain_bwd(gen, dev, gspec):
         _chain_bwd_parts,
         _chain_fwd_plain,
         _launch,
+        _launch_chain,
         _launch_chain_bwd,
         pe_scales,
         slot_sdf_chain_bwd_plain,
@@ -762,7 +827,8 @@ def check_slot_chain_bwd(gen, dev, gspec):
     mask = (torch.arange(gspec.out_dim, device=dev) < 3 * gspec.feats).float()
     pe = pe_scales(6, 0.0, 5.0)
     fwd = (pos, table, ws, bs, gspec, 1.0, pe, "SoftplusQuad", 100.0, mask)
-    out_k = _launch(*fwd[:5], gspec.num_levels, *fwd[5:], True, resid=True)
+    # the training forward, its pack writing the images the backward reuses
+    out_k, packed = _launch_chain(*fwd, resid=True)
     outs_p, (zs_p, ss_p, adj_p, _) = _chain_fwd_plain(*fwd)
     fwd_err = _compare_outputs(f"{what} training fwd N={n}",
                                ("sdf", "geo", "grad", "zs", "ss", "adj"), out_k,
@@ -787,7 +853,7 @@ def check_slot_chain_bwd(gen, dev, gspec):
     limits = _plain_conditioning(f"{what} bwd N={n}", SLOT_GRADS, plain, lambda b: (b,), bs, {},
                                  torch.Generator(device=dev).manual_seed(SEED), dev, ref)
     err = _compare_grads(f"{what} bwd N={n}", SLOT_GRADS, out, ref, tol=limits)
-    parts = k3_parts(f"{what} bwd N={n}", args, gspec, False)
+    parts = k3_parts(f"{what} bwd N={n}", args, gspec, False, packed)
     # chain_wgrad against the plain product of the pass's own stacks
     bw = parts.pop("bw")
     bw.gw.zero_()
@@ -835,7 +901,8 @@ def check_slot_chain_bwd(gen, dev, gspec):
     # ga-forward (gW and mq of the hidden layers, the last layer's column
     # sums), then gW and gh of every layer
     flops = 2 * chain_flops(n, hidden) + 2.0 * n * 128 + 2 * chain_flops(n, dims)
-    return dict(ms=time_ms(lambda: _launch_chain_bwd(*args)),
+    return dict(ms=time_ms(lambda: _launch_chain_bwd(*args, packed=packed)),
+                standalone_ms=time_ms(lambda: _launch_chain_bwd(*args)),
                 plain_ms=time_ms(lambda: slot_sdf_chain_bwd_plain(
                     pos, table, ws, bs, gspec, zs_p, ss_p, adj_p, gsdf, ggeo, g3, **plain_kw)),
                 flops=flops,
@@ -1080,8 +1147,19 @@ def check_sdf_chain(gen, dev):
     with torch.no_grad():
         ms = time_ms(lambda: fused_sdf_chain(*args, **SDF_KW))
         plain_ms = time_ms(lambda: fused_sdf_chain_plain(*args, **SDF_KW))
+    kernel_ms, ops = fwd_parts(f"K4 fwd N={n} (wrapper {ms:.3f} ms)",
+                               lambda: fused_sdf_chain(*args, **SDF_KW), ADJ_FWD_KERNELS)
     return dict(ms=ms, plain_ms=plain_ms, library_ms=time_ms(library),
-                flops=sdf_flops(n, SDF_DIMS), bytes=nbytes(pos, ws, bs, out), err=err)
+                flops=sdf_flops(n, SDF_DIMS), bytes=nbytes(pos, ws, bs, out), err=err,
+                kernel_ms=kernel_ms, ops=ops)
+
+
+def sc_images(pos, ws, bs, pe):
+    """The images K4's forward packs (backward images included), which its
+    backward reuses on the main path."""
+    from multimodalstudio_tpu_torch.ops.kernels.sdf_chain import _launch_fwd
+
+    return _launch_fwd(pos, ws, bs, SDF_KW["skip"], SDF_KW["activation"], SDF_KW["beta"], pe)[3]
 
 
 def adjoint_rows(n, n_layers):
@@ -1128,7 +1206,9 @@ def check_sdf_chain_bwd(gen, dev):
     def library():
         return torch.autograd.grad(outs, leaves, cot, retain_graph=True)
 
-    res = dict(ms=time_ms(lambda: _launch_bwd(*kargs)),
+    packed = sc_images(pos, ws, bs, pe)
+    res = dict(ms=time_ms(lambda: _launch_bwd(*kargs, packed)),
+               standalone_ms=time_ms(lambda: _launch_bwd(*kargs)),
                plain_ms=time_ms(lambda: fused_sdf_chain_bwd_plain(pos, ws, bs, gsdf, ggeo, g3,
                                                                   **SDF_KW)),
                library_ms=time_ms(library), flops=sdf_flops(n, SDF_DIMS, backward=True),
@@ -1136,7 +1216,7 @@ def check_sdf_chain_bwd(gen, dev):
                err=err, fwd_err=fwd_err)
     res["wgrad"] = stacked_backward_parts(
         f"K4 bwd N={n}", lambda count: sdf_bwd_card(*kargs, count=count),
-        lambda: _launch_bwd(*kargs), adjoint_rows(n, len(SDF_DIMS)),
+        lambda: _launch_bwd(*kargs, packed), adjoint_rows(n, len(SDF_DIMS)),
         old_atomics(n, SDF_DIMS, SDF_KW["skip"]), res)
     return res
 
@@ -1366,9 +1446,12 @@ def check_chain_tangents(gen, dev):
         ms = time_ms(lambda: fused_chain(x, ws, bs, tangents=tx, **TANGENT_KW))
         plain_ms = time_ms(lambda: fused_chain_plain(x, ws, bs, tangents=tx, **TANGENT_KW))
         library_ms = time_ms(library)
+    kernel_ms, ops = fwd_parts(f"K1t fwd N={n} (wrapper {ms:.3f} ms)",
+                               lambda: fused_chain(x, ws, bs, tangents=tx, **TANGENT_KW),
+                               TAN_FWD_KERNELS)
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 flops=tangent_flops(n, SDF_DIMS, 3, 39, 39), bytes=nbytes(x, tx, ws, bs, out),
-                err=err)
+                err=err, kernel_ms=kernel_ms, ops=ops)
 
 
 def check_chain_tangents_bwd(gen, dev):
@@ -1378,6 +1461,7 @@ def check_chain_tangents_bwd(gen, dev):
     (stacked_backward_parts)."""
     from multimodalstudio_tpu_torch.ops.kernels.fused_mlp import (
         _launch_tangent_bwd,
+        _launch_tangent_fwd,
         fused_chain_tangent_bwd_plain,
         tangent_bwd_card,
     )
@@ -1401,7 +1485,9 @@ def check_chain_tangents_bwd(gen, dev):
     def library():
         return torch.autograd.grad(outs, leaves, (gy, gty), retain_graph=True)
 
-    res = dict(ms=time_ms(lambda: _launch_tangent_bwd(*kargs)),
+    packed = _launch_tangent_fwd(*kargs[:2], *kargs[4:], backward_images=True)[2]
+    res = dict(ms=time_ms(lambda: _launch_tangent_bwd(*kargs, packed)),
+               standalone_ms=time_ms(lambda: _launch_tangent_bwd(*kargs)),
                plain_ms=time_ms(lambda: fused_chain_tangent_bwd_plain(
                    x, tx, gy, gty, ws, bs, **plain_kw)),
                library_ms=time_ms(library),
@@ -1409,7 +1495,7 @@ def check_chain_tangents_bwd(gen, dev):
                bytes=nbytes(x, tx, gy, gty, ws, bs, got[0], got[1], got[2], got[3]), err=err)
     res["wgrad"] = stacked_backward_parts(
         f"K1t bwd N={n}", lambda count: tangent_bwd_card(*kargs, count=count),
-        lambda: _launch_tangent_bwd(*kargs), [4 * n] * len(SDF_DIMS),
+        lambda: _launch_tangent_bwd(*kargs, packed), [4 * n] * len(SDF_DIMS),
         old_atomics(n, SDF_DIMS, (4,), k=3), res)
     return res
 
@@ -1451,9 +1537,12 @@ def check_sdf_chain_jvp(gen, dev):
         ms = time_ms(lambda: fused_sdf_chain(pos, ws, bs, mode="jvp", **SDF_KW))
         plain_ms = time_ms(lambda: fused_sdf_chain_jvp_plain(pos, ws, bs, **SDF_KW))
         library_ms = time_ms(library)
+    kernel_ms, ops = fwd_parts(f"K4j fwd N={n} (wrapper {ms:.3f} ms)",
+                               lambda: fused_sdf_chain(pos, ws, bs, mode="jvp", **SDF_KW),
+                               TAN_FWD_KERNELS)
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 flops=tangent_flops(n, SDF_DIMS, 3, 13, 12), bytes=nbytes(pos, ws, bs, out),
-                err=err)
+                err=err, kernel_ms=kernel_ms, ops=ops)
 
 
 def check_sdf_chain_jvp_bwd(gen, dev):
@@ -1462,6 +1551,7 @@ def check_sdf_chain_jvp_bwd(gen, dev):
     parts (stacked_backward_parts)."""
     from multimodalstudio_tpu_torch.ops.kernels.sdf_chain import (
         _launch_jvp_bwd,
+        _launch_jvp_fwd,
         fused_sdf_chain_jvp_bwd_plain,
         jvp_bwd_card,
         pe_scales,
@@ -1489,7 +1579,9 @@ def check_sdf_chain_jvp_bwd(gen, dev):
     def library():
         return torch.autograd.grad(outs, leaves, (gsdf, ggeo, g3), retain_graph=True)
 
-    res = dict(ms=time_ms(lambda: _launch_jvp_bwd(*kargs)),
+    packed = _launch_jvp_fwd(*kargs[:7], backward_images=True)[3]
+    res = dict(ms=time_ms(lambda: _launch_jvp_bwd(*kargs, packed)),
+               standalone_ms=time_ms(lambda: _launch_jvp_bwd(*kargs)),
                plain_ms=time_ms(lambda: fused_sdf_chain_jvp_bwd_plain(pos, ws, bs, gsdf, ggeo,
                                                                       g3, **SDF_KW)),
                library_ms=time_ms(library),
@@ -1497,7 +1589,7 @@ def check_sdf_chain_jvp_bwd(gen, dev):
                bytes=nbytes(pos, ws, bs, gsdf, ggeo, g3, got[0], got[1], got[2]), err=err)
     res["wgrad"] = stacked_backward_parts(
         f"K4j bwd N={n}", lambda count: jvp_bwd_card(*kargs, count=count),
-        lambda: _launch_jvp_bwd(*kargs), [4 * n] * len(SDF_DIMS),
+        lambda: _launch_jvp_bwd(*kargs, packed), [4 * n] * len(SDF_DIMS),
         old_atomics(n, SDF_DIMS, (4,), k=3), res)
     return res
 
@@ -1627,6 +1719,7 @@ def check_wide_hidden(gen, dev, widths=(384, 512)) -> None:
                          lambda b: (x, gy, ws, b), bs, kw, ref)
             held(what + " bwd", CHAIN_GRADS, _launch_bwd(x, gy, ws, bs, skip, act, 100.0), ref,
                  tol, act, h)
+        wide_forwards(dev, h)
         dims = [(39, h), (h, h), (h + 39, h), (h, 257)]
         # K4 (adjoint, the encoding in front)
         ws, bs = random_chain(gen, dims, dev)
@@ -1685,28 +1778,88 @@ def check_wide_hidden(gen, dev, widths=(384, 512)) -> None:
         check_padded_widths(dev, [h for h in widths if h > 512])
 
 
+def wide_forwards(dev, h) -> None:
+    """The adjoint and tangent forwards at hidden width h against their plain
+    versions (rel-L2 1e-2) on a ragged N = 1000, SoftplusQuad chains with a
+    skip at layer 2, drawn from a generator of their own: K4 and K4j (the
+    encoding in front, 257 outputs), K5 (15 inputs, 33 outputs, channel 1)
+    and K1t (39 inputs, 17 outputs; 3 tangents on channel 0, and 2 with the
+    full ty)."""
+    from multimodalstudio_tpu_torch.ops.kernels.fused_mlp import fused_chain, fused_chain_plain
+    from multimodalstudio_tpu_torch.ops.kernels.sdf_chain import (
+        fused_chain_adjoint,
+        fused_chain_adjoint_plain,
+        fused_sdf_chain,
+        fused_sdf_chain_jvp_plain,
+        fused_sdf_chain_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 5 * h)
+    n, kw = 1000, dict(SDF_KW, skip=(2,))
+    ws, bs = random_chain(g, [(39, h), (h, h), (h + 39, h), (h, 257)], dev)
+    pos = torch.rand(n, 3, generator=g, device=dev) * 2.2 - 1.1
+    ws5, bs5 = random_chain(g, [(15, h), (h, h), (h + 15, h), (h, 33)], dev)
+    x5 = torch.rand(n, 15, generator=g, device=dev) * 2 - 1
+    wst, bst = random_chain(g, [(39, h), (h, h), (h + 39, h), (h, 17)], dev)
+    x = torch.rand(n, 39, generator=g, device=dev) * 2 - 1
+    tkw = dict(skip=(2,), activation="SoftplusQuad", beta=100.0)
+    with torch.no_grad():
+        cases = [
+            ("K4", ("sdf", "geo", "grad"), fused_sdf_chain(pos, ws, bs, **kw),
+             fused_sdf_chain_plain(pos, ws, bs, **kw)),
+            ("K4j", ("sdf", "geo", "grad"), fused_sdf_chain(pos, ws, bs, mode="jvp", **kw),
+             fused_sdf_chain_jvp_plain(pos, ws, bs, **kw)),
+            ("K5 channel 1", ("y", "adj"), fused_chain_adjoint(x5, ws5, bs5, skip=(2,), channel=1),
+             fused_chain_adjoint_plain(x5, ws5, bs5, skip=(2,), channel=1)),
+        ]
+        for k, channel in ((3, 0), (2, None)):
+            tx = torch.randn(k, n, 39, generator=g, device=dev)
+            tk = dict(tkw, tangents=tx, tangent_out_channel=channel)
+            cases.append((f"K1t K={k} channel={channel}", ("y", "ty"), fused_chain(x, wst, bst, **tk),
+                          fused_chain_plain(x, wst, bst, **tk)))
+    torch.cuda.synchronize()
+    for name, names, out, ref in cases:
+        _compare_outputs(f"{name} fwd H={h} skip=(2,) N={n}", names, out, ref)
+
+
 def check_slot_wide(gen, dev, h) -> None:
-    """K2's forward (training mode) and K3's backward pass, merged and split,
-    at hidden width h on grid_raw_tpu's grid (6 levels of 4096 rows, F = 2,
-    3 active) at a ragged N = 1000: the chain 51 -> h -> h -> 257
-    SoftplusQuad. K3's forward (slot_fused.cu, the first design) holds its
-    tile in shared memory and takes no such width, so the backward reads the
-    plain forward's residuals, computed on the card."""
+    """The slot kernels at hidden width h on grid_raw_tpu's grid (6 levels of
+    4096 rows, F = 2, 3 active) at a ragged N = 1000, the chain 51 -> h -> h
+    -> 257 SoftplusQuad: K2's forward (training mode) and backward, merged
+    and split, and K3's forward (training mode) and backward, merged and
+    split, each backward on its own forward's residuals and held against
+    its plain version on those residuals (a rounding of the forward that
+    differs from the plain forward's moves the backward of that row, K3f's
+    d pos at 1024 by 2.5e-2 once), its limits following the plain version's
+    spread; then the same for K2f and K3f on the f32 table's grid (6 x 512,
+    F = 16), drawn from a generator of their own."""
+    from multimodalstudio_tpu_torch.ops.kernels.slot_grid import SlotGridSpec
+
+    gspec = SlotGridSpec(num_levels=6, min_res=16, max_res=512, rows_per_level=4096,
+                         layout="cell", feats=2, table_dtype="bf16")
+    slot_wide_checks(gen, dev, h, gspec)
+    slot_wide_checks(torch.Generator(device=dev).manual_seed(SEED + h), dev, h, f32_spec())
+
+
+def slot_wide_checks(gen, dev, h, gspec) -> None:
+    """check_slot_wide on one grid."""
     from multimodalstudio_tpu_torch.ops.kernels.slot_fused import (
         _chain_fwd_plain,
         _chain_split_card,
         _launch,
         _launch_chain_bwd,
+        _launch_value_bwd,
         _value_fwd_plain,
+        _value_split_card,
         pe_scales,
         slot_sdf_chain_bwd_plain,
         slot_sdf_chain_bwd_split_plain,
+        slot_sdf_value_bwd_plain,
+        slot_sdf_value_bwd_split_plain,
     )
-    from multimodalstudio_tpu_torch.ops.kernels.slot_grid import SlotGridSpec
 
-    gspec = SlotGridSpec(num_levels=6, min_res=16, max_res=512, rows_per_level=4096,
-                         layout="cell", feats=2, table_dtype="bf16")
     n, pe = 1000, pe_scales(6, 0.0, 5.0)
+    k2, k3 = slot_tag("K2", gspec), slot_tag("K3", gspec)
     table, _, _ = slot_inputs(gen, dev, gspec)
     ws, bs = random_chain(gen, [(slot_d_in(gspec), h), (h, h), (h, 257)], dev)
     pos = torch.rand(n, 3, generator=gen, device=dev) * 2.2 - 1.1
@@ -1714,34 +1867,61 @@ def check_slot_wide(gen, dev, h) -> None:
     fwd = (pos, table, ws, bs, gspec, gspec.num_levels, 1.0, pe, "SoftplusQuad", 100.0, mask)
     sdf, _, _, zs, _, _, x0 = _launch(*fwd, False, resid=True, x0=True)
     sdf_p, zs_p, x0_p = _value_fwd_plain(*fwd)
-    _compare_outputs(f"K2 training fwd H={h} N={n}", ("sdf", "zs", "x0"),
+    _compare_outputs(f"{k2} training fwd H={h} N={n}", ("sdf", "zs", "x0"),
                      (sdf, zs, x0[:, :x0_p.shape[1]]), (sdf_p, zs_p, x0_p))
     cfwd = (pos, table, ws, bs, gspec, 1.0, pe, "SoftplusQuad", 100.0, mask)
     gsdf = torch.randn(n, generator=gen, device=dev)
     ggeo = (0.1 * torch.randn(n, 256, generator=gen, device=dev)).to(torch.bfloat16)
     g3 = torch.randn(n, 3, generator=gen, device=dev)
     cot = (gsdf, ggeo, g3)
-    zs_p, ss_p, adj_p, x0_p = _chain_fwd_plain(*cfwd)[1]
     kw = dict(SLOT_KW, level_mask=mask)
+    spread = torch.Generator(device=dev).manual_seed(SEED)
+
+    def vplain(b):
+        """The plain forward with biases b, then K2's plain backward."""
+        zs_b = _value_fwd_plain(pos, table, ws, b, *fwd[4:])[1]
+        return slot_sdf_value_bwd_plain(pos, table, ws, b, gspec, zs_b, gsdf, **kw)
+
+    # each backward against its plain version on the same residuals, the card forward's
+    what = f"{k2} bwd H={h} N={n}"
+    tol = _plain_conditioning(what, SLOT_GRADS, vplain, lambda b: (b,), bs, {}, spread, dev,
+                              vplain(bs))
+    merged = _launch_value_bwd(*fwd, zs, gsdf)
+    _compare_grads(what, SLOT_GRADS, merged,
+                   slot_sdf_value_bwd_plain(pos, table, ws, bs, gspec, zs, gsdf, **kw), tol=tol)
+    split = _value_split_card(*fwd, zs, gsdf)
+    _compare_grads(f"{k2}s whole split backward H={h} N={n}", SLOT_GRADS, split,
+                   slot_sdf_value_bwd_split_plain(pos, table, ws, bs, gspec, zs, x0, gsdf,
+                                                  **kw), tol=tol)
+    _compare_grads(f"{k2}s whole split backward vs merged H={h} N={n}", SLOT_GRADS[:2], split[:2],
+                   merged[:2], tol=1e-5)
+    _compare_grads(f"{k2}s whole split backward vs merged H={h} N={n}", SLOT_GRADS[2:], split[2:],
+                   merged[2:], tol=2e-2)
+    # K3's forward on the card, and its backward on that forward's residuals
+    out_k = _launch(*fwd, True, resid=True)
+    outs_p, (zs_p, ss_p, adj_p, x0_p) = _chain_fwd_plain(*cfwd)
+    _compare_outputs(f"{k3} training fwd H={h} N={n}", ("sdf", "geo", "grad", "zs", "ss", "adj"),
+                     out_k[:6], (*outs_p, zs_p, ss_p, adj_p))
 
     def plain(b):
-        """The plain forward with biases b, then the plain backward."""
+        """The plain forward with biases b, then K3's plain backward."""
         resid = _chain_fwd_plain(pos, table, ws, b, *cfwd[4:])[1][:3]
         return slot_sdf_chain_bwd_plain(pos, table, ws, b, gspec, *resid, *cot, **kw)
 
-    what = f"K3 bwd H={h} N={n}"
-    ref = plain(bs)
-    tol = _plain_conditioning(what, SLOT_GRADS, plain, lambda b: (b,), bs, {},
-                              torch.Generator(device=dev).manual_seed(SEED), dev, ref)
-    merged = _launch_chain_bwd(*cfwd, zs_p, ss_p, adj_p, *cot)
-    _compare_grads(what, SLOT_GRADS, merged, ref, tol=tol)
-    split = _chain_split_card(*cfwd, zs_p, ss_p, adj_p, x0_p, *cot)
-    _compare_grads(f"K3s whole split backward H={h} N={n}", SLOT_GRADS, split,
-                   slot_sdf_chain_bwd_split_plain(pos, table, ws, bs, gspec, zs_p, ss_p, adj_p,
-                                                  x0_p, *cot, **kw), tol=tol)
-    _compare_grads(f"K3s whole split backward vs merged H={h} N={n}", SLOT_GRADS[:2], split[:2],
+    what = f"{k3} bwd H={h} N={n}"
+    tol = _plain_conditioning(what, SLOT_GRADS, plain, lambda b: (b,), bs, {}, spread, dev,
+                              plain(bs))
+    merged = _launch_chain_bwd(*cfwd, *out_k[3:6], *cot)
+    _compare_grads(what, SLOT_GRADS, merged,
+                   slot_sdf_chain_bwd_plain(pos, table, ws, bs, gspec, *out_k[3:6], *cot, **kw),
+                   tol=tol)
+    split = _chain_split_card(*cfwd, *out_k[3:6], *cot)
+    _compare_grads(f"{k3}s whole split backward H={h} N={n}", SLOT_GRADS, split,
+                   slot_sdf_chain_bwd_split_plain(pos, table, ws, bs, gspec, *out_k[3:6], x0_p,
+                                                  *cot, **kw), tol=tol)
+    _compare_grads(f"{k3}s whole split backward vs merged H={h} N={n}", SLOT_GRADS[:2], split[:2],
                    merged[:2], tol=1e-5)
-    _compare_grads(f"K3s whole split backward vs merged H={h} N={n}", SLOT_GRADS[2:], split[2:],
+    _compare_grads(f"{k3}s whole split backward vs merged H={h} N={n}", SLOT_GRADS[2:], split[2:],
                    merged[2:], tol=2e-2)
 
 
@@ -1792,13 +1972,15 @@ def check_padded_widths(dev, widths) -> None:
     512-wide kernels (WC_WIDE) on the same function: each chain of hidden
     width 512 padded to h with dead units (pad_chain), its live units first
     or last, so that every piece position carries live columns. The products
-    then add exact zeros to the same partial sums: K1's forward y, the
-    backwards' per-row outputs (gx, gtx, d pos) and K2's sdf must equal the
+    then add exact zeros to the same partial sums: every forward's outputs
+    and the backwards' per-row outputs (gx, gtx, d pos) must equal the
     512-wide kernels' bit for bit, and gW, gb and the table gradient, summed
     by atomics in an order that changes from run to run, within rel-L2 1e-5.
-    Covers K1 forward and backward, K1t (2 tangents, the full ty), K4, K4j,
-    K5, K2's forward and K3's backward, merged and split, on a ragged N =
-    1000 (skip chains, SoftplusQuad). Draws from a generator of its own."""
+    Covers K1 forward and backward, K1t forward (3 tangents on a channel, 2
+    with the full ty) and backward (2 tangents, the full ty), K4, K4j and K5
+    forward and backward, and on both tables K2's and K3's forwards and
+    backwards, merged and split, on a ragged N = 1000 (skip chains but the
+    slot chains', SoftplusQuad). Draws from a generator of its own."""
     from multimodalstudio_tpu_torch.ops.kernels import fused_mlp as fm
     from multimodalstudio_tpu_torch.ops.kernels import sdf_chain as sc
     from multimodalstudio_tpu_torch.ops.kernels import slot_fused as sf
@@ -1808,7 +1990,6 @@ def check_padded_widths(dev, widths) -> None:
     n, skip, act, pe = 1000, (2,), "SoftplusQuad", sc.pe_scales(6, 0.0, 5.0)
     gspec = SlotGridSpec(num_levels=6, min_res=16, max_res=512, rows_per_level=4096,
                          layout="cell", feats=2, table_dtype="bf16")
-    d_slot = slot_d_in(gspec)
 
     def chain(d_in, d_out, with_skip=True):
         dims = [(d_in, LIVE), (LIVE, LIVE), (LIVE + (d_in if with_skip else 0), LIVE),
@@ -1827,8 +2008,6 @@ def check_padded_widths(dev, widths) -> None:
     gsdf = torch.randn(n, generator=g, device=dev)
     ggeo = (0.1 * torch.randn(n, 256, generator=g, device=dev)).to(torch.bfloat16)
     g3 = torch.randn(n, 3, generator=g, device=dev)
-    table = slot_inputs(g, dev, gspec)[0]
-    mask = (torch.arange(gspec.out_dim, device=dev) < 3 * gspec.feats).float()
     # name: (input width, output width, skip chain, run(ws, bs, skip) -> (per-row outputs,
     # [(gW list, gb list) or None], [other summed outputs]))
     def run_k1(ws, bs):
@@ -1868,37 +2047,82 @@ def check_padded_widths(dev, widths) -> None:
                 _compare_grads(f"{what} vs 512 wide", ("gW", "gb"), (gw, gb), ref_grads,
                                tol=1e-5)
                 print(f"  {what}: per-row outputs equal to the 512-wide kernel's, bit for bit")
-    # K2's forward and K3's backward on the slot chain 51 -> 512 -> 512 -> 257
-    ws, bs = chain(d_slot, 257, with_skip=False)
-    cfwd = (gspec, 1.0, pe, act, 100.0, mask)
-    sdf_ref = sf._launch(pos, table, ws, bs, gspec, gspec.num_levels, 1.0, pe, act, 100.0, mask,
-                         False)[0]
-    zs, ss, adj, _ = sf._chain_fwd_plain(pos, table, ws, bs, *cfwd)[1]
-    merged_ref = sf._launch_chain_bwd(pos, table, ws, bs, *cfwd, zs, ss, adj, gsdf, ggeo, g3)
-    split_ref = sf._chain_split_card(pos, table, ws, bs, *cfwd, zs, ss, adj, None, gsdf, ggeo, g3)
-    for h in widths:
-        for high in (False, True):
-            what = f"K2/K3 H={h} live units {'last' if high else 'first'}"
-            o = h - LIVE if high else 0
-            wp, bp = pad_chain(ws, bs, (), h, high)
-            sdf = sf._launch(pos, table, wp, bp, gspec, gspec.num_levels, 1.0, pe, act, 100.0,
-                             mask, False)[0]
-            # the residuals of the padded chain: the live ones in place, z = -1 and s = 0 dead
-            zp = torch.full((zs.shape[0], n, h), -1.0, device=dev).to(torch.bfloat16)
-            sp = torch.zeros((ss.shape[0], n, h), device=dev).to(torch.bfloat16)
-            zp[:, :, o:o + LIVE], sp[:, :, o:o + LIVE] = zs, ss
-            merged = sf._launch_chain_bwd(pos, table, wp, bp, *cfwd, zp, sp, adj, gsdf, ggeo, g3)
-            split = sf._chain_split_card(pos, table, wp, bp, *cfwd, zp, sp, adj, None, gsdf, ggeo,
-                                         g3)
-            torch.cuda.synchronize()
-            if not (torch.equal(sdf, sdf_ref) and torch.equal(merged[0], merged_ref[0])
-                    and torch.equal(split[0], split_ref[0])):
-                fail(f"{what}: sdf or d pos differs from the 512-wide kernels'")
-            for out, ref, kind in ((merged, merged_ref, "merged"), (split, split_ref, "split")):
-                gw, gb = unpad_grads(out[2], out[3], (), h, high)
-                _compare_grads(f"{what} {kind} vs 512 wide", ("d_table", "gW", "gb"),
-                               (out[1], gw, gb), (ref[1], ref[2], ref[3]), tol=1e-5)
-            print(f"  {what}: sdf and d pos equal to the 512-wide kernels', bit for bit")
+    # the adjoint and tangent forwards, their outputs bit for bit
+    tx3 = torch.randn(3, n, 39, generator=g, device=dev)
+    kw4 = dict(SDF_KW, skip=skip)
+    fwd_runs = {
+        "K4 fwd": (39, 257, lambda ws, bs: sc.fused_sdf_chain(pos, ws, bs, **kw4)),
+        "K4j fwd": (39, 257, lambda ws, bs: sc.fused_sdf_chain(pos, ws, bs, mode="jvp", **kw4)),
+        "K5 fwd": (15, 33, lambda ws, bs: sc.fused_chain_adjoint(x5, ws, bs, skip=skip,
+                                                                 channel=1)),
+        "K1t fwd (3 tangents, channel 0)": (39, 17, lambda ws, bs: fm.fused_chain(
+            x, ws, bs, skip=skip, activation=act, tangents=tx3, tangent_out_channel=0)),
+        "K1t fwd (2 tangents, the full ty)": (39, 17, lambda ws, bs: fm.fused_chain(
+            x, ws, bs, skip=skip, activation=act, tangents=tx)),
+    }
+    for name, (d_in, d_out, run) in fwd_runs.items():
+        ws, bs = chain(d_in, d_out)
+        with torch.no_grad():
+            ref = run(ws, bs)
+            for h in widths:
+                for high in (False, True):
+                    what = f"{name} H={h} live units {'last' if high else 'first'}"
+                    out = run(*pad_chain(ws, bs, skip, h, high))
+                    torch.cuda.synchronize()
+                    for i, (a, b) in enumerate(zip(out, ref)):
+                        if not torch.equal(a, b):
+                            fail(f"{what}: output {i} differs from the 512-wide kernel's "
+                                 f"(rel_l2 {rel_l2(a.float(), b.float()):.3e})")
+                    print(f"  {what}: outputs equal to the 512-wide kernel's, bit for bit")
+    # the slot kernels on the chain d_in -> 512 -> 512 -> 257, both tables: K2's and K3's
+    # forwards, K2's backward (merged, split) on its own forward's residuals, K3's on the
+    # plain forward's padded to the width (the live ones in place, z = -1 and s = 0 dead)
+    for gs in (gspec, f32_spec()):
+        tbl = slot_inputs(g, dev, gs)[0]
+        ws, bs = chain(slot_d_in(gs), 257, with_skip=False)
+        mk = (torch.arange(gs.out_dim, device=dev) < 3 * gs.feats).float()
+        k = gs.num_levels
+        fargs = (gs, k, 1.0, pe, act, 100.0, mk)
+        cfwd = (gs, 1.0, pe, act, 100.0, mk)
+
+        def slot_runs(wl, bl, zs, ss):
+            """(per-row outputs, [(name, d_table, gW list, gb list)]) of the slot kernels on
+            the chain (wl, bl), K3's backward on the residuals zs, ss (and adj)."""
+            sdf, _, _, vzs, _, _, _ = sf._launch(pos, tbl, wl, bl, *fargs, False, resid=True)
+            k3 = sf._launch(pos, tbl, wl, bl, *fargs, True)[:3]
+            vm = sf._launch_value_bwd(pos, tbl, wl, bl, *fargs, vzs, gsdf)
+            vs = sf._value_split_card(pos, tbl, wl, bl, *fargs, vzs, gsdf)
+            cm = sf._launch_chain_bwd(pos, tbl, wl, bl, *cfwd, zs, ss, adj, gsdf, ggeo, g3)
+            cs = sf._chain_split_card(pos, tbl, wl, bl, *cfwd, zs, ss, adj, gsdf, ggeo, g3)
+            rows = (sdf, *k3, vm[0], vs[0], cm[0], cs[0])
+            return rows, [(nm, o[1], o[2], o[3]) for nm, o in
+                          (("K2 merged", vm), ("K2 split", vs), ("K3 merged", cm),
+                           ("K3 split", cs))]
+
+        zs, ss, adj, _ = sf._chain_fwd_plain(pos, tbl, ws, bs, *cfwd)[1]
+        ref_rows, ref_grads = slot_runs(ws, bs, zs, ss)
+        for h in widths:
+            for high in (False, True):
+                what = (f"{slot_tag('K2', gs)}/{slot_tag('K3', gs)} H={h} live units "
+                        f"{'last' if high else 'first'}")
+                o = h - LIVE if high else 0
+                wp, bp = pad_chain(ws, bs, (), h, high)
+                zp = torch.full((zs.shape[0], n, h), -1.0, device=dev).to(torch.bfloat16)
+                sp = torch.zeros((ss.shape[0], n, h), device=dev).to(torch.bfloat16)
+                zp[:, :, o:o + LIVE], sp[:, :, o:o + LIVE] = zs, ss
+                rows, grads = slot_runs(wp, bp, zp, sp)
+                torch.cuda.synchronize()
+                for i, (a, b) in enumerate(zip(rows, ref_rows)):
+                    if not torch.equal(a, b):
+                        fail(f"{what}: per-row output {i} (sdf, K3's sdf, geo, grad, then d pos "
+                             "of K2 merged, split, K3 merged, split) differs from the 512-wide "
+                             f"kernels' (rel_l2 {rel_l2(a.float(), b.float()):.3e})")
+                for (kind, dt, gw, gb), (_, dt_r, gw_r, gb_r) in zip(grads, ref_grads):
+                    gw, gb = unpad_grads(gw, gb, (), h, high)
+                    _compare_grads(f"{what} {kind} vs 512 wide", ("d_table", "gW", "gb"),
+                                   (dt, gw, gb), (dt_r, gw_r, gb_r), tol=1e-5)
+                print(f"  {what}: sdf, K3's outputs and every d pos equal to the 512-wide "
+                      "kernels', bit for bit")
 
 
 # grid_raw_tpu's slot grid without its position encoding: the SDF head takes
@@ -2125,8 +2349,11 @@ def check_chain_adjoint(gen, dev, dims=NOPE_DIMS, what="K5"):
     with torch.no_grad():
         ms = time_ms(lambda: fused_chain_adjoint(x, ws, bs))
         plain_ms = time_ms(lambda: fused_chain_adjoint_plain(x, ws, bs))
+    kernel_ms, ops = fwd_parts(f"{what} fwd N={n} (wrapper {ms:.3f} ms)",
+                               lambda: fused_chain_adjoint(x, ws, bs), ADJ_FWD_KERNELS)
     return dict(ms=ms, plain_ms=plain_ms, library_ms=time_ms(library),
-                flops=sdf_flops(n, dims), bytes=nbytes(x, ws, bs, out), err=err)
+                flops=sdf_flops(n, dims), bytes=nbytes(x, ws, bs, out), err=err,
+                kernel_ms=kernel_ms, ops=ops)
 
 
 def check_chain_adjoint_bwd(gen, dev, dims=NOPE_DIMS, what="K5", conditioned=False):
@@ -2137,6 +2364,7 @@ def check_chain_adjoint_bwd(gen, dev, dims=NOPE_DIMS, what="K5", conditioned=Fal
     Then the backward in its parts (stacked_backward_parts)."""
     from multimodalstudio_tpu_torch.ops.kernels.sdf_chain import (
         _launch_adj_bwd,
+        _launch_adj_fwd,
         adj_bwd_card,
         fused_chain_adjoint_bwd_plain,
     )
@@ -2167,13 +2395,15 @@ def check_chain_adjoint_bwd(gen, dev, dims=NOPE_DIMS, what="K5", conditioned=Fal
     def library():
         return torch.autograd.grad(outs, leaves, (gy, ga.to(torch.bfloat16)), retain_graph=True)
 
-    res = dict(ms=time_ms(lambda: _launch_adj_bwd(*kargs)),
+    packed = _launch_adj_fwd(*kargs[:7])[2]
+    res = dict(ms=time_ms(lambda: _launch_adj_bwd(*kargs, packed)),
+               standalone_ms=time_ms(lambda: _launch_adj_bwd(*kargs)),
                plain_ms=time_ms(lambda: fused_chain_adjoint_bwd_plain(x, ws, bs, gy, ga)),
                library_ms=time_ms(library), flops=sdf_flops(n, dims, backward=True),
                bytes=nbytes(x, ws, bs, gy, ga, got[0], got[1], got[2]), err=err)
     res["wgrad"] = stacked_backward_parts(
         f"{what} bwd N={n}", lambda count: adj_bwd_card(*kargs, count=count),
-        lambda: _launch_adj_bwd(*kargs), adjoint_rows(n, len(dims)),
+        lambda: _launch_adj_bwd(*kargs, packed), adjoint_rows(n, len(dims)),
         old_atomics(n, dims, ()), res, gate=False)
     return res
 
@@ -2289,10 +2519,10 @@ def print_timing(what, r, peak=H100_BF16_FLOPS):
 
 # ------------------------------------------------- K2s, K3s and the table scatter
 
-# the per-sample passes' outputs held against their plain versions (K3s: the
-# pass's d pos and table cotangent; its gW and gb, from chain_wgrad over its
-# stacks, are held in the whole split backward against the merged one's)
-SPLIT_OUTPUTS = {"value": ("d_pos", "d_comp", "gz"), "chain": ("d_pos", "d_comp")}
+# the per-sample passes' outputs held against their plain versions: the pass's d pos
+# and table cotangent (their gW and gb, from chain_wgrad over the pass's stacks, are
+# held in the whole split backward against the merged one's)
+SPLIT_OUTPUTS = {"value": ("d_pos", "d_comp"), "chain": ("d_pos", "d_comp")}
 
 
 def _split_forward(what, fwd, launch_args, plain):
@@ -2363,11 +2593,10 @@ def check_slot_value_split(gen, dev, gspec):
         _launch_value_bwd,
         _launch_value_bwd_sample,
         _value_fwd_plain,
-        _value_gy,
         _value_split_card,
         pe_scales,
         slot_sdf_value_bwd_sample_plain,
-        split_weight_grads,
+        value_bwd_card,
     )
 
     table, ws, bs = slot_inputs(gen, dev, gspec)
@@ -2376,7 +2605,7 @@ def check_slot_value_split(gen, dev, gspec):
     mask = (torch.arange(gspec.out_dim, device=dev) < 3 * gspec.feats).float()
     pe = pe_scales(6, 0.0, 5.0)
     fwd = (pos, table, ws, bs, gspec, k, 1.0, pe, "SoftplusQuad", 100.0, mask)
-    (zs, _, _, x0), (zs_p, _), fwd_err = _split_forward(
+    (zs, _, _, _), (zs_p, _), fwd_err = _split_forward(
         slot_tag("K2", gspec), fwd, (*fwd, False),
         lambda *a: (lambda s, z, x: (s, (z, x)))(*_value_fwd_plain(*a)))
     gsdf = torch.randn(n, generator=gen, device=dev)
@@ -2386,13 +2615,17 @@ def check_slot_value_split(gen, dev, gspec):
         lambda: _launch_value_bwd_sample(*fwd, zs, gsdf),
         lambda: slot_sdf_value_bwd_sample_plain(pos, table, ws, gspec, zs_p, gsdf, **skw),
         (pos, gspec), lambda: _launch_value_bwd(*fwd, zs, gsdf),
-        lambda: _value_split_card(*fwd, zs, x0, gsdf))
-    gzs = r["got"][2]
-    r["products_ms"] = time_ms(lambda: split_weight_grads(ws, x0, zs, _value_gy(gsdf, ws), gzs,
-                                                          "SoftplusQuad", 100.0))
+        lambda: _value_split_card(*fwd, zs, gsdf))
+    bw = value_bwd_card(*fwd, zs, gsdf, split=True)[0]
+    r["products_ms"] = time_ms(bw.wgrad)
+    r["kernel_ms"] = time_ms(lambda: (bw.tile(), bw.wgrad()))
+    r["ops"] = device_ops(lambda: _value_split_card(*fwd, zs, gsdf))
+    print(f"  {slot_tag('K2', gspec)}s N={n} per-sample pass: kernel alone (pass and chain_wgrad) "
+          f"{r['kernel_ms']:.3f} ms, chain_wgrad {r['products_ms']:.3f} ms, {r['ops']} device "
+          "ops per whole split backward")
     # the sweep's gh products (the last layer's sdf column only), no gW
     r["flops"] = chain_flops(n, [(slot_d_in(gspec), 128), (128, 128), (128, 1)])
-    r["bytes"] = nbytes(pos, table, mask, ws, bs, zs, gsdf, *r["got"])
+    r["bytes"] = nbytes(pos, table, mask, ws, bs, zs, gsdf, *r["got"][:2])
     r["scatter_bytes"] = nbytes(pos, r["got"][1]) + 4 * gspec.total_rows * 128
     r["fwd_err"] = fwd_err
     return r
@@ -2438,7 +2671,7 @@ def check_slot_chain_split(gen, dev, gspec):
         lambda: slot_sdf_chain_bwd_sample_plain(pos, table, ws, gspec, zs_p, ss_p, adj_p, *cot,
                                                 **skw),
         (pos, gspec), lambda: _launch_chain_bwd(*fwd, zs, ss, adj, *cot),
-        lambda: _chain_split_card(*fwd, zs, ss, adj, x0, *cot))
+        lambda: _chain_split_card(*fwd, zs, ss, adj, *cot))
     parts = k3_parts(f"{what} per-sample pass", (*fwd, zs, ss, adj, *cot), gspec, True)
     parts.pop("bw")
     r["products_ms"] = parts["wgrad_ms"]
@@ -2448,7 +2681,7 @@ def check_slot_chain_split(gen, dev, gspec):
     rfwd = (rpos, *fwd[1:])
     r_out = _launch(*rfwd[:5], gspec.num_levels, *rfwd[5:], True, resid=True, x0=True)
     rres = (*r_out[3:6], *cot)
-    split, merged = _chain_split_card(*rfwd, *r_out[3:7], *cot), _launch_chain_bwd(*rfwd, *rres)
+    split, merged = _chain_split_card(*rfwd, *rres), _launch_chain_bwd(*rfwd, *rres)
     torch.cuda.synchronize()
     _compare_grads(f"{what}, ray-ordered: whole split backward vs the merged backward kernel",
                    SLOT_GRADS[:2], split[:2], merged[:2], tol=1e-5)
@@ -2456,7 +2689,7 @@ def check_slot_chain_split(gen, dev, gspec):
                    SLOT_GRADS[2:], split[2:], merged[2:], tol=2e-2)
     print(f"  {what}, ray-ordered: per-sample pass "
           f"{time_ms(lambda: _launch_chain_bwd_sample(*rfwd, *rres)):.3f} ms, whole split "
-          f"{time_ms(lambda: _chain_split_card(*rfwd, *r_out[3:7], *cot)):.3f} ms")
+          f"{time_ms(lambda: _chain_split_card(*rfwd, *rres)):.3f} ms")
     hidden = [(slot_d_in(gspec), 128), (128, 128)]
     # the ga-forward chain's products through the hidden layers and the
     # sweep's gh products of every layer; no gW
@@ -2473,8 +2706,7 @@ def split_results(value, chain, f32=False):
     kernels; prints the split against the merged backward."""
     sfx = "f" if f32 else ""
     for name, r in ((f"K2{sfx}", value), (f"K3{sfx}", chain)):
-        products = ("products" if name.startswith("K2")
-                    else "products (chain_wgrad, inside the per-sample kernel's call)")
+        products = "products (chain_wgrad, inside the per-sample kernel's call)"
         print(f"  {name} split backward per microbatch: per-sample kernel {r['ms']:.3f} ms, "
               f"scatter {r['scatter_ms']:.3f} ms, {products} {r['products_ms']:.3f} ms, whole "
               f"{r['whole_ms']:.3f} ms; merged backward kernel {r['merged_ms']:.3f} ms; table "
@@ -2731,7 +2963,7 @@ def check_skip_edges(gen, dev, gspecs) -> None:
         kw = dict(SLOT_KW, activation=act, level_mask=mask, skip=skip)
         skw = dict(radius=1.0, pe=pe, activation=act, beta=100.0, mask=mask, skip=skip)
         fwd = (pos, table, ws, bs, gspec, k, *chain)
-        sdf, _, _, zs, _, _, x0 = _launch(*fwd, False, resid=True, x0=True, skip=skip)
+        sdf, _, _, zs, _, _, _ = _launch(*fwd, False, resid=True, x0=True, skip=skip)
         sdf_p, zs_p, _ = _value_fwd_plain(*fwd, skip)
         _compare_outputs(f"K2 training fwd {what}", ("sdf", "zs"), (sdf, zs), (sdf_p, zs_p))
         gsdf = torch.randn(n, generator=gen, device=dev)
@@ -2745,7 +2977,7 @@ def check_skip_edges(gen, dev, gspecs) -> None:
         _compare_outputs(f"table scatter {what}", ("d_table",),
                          (_launch_table_scatter(pos, got[1], gspec, 1.0),),
                          (slot_table_scatter_plain(pos, got[1], gspec, radius=1.0),))
-        split = _value_split_card(*fwd, zs, x0, gsdf, skip)
+        split = _value_split_card(*fwd, zs, gsdf, skip)
         _compare_grads(f"K2 whole split backward vs merged {what}", SLOT_GRADS[:2], split[:2],
                        merged[:2], tol=1e-5)
         _compare_grads(f"K2 whole split backward vs merged {what}", SLOT_GRADS[2:], split[2:],
@@ -2764,7 +2996,7 @@ def check_skip_edges(gen, dev, gspecs) -> None:
         _compare_outputs(f"K3s {what}", SPLIT_OUTPUTS["chain"], got,
                          slot_sdf_chain_bwd_sample_plain(pos, table, ws, gspec, zs_p, ss_p, adj_p,
                                                          *cot, **skw))
-        split = _chain_split_card(*cfwd, *out_k[3:7], *cot, skip)
+        split = _chain_split_card(*cfwd, *out_k[3:6], *cot, skip)
         _compare_grads(f"K3 whole split backward vs merged {what}", SLOT_GRADS[:2], split[:2],
                        merged[:2], tol=1e-5)
         _compare_grads(f"K3 whole split backward vs merged {what}", SLOT_GRADS[2:], split[2:],
@@ -2773,28 +3005,29 @@ def check_skip_edges(gen, dev, gspecs) -> None:
 
 PER_CHUNK = {  # kernel launches of one 1024-ray eval chunk (derived in PERF.md)
     # every K1 forward call launches the pack of its weights, then the chain,
-    # and so does every K2 call (its chain cut to the sdf column)
+    # and so does every K2 call (its chain cut to the sdf column) and every
+    # call of K3, K4, K5, K1t and K4j (the tenth pack)
     # trunk, polarization head, background x3; sampler x4; render samples
-    "grid_raw_tpu": {"fused_chain": 5, "fused_chain_pack": 9, "fused_slot_sdf_value": 4,
+    "grid_raw_tpu": {"fused_chain": 5, "fused_chain_pack": 10, "fused_slot_sdf_value": 4,
                      "fused_slot_sdf_chain": 1},
     # sampler x4 and the five chains above through K1; render samples through K4
-    "mlp_raw_tpu": {"fused_chain": 9, "fused_chain_pack": 9, "fused_sdf_chain": 1},
+    "mlp_raw_tpu": {"fused_chain": 9, "fused_chain_pack": 10, "fused_sdf_chain": 1},
     # sampler x4 through K6 (4 levels) and the K1 head, the five chains above
     # through K1; render samples through K6 with tangents and K5
-    "grid_raw_tpu without PE": {"fused_chain": 9, "fused_chain_pack": 9, "slot_grid_lookup": 5,
+    "grid_raw_tpu without PE": {"fused_chain": 9, "fused_chain_pack": 10, "slot_grid_lookup": 5,
                                 "fused_chain_adjoint": 1},
     # as mlp_raw_tpu, the render samples through K1t (contraction) or K4j (jvp mode)
-    "mlp_raw_tpu with contraction": {"fused_chain": 9, "fused_chain_pack": 9,
+    "mlp_raw_tpu with contraction": {"fused_chain": 9, "fused_chain_pack": 10,
                                      "fused_chain_tangents": 1},
-    "mlp_raw_tpu in jvp mode": {"fused_chain": 9, "fused_chain_pack": 9, "fused_sdf_chain_jvp": 1},
+    "mlp_raw_tpu in jvp mode": {"fused_chain": 9, "fused_chain_pack": 10, "fused_sdf_chain_jvp": 1},
     # the split backward changes nothing a render runs
-    "grid_raw_tpu with split backward": {"fused_chain": 5, "fused_chain_pack": 9,
+    "grid_raw_tpu with split backward": {"fused_chain": 5, "fused_chain_pack": 10,
                                          "fused_slot_sdf_value": 4, "fused_slot_sdf_chain": 1},
     # as grid_raw_tpu, through the f32 table's K2f and K3f
-    "grid_raw_tpu with f32 table": {"fused_chain": 5, "fused_chain_pack": 9,
+    "grid_raw_tpu with f32 table": {"fused_chain": 5, "fused_chain_pack": 10,
                                     "fused_slot_sdf_value_f32": 4, "fused_slot_sdf_chain_f32": 1},
     # as grid_raw_tpu without PE, the lookups through K6v
-    "grid_raw_tpu without PE, vertex layout": {"fused_chain": 9, "fused_chain_pack": 9,
+    "grid_raw_tpu without PE, vertex layout": {"fused_chain": 9, "fused_chain_pack": 10,
                                                "slot_grid_lookup_vertex": 5,
                                                "fused_chain_adjoint": 1},
 }
@@ -2969,21 +3202,20 @@ def profile_device(fn, label: str, ref_ms: float, top: int = 12):
 
 
 PER_MICROBATCH = {  # kernel launches of one training microbatch (derived in PERF.md)
-    # K1: one pack per forward call, whose images its backward reuses; every
-    # backward a per-tile pass and chain_wgrad. K3's, K4's, K5's, K1t's and
-    # K4j's backwards: a pack of their own, a per-tile pass and chain_wgrad
-    # (each counted under its backward's name). K2: one pack per call
+    # every forward call packs its weights once (with grad the backward images
+    # too), and its backward reuses them: a per-tile pass and chain_wgrad (each
+    # counted under its backward's name; K1's chain_wgrad as "chain_wgrad")
     "grid_raw_tpu": {
         "fused_chain": 5, "fused_chain_pack": 11,
         "fused_chain_bwd": 5, "chain_wgrad": 5,  # trunk, polarization head, background x3
         "fused_slot_sdf_value": 5, "fused_slot_sdf_value_bwd": 1,  # sampler x4, taps
+        "fused_slot_sdf_value_wgrad": 1,
         "fused_slot_sdf_chain": 1, "fused_slot_sdf_chain_bwd": 1,
         "fused_slot_sdf_chain_wgrad": 1,
     },
     "mlp_raw_tpu": {
-        # sampler x4 (no grad), trunk, polarization head, background x3; the
-        # K4 backward packs its own images (the tenth pack) and runs its
-        # per-tile pass and chain_wgrad on its stacks
+        # sampler x4 (no grad), trunk, polarization head, background x3; K4's
+        # forward (the tenth pack), whose images its backward reuses
         "fused_chain": 9, "fused_chain_pack": 10,
         "fused_chain_bwd": 5, "chain_wgrad": 5,
         "fused_sdf_chain": 1, "fused_sdf_chain_bwd": 1, "fused_sdf_chain_wgrad": 1,
@@ -2991,7 +3223,7 @@ PER_MICROBATCH = {  # kernel launches of one training microbatch (derived in PER
     "grid_raw_tpu without PE": {
         # K1: the SDF head of the sampler x4 (no grad) and of the taps, trunk,
         # polarization head, background x3; K6: sampler x4, taps, render samples
-        "fused_chain": 10, "fused_chain_pack": 11,  # and the K5 backward's pack
+        "fused_chain": 10, "fused_chain_pack": 11,  # and K5's forward's
         "fused_chain_bwd": 6, "chain_wgrad": 6,
         "slot_grid_lookup": 6, "slot_grid_lookup_bwd": 2,
         "fused_chain_adjoint": 1, "fused_chain_adjoint_bwd": 1, "fused_chain_adjoint_wgrad": 1,
@@ -3014,6 +3246,7 @@ PER_MICROBATCH = {  # kernel launches of one training microbatch (derived in PER
         "fused_chain": 5, "fused_chain_pack": 11,
         "fused_chain_bwd": 5, "chain_wgrad": 5,
         "fused_slot_sdf_value": 5, "fused_slot_sdf_value_bwd_sample": 1,
+        "fused_slot_sdf_value_wgrad": 1,
         "fused_slot_sdf_chain": 1, "fused_slot_sdf_chain_bwd_sample": 1,
         "fused_slot_sdf_chain_wgrad": 1, "slot_table_scatter": 2,
     },
@@ -3022,6 +3255,7 @@ PER_MICROBATCH = {  # kernel launches of one training microbatch (derived in PER
         "fused_chain": 5, "fused_chain_pack": 11,
         "fused_chain_bwd": 5, "chain_wgrad": 5,
         "fused_slot_sdf_value_f32": 5, "fused_slot_sdf_value_f32_bwd": 1,
+        "fused_slot_sdf_value_wgrad": 1,
         "fused_slot_sdf_chain_f32": 1, "fused_slot_sdf_chain_f32_bwd": 1,
         "fused_slot_sdf_chain_wgrad": 1,
     },
@@ -3029,6 +3263,7 @@ PER_MICROBATCH = {  # kernel launches of one training microbatch (derived in PER
         "fused_chain": 5, "fused_chain_pack": 11,
         "fused_chain_bwd": 5, "chain_wgrad": 5,
         "fused_slot_sdf_value_f32": 5, "fused_slot_sdf_value_f32_bwd_sample": 1,
+        "fused_slot_sdf_value_wgrad": 1,
         "fused_slot_sdf_chain_f32": 1, "fused_slot_sdf_chain_f32_bwd_sample": 1,
         "fused_slot_sdf_chain_wgrad": 1, "slot_table_scatter_f32": 2,
     },
@@ -3303,6 +3538,7 @@ def main() -> None:
     results.update(results["fused_chain_bwd"].pop("parts"))
     results["fused_sdf_chain_wgrad"] = results["fused_sdf_chain_bwd"].pop("wgrad")
     results["fused_slot_sdf_chain_wgrad"] = results["fused_slot_sdf_chain_bwd"].pop("wgrad")
+    results["fused_slot_sdf_value_wgrad"] = results["fused_slot_sdf_value_bwd"].pop("wgrad")
     # the training forwards' errors
     for name in ("fused_slot_sdf_value", "fused_slot_sdf_chain", "fused_sdf_chain"):
         results[name]["err"] = max(results[name]["err"], results[name + "_bwd"].pop("fwd_err"))
@@ -3355,8 +3591,9 @@ def main() -> None:
     })
     for name in ("fused_slot_sdf_value_f32", "fused_slot_sdf_chain_f32"):
         f32[name]["err"] = max(f32[name]["err"], f32[name + "_bwd"].pop("fwd_err"))
-    wg = results["fused_slot_sdf_chain_wgrad"]
-    wg["err"] = max(wg["err"], f32["fused_slot_sdf_chain_f32_bwd"].pop("wgrad")["err"])
+    for name in ("chain", "value"):
+        wg = results[f"fused_slot_sdf_{name}_wgrad"]
+        wg["err"] = max(wg["err"], f32[f"fused_slot_sdf_{name}_f32_bwd"].pop("wgrad")["err"])
     results.update(f32)
     print("kernel checks of K2fs, K3fs and the f32 table scatter (grid_raw_tpu with f32 table and "
           "split backward; per 512-ray training microbatch):")
@@ -3401,11 +3638,13 @@ def main() -> None:
         print_timing(f"{name} at 99 inputs ({card})", r)
     # hidden widths 384 and 512 draw from `gen` after every earlier phase
     print("kernel checks at hidden widths 384 and 512 (K1 forward and backward; K4, K5, K1t and "
-          "K4j backwards):")
+          "K4j forwards and backwards):")
     phase("hidden widths 384 and 512", check_wide_hidden, gen, dev)
     # hidden widths past 512 draw from `gen` after every earlier phase
     print("kernel checks at hidden widths 640, 768 and 1024 (K1 forward and backward; K4, K5, K1t "
-          "and K4j backwards; K2 forward; K3 backward, merged and split):")
+          "and K4j forwards and backwards; K2/K2f and K3/K3f forwards and backwards, merged and "
+          "split; every forward and backward bit for bit against the 512-wide kernels on padded "
+          "chains):")
     phase("hidden widths 640, 768 and 1024", check_wide_hidden, gen, dev, (640, 768, 1024))
     rays_per_s, train, launches = {}, {}, {}
     for method in CONFIGS:

@@ -72,21 +72,6 @@ struct AdjIo {
   int gy_width, channel;
 };
 
-// bf16(W_{L-1}[i, channel]) out of the last layer's backward images
-__device__ __forceinline__ float last_column(const Geom& G, const bf16* wbw, int i, int c) {
-  const int l = G.L - 1, depth = gcols(G, l);
-  long long base = G.bw_off[l];
-  for (int p = 0; p < bwd_n_pieces(G, l); ++p) {
-    int off, np;
-    bool x0part;
-    bwd_piece(G, l, p, off, np, x0part);
-    if (i >= off && i < off + np)
-      return bf(wbw[base + (long long)(c >> 6) * np * 64 + img(i - off, c & 63)]);
-    base += (long long)np * depth;
-  }
-  return 0.f;
-}
-
 // The chain input x0 (K4: the encoding of pos; K5: the rows of x) rounded to bf16
 // into activation columns [c0, c0 + P0), zero past the input's width and past n.
 __device__ __forceinline__ void adj_front(const Geom& G, const mms::Enc& E, const AdjIo& I,

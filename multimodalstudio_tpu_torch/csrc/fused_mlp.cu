@@ -1,184 +1,21 @@
-// The fused dense chain with forward tangents for Hopper: K1t and K4j (K1 without
-// tangents is csrc/fused_chain.cu). A tile's chain runs out of shared memory, so
-// inter-layer activations never touch device memory. The forwards are the first
-// design below (wmma, weights from L2); the backwards are a per-tile pass on K1's
-// wgmma building blocks (k1.cuh) and chain_wgrad (fused_chain.cu), "tangent
-// backward" below.
-#include "enc.cuh"
-#include "k1.cuh"
-
-using namespace mms;
-
-// ------------------------------------------------------------ forward tangents
+// The backward of the fused dense chain with forward tangents for Hopper: K1t and K4j
+// (K1 without tangents is csrc/fused_chain.cu; their forward is tangent_fwd.cu, linked
+// into the same library). A per-tile pass on K1's wgmma building blocks (k1.cuh) and
+// chain_wgrad (fused_chain.cu), below.
 //
-// K1t and K4j: the chain with K forward tangents (K <= 3). Replaces the Pallas TPU
-// kernels multimodalstudio_tpu/ops/pallas/fused_mlp.py _fwd_kernel (:265) and
+// Replaces the Pallas TPU kernel multimodalstudio_tpu/ops/pallas/fused_mlp.py
 // _bwd_kernel (:607) with n_tangents = K, reached through fused_chain (:1080,
-// tangents=tx; K1t) and fused_sdf_chain (:1145, mode="jvp", the encoding inside and
-// its 3 basis tangents; K4j), which _build_chain (:845) builds.
+// tangents=tx; K1t) and fused_sdf_chain (:1145, mode="jvp", the encoding inside and its
+// 3 basis tangents; K4j), which _build_chain (:845) builds.
 //
-// Tile: the tangent rows u = t W share W with the primal rows z = h W + b, so a CTA
-// runs one 64-row product per layer over b samples: rows [0, b) are the primal rows,
-// rows [k b, (k + 1) b) tangent k - 1 of the same samples (b = 16 for K = 2 and 3,
-// 32 for K = 1; with K = 2 rows 48-63 stay zero). 64 samples with their 3 tangents
-// would need 256-row activation tiles, 2 x 256 x 312 x 2 B = 319,488 B at the
-// widths of the mlp_raw_tpu SDF chain (hidden 256, skip input 256 + 48): over a
-// block's 232,448 B. The forward keeps the primal rows' f32 z of the current layer
-// in shared memory for the tangent rows' act'(z): mma_tile64 hands a column tile's
-// row tiles to one warp in order, primal rows first.
+// Cast points (_bwd_kernel :636-789): the backward recomputes with zb = bf16(z), ub =
+// bf16(u) stored and t = bf16(ub * act'(zb)).
 //
-// Cast points (_fwd_kernel :277-321, _bwd_kernel :636-789): t = bf16(u * act'(z))
-// with the forward's f32 z and u; a skip layer's tangent input bf16(concat(t, t0) /
-// sqrt 2); the last layer's u f32, column c to ty [n, K] (or geo / sdf / grad in the
-// split mode of K4j), or all columns rounded to bf16 (ty [K, n, D_out]). The
-// backward recomputes with zb = bf16(z), ub = bf16(u) stored and t = bf16(ub *
-// act'(zb)).
-//
-// Bound on an H100: (1 + K) chain-sized products per layer forward, three times that
-// backward, against a few hundred bytes per sample: the tensor cores bound both. The
-// forward's first design (wmma, weights from L2, 16 samples per tile) is far from it;
-// the backward's stacks (about 8 KB per row of a tile at the mlp_raw_tpu widths,
-// written once and read by chain_wgrad) put its memory traffic near the tensor-core
-// time. PERF.md has the times.
-
-// Output of the tangent forward. mode 0: y [n, width] bf16 and ty [K, n, width] bf16;
-// mode 1: y and column `channel` of the tangents as tyf [n, K] f32; mode 2 (split, K4j):
-// sdf [n] f32 = column 0, y = geo [n, width] bf16 = columns 1 .. width, tyf = grad
-// [n, K] f32 = column 0 of the tangents.
-struct TanOut {
-  int mode, channel, width;
-  bf16* y;
-  bf16* ty;
-  float* tyf;
-  float* sdf;
-};
-
-__device__ __forceinline__ int tile_kind(int r, int b) { return r / b; }
-
-// The tile's chain input rows into buf [64, lds] and x0 [64, ldx0], zero past
-// E.width (to p0), past n and past the K tangents: primal rows from x [n, E.width]
-// or the encoding of pos [n, 3] (ENC); tangent rows from tx [K, n, E.width] or the
-// encoding's bf16 basis tangents (the unit column of x_k and coordinate k's
-// derivative columns, _enc_fwd :199-211). Ends with __syncthreads().
-template <bool ENC>
-__device__ __forceinline__ void tangent_front(const Enc& E, int p0, int K, int b, const float* pos,
-                                              const bf16* x, const bf16* tx, int n, long long s0,
-                                              bf16* buf, int lds, bf16* x0, int ldx0) {
-  const int F = E.freqs;
-  for (int i = threadIdx.x; i < TILE_M * p0; i += NTHREADS) {
-    const int r = i / p0, c = i % p0;
-    const int kind = tile_kind(r, b);
-    const long long row = s0 + r - kind * b;
-    float v = 0.f;
-    if (kind <= K && row < n && c < E.width) {
-      if (!ENC) {
-        v = bf(kind == 0 ? x[row * E.width + c] : tx[((kind - 1) * (long long)n + row) * E.width + c]);
-      } else if (kind == 0) {
-        v = pe_col(pos + row * 3, F, E.scale, c);
-      } else if (c < 3) {
-        v = c == kind - 1 ? 1.f : 0.f;
-      } else if ((c - 3) % (3 * F) / F == kind - 1) {
-        v = pe_tangent(pos + row * 3, F, E.scale, c);
-      }
-    }
-    const bf16 h = __float2bfloat16(v);
-    buf[r * lds + c] = h;
-    x0[r * ldx0 + c] = h;
-  }
-  __syncthreads();
-}
-
-// Hidden layers 0..L-2 of a tangent tile, ping-ponging between buf0 and buf1 (row
-// stride lds); x0 [64, ldx0] holds the chain input rows for the skip layers. The
-// primal rows' f32 z of the layer go to zf [b, H] for the tangent rows' act'(z).
-// Returns the buffer holding the last hidden layer's output.
-__device__ __forceinline__ bf16* tangent_hidden_layers(const Chain& C, int K, int b,
-                                                       const bf16* __restrict__ wpack,
-                                                       const float* __restrict__ bpack,
-                                                       bf16* buf0, bf16* buf1, int lds,
-                                                       const bf16* x0, int ldx0, float* zf,
-                                                       float* stage) {
-  const int H = C.hidden;
-  const int lane = threadIdx.x & 31;
-  bf16* in = buf0;
-  bf16* out = buf1;
-  for (int l = 0; l < C.n_layers - 1; ++l) {
-    const float* B = bpack + C.b_off[l];
-    const bool next_skip = (C.skip_mask >> (l + 1)) & 1;
-    mma_tile64<false>(in, lds, C.in_dims[l], wpack + C.w_off[l], C.out_dims[l], C.out_dims[l],
-                      stage, [&](int r0, int c0, const float* t) {
-                        for (int i = lane; i < 256; i += 32) {
-                          const int r = r0 + (i >> 4), c = c0 + (i & 15);
-                          const int kind = tile_kind(r, b), s = r - kind * b;
-                          float v = 0.f;
-                          if (kind == 0) {
-                            const float z = t[i] + B[c];
-                            zf[s * H + c] = z;
-                            v = round_bf16(act_f(C.act, z, C.quad_a));
-                          } else if (kind <= K) {
-                            v = round_bf16(t[i] * act_df(C.act, zf[s * H + c], C.quad_a));
-                          }
-                          if (next_skip) v = v * SKIP_SCALE;
-                          out[r * lds + c] = __float2bfloat16(v);
-                        }
-                      });
-    if (next_skip) {
-      for (int i = threadIdx.x; i < TILE_M * C.p0; i += NTHREADS) {
-        const int r = i / C.p0, c = i % C.p0;
-        out[r * lds + H + c] = __float2bfloat16(bf(x0[r * ldx0 + c]) * SKIP_SCALE);
-      }
-    }
-    __syncthreads();
-    bf16* tmp = in;
-    in = out;
-    out = tmp;
-  }
-  return in;
-}
-
-template <bool ENC>
-__global__ void __launch_bounds__(NTHREADS)
-chain_tangent_fwd_kernel(const float* __restrict__ pos, const bf16* __restrict__ x,
-                         const bf16* __restrict__ tx, int K, int b, Enc E,
-                         const bf16* __restrict__ wpack, const float* __restrict__ bpack, int n,
-                         Chain C, int lds, int ldx0, TanOut O) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int L = C.n_layers;
-  bf16* buf0 = reinterpret_cast<bf16*>(smem);
-  bf16* buf1 = buf0 + TILE_M * lds;
-  bf16* x0 = buf1 + TILE_M * lds;                            // [64, ldx0]
-  float* zf = reinterpret_cast<float*>(x0 + TILE_M * ldx0);  // [b, H]
-  float* stage = zf + b * C.hidden;
-  const long long s0 = (long long)blockIdx.x * b;
-  tangent_front<ENC>(E, C.p0, K, b, pos, x, tx, n, s0, buf0, lds, x0, ldx0);
-  const bf16* h = tangent_hidden_layers(C, K, b, wpack, bpack, buf0, buf1, lds, x0, ldx0, zf,
-                                        stage);
-  const float* BL = bpack + C.b_off[L - 1];
-  const int lane = threadIdx.x & 31;
-  mma_tile64<false>(h, lds, C.in_dims[L - 1], wpack + C.w_off[L - 1], C.out_dims[L - 1],
-                    C.out_dims[L - 1], stage, [&](int r0, int c0, const float* t) {
-                      for (int i = lane; i < 256; i += 32) {
-                        const int r = r0 + (i >> 4), c = c0 + (i & 15);
-                        const int kind = tile_kind(r, b);
-                        const long long row = s0 + r - kind * b;
-                        if (row >= n || kind > K) continue;
-                        if (kind == 0) {
-                          const float z = t[i] + BL[c];
-                          if (O.mode == 2) {
-                            if (c == 0) O.sdf[row] = z;
-                            else if (c <= O.width) O.y[row * O.width + c - 1] = __float2bfloat16(z);
-                          } else if (c < O.width) {
-                            O.y[row * O.width + c] = __float2bfloat16(z);
-                          }
-                        } else if (O.mode == 0) {
-                          if (c < O.width)
-                            O.ty[((kind - 1) * (long long)n + row) * O.width + c] = __float2bfloat16(t[i]);
-                        } else if (c == O.channel) {
-                          O.tyf[row * K + kind - 1] = t[i];
-                        }
-                      }
-                    });
-}
+// Bound on an H100: three times (1 + K) chain-sized products per layer against a few
+// hundred bytes per sample: the tensor cores bound it; the stacks (about 8 KB per row of
+// a tile at the mlp_raw_tpu widths, written once and read by chain_wgrad) put its memory
+// traffic near the tensor-core time. PERF.md has the times.
+#include "tangent.cuh"
 
 // ------------------------------------------------------------ tangent backward
 //
@@ -187,13 +24,8 @@ chain_tangent_fwd_kernel(const float* __restrict__ pos, const bf16* __restrict__
 // stacked gW product (chain_wgrad of fused_chain.cu), with K1's layout (k1.cuh):
 // the bf16 images of one k1_pack launch streamed through a ring that a producer
 // warpgroup feeds, a consumer warpgroup per 64-row tile, one m64 wgmma a layer
-// over the primal and tangent rows of b samples (b = 32 for K = 1, else 16).
-// The tile's rows are placed so that a sample's rows meet in registers: in the
-// accumulator layout the thread of lane l in warp w holds rows 16 w + l / 4 and
-// that + 8; with K = 1 those are one sample's primal and tangent rows; with K =
-// 2, 3 lanes l < 16 hold a sample's primal row and tangent 2, lane l ^ 16
-// tangents 1 and 3 (3 idle with K = 2), so one shuffle exchanges what a row
-// needs of its sample's others (tan_kind, tan_sample).
+// over the primal and tangent rows of b samples (b = 32 for K = 1, else 16),
+// in tangent.cuh's tile layout.
 // Per tile: the recompute of the hidden layers (the bias seeds the primal rows
 // only; zb = bf16(z) and ub = bf16(u) to a slab; t = bf16(ub act'(zb))); stacks
 // hin_l (primal hin = bf16(act(zb)), tangent tin = t); then the reverse sweep
@@ -224,89 +56,6 @@ static void tan_scratch_sizes(const Geom& G, int tiles, int slots, int act_bytes
   s[2] = align256((size_t)slots * (G.L - 1) * 64 * G.H * 2);
   s[3] = G.skip_mask ? align256((size_t)slots * 64 * G.P0 * 4) : 0;
   s[4] = width_class(G) == WC_DEV ? align256((size_t)slots * act_bytes) : 0;
-}
-
-// One call's inputs, cotangents and outputs. mode 0: gy [n, width] bf16 and gty
-// [K, n, width] bf16; mode 1: gy and gtyf [n, K] f32 on column `channel`; mode 2
-// (K4j): gsdf [n] f32 and gy = ggeo [n, width] bf16 (columns 1 ..), gtyf = g3 [n, K]
-// f32 on column 0.
-struct TanIo {
-  const float* pos;   // K4j [n, 3]
-  const bf16* x;      // K1t [n, d_in]
-  const bf16* tx;     // K1t [K, n, d_in]
-  const bf16* gy;
-  const bf16* gty;
-  const float* gtyf;
-  const float* gsdf;
-  bf16* gx;           // K1t [n, d_in]
-  bf16* gtx;          // K1t [K, n, d_in]
-  float* d_pos;       // K4j [n, 3]
-  int mode, channel, width, K, b;
-};
-
-// The kind of tile row r (0: primal, k: tangent k - 1; 3 is idle with K = 2) and
-// its sample within the tile, and the row of (sample s, kind)
-__device__ __forceinline__ int tan_kind(int r, int K) {
-  return K == 1 ? (r >> 3) & 1 : 2 * ((r >> 3) & 1) + ((r & 7) >> 2);
-}
-__device__ __forceinline__ int tan_sample(int r, int K) {
-  return K == 1 ? 8 * (r >> 4) + (r & 7) : 4 * (r >> 4) + (r & 3);
-}
-__device__ __forceinline__ int tan_row(int s, int kind, int K) {
-  return K == 1 ? 16 * (s >> 3) + 8 * kind + (s & 7)
-                : 16 * (s >> 2) + 8 * (kind >> 1) + 4 * (kind & 1) + (s & 3);
-}
-
-// the last layer's f32 cotangent at (kind, row, c): gh for kind 0, gt_{kind-1} else
-__device__ __forceinline__ float tan_cotangent(const TanIo& I, int n, int kind, long long row,
-                                               int c) {
-  if (kind == 0) {
-    if (I.mode == 2) {
-      if (c == 0) return I.gsdf[row];
-      return c - 1 < I.width ? bf(I.gy[row * I.width + c - 1]) : 0.f;
-    }
-    return c < I.width ? bf(I.gy[row * I.width + c]) : 0.f;
-  }
-  if (I.mode == 0)
-    return c < I.width ? bf(I.gty[((kind - 1) * (long long)n + row) * I.width + c]) : 0.f;
-  return c == I.channel ? I.gtyf[row * I.K + kind - 1] : 0.f;
-}
-
-// The tile's chain input rows into activation columns [c0, c0 + P0), zero past
-// the input's width, past n and past the K tangents: primal rows from x or the
-// encoding of pos (E.freqs > 0); tangent rows from tx or the encoding's bf16 basis
-// tangents (the unit column of x_k and coordinate k's derivative columns, _enc_fwd
-// :199-211).
-__device__ __forceinline__ void tan_front(const Geom& G, const mms::Enc& E, const TanIo& I,
-                                          bf16* act, int c0, long long s0, int n) {
-  const int F = E.freqs, P0 = G.P0;
-  for (int i = threadIdx.x & 127; i < 64 * P0; i += 128) {
-    const int r = i / P0, c = i % P0;
-    const int kind = tan_kind(r, I.K);
-    const long long row = s0 + tan_sample(r, I.K);
-    float v = 0.f;
-    if (kind <= I.K && row < n && c < E.width) {
-      if (!F) {
-        v = bf(kind == 0 ? I.x[row * E.width + c]
-                         : I.tx[((kind - 1) * (long long)n + row) * E.width + c]);
-      } else if (kind == 0) {
-        v = mms::pe_col(I.pos + row * 3, F, E.scale, c);
-      } else if (c < 3) {
-        v = c == kind - 1 ? 1.f : 0.f;
-      } else if ((c - 3) % (3 * F) / F == kind - 1) {
-        v = mms::pe_tangent(I.pos + row * 3, F, E.scale, c);
-      }
-    }
-    act[act_el(c0 + c, r)] = __float2bfloat16(v);
-  }
-}
-
-// The pair of words (2 bf16) of the thread's samples' primal row, given the word of
-// its row r0 (w0): its own with K = 1 and on lanes < 16, lane ^ 16's on the others.
-// Every lane of the warp calls it.
-__device__ __forceinline__ uint32_t primal_word(uint32_t w0, int K) {
-  const uint32_t other = __shfl_xor_sync(0xffffffffu, w0, 16);
-  return K == 1 || (threadIdx.x & 16) == 0 ? w0 : other;
 }
 
 // A hidden layer's output into the activation images: primal rows bf16(act(z))
@@ -622,89 +371,6 @@ static int tan_plan(const Geom& G, int tiles, Launch* P) {
 
 }  // namespace k1
 
-// Checks a tangent chain and fills C, E (no encoding: freqs 0, or pe_freqs with its
-// scales), the tile's samples b and the row strides; returns nonzero on a chain the
-// kernels do not take.
-static int tangent_setup(Chain& C, Enc& E, int& b, int& lds, int& ldx0, int K, int n_layers,
-                         const int* in_dims, const int* out_dims, int skip_mask, int hidden,
-                         int p0, int act, float quad_a, int pe_freqs, const float* pe_scale,
-                         int width) {
-  if (fill_chain(C, n_layers, in_dims, out_dims, skip_mask, hidden, p0, act, quad_a)) return -1;
-  if (K < 1 || K > 3 || n_layers < 2 || (skip_mask & 1) || pe_freqs < 0 || pe_freqs > MAXPE)
-    return -1;
-  if (width < 1 || width > p0 || in_dims[0] != p0) return -1;
-  int w = p0;
-  for (int l = 0; l < n_layers; ++l) {
-    const bool sk = (skip_mask >> l) & 1;
-    if (l > 0 && in_dims[l] != hidden + (sk ? p0 : 0)) return -1;
-    if (l < n_layers - 1 && out_dims[l] != hidden) return -1;
-    w = w > in_dims[l] ? w : in_dims[l];
-    w = w > out_dims[l] ? w : out_dims[l];
-  }
-  E.freqs = pe_freqs;
-  for (int i = 0; i < pe_freqs; ++i) E.scale[i] = pe_scale[i];
-  E.width = width;
-  b = K == 1 ? 32 : 16;
-  lds = w + PAD;
-  ldx0 = p0 + PAD;
-  return 0;
-}
-
-template <bool ENC>
-static int launch_tangent_fwd(const float* pos, const bf16* x, const bf16* tx, int K, int n,
-                              const void* wpack, const void* bpack, const Chain& C, const Enc& E,
-                              int b, int lds, int ldx0, const TanOut& O, void* stream) {
-  const size_t smem = 2 * (size_t)TILE_M * lds * sizeof(bf16) + (size_t)TILE_M * ldx0 * sizeof(bf16) +
-                      (size_t)b * C.hidden * sizeof(float) + NWARPS * 256 * sizeof(float);
-  if (smem > MAX_SMEM) return ERR_SMEM;
-  cudaError_t err = cudaFuncSetAttribute(chain_tangent_fwd_kernel<ENC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = (n + b - 1) / b;
-  chain_tangent_fwd_kernel<ENC><<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      pos, x, tx, K, b, E, (const bf16*)wpack, (const float*)bpack, n, C, lds, ldx0, O);
-  return (int)cudaGetLastError();
-}
-
-// K1t's forward: x [n, d_in] and tx [K, n, d_in] bf16 in; y [n, d_out] bf16 and ty
-// ([n, K] f32 for channel >= 0, else [K, n, d_out] bf16) out.
-extern "C" int mms_chain_tangent_fwd(const void* x, const void* tx, int d_in, int K,
-                                     const void* wpack, const void* bpack, int n, int n_layers,
-                                     const int* in_dims, const int* out_dims, int skip_mask,
-                                     int hidden, int p0, int act, float quad_a, int channel,
-                                     void* y, int d_out, void* ty, void* stream) {
-  Chain C;
-  Enc E;
-  int b, lds, ldx0;
-  if (tangent_setup(C, E, b, lds, ldx0, K, n_layers, in_dims, out_dims, skip_mask, hidden, p0, act,
-                    quad_a, 0, nullptr, d_in) ||
-      d_out > out_dims[n_layers - 1] || channel >= d_out)
-    return -1;
-  TanOut O{channel < 0 ? 0 : 1, channel, d_out, (bf16*)y, (bf16*)ty, (float*)ty, nullptr};
-  return launch_tangent_fwd<false>(nullptr, (const bf16*)x, (const bf16*)tx, K, n, wpack, bpack, C,
-                                   E, b, lds, ldx0, O, stream);
-}
-
-// K4j's forward: positions [n, 3] f32 in; sdf [n] f32, geo [n, geo_width] bf16 and
-// grad [n, 3] f32 out. The leading arguments are sdf_chain.cu's (K4's).
-extern "C" int mms_sdf_chain_jvp_fwd(const void* pos, int n, const void* wpack, const void* bpack,
-                                     int n_layers, const int* in_dims, const int* out_dims,
-                                     int skip_mask, int hidden, int p0, int act, float quad_a,
-                                     int pe_freqs, const float* pe_scale, void* sdf, void* geo,
-                                     int geo_width, void* grad, void* stream) {
-  Chain C;
-  Enc E;
-  int b, lds, ldx0;
-  if (pe_freqs < 1 ||
-      tangent_setup(C, E, b, lds, ldx0, 3, n_layers, in_dims, out_dims, skip_mask, hidden, p0, act,
-                    quad_a, pe_freqs, pe_scale, 3 + 6 * pe_freqs) ||
-      geo_width >= out_dims[n_layers - 1])
-    return -1;
-  TanOut O{2, 0, geo_width, (bf16*)geo, nullptr, (float*)grad, (float*)sdf};
-  return launch_tangent_fwd<true>((const float*)pos, nullptr, nullptr, 3, n, wpack, bpack, C, E, b,
-                                  lds, ldx0, O, stream);
-}
-
 // ------------------------------------------------------------- backward entry points
 //
 // G: the chain's layout (fused_mlp.py chain_layout); wfw, wbw, bpk: what mms_k1_pack
@@ -714,7 +380,7 @@ extern "C" int mms_sdf_chain_jvp_fwd(const void* pos, int n, const void* wpack, 
 
 static int tangent_samples(int K) { return K == 1 ? 32 : 16; }
 
-static int tan_bwd_launch(const k1::Geom& G, const Enc& E, const k1::TanIo& I, int n,
+static int tan_bwd_launch(const k1::Geom& G, const mms::Enc& E, const k1::TanIo& I, int n,
                           const void* wfw, const void* wbw, const void* bpk, void* gb,
                           void* scratch, void* stream) {
   if (!k1::geom_ok(G) || n < 1 || I.K < 1 || I.K > 3 || E.width != G.d_in) return -1;
@@ -725,13 +391,13 @@ static int tan_bwd_launch(const k1::Geom& G, const Enc& E, const k1::TanIo& I, i
   size_t s[5];
   k1::tan_scratch_sizes(G, tiles, P.grid * P.nwg, P.act_bytes, s);
   uint8_t* p = (uint8_t*)scratch;
-  const k1::TanScratch S{(bf16*)p, (bf16*)(p + s[0]), (uint32_t*)(p + s[0] + s[1]),
+  const k1::TanScratch S{(k1::bf16*)p, (k1::bf16*)(p + s[0]), (uint32_t*)(p + s[0] + s[1]),
                          s[3] ? (float*)(p + s[0] + s[1] + s[2]) : nullptr,
-                         s[4] ? (bf16*)(p + s[0] + s[1] + s[2] + s[3]) : nullptr};
+                         s[4] ? (k1::bf16*)(p + s[0] + s[1] + s[2] + s[3]) : nullptr};
   k1::with_wc(G, [&](auto WC) {
     k1::tan_bwd_pass_kernel<decltype(WC)::value>
         <<<P.grid, P.threads, P.smem, (cudaStream_t)stream>>>(
-            G, E, I, n, (const bf16*)wfw, (const bf16*)wbw, (const float*)bpk, (float*)gb, S,
+            G, E, I, n, (const k1::bf16*)wfw, (const k1::bf16*)wbw, (const float*)bpk, (float*)gb, S,
             P.nwg, P.stages, P.sb, P.act_bytes);
     return 0;
   });
@@ -760,11 +426,11 @@ extern "C" int mms_chain_tangent_bwd(const k1::Geom* G, const void* x, const voi
                                      void* gtx, void* gb, void* scratch, void* stream) {
   const int d_out = G->dout_true[G->L - 1];
   if (channel >= d_out) return -1;
-  Enc E;
+  mms::Enc E;
   E.freqs = 0;
   E.width = G->d_in;
-  const k1::TanIo I{nullptr, (const bf16*)x, (const bf16*)tx, (const bf16*)gy, (const bf16*)gty,
-                    (const float*)gty, nullptr, (bf16*)gx, (bf16*)gtx, nullptr,
+  const k1::TanIo I{nullptr, (const k1::bf16*)x, (const k1::bf16*)tx, (const k1::bf16*)gy, (const k1::bf16*)gty,
+                    (const float*)gty, nullptr, (k1::bf16*)gx, (k1::bf16*)gtx, nullptr,
                     channel < 0 ? 0 : 1, channel, d_out, K, tangent_samples(K)};
   return tan_bwd_launch(*G, E, I, n, wfw, wbw, bpk, gb, scratch, stream);
 }
@@ -776,12 +442,12 @@ extern "C" int mms_sdf_chain_jvp_bwd(const k1::Geom* G, const void* pos, int n, 
                                      int geo_width, const void* g3, const void* wfw,
                                      const void* wbw, const void* bpk, void* d_pos, void* gb,
                                      void* scratch, void* stream) {
-  if (pe_freqs < 1 || pe_freqs > MAXPE || geo_width >= G->dout_true[G->L - 1]) return -1;
-  Enc E;
+  if (pe_freqs < 1 || pe_freqs > mms::MAXPE || geo_width >= G->dout_true[G->L - 1]) return -1;
+  mms::Enc E;
   E.freqs = pe_freqs;
   for (int i = 0; i < pe_freqs; ++i) E.scale[i] = pe_scale[i];
   E.width = 3 + 6 * pe_freqs;
-  const k1::TanIo I{(const float*)pos, nullptr, nullptr, (const bf16*)ggeo, nullptr,
+  const k1::TanIo I{(const float*)pos, nullptr, nullptr, (const k1::bf16*)ggeo, nullptr,
                     (const float*)g3, (const float*)gsdf, nullptr, nullptr, (float*)d_pos,
                     2, 0, geo_width, 3, tangent_samples(3)};
   return tan_bwd_launch(*G, E, I, n, wfw, wbw, bpk, gb, scratch, stream);

@@ -1,7 +1,9 @@
-// The Hopper (sm_90a) building blocks that K1 (fused_chain.cu), K2's forward
-// (slot_value.cu), K3's backward pass (slot_chain_bwd.cu) and the backward
-// passes of K4/K5 (sdf_chain.cu) and K1t/K4j (fused_mlp.cu) share: the layout
-// of a chain (Geom), weight-image pieces, the ring of weight stages that a
+// The Hopper (sm_90a) building blocks that every chain kernel shares: K1
+// (fused_chain.cu), K2's forward (slot_value.cu), the adjoint forwards of K3,
+// K4 and K5 (adj_fwd.cuh), the tangent forwards of K1t and K4j
+// (tangent_fwd.cu), and the backward passes of K2 and K3 (slot_chain_bwd.cu),
+// K4 and K5 (sdf_chain.cu) and K1t and K4j (fused_mlp.cu): the layout of a
+// chain (Geom), weight-image pieces, the ring of weight stages that a
 // producer warpgroup feeds with bulk copies, the wgmma product of a 64-row
 // tile (mma_piece), the activation images (of shared memory, or of device
 // memory past a hidden width of 512) and their stores to the stacks
@@ -155,6 +157,21 @@ __host__ __device__ __forceinline__ void bwd_piece(const Geom& G, int l, int i, 
 
 __host__ __device__ __forceinline__ int gcols(const Geom& G, int l) {
   return ceil64(G.dout_pad[l]);
+}
+
+// bf16(W_{L-1}[i, c]) out of the last layer's backward images
+__device__ __forceinline__ float last_column(const Geom& G, const bf16* wbw, int i, int c) {
+  const int l = G.L - 1, depth = gcols(G, l);
+  long long base = G.bw_off[l];
+  for (int p = 0; p < bwd_n_pieces(G, l); ++p) {
+    int off, np;
+    bool x0part;
+    bwd_piece(G, l, p, off, np, x0part);
+    if (i >= off && i < off + np)
+      return bf(wbw[base + (long long)(c >> 6) * np * 64 + img(i - off, c & 63)]);
+    base += (long long)np * depth;
+  }
+  return 0.f;
 }
 
 // The activation images of a tile: [h (H) | x0 (P0)] where a skip layer reads
@@ -753,24 +770,31 @@ static bool geom_ok(const Geom& G) {
   return true;
 }
 
-// Warpgroups, stages and shared memory of the forward (bwd: also the column
-// sums of gb and the backward images) over `tiles` 64-row tiles, with `extra`
-// more bytes of shared memory (a backward's own sums). nwg = 2 where two
-// tiles per CTA leave every SM a tile group and shared memory takes two
-// activation buffers. act_bytes: one warpgroup's activation images (WC_DEV:
-// its slab of device memory, its shared memory the two A staging buffers and
-// their barriers after the ring's).
-static int plan_chain(const Geom& G, int tiles, bool bwd, size_t extra_bytes, Launch* P) {
+// What a launch plan serves: a forward (every layer's forward images), a
+// backward pass (also the column sums of gb and the backward images), or an
+// adjoint forward (every layer's forward images, then the backward images of
+// the adjoint sweep; no sums).
+constexpr int PLAN_FWD = 0, PLAN_BWD = 1, PLAN_ADJ_FWD = 2;
+
+// Warpgroups, stages and shared memory of a pass of kind `kind` (PLAN_*) over
+// `tiles` 64-row tiles, with `extra` more bytes of shared memory (a pass's own
+// sums). nwg = 2 where two tiles per CTA leave every SM a tile group and
+// shared memory takes two activation buffers. act_bytes: one warpgroup's
+// activation images (WC_DEV: its slab of device memory, its shared memory the
+// two A staging buffers and their barriers after the ring's).
+static int plan_chain(const Geom& G, int tiles, int kind, size_t extra_bytes, Launch* P) {
+  const bool bwd = kind == PLAN_BWD;
   int width = act_cols(G);
   if (bwd) width = width > gcols(G, G.L - 1) ? width : gcols(G, G.L - 1);
   width += side_cols(G);
-  // the widest image a stage holds: forward pieces, or (bwd) the hidden layers' pieces
-  // and the backward pieces (pieces of H and of P0)
+  // the widest image a stage holds: forward pieces of every layer, and (bwd, adjoint
+  // forward) the backward pieces (pieces of H and of P0)
   int npmax = max_piece(G.H);
-  if (bwd) {
+  if (kind != PLAN_FWD) {
     const int m = max_piece(G.P0);
     npmax = m > npmax ? m : npmax;
-  } else {
+  }
+  if (kind != PLAN_BWD) {
     for (int l = 0; l < G.L; ++l) {
       const int m = max_piece(G.dout_pad[l]);
       npmax = m > npmax ? m : npmax;

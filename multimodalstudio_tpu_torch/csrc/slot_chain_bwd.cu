@@ -1,23 +1,27 @@
-// K3's backward (bf16 table; K3f: f32 table), merged and split, redesigned for
-// Hopper on K1's building blocks (k1.cuh): a per-tile pass on wgmma and the
-// stacked weight-gradient product (chain_wgrad of fused_chain.cu).
+// The backwards of the slot-grid SDF chains, K3 (sdf, geo and d sdf / dx; bf16 table,
+// K3f: f32 table) and K2 (sdf only; K2f: f32 table), merged and split, redesigned for
+// Hopper on K1's building blocks (k1.cuh): a per-tile pass on wgmma and the stacked
+// weight-gradient product (chain_wgrad of fused_chain.cu).
 //
-// Replaces two Pallas TPU kernels of multimodalstudio_tpu/ops/pallas/slot_fused.py,
-// reached through fused_slot_sdf_chain's op_bwd (:1149-1189):
-//   _fused_bwd_kernel (:474, call :1095), the merged backward: d pos [N, 3] f32, the
-//      table gradient [rows, 128] f32 and the chain's gW / gb f32;
-//   _bwd_sample_kernel (:758, call :1056), the split's per-sample pass
+// Replaces four Pallas TPU kernels of multimodalstudio_tpu/ops/pallas/slot_fused.py:
+//   _fused_bwd_kernel (:474, call :1095, via fused_slot_sdf_chain's op_bwd :1149-1189),
+//      K3's merged backward: d pos [N, 3] f32, the table gradient [rows, 128] f32 and
+//      the chain's gW / gb f32;
+//   _bwd_sample_kernel (:758, call :1056), K3's split per-sample pass
 //      (MMS_SLOT_BWD_SPLIT=1): d pos and each (sample, level)'s table cotangent,
 //      compact as [N, K, 8F] in the table's type (bf16, or f32 for an f32 table),
 //      which the split's scatter (slot_split.cu) adds into the table gradient; its
-//      weight gradients (JAX's _wgrads_xla :938) are chain_wgrad's here too.
-// One pass serves the four: the table's type and the split are run-time flags of
-// the grid side, which is per-sample scalar work, so the products compile once per
-// width class (k1.cuh WC).
+//      weight gradients (JAX's _wgrads_xla :938) are chain_wgrad's here too;
+//   _value_bwd_kernel (:1370, via fused_slot_sdf_value's op_bwd :1737) and
+//      _value_bwd_sample_kernel (:1485), K2's merged backward and split pass, in the
+//      pass's value mode: the first-order backward of sdf alone, with the weight
+//      gradients of the split (_value_wgrads_xla :1567) chain_wgrad's as well.
+// One pass serves the eight: the table's type, the split and the value mode are
+// run-time flags, so the products compile once per width class (k1.cuh WC).
 //
-// The pass takes the forward's residuals (slot_fused.cu), as the reference does: the
-// bf16 pre-activations zs and adjoint rows ss [L-1, N, H] and the f32 adjoint adj
-// [N, d_in]; nothing of the forward is recomputed but the tile's chain input x0. The
+// The pass takes the forward's residuals (adj_fwd.cuh; K2's: slot_value.cu), as the
+// reference does: the bf16 pre-activations zs and adjoint rows ss [L-1, N, H] and the
+// f32 adjoint adj [N, d_in]; nothing of the forward is recomputed but the tile's chain input x0. The
 // weights arrive as the images of one k1_pack launch (forward images W^T for m =
 // qin W, backward images W for gh = gz W^T), streamed through the ring by the
 // producer warpgroup. A consumer warpgroup owns a 64-row tile. Per tile:
@@ -43,6 +47,12 @@
 //     = J_enc^T ghin + g3 (PE Hessian on adj) + the folds.
 // gW_l = hin_l^T gz_l + qin_l^T v_l is then one product over 2N stacked rows (layer
 // L-1: N rows), chain_wgrad's over the stacks [hin | qin] and [gz | v].
+// The value mode (K2, its chain cut to the sdf column) reads zs alone and runs steps 0,
+// 3 and 4 without the adjoint path: no v stacks, no ga, no ga-forward (its images are
+// not streamed), e = 0, the last layer's cotangent [gsdf, 0], and the grid's first
+// order only, the table cotangent r(gt0 w) and d pos = J_enc^T ghin + the fold of d_w
+// (the cast points of _value_bwd_kernel and _value_bwd_sample_kernel); gW_l = hin_l^T
+// gz_l over the K1 layout's stacks.
 //
 // The table cotangent (merged): where the first design added one f32 atomic per
 // (sample, level, feature, corner), four corners of one feature, adjacent in the
@@ -50,7 +60,7 @@
 // four are zero; the sums stay f32 and their order changes from run to run. Split: the
 // compact cotangent is stored, 16 bytes at a time.
 //
-// Cast points as the reference's (and the first design's, slot_bwd.cuh): gz rounded to
+// Cast points as the reference's (and the first designs'): gz rounded to
 // bf16 before both products; with a bf16 table each sample's table cotangent and d_w,
 // gt0, gc0 and dwg rounded to bf16, the table values rounded as they are read from the
 // f32 parameter; an f32 table keeps them f32; a skip layer takes bf16(concat / sqrt 2),
@@ -81,6 +91,7 @@ struct SlotBwdIo {
   float* d_table;      // merged: [rows, 128] f32
   void* dcomp;         // split: [n, K, 8F] bf16 (f32 for an f32 table)
   int adj_width, geo_width, table_f32, split;
+  int value;           // K2's backward: no adjoint path (ss, adj, ggeo, g3 unread)
 };
 
 struct SlotScratch {
@@ -123,7 +134,7 @@ __device__ __forceinline__ uint32_t resid_word(const bf16* st, int n, int H, int
 
 // The residual stacks of the tile: hin_l (l >= 1) into a_at(l), the x0 part of a skip
 // layer's bf16(x0 / sqrt 2) from the x0 images at column x0c; v_l (l < L-1) into
-// b_at(l). Every unit by the warpgroup's threads, straight to device memory.
+// b_at(l), but in value mode. Every unit by the warpgroup's threads, straight to device memory.
 template <class AAt, class BAt>
 __device__ __forceinline__ void residual_stacks(const Geom& G, const SlotBwdIo& I, int n,
                                                 long long row0, const bf16* act, int x0c,
@@ -165,7 +176,7 @@ __device__ __forceinline__ void residual_stacks(const Geom& G, const SlotBwdIo& 
       *reinterpret_cast<uint4*>(dst + unit_el(r, hu + u)) = make_uint4(o[0], o[1], o[2], o[3]);
     }
   }
-  for (int l = 0; l < L - 1; ++l) {
+  for (int l = 0; l < L - 1 && !I.value; ++l) {
     bf16* dst = b_at(l);
     for (int i = t; i < 64 * hu; i += 128) {
       const int r = i / hu, u = i - r * hu;
@@ -182,14 +193,6 @@ __device__ __forceinline__ void residual_stacks(const Geom& G, const SlotBwdIo& 
       *reinterpret_cast<uint4*>(dst + unit_el(r, u)) = make_uint4(v[0], v[1], v[2], v[3]);
     }
   }
-}
-
-// the 8 corner values of feature f of an entry, rounded by the table's type
-template <class TT>
-__device__ __forceinline__ void entry_corners(const float* T, int f, float (&v)[8]) {
-  corners(T + f * 8, v);
-#pragma unroll
-  for (int c = 0; c < 8; ++c) v[c] = mms::grid_round<TT>(v[c]);
 }
 
 // dwg of the 8 corners: r(sum_k g3_k dw_c / d g_k / 2r)
@@ -267,11 +270,11 @@ __device__ __forceinline__ void grid_cotangent(const mms::SlotParams& P, const S
   float p[3], g3[3], wa[3][2], dwa[3][2], ddwa[3][2];
   mms::load_pos(I.pos, n, row, p);
 #pragma unroll
-  for (int k = 0; k < 3; ++k) g3[k] = I.g3[row * 3 + k];
+  for (int k = 0; k < 3; ++k) g3[k] = I.value ? 0.f : I.g3[row * 3 + k];
   const unsigned e = mms::cell_geom(P, l, p, wa, dwa, ddwa);
   const long long eo = mms::entry_offset(P, l, e);
   const float* T = I.table + eo;
-  const float* a = I.adj + row * I.adj_width;
+  const float* a = I.value ? nullptr : I.adj + row * I.adj_width;
   float dwg[8], wb[8], dw[8], dd[8];
   corner_dwg<TT>(g3, wa, dwa, cs, dwg);
 #pragma unroll
@@ -284,7 +287,7 @@ __device__ __forceinline__ void grid_cotangent(const mms::SlotParams& P, const S
   for (int f = 0; f < F; ++f) {
     const int col = pw + l * F + f;
     const float m = I.lmask[l * F + f];
-    const float gc0 = mms::grid_round<TT>(a[col] * m);
+    const float gc0 = a ? mms::grid_round<TT>(a[col] * m) : 0.f;
     const float gt0 = mms::grid_round<TT>(ghin[col] * m);
     float v[8], tv[8];
     entry_corners<TT>(T, f, tv);
@@ -319,7 +322,8 @@ __device__ __forceinline__ void grid_cotangent(const mms::SlotParams& P, const S
       const int u = (t + 1) % 3, w = (t + 2) % 3;
       float acc = dw[c] * mms::corner_axis_factor(wa, dwa, c, t);
 #pragma unroll
-      for (int k = 0; k < 3; ++k) {
+      for (int k = 0; k < 3; ++k) {  // the second order, on adj (none in value mode)
+        if (I.value) break;
         float dD;
         if (k == t) {
           dD = ddwa[k][bit[k]] * wa[u][bit[u]] * wa[w][bit[w]];
@@ -369,8 +373,8 @@ slot_chain_pass_kernel(const Geom G, const mms::SlotParams P, const SlotBwdIo I,
     setmaxnreg_dec<PRODUCER_REGS>();
     if (threadIdx.x == nwg * 128) {
       for (int grp = blockIdx.x; grp < groups; grp += gridDim.x) {
-        stream_hidden_fwd(R, G, wfw);  // ga-forward m
-        stream_bwd(R, G, wbw, L - 1);  // reverse sweep
+        if (!I.value) stream_hidden_fwd(R, G, wfw);  // ga-forward m
+        stream_bwd(R, G, wbw, L - 1);                // reverse sweep
       }
     }
     return;
@@ -426,74 +430,78 @@ slot_chain_pass_kernel(const Geom G, const mms::SlotParams P, const SlotBwdIo I,
     if (st.on)
       residual_stacks(G, I, n, row0, act, x0c, [&](int l) { return a_at(l, 0); },
                       [&](int l) { return b_at(l, 1); });
-    // ---- 1. ga, f32 in its slab, bf16 into the x0 images
-    if (f32t)
-      adj_cotangent<float>(P, I, n, row0, P0, ga);
-    else
-      adj_cotangent<bf16>(P, I, n, row0, P0, ga);
-    st.drain(wg);  // x0's stack store and the residual stacks have read the x0 images
-    for (int i = t; i < 64 * P0; i += 128) {
-      const int r = i / P0, c = i - r * P0;
-      act[act_el(x0c + c, r)] = __float2bfloat16(ga[i]);
-    }
-    fence_act<WC>();
-    wg_sync(1 + wg);
-    // ---- 2. the ga-forward chain; stacks qin_l; e_l into its slab
-    for (int l = 0; l < L - 1; ++l) {
-      const bf16* a = act + (l == 0 ? (x0c >> 6) * 4096 : 0);
-      st.store(a_at(l, 1), a, G.din_pad[l]);
-      const bool next_skip = (G.skip_mask >> (l + 1)) & 1;
-      prefetch(I.zs, l);
-      prefetch(I.ss, l);
-      for (int p = 0; p < nph; ++p) {
-        int off, np;
-        hidden_piece<WC>(H, p, off, np);
-        bf16* dst = piece_dst<WC>(act, act_bytes, sidec, p, nph, off);
-        uint32_t* el = es + l * zwords + (off >> 2) * 128;
-        with_n64(np, [&](auto NC) {
-          constexpr int N = decltype(NC)::value;
-          float acc[N / 2];
-          mma_piece<N>(acc, a, G.din_pad[l] >> 6, R, wg, nullptr, 3, asp);
-          st.drain(wg);
-          // ga again, scaled, once layer 0's last product read it
-          if (l == 0 && G.skip_mask && p + 1 == nph) {
-            for (int i = t; i < 64 * P0; i += 128) {
-              const int r = i / P0, c = i - r * P0;
-              act[act_el(H + c, r)] = __float2bfloat16(ga[i] * SKIP_SCALE);
-            }
-          }
-#pragma unroll
-          for (int j = 0; j < N / 8; ++j) {
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const long long row = row0 + r0 + 8 * e;
-              const int c = off + 8 * j + cq;
-              const float2 z = unpack2(resid_word(I.zs, n, H, l, row, c));
-              const float2 s = unpack2(resid_word(I.ss, n, H, l, row, c));
-              const float m0 = acc[4 * j + 2 * e], m1 = acc[4 * j + 2 * e + 1];
-              el[(2 * j + e) * 128 + t] = pack2(m0 * s.x * act_ddf(act_kind, z.x, qa),
-                                                m1 * s.y * act_ddf(act_kind, z.y, qa));
-              float q0 = m0 * act_df(act_kind, z.x, qa), q1 = m1 * act_df(act_kind, z.y, qa);
-              if (next_skip) {
-                q0 *= SKIP_SCALE;
-                q1 *= SKIP_SCALE;
-              }
-              *reinterpret_cast<uint32_t*>(dst + act_el(8 * j + cq, r0 + 8 * e)) = pack2(q0, q1);
-            }
-          }
-        });
+    if (I.value) {
+      st.drain(wg);  // x0's stack store and the hin stacks have read the x0 images
+    } else {
+      // ---- 1. ga, f32 in its slab, bf16 into the x0 images
+      if (f32t)
+        adj_cotangent<float>(P, I, n, row0, P0, ga);
+      else
+        adj_cotangent<bf16>(P, I, n, row0, P0, ga);
+      st.drain(wg);  // x0's stack store and the residual stacks have read the x0 images
+      for (int i = t; i < 64 * P0; i += 128) {
+        const int r = i / P0, c = i - r * P0;
+        act[act_el(x0c + c, r)] = __float2bfloat16(ga[i]);
       }
-      side_back<WC>(act, act_bytes, sidec, wg);
       fence_act<WC>();
       wg_sync(1 + wg);
+      // ---- 2. the ga-forward chain; stacks qin_l; e_l into its slab
+      for (int l = 0; l < L - 1; ++l) {
+        const bf16* a = act + (l == 0 ? (x0c >> 6) * 4096 : 0);
+        st.store(a_at(l, 1), a, G.din_pad[l]);
+        const bool next_skip = (G.skip_mask >> (l + 1)) & 1;
+        prefetch(I.zs, l);
+        prefetch(I.ss, l);
+        for (int p = 0; p < nph; ++p) {
+          int off, np;
+          hidden_piece<WC>(H, p, off, np);
+          bf16* dst = piece_dst<WC>(act, act_bytes, sidec, p, nph, off);
+          uint32_t* el = es + l * zwords + (off >> 2) * 128;
+          with_n64(np, [&](auto NC) {
+            constexpr int N = decltype(NC)::value;
+            float acc[N / 2];
+            mma_piece<N>(acc, a, G.din_pad[l] >> 6, R, wg, nullptr, 3, asp);
+            st.drain(wg);
+            // ga again, scaled, once layer 0's last product read it
+            if (l == 0 && G.skip_mask && p + 1 == nph) {
+              for (int i = t; i < 64 * P0; i += 128) {
+                const int r = i / P0, c = i - r * P0;
+                act[act_el(H + c, r)] = __float2bfloat16(ga[i] * SKIP_SCALE);
+              }
+            }
+#pragma unroll
+            for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const long long row = row0 + r0 + 8 * e;
+                const int c = off + 8 * j + cq;
+                const float2 z = unpack2(resid_word(I.zs, n, H, l, row, c));
+                const float2 s = unpack2(resid_word(I.ss, n, H, l, row, c));
+                const float m0 = acc[4 * j + 2 * e], m1 = acc[4 * j + 2 * e + 1];
+                el[(2 * j + e) * 128 + t] = pack2(m0 * s.x * act_ddf(act_kind, z.x, qa),
+                                                  m1 * s.y * act_ddf(act_kind, z.y, qa));
+                float q0 = m0 * act_df(act_kind, z.x, qa), q1 = m1 * act_df(act_kind, z.y, qa);
+                if (next_skip) {
+                  q0 *= SKIP_SCALE;
+                  q1 *= SKIP_SCALE;
+                }
+                *reinterpret_cast<uint32_t*>(dst + act_el(8 * j + cq, r0 + 8 * e)) = pack2(q0, q1);
+              }
+            }
+          });
+        }
+        side_back<WC>(act, act_bytes, sidec, wg);
+        fence_act<WC>();
+        wg_sync(1 + wg);
+      }
+      // the last layer's v is e_0: gW_{L-1}[:, 0] += column sums of qin_{L-1}
+      for (int c = t; c < dlast; c += 128) {
+        float s = 0.f;
+        for (int r = 0; r < 64; ++r) s += bf(act[act_el(c, r)]);
+        atomicAdd(&csw[c], s);
+      }
+      wg_sync(1 + wg);
     }
-    // the last layer's v is e_0: gW_{L-1}[:, 0] += column sums of qin_{L-1}
-    for (int c = t; c < dlast; c += 128) {
-      float s = 0.f;
-      for (int r = 0; r < 64; ++r) s += bf(act[act_el(c, r)]);
-      atomicAdd(&csw[c], s);
-    }
-    wg_sync(1 + wg);
     // ---- 3. the reverse sweep from [gsdf, ggeo, 0]; stacks gz_l
     const int dl = G.dout_true[L - 1], gl = gcols(G, L - 1);
     for (int i = t; i < 64 * gl; i += 128) {
@@ -525,7 +533,7 @@ slot_chain_pass_kernel(const Geom G, const mms::SlotParams P, const SlotBwdIo I,
       const bool skip = (G.skip_mask >> l) & 1;
       if (l > 0) {
         prefetch(I.zs, l - 1);
-        if (t == 0) bulk_prefetch_l2(es + (l - 1) * zwords, (uint32_t)zwords * 4);
+        if (t == 0 && !I.value) bulk_prefetch_l2(es + (l - 1) * zwords, (uint32_t)zwords * 4);
       }
       for (int p = 0; p < npc; ++p) {
         int off, np;
@@ -561,7 +569,8 @@ slot_chain_pass_kernel(const Geom G, const mms::SlotParams P, const SlotBwdIo I,
               for (int e = 0; e < 2; ++e) {
                 const long long row = row0 + r0 + 8 * e;
                 const float2 z = unpack2(resid_word(I.zs, n, H, l - 1, row, hoff + 8 * j + cq));
-                const float2 ev = unpack2(el[(2 * j + e) * 128 + t]);
+                const float2 ev = I.value ? make_float2(0.f, 0.f)
+                                          : unpack2(el[(2 * j + e) * 128 + t]);
                 float g0 = acc[4 * j + 2 * e], g1 = acc[4 * j + 2 * e + 1];
                 if (skip) {
                   g0 *= SKIP_SCALE;
@@ -619,14 +628,17 @@ slot_chain_pass_kernel(const Geom G, const mms::SlotParams P, const SlotBwdIo I,
       if (!half && row < n) {
         float p[3];
         mms::load_pos(I.pos, n, row, p);
-        const float* a = I.adj + row * I.adj_width;
         const float cs = 1.f / (2.f * P.radius);
 #pragma unroll
         for (int k = 0; k < 3; ++k) {
-          const float sec = mms::pe_hess(a, p, P.pe_freqs, P.pe_scale, k);
+          // the PE Hessian term on adj (none in value mode)
+          const float hess = I.value ? 0.f
+                                     : I.g3[row * 3 + k] * mms::pe_hess(I.adj + row * I.adj_width,
+                                                                        p, P.pe_freqs,
+                                                                        P.pe_scale, k);
           const float gs = gp[k] + rv[r * 4 + k];
           I.d_pos[row * 3 + k] = mms::pe_jt(ga + r * P0, p, P.pe_freqs, P.pe_scale, k) +
-                                 (I.g3[row * 3 + k] * sec + gs * (mms::clip_gate(P, p[k]) * cs));
+                                 (hess + gs * (mms::clip_gate(P, p[k]) * cs));
         }
       }
     }
@@ -657,7 +669,7 @@ static int slot_pass_plan(const Geom& G, int n, Launch* P) {
 static bool slot_pass_ok(const Geom& G, const mms::SlotParams& P, const SlotBwdIo& I, int n) {
   return geom_ok(G) && n >= 1 && P.levels >= 1 && P.levels <= mms::MAXLV && P.feats >= 1 &&
          P.feats <= 16 && P.pe_freqs >= 1 && P.pe_freqs <= mms::MAXPE &&
-         P.pw + P.levels * P.feats <= G.d_in && I.adj_width >= G.d_in &&
+         P.pw + P.levels * P.feats <= G.d_in && (I.value || I.adj_width >= G.d_in) &&
          I.geo_width < G.dout_true[G.L - 1] &&
          (I.split ? I.dcomp != nullptr : I.d_table != nullptr);
 }

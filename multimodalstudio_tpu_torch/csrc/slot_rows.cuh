@@ -1,5 +1,6 @@
 // The slot grid's front on K1's activation images, shared by K2's forward
-// (slot_value.cu) and K3's backward pass (slot_chain_bwd.cu): the tile's chain
+// (slot_value.cu), K3's forward (adj_fwd.cuh) and the backward pass of K2 and K3
+// (slot_chain_bwd.cu): the tile's chain
 // input x0 = [pos, sin, cos, grid of the active levels, 0] rounded to bf16 into
 // the activation images, from the raw positions and the f32 table parameter.
 #pragma once
@@ -15,6 +16,14 @@ __device__ __forceinline__ void corners(const float* p, float (&v)[8]) {
   const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
   v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
   v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+
+// the 8 corner values of feature f of an entry, rounded by the table's type
+template <class TT>
+__device__ __forceinline__ void entry_corners(const float* T, int f, float (&v)[8]) {
+  corners(T + f * 8, v);
+#pragma unroll
+  for (int c = 0; c < 8; ++c) v[c] = mms::grid_round<TT>(v[c]);
 }
 
 // The tile's chain input x0 = [pos, sin, cos, grid of the active levels, 0]

@@ -26,9 +26,9 @@
 // times the coarse-to-fine mask rounded to bf16 into x0; a skip layer's input
 // concat(h, x0) / sqrt(2) rounded to bf16; the hidden activation rounded to
 // bf16; sdf, column 0 of the last layer, stays f32 (K1 rounds its y to bf16).
-// Training mode also writes what the unchanged backwards read: the bf16
-// pre-activations zs [L-1, N, H] row-major (slot_bwd.cuh) and, for the split
-// backward, the chain input x0 [N, x0_width] bf16 (slot_fused.py:1626-1630).
+// Training mode also writes what the backward (slot_chain_bwd.cu's value mode) reads:
+// the bf16 pre-activations zs [L-1, N, H] row-major, and where asked the chain input x0
+// [N, x0_width] bf16 (slot_fused.py:1626-1630).
 //
 // Bound on an H100: the chain's tensor-core work (2 N (d_in H + (L-2) H^2 + H)
 // flops) against 16 bytes of position and sdf per sample and the table, which

@@ -1,15 +1,15 @@
 """Build and load the port's CUDA kernels.
 
-Each library under `csrc/` is one .cu source with a plain C interface
-(fused_chain: K1 forward and backward, the weight pack and chain_wgrad, on
-wgmma; fused_mlp: K1t, the chain with forward tangents, forward and
-backward, and K4j, the tangent kernels with the encoding in front;
-slot_value: K2 forward, on K1's wgmma forward; slot_fused: K3 forward;
-slot_fused_bwd: K2 merged backward; slot_split: K2s's per-sample pass and
-the table scatter of the split backward; slot_chain_bwd: K3's backward pass,
-merged and split, on K1's blocks; the slot kernels each for a bf16 and an
-f32 table (K2f/K3f); sdf_chain: K4 and K5 forward and backward; slot_grid:
-K6 forward and backward),
+Each library under `csrc/` is built from one or more .cu sources with a
+plain C interface (fused_chain: K1 forward and backward, the weight pack
+and chain_wgrad; fused_mlp: K1t, the chain with forward tangents, forward
+(tangent_fwd.cu) and backward, and K4j, the tangent kernels with the
+encoding in front; slot_value: K2 forward; slot_chain_bwd: the backward
+pass of K3 and, in its value mode, K2, merged and split; slot_split: the
+split backward's table scatter; the slot kernels each for a bf16 and an f32
+table (K2f/K3f); sdf_chain: the adjoint forwards of K3, K4 and K5
+(adj_fwd.cu) and the backwards of K4 and K5; slot_grid: K6 forward and
+backward; every chain kernel on K1's wgmma building blocks, k1.cuh),
 compiled by nvcc for sm_90a into `build/torch_kernels/` at the repository
 root and loaded with ctypes. The library name carries a hash of every file
 in `csrc/`, so an edited source rebuilds and a stale library is never
@@ -35,16 +35,16 @@ import torch
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 LIBRARIES = (
-    "fused_chain", "fused_mlp", "slot_value", "slot_fused", "slot_fused_bwd", "slot_split",
-    "slot_chain_bwd", "sdf_chain", "slot_grid",
+    "fused_chain", "fused_mlp", "slot_value", "slot_split", "slot_chain_bwd", "sdf_chain",
+    "slot_grid",
 )
 # Libraries built from more than one source: each source compiles on its own
 # (nvcc -c, at once with every other library's), then the objects link into
 # the library. A heavy width class (csrc/k1.cuh WC_DEV) compiles this way
 # beside the rest of its library.
-PARTS = {"sdf_chain": ("sdf_chain", "sdf_chain_dev")}
-TILE_M = 64  # samples per CTA tile of every kernel (csrc/chain.cuh)
-MAX_LAYERS = 32  # layers of a chain a kernel takes (csrc/chain.cuh MAXL)
+PARTS = {"sdf_chain": ("sdf_chain", "sdf_chain_dev", "adj_fwd", "adj_fwd_dev"),
+         "fused_mlp": ("fused_mlp", "tangent_fwd")}
+MAX_LAYERS = 32  # layers of a chain a kernel takes (csrc/k1.cuh MAXL)
 MAX_LEVELS = 32  # grid levels a slot kernel takes (csrc/slot.cuh MAXLV)
 ERR_SMEM = -2  # entry point status: the tile needs more shared memory than a CTA has
 NVCC_FLAGS = [
@@ -179,7 +179,7 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _LOADED:
         started = _start(name)
         if started is not None:
-            _finish(name, started)
+            _finish(name, started, time.perf_counter())
         _LOADED[name] = ctypes.CDLL(str(library_path(name)))
     return _LOADED[name]
 
@@ -196,28 +196,18 @@ def function(library: str, name: str, *argtypes: str, restype=ctypes.c_int):
     return fn
 
 
-def persistent_scratch(library: str, slab_fn: str, slab_args, dev: torch.device, n: int):
-    """(scratch, max_ctas) for a persistent kernel: one bf16 slab per CTA,
-    slab_fn(*slab_args) elements each, for at most two CTAs per SM and one
-    per 64-sample tile of n."""
-    slab = function(library, slab_fn, *["int"] * len(slab_args), restype=ctypes.c_longlong)
-    ctas = max(1, min(-(-n // TILE_M), 2 * torch.cuda.get_device_properties(dev).multi_processor_count))
-    scratch = torch.empty(ctas * int(slab(*slab_args)), dtype=torch.bfloat16, device=dev)
-    return scratch, ctas
-
-
 def check_layers(n_layers: int, what: str) -> None:
     """Raise for a chain deeper than the kernels' parameter structs hold."""
     if n_layers > MAX_LAYERS:
-        raise ValueError(f"{what}: at most {MAX_LAYERS} layers (csrc/chain.cuh MAXL)")
+        raise ValueError(f"{what}: at most {MAX_LAYERS} layers (csrc/k1.cuh MAXL)")
 
 
 def check(status: int, what: str) -> None:
     """Raise on a non-zero status returned by a launch: a cudaError_t, or -1
     (arguments the kernel does not take) or ERR_SMEM."""
     if status == ERR_SMEM:
-        raise ValueError(f"{what}: the 64-sample tile's buffers need more than the 232,448 bytes "
-                         "of shared memory a CTA has (too wide a chain, or too many grid levels)")
+        raise ValueError(f"{what}: the 64-row tile's buffers need more than the 232,448 bytes "
+                         "of shared memory a CTA has")
     if status != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with status {status}")
 

@@ -18,14 +18,16 @@ backward reuses: one fill of gW/gb and two launches.
 With `tangents` [K, N, D_in] (K1t, the same two Pallas bodies with
 n_tangents = K) the chain also carries K forward tangents: y and ty
 [K, N, D_out] bf16, or with `tangent_out_channel=c` only column c of the
-last layer's f32 tangents, [N, K] f32. On the card a tile is 64 rows of
-the same products: the primal rows of b samples and the K tangent rows of
-each (b = 16 for K = 2, 3; 32 for K = 1), since u = t W shares W with z =
-h W + b (csrc/fused_mlp.cu). The backward (reverse over the tangent chain,
-act'' term included) runs on K1's building blocks: the pack, a per-tile
-pass on the same 64-row tiles (csrc/fused_mlp.cu) that writes gx, gtx, gb
-and the stacks of every layer's gW operands (the primal and tangent rows'
-inputs and cotangents), and chain_wgrad over them.
+last layer's f32 tangents, [N, K] f32. On the card both directions run on
+K1's building blocks over 64-row tiles of the same products: the primal
+rows of b samples and the K tangent rows of each (b = 16 for K = 2, 3; 32
+for K = 1), since u = t W shares W with z = h W + b (csrc/tangent.cuh).
+The forward is the pack and a pass (csrc/tangent_fwd.cu), two device
+operations; with grad the pack also writes the backward images, which the
+backward (reverse over the tangent chain, act'' term included) reuses: a
+per-tile pass (csrc/fused_mlp.cu) that writes gx, gtx, gb and the stacks
+of every layer's gW operands (the primal and tangent rows' inputs and
+cotangents), and chain_wgrad over them.
 
 Arithmetic (the JAX kernel's cast points, chain_reference :1263-1302):
 inputs and weights bf16, products accumulated in f32 plus an f32 bias,
@@ -91,7 +93,7 @@ WGRAD_KERNEL = build.register(
 )
 TANGENT_KERNEL = build.register(
     "fused_chain_tangents",
-    source="multimodalstudio_tpu_torch/csrc/fused_mlp.cu",
+    source="multimodalstudio_tpu_torch/csrc/tangent_fwd.cu",
     replaces="multimodalstudio_tpu/ops/pallas/fused_mlp.py:265",
 )
 TANGENT_BWD_KERNEL = build.register(
@@ -487,68 +489,6 @@ def rup16(n: int) -> int:
     return (n + 15) // 16 * 16
 
 
-def chain_geometry(d_in: int, weights: Sequence[torch.Tensor], skip: Tuple[int, ...]):
-    """Padded (multiple of 16) per-layer (in, out) widths; checks that the
-    hidden layers share one width. Returns (in_dims, out_dims, p0, hidden)."""
-    hidden = weights[0].shape[1]
-    if hidden % 16:
-        raise ValueError(f"hidden width {hidden} must be a multiple of 16")
-    p0 = rup16(d_in)
-    in_dims, out_dims = [], []
-    for l, w in enumerate(weights):
-        if l == 0:
-            want, din = d_in, p0
-        elif l in skip:
-            want, din = hidden + d_in, hidden + p0
-        else:
-            want, din = hidden, hidden
-        if w.shape[0] != want:
-            raise ValueError(f"layer {l} input width {w.shape[0]} != {want}")
-        if l < len(weights) - 1 and w.shape[1] != hidden:
-            raise ValueError(f"layer {l} output width {w.shape[1]} != hidden {hidden}")
-        in_dims.append(din)
-        out_dims.append(rup16(w.shape[1]))
-    return in_dims, out_dims, p0, hidden
-
-
-def pack_chain(
-    weights: Sequence[torch.Tensor],
-    biases: Sequence[torch.Tensor],
-    in_dims: List[int],
-    out_dims: List[int],
-    hidden: int,
-    skip: Tuple[int, ...],
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Zero-padded weights as one bf16 buffer (row-major [din, dout] per
-    layer, back to back) and biases as one f32 buffer, the layout of the
-    tangent and slot kernels. A skip layer's rows are [h (hidden) | x0
-    (padded input width)], so its weight lands in its first rows as a plain
-    layer's does."""
-    ws, bs = [], []
-    for l, (w, b) in enumerate(zip(weights, biases)):
-        wp = w.new_zeros((in_dims[l], out_dims[l]), dtype=torch.float32)
-        wp[: w.shape[0], : w.shape[1]] = w
-        ws.append(wp.reshape(-1))
-        bp = b.new_zeros(out_dims[l], dtype=torch.float32)
-        bp[: b.shape[0]] = b
-        bs.append(bp)
-    return torch.cat(ws).to(torch.bfloat16).contiguous(), torch.cat(bs).contiguous()
-
-
-def unpack_grads(gw: torch.Tensor, gb: torch.Tensor, weights, in_dims, out_dims, hidden, skip):
-    """Per-layer gW [din_l, dout_l] and gb [dout_l] as views of the packed,
-    padded f32 gradient buffers (the layout of pack_chain)."""
-    gws, gbs = [], []
-    wo = bo = 0
-    for l, w in enumerate(weights):
-        g = gw[wo : wo + in_dims[l] * out_dims[l]].view(in_dims[l], out_dims[l])
-        gws.append(g[: w.shape[0], : w.shape[1]])
-        gbs.append(gb[bo : bo + w.shape[1]])
-        wo += in_dims[l] * out_dims[l]
-        bo += out_dims[l]
-    return gws, gbs
-
-
 # ------------------------------------------------------------- K1 on the card
 #
 # The layout of csrc/fused_chain.cu. Activation columns come in 64-wide
@@ -763,7 +703,12 @@ _ENTRY = {  # entry points on K1's layout: library, argument types, result type
     "mms_k1_bwd": ("fused_chain", ("ptr", "ptr", "int", "ptr", "int", "int") + ("ptr",) * 7,
                    ctypes.c_int),
     "mms_k1_wgrad": ("fused_chain", ("ptr", "int", "ptr", "ptr", "ptr", "ptr"), ctypes.c_int),
-    # the tangent backward's pass (csrc/fused_mlp.cu)
+    # the tangent forward (csrc/tangent_fwd.cu) and backward pass (csrc/fused_mlp.cu)
+    "mms_tangent_fwd_bytes": ("fused_mlp", ("ptr", "int", "int"), ctypes.c_longlong),
+    "mms_chain_tangent_fwd": ("fused_mlp", ("ptr", "ptr", "ptr", "int", "int", "int", "int")
+                              + ("ptr",) * 3 + ("int", "ptr", "ptr", "ptr"), ctypes.c_int),
+    "mms_sdf_chain_jvp_fwd": ("fused_mlp", ("ptr", "ptr", "int", "int") + ("ptr",) * 5
+                              + ("int", "ptr", "ptr", "ptr"), ctypes.c_int),
     "mms_tangent_bwd_bytes": ("fused_mlp", ("ptr", "int", "int"), ctypes.c_longlong),
     "mms_chain_tangent_bwd": ("fused_mlp", ("ptr", "ptr", "ptr", "int", "int", "ptr", "ptr", "int")
                               + ("ptr",) * 8, ctypes.c_int),
@@ -777,6 +722,14 @@ _ENTRY = {  # entry points on K1's layout: library, argument types, result type
     "mms_slot_chain_pass_bytes": ("slot_chain_bwd", ("ptr", "int"), ctypes.c_longlong),
     "mms_slot_chain_pass": ("slot_chain_bwd", ("ptr", "ptr", "ptr", "int") + ("ptr",) * 6,
                             ctypes.c_int),
+    # the adjoint forward of K3, K4 and K5 (csrc/adj_fwd.cu)
+    "mms_adj_fwd_bytes": ("sdf_chain", ("ptr", "int"), ctypes.c_longlong),
+    "mms_sdf_chain_fwd": ("sdf_chain", ("ptr", "ptr", "int", "int") + ("ptr",) * 6
+                          + ("int", "ptr", "ptr", "ptr"), ctypes.c_int),
+    "mms_chain_adj_fwd": ("sdf_chain", ("ptr", "ptr", "int", "int", "int") + ("ptr",) * 4
+                          + ("int", "ptr", "ptr", "ptr"), ctypes.c_int),
+    "mms_slot_sdf_fwd": ("sdf_chain", ("ptr", "ptr", "ptr", "int", "ptr", "int") + ("ptr",) * 6
+                         + ("int",) + ("ptr",) * 5 + ("int", "ptr", "ptr"), ctypes.c_int),
     # the adjoint backward's pass (csrc/sdf_chain.cu)
     "mms_adj_bwd_bytes": ("sdf_chain", ("ptr", "int"), ctypes.c_longlong),
     "mms_sdf_chain_bwd": ("sdf_chain", ("ptr", "ptr", "int", "int", "ptr", "ptr", "ptr", "int")
@@ -793,8 +746,8 @@ def _stream(dev) -> int:
 
 
 def entry(name: str):
-    """A C entry point that takes K1's Geom (fused_chain, and the backward
-    passes of fused_mlp and sdf_chain), looked up once."""
+    """A C entry point that takes K1's Geom (every chain kernel's), looked
+    up once."""
     fn = _ENTRIES.get(name)
     if fn is None:
         library, types, restype = _ENTRY[name]
@@ -1055,15 +1008,18 @@ class Backward:
 
 
 def prepare_backward(layout: ChainLayout, geom: _Geom, weights, biases, dev, scratch_bytes,
-                     pass_args, tiles: int, what: str, count=None, extra: int = 0) -> Backward:
-    """Pack the chain (one launch), allocate the gradients (and `extra` more
-    zeroed f32, in the same fill) and the scratch (scratch_bytes: the bytes
-    entry point and its arguments after the Geom) and bind the pass
-    (pass_args(packed, gw, gb, scratch, extra): its entry point and
-    arguments between the Geom and the stream) and chain_wgrad over `tiles`
-    row tiles; count (an int64 tensor or None) receives the number of gW
-    atomics chain_wgrad issues."""
-    packed = _launch_pack(layout, geom, weights, biases, True)
+                     pass_args, tiles: int, what: str, count=None, extra: int = 0,
+                     packed: Optional[Packed] = None) -> Backward:
+    """Pack the chain (one launch) unless given the forward's images
+    (`packed`, backward images included), allocate the gradients (and
+    `extra` more zeroed f32, in the same fill) and the scratch
+    (scratch_bytes: the bytes entry point and its arguments after the Geom)
+    and bind the pass (pass_args(packed, gw, gb, scratch, extra): its entry
+    point and arguments between the Geom and the stream) and chain_wgrad
+    over `tiles` row tiles; count (an int64 tensor or None) receives the
+    number of gW atomics chain_wgrad issues."""
+    if packed is None or packed.wbw is None:
+        packed = _launch_pack(layout, geom, weights, biases, True)
     gw, gb, gws, gbs, ext = _grad_buffers(layout, dev, extra)
     scratch = _scratch(scratch_bytes[0], geom, dev, *scratch_bytes[1:])
     g, st = ctypes.byref(geom), _stream(dev)
@@ -1090,44 +1046,52 @@ def _check_tangents(tangents: torch.Tensor, x: torch.Tensor) -> int:
     return k
 
 
-def _launch_tangent_fwd(x, tx, weights, biases, skip, activation, beta, channel):
-    """K1t's forward kernel: (y [N, D_out] bf16, ty [N, K] f32 with a
-    channel or [K, N, D_out] bf16 without)."""
+def _tangent_operands(x, tx):
+    """x and tx as the tangent kernels read them: both f32 or both bf16,
+    contiguous and 16-byte aligned."""
+    x, tx = _card_operand(x), _card_operand(tx)
+    if x.dtype != tx.dtype:
+        x, tx = x.float(), tx.float()
+    return x, tx
+
+
+def _launch_tangent_fwd(x, tx, weights, biases, skip, activation, beta, channel,
+                        backward_images=False):
+    """K1t's forward on the card: the pack of the weight images (with the
+    backward images for `backward_images`, which the call's backward reuses)
+    and the pass, two device operations. Returns (y [N, D_out] bf16, ty [N,
+    K] f32 with a channel or [K, N, D_out] bf16 without, the Packed images or
+    None for N = 0)."""
     check_card(x, activation, len(weights))
     k = _check_tangents(tx, x)
-    n, d_in = x.shape
-    d_out = weights[-1].shape[1]
-    in_dims, out_dims, p0, hidden = chain_geometry(d_in, weights, skip)
-    wpack, bpack = pack_chain(weights, biases, in_dims, out_dims, hidden, skip)
-    xb, txb = x.to(torch.bfloat16).contiguous(), tx.to(torch.bfloat16).contiguous()
-    y = torch.empty((n, d_out), dtype=torch.bfloat16, device=x.device)
+    layout, geom = chain_of(x.shape[1], weights, skip, activation, beta)
+    n, d_out, dev = x.shape[0], layout.d_out, x.device
+    y = torch.empty((n, d_out), dtype=torch.bfloat16, device=dev)
     if channel is None:
-        ty = torch.empty((k, n, d_out), dtype=torch.bfloat16, device=x.device)
+        ty = torch.empty((k, n, d_out), dtype=torch.bfloat16, device=dev)
     else:
-        ty = torch.empty((n, k), dtype=torch.float32, device=x.device)
-    if n:
-        fn = build.function(
-            "fused_mlp", "mms_chain_tangent_fwd", "ptr", "ptr", "int", "int", "ptr", "ptr",
-            "int", "int", "ptr", "ptr", "int", "int", "int", "int", "float", "int", "ptr", "int",
-            "ptr", "ptr",
-        )
-        status = fn(
-            build.ptr(xb), build.ptr(txb), d_in, k, build.ptr(wpack), build.ptr(bpack), n,
-            len(weights), build.int_array(in_dims), build.int_array(out_dims),
-            sum(1 << l for l in skip), hidden, p0, ACTIVATIONS[activation], 2.0 / beta,
-            -1 if channel is None else channel, build.ptr(y), d_out, build.ptr(ty),
-            build.stream_of(x),
-        )
-        build.check(status, "fused_chain with tangents")
-        TANGENT_KERNEL.launches += 1
-    return y, ty
+        ty = torch.empty((n, k), dtype=torch.float32, device=dev)
+    if n == 0:
+        return y, ty, None
+    xc, txc = _tangent_operands(x, tx)
+    packed = _launch_pack(layout, geom, weights, biases, backward_images)
+    scratch = _scratch("mms_tangent_fwd_bytes", geom, dev, n, k)
+    status = entry("mms_chain_tangent_fwd")(
+        ctypes.byref(geom), xc.data_ptr(), txc.data_ptr(), int(xc.dtype == torch.float32), k, n,
+        -1 if channel is None else channel, packed.wfw.data_ptr(), packed.bpk.data_ptr(),
+        y.data_ptr(), d_out, ty.data_ptr(), scratch.data_ptr() if scratch.numel() else None,
+        _stream(dev))
+    build.check(status, "fused_chain with tangents")
+    TANGENT_KERNEL.launches += 1
+    return y, ty, packed
 
 
 def tangent_bwd_card(x, tx, gy, gty, weights, biases, skip, activation, beta, channel,
-                     count=None):
+                     count=None, packed=None):
     """K1t's backward on the card, prepared (n > 0): (Backward, gx, gtx), the
     pass writing gx and gtx (bf16) and gb and leaving the Hin and G stacks of
-    every layer in scratch, chain_wgrad writing gW."""
+    every layer in scratch, chain_wgrad writing gW; on the forward's images
+    `packed` where given."""
     check_card(x, activation, len(weights))
     k = _check_tangents(tx, x)
     layout, geom = chain_of(x.shape[1], weights, skip, activation, beta)
@@ -1147,15 +1111,16 @@ def tangent_bwd_card(x, tx, gy, gty, weights, biases, skip, activation, beta, ch
     bw = prepare_backward(layout, geom, weights, biases, x.device,
                           ("mms_tangent_bwd_bytes", n, k), pass_args,
                           -(-n // tangent_samples(k)), "fused_chain with tangents, backward",
-                          count)
+                          count, packed=packed)
     bw.keep = (xb, txb, gyb, gtyc)
     return bw, gx, gtx
 
 
-def _launch_tangent_bwd(x, tx, gy, gty, weights, biases, skip, activation, beta, channel):
-    """K1t's backward: the per-tile pass and chain_wgrad over its stacks
-    (and the pack of the weight images). Returns (gx bf16, gtx bf16, gW list
-    f32, gb list f32)."""
+def _launch_tangent_bwd(x, tx, gy, gty, weights, biases, skip, activation, beta, channel,
+                        packed=None):
+    """K1t's backward: the per-tile pass and chain_wgrad over its stacks (on
+    the forward's images `packed`, or a pack of its own). Returns (gx bf16,
+    gtx bf16, gW list f32, gb list f32)."""
     if x.shape[0] == 0:
         check_card(x, activation, len(weights))
         layout, _ = chain_of(x.shape[1], weights, skip, activation, beta)
@@ -1163,7 +1128,7 @@ def _launch_tangent_bwd(x, tx, gy, gty, weights, biases, skip, activation, beta,
                 torch.empty(tx.shape, dtype=torch.bfloat16, device=x.device),
                 *zero_grads(layout, x.device))
     bw, gx, gtx = tangent_bwd_card(x, tx, gy, gty, weights, biases, skip, activation, beta,
-                                   channel)
+                                   channel, packed=packed)
     bw.tile()
     TANGENT_BWD_KERNEL.launches += 1
     bw.wgrad()
@@ -1185,7 +1150,7 @@ def _forward_tangents(x, tx, weights, biases, skip, activation, beta, channel):
     if x.device.type == "cpu":
         return fused_chain_plain(x, weights, biases, skip=skip, activation=activation, beta=beta,
                                  tangents=tx, tangent_out_channel=channel)
-    return _launch_tangent_fwd(x, tx, weights, biases, skip, activation, beta, channel)
+    return _launch_tangent_fwd(x, tx, weights, biases, skip, activation, beta, channel)[:2]
 
 
 class _FusedChain(torch.autograd.Function):
@@ -1224,14 +1189,21 @@ class _FusedChain(torch.autograd.Function):
 
 class _FusedChainTangents(torch.autograd.Function):
     """K1t with its backward: saves x, the tangents and the parameters
-    (chain_fwd :901-902) and recomputes the forward in the backward."""
+    (chain_fwd :901-902), and on the card also the images the forward's pack
+    wrote (backward images included), and recomputes the forward in the
+    backward."""
 
     @staticmethod
     def forward(ctx, cfg, x, tx, *params):
         n_layers = len(params) // 2
         ctx.cfg = cfg
         ctx.save_for_backward(x, tx, *params)
-        return _forward_tangents(x, tx, params[:n_layers], params[n_layers:], *cfg)
+        ctx.packed = None
+        if x.device.type == "cpu":
+            return _forward_tangents(x, tx, params[:n_layers], params[n_layers:], *cfg)
+        y, ty, ctx.packed = _launch_tangent_fwd(x, tx, params[:n_layers], params[n_layers:],
+                                                *cfg, backward_images=True)
+        return y, ty
 
     @staticmethod
     def backward(ctx, gy, gty):
@@ -1248,7 +1220,8 @@ class _FusedChainTangents(torch.autograd.Function):
                 tangent_out_channel=channel)
         else:
             gx, gtx, gws, gbs = _launch_tangent_bwd(x, tx, gy, gty, ws, bs, skip, activation,
-                                                    beta, channel)
+                                                    beta, channel, ctx.packed)
+        ctx.packed = None
         return (None, gx.to(x.dtype), gtx.to(tx.dtype), *gws, *gbs)
 
 

@@ -5,19 +5,20 @@ backward, and their plain versions.
 `fused_sdf_chain` (K4) takes raw positions [N, 3] and returns (sdf [N] f32,
 geo [N, D_out-1] bf16, grad [N, 3] f32 = d sdf / d positions) of a
 grid-less SDF MLP whose input is the NeRF encoding with the raw input
-included. On the card it is one CUDA kernel (csrc/sdf_chain.cu): the
-encoding, the chain and one reverse (adjoint) sweep of the chain from the
-sdf channel, replacing the Pallas TPU kernel
+included. On the card it runs on K1's building blocks (fused_mlp.py): the
+pack of the weight images (forward and backward), then one pass
+(csrc/adj_fwd.cu, adj_fwd.cuh) of the encoding, the chain and one reverse
+(adjoint) sweep of the chain from the sdf channel, two device operations,
+replacing the Pallas TPU kernel
 multimodalstudio_tpu/ops/pallas/fused_mlp.py::_fwd_adj_kernel (:362),
 reached through fused_sdf_chain (:1145, mode="adjoint", built by
 _build_adj_chain :930). With grad enabled it runs as an autograd Function
-that saves only the positions and the parameters, as chain_fwd (:1004)
-does; its backward replaces _bwd_adj_kernel (:410), reverse over
-reverse: on K1's building blocks (fused_mlp.py), the pack of the weight
-images, a per-tile pass (csrc/sdf_chain.cu) that recomputes the primal and
-adjoint rows, runs the ga-forward chain and the reverse sweep and writes d
-pos, gb and the stacks of every gW operand (hin over qin, gz over v), and
-chain_wgrad over the stacks.
+that saves the positions and the parameters, as chain_fwd (:1004) does,
+and the forward's images; its backward replaces _bwd_adj_kernel (:410),
+reverse over reverse: on those images, a per-tile pass (csrc/sdf_chain.cu)
+that recomputes the primal and adjoint rows, runs the ga-forward chain and
+the reverse sweep and writes d pos, gb and the stacks of every gW operand
+(hin over qin, gz over v), and chain_wgrad over the stacks.
 
 `fused_chain_adjoint` (K5) is the same pair of kernels without the
 encoding (fused_chain_adjoint :1215, enc=None): x [N, D] in (rounded to
@@ -49,9 +50,9 @@ enc''_k>, K5's gx = bf16(gh + gx0).
 `mode="jvp"` (K4j; fused_sdf_chain :1209-1211 through _build_chain with
 the encoding inside, bodies _fwd_kernel :265 and _bwd_kernel :607) gives
 the same outputs from the encoding, its 3 bf16 basis tangents (_enc_fwd
-:180-212) and 3 forward tangent chains: K1t's two kernels with the
-encoding front end (csrc/fused_mlp.cu), sdf the last layer's f32 column 0,
-grad column 0 of its three f32 tangents. Its backward ends in _enc_bwd
+:180-212) and 3 forward tangent chains: K1t's kernels with the encoding
+front end (csrc/tangent_fwd.cu, csrc/fused_mlp.cu), sdf the last layer's
+f32 column 0, grad column 0 of its three f32 tangents. Its backward ends in _enc_bwd
 (:215-239): d pos = J_enc^T gh0 + the tangent cotangents through the
 encoding's Hessian diagonal; on the card it is the tangent backward's
 pass (K1t's) with the encoding in front, and chain_wgrad.
@@ -72,6 +73,7 @@ about 660 bytes).
 
 from __future__ import annotations
 
+import ctypes
 import os
 from typing import Sequence, Tuple
 
@@ -80,15 +82,18 @@ import torch
 from multimodalstudio_tpu_torch.ops.kernels import build
 from multimodalstudio_tpu_torch.ops.kernels.fused_mlp import (
     ACTIVATIONS,
+    _card_operand,
+    _launch_pack,
+    _scratch,
+    _stream,
     adjoint_sweep,
     bf16_round,
     chain_forward,
-    chain_geometry,
     chain_of,
     chain_wgrad_plain,
     check_card,
+    entry,
     ga_forward,
-    pack_chain,
     prepare_backward,
     reverse_sweep,
     tangent_backward,
@@ -101,7 +106,7 @@ from multimodalstudio_tpu_torch.ops.kernels.slot_fused import PEncoding, pe_scal
 
 KERNEL = build.register(
     "fused_sdf_chain",
-    source="multimodalstudio_tpu_torch/csrc/sdf_chain.cu",
+    source="multimodalstudio_tpu_torch/csrc/adj_fwd.cu",
     replaces="multimodalstudio_tpu/ops/pallas/fused_mlp.py:362",
 )
 BWD_KERNEL = build.register(
@@ -111,7 +116,7 @@ BWD_KERNEL = build.register(
 )
 ADJ_KERNEL = build.register(
     "fused_chain_adjoint",
-    source="multimodalstudio_tpu_torch/csrc/sdf_chain.cu",
+    source="multimodalstudio_tpu_torch/csrc/adj_fwd.cu",
     replaces="multimodalstudio_tpu/ops/pallas/fused_mlp.py:362",
 )
 ADJ_BWD_KERNEL = build.register(
@@ -121,7 +126,7 @@ ADJ_BWD_KERNEL = build.register(
 )
 JVP_KERNEL = build.register(
     "fused_sdf_chain_jvp",
-    source="multimodalstudio_tpu_torch/csrc/fused_mlp.cu",
+    source="multimodalstudio_tpu_torch/csrc/tangent_fwd.cu",
     replaces="multimodalstudio_tpu/ops/pallas/fused_mlp.py:265",
 )
 JVP_BWD_KERNEL = build.register(
@@ -247,64 +252,34 @@ def fused_chain_adjoint_bwd_tile_plain(x, weights, biases, gy, ga, *, skip=(),
     return ghin.to(torch.bfloat16), a, b, gbs, col
 
 
-class _CardArgs:
-    """The packed operands and geometry arguments every entry point of
-    csrc/sdf_chain.cu takes first: the chain input (K4's positions [N, 3]
-    f32, the encoding of width d_in built in the kernel; K5's x [N, d_in]
-    bf16), the packed chain and its geometry; `keep` holds the tensors the
-    pointers refer to."""
-
-    def __init__(self, x, d_in, weights, biases, skip, activation, beta):
-        if x.device.type != "cuda":
-            raise ValueError(f"adjoint chain: unsupported device {x.device}")
-        build.check_layers(len(weights), "adjoint chain")
-        self.n = x.shape[0]
-        self.in_dims, self.out_dims, p0, self.hidden = chain_geometry(d_in, weights, skip)
-        wpack, bpack = pack_chain(weights, biases, self.in_dims, self.out_dims, self.hidden, skip)
-        self.keep = (x, wpack, bpack)
-        self.args = [
-            build.ptr(x), self.n, build.ptr(wpack), build.ptr(bpack), len(weights),
-            build.int_array(self.in_dims), build.int_array(self.out_dims),
-            sum(1 << l for l in skip), self.hidden, p0, ACTIVATIONS[activation], 2.0 / beta,
-        ]
-        self.stream = build.stream_of(x)
-
-    def scratch(self):
-        return build.persistent_scratch(
-            "sdf_chain", "mms_sdf_chain_slab", (len(self.in_dims), self.hidden),
-            self.keep[0].device, self.n)
-
-
-def _k4_args(positions, weights, biases, skip, activation, beta, pe):
-    pos = positions.float().contiguous()
-    ca = _CardArgs(pos, 3 + 6 * len(pe), weights, biases, skip, activation, beta)
-    ca.args += [len(pe), build.float_array(pe)]
-    return ca
-
-
-_CHAIN_TYPES = ("ptr", "int", "ptr", "ptr", "int", "ptr", "ptr", "int", "int", "int", "int",
-                "float")
-_K4_TYPES = _CHAIN_TYPES + ("int", "ptr")  # pe_freqs, pe_scale
-_K5_TYPES = _CHAIN_TYPES + ("int", "int")  # d_in, channel
+def _sdf_outputs(n, d_out, dev):
+    """K4's and K4j's outputs: sdf [N] f32, geo [N, D_out-1] bf16, grad [N, 3] f32."""
+    return (torch.empty(n, dtype=torch.float32, device=dev),
+            torch.empty((n, d_out - 1), dtype=torch.bfloat16, device=dev),
+            torch.empty((n, 3), dtype=torch.float32, device=dev))
 
 
 def _launch_fwd(positions, weights, biases, skip, activation, beta, pe):
-    """K4's forward kernel: (sdf, geo, grad)."""
-    ca = _k4_args(positions, weights, biases, skip, activation, beta, pe)
-    dev, n = positions.device, ca.n
-    geo_width = weights[-1].shape[1] - 1
-    sdf = torch.empty(n, dtype=torch.float32, device=dev)
-    geo = torch.empty((n, geo_width), dtype=torch.bfloat16, device=dev)
-    grad = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    if n:
-        scratch, ctas = ca.scratch()
-        fn = build.function("sdf_chain", "mms_sdf_chain_fwd", *_K4_TYPES, "ptr", "ptr", "int",
-                            "ptr", "ptr", "int", "ptr")
-        status = fn(*ca.args, build.ptr(sdf), build.ptr(geo), geo_width, build.ptr(grad),
-                    build.ptr(scratch), ctas, ca.stream)
-        build.check(status, "fused_sdf_chain")
-        KERNEL.launches += 1
-    return sdf, geo, grad
+    """K4's forward on the card: the pack of the weight images (the backward
+    images included: the adjoint sweep reads them, and the call's backward
+    reuses them), then the pass, two device operations. Returns (sdf, geo,
+    grad, the Packed images or None for N = 0)."""
+    check_card(positions, activation, len(weights), "fused_sdf_chain")
+    pos = positions.float().contiguous()
+    layout, geom = chain_of(3 + 6 * len(pe), weights, skip, activation, beta, adjoint=True)
+    n, dev = pos.shape[0], pos.device
+    sdf, geo, grad = _sdf_outputs(n, layout.d_out, dev)
+    if n == 0:
+        return sdf, geo, grad, None
+    packed = _launch_pack(layout, geom, weights, biases, True)
+    scratch = _scratch("mms_adj_fwd_bytes", geom, dev, n)
+    status = entry("mms_sdf_chain_fwd")(
+        ctypes.byref(geom), pos.data_ptr(), n, len(pe), build.float_array(pe),
+        packed.wfw.data_ptr(), packed.wbw.data_ptr(), packed.bpk.data_ptr(), sdf.data_ptr(),
+        geo.data_ptr(), geo.shape[1], grad.data_ptr(), scratch.data_ptr(), _stream(dev))
+    build.check(status, "fused_sdf_chain")
+    KERNEL.launches += 1
+    return sdf, geo, grad, packed
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -314,11 +289,12 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def sdf_bwd_card(positions, weights, biases, skip, activation, beta, pe, gsdf, ggeo, g3,
-                 count=None):
+                 count=None, packed=None):
     """K4's backward on the card, prepared (N > 0): (Backward, d_pos), the pass
     writing d_pos [N, 3] f32, gb and the last layer's column term of gW and
-    leaving the A and B stacks in scratch, chain_wgrad adding the stacked gW.
-    count (an int64 tensor or None) receives the gW atomics of both."""
+    leaving the A and B stacks in scratch, chain_wgrad adding the stacked gW;
+    on the forward's images `packed` where given. count (an int64 tensor or
+    None) receives the gW atomics of both."""
     check_card(positions, activation, len(weights), "fused_sdf_chain backward")
     pos = positions.float().contiguous()
     n = pos.shape[0]
@@ -336,21 +312,24 @@ def sdf_bwd_card(positions, weights, biases, skip, activation, beta, pe, gsdf, g
                 gb.data_ptr(), scratch.data_ptr(), cp)
 
     bw = prepare_backward(layout, geom, weights, biases, pos.device, ("mms_adj_bwd_bytes", n),
-                          pass_args, -(-n // 64), "fused_sdf_chain backward", count)
+                          pass_args, -(-n // 64), "fused_sdf_chain backward", count,
+                          packed=packed)
     bw.keep = (pos, pe_arr, *cot)
     return bw, d_pos
 
 
-def _launch_bwd(positions, weights, biases, skip, activation, beta, pe, gsdf, ggeo, g3):
-    """K4's backward: the per-tile pass and chain_wgrad over its stacks (and
-    the pack of the weight images). Returns (d_pos, gW list, gb list)."""
+def _launch_bwd(positions, weights, biases, skip, activation, beta, pe, gsdf, ggeo, g3,
+                packed=None):
+    """K4's backward: the per-tile pass and chain_wgrad over its stacks (on
+    the forward's images `packed`, or a pack of its own). Returns (d_pos, gW
+    list, gb list)."""
     if positions.shape[0] == 0:
         check_card(positions, activation, len(weights), "fused_sdf_chain backward")
         return (torch.empty((0, 3), device=positions.device),
                 *zero_grads(chain_of(3 + 6 * len(pe), weights, skip, activation, beta, True)[0],
                             positions.device))
     bw, d_pos = sdf_bwd_card(positions, weights, biases, skip, activation, beta, pe, gsdf, ggeo,
-                             g3)
+                             g3, packed=packed)
     bw.tile()
     BWD_KERNEL.launches += 1
     bw.wgrad()
@@ -409,29 +388,37 @@ def fused_sdf_chain_jvp_bwd_tile_plain(positions, weights, biases, gsdf, ggeo, g
     return enc.jt(ghx) + hess, hins, gzs, gbs
 
 
-def _launch_jvp_fwd(positions, weights, biases, skip, activation, beta, pe):
-    """K4j's forward kernel: (sdf, geo, grad)."""
-    ca = _k4_args(positions, weights, biases, skip, activation, beta, pe)
-    dev, n = positions.device, ca.n
-    geo_width = weights[-1].shape[1] - 1
-    sdf = torch.empty(n, dtype=torch.float32, device=dev)
-    geo = torch.empty((n, geo_width), dtype=torch.bfloat16, device=dev)
-    grad = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    if n:
-        fn = build.function("fused_mlp", "mms_sdf_chain_jvp_fwd", *_K4_TYPES, "ptr", "ptr", "int",
-                            "ptr", "ptr")
-        status = fn(*ca.args, build.ptr(sdf), build.ptr(geo), geo_width, build.ptr(grad),
-                    ca.stream)
-        build.check(status, "fused_sdf_chain (jvp mode)")
-        JVP_KERNEL.launches += 1
-    return sdf, geo, grad
+def _launch_jvp_fwd(positions, weights, biases, skip, activation, beta, pe,
+                    backward_images=False):
+    """K4j's forward on the card: the pack of the weight images (with the
+    backward images for `backward_images`, which the call's backward reuses)
+    and the tangent pass, two device operations. Returns (sdf, geo, grad, the
+    Packed images or None for N = 0)."""
+    check_card(positions, activation, len(weights), "fused_sdf_chain (jvp mode)")
+    pos = positions.float().contiguous()
+    layout, geom = chain_of(3 + 6 * len(pe), weights, skip, activation, beta)
+    n, dev = pos.shape[0], pos.device
+    sdf, geo, grad = _sdf_outputs(n, layout.d_out, dev)
+    if n == 0:
+        return sdf, geo, grad, None
+    packed = _launch_pack(layout, geom, weights, biases, backward_images)
+    scratch = _scratch("mms_tangent_fwd_bytes", geom, dev, n, 3)
+    status = entry("mms_sdf_chain_jvp_fwd")(
+        ctypes.byref(geom), pos.data_ptr(), n, len(pe), build.float_array(pe),
+        packed.wfw.data_ptr(), packed.bpk.data_ptr(), sdf.data_ptr(), geo.data_ptr(),
+        geo.shape[1], grad.data_ptr(), scratch.data_ptr() if scratch.numel() else None,
+        _stream(dev))
+    build.check(status, "fused_sdf_chain (jvp mode)")
+    JVP_KERNEL.launches += 1
+    return sdf, geo, grad, packed
 
 
 def jvp_bwd_card(positions, weights, biases, skip, activation, beta, pe, gsdf, ggeo, g3,
-                 count=None):
+                 count=None, packed=None):
     """K4j's backward on the card, prepared (N > 0): (Backward, d_pos), the
     pass writing d_pos [N, 3] f32 and gb and leaving the Hin and G stacks in
-    scratch, chain_wgrad writing gW."""
+    scratch, chain_wgrad writing gW; on the forward's images `packed` where
+    given."""
     check_card(positions, activation, len(weights), "fused_sdf_chain (jvp mode) backward")
     pos = positions.float().contiguous()
     n = pos.shape[0]
@@ -449,21 +436,24 @@ def jvp_bwd_card(positions, weights, biases, skip, activation, beta, pe, gsdf, g
 
     bw = prepare_backward(layout, geom, weights, biases, pos.device,
                           ("mms_tangent_bwd_bytes", n, 3), pass_args,
-                          -(-n // tangent_samples(3)), "fused_sdf_chain (jvp mode) backward", count)
+                          -(-n // tangent_samples(3)), "fused_sdf_chain (jvp mode) backward", count,
+                          packed=packed)
     bw.keep = (pos, pe_arr, *cot)
     return bw, d_pos
 
 
-def _launch_jvp_bwd(positions, weights, biases, skip, activation, beta, pe, gsdf, ggeo, g3):
-    """K4j's backward: the per-tile pass and chain_wgrad over its stacks (and
-    the pack of the weight images). Returns (d_pos, gW list, gb list)."""
+def _launch_jvp_bwd(positions, weights, biases, skip, activation, beta, pe, gsdf, ggeo, g3,
+                    packed=None):
+    """K4j's backward: the per-tile pass and chain_wgrad over its stacks (on
+    the forward's images `packed`, or a pack of its own). Returns (d_pos, gW
+    list, gb list)."""
     if positions.shape[0] == 0:
         check_card(positions, activation, len(weights), "fused_sdf_chain (jvp mode) backward")
         return (torch.empty((0, 3), device=positions.device),
                 *zero_grads(chain_of(3 + 6 * len(pe), weights, skip, activation, beta)[0],
                             positions.device))
     bw, d_pos = jvp_bwd_card(positions, weights, biases, skip, activation, beta, pe, gsdf, ggeo,
-                             g3)
+                             g3, packed=packed)
     bw.tile()
     JVP_BWD_KERNEL.launches += 1
     bw.wgrad()
@@ -481,15 +471,20 @@ _ROUTES = {
 
 class _SdfChain(torch.autograd.Function):
     """K4 or K4j with its backward (chain_fwd / chain_bwd :901-916,
-    :1004-1022): saves the positions and parameters only; the backward
-    recomputes per tile."""
+    :1004-1022): saves the positions and parameters, and on the card the
+    images the forward's pack wrote (backward images included); the
+    backward recomputes per tile on those images."""
 
     @staticmethod
     def forward(ctx, cfg, positions, *params):
         ws, bs = params[: len(params) // 2], params[len(params) // 2 :]
         ctx.cfg = cfg
         ctx.save_for_backward(positions, *params)
-        return _forward(positions, ws, bs, *cfg)
+        ctx.packed = None
+        out = _forward(positions, ws, bs, *cfg, backward_images=True)
+        if positions.device.type != "cpu":
+            *out, ctx.packed = out
+        return tuple(out)
 
     @staticmethod
     def backward(ctx, gsdf, ggeo, g3):
@@ -502,17 +497,24 @@ class _SdfChain(torch.autograd.Function):
             d_pos, gws, gbs = plain_bwd(positions, ws, bs, gsdf, ggeo, g3, **kw)
         else:
             d_pos, gws, gbs = launch_bwd(positions, ws, bs, kw["skip"], kw["activation"],
-                                         kw["beta"], pe, gsdf, ggeo, g3)
+                                         kw["beta"], pe, gsdf, ggeo, g3, ctx.packed)
+        ctx.packed = None
         return (None, d_pos.to(positions.dtype), *gws, *gbs)
 
 
-def _forward(positions, weights, biases, kw, pe, mode):
+def _forward(positions, weights, biases, kw, pe, mode, backward_images=False):
     """The plain version for a CPU tensor, the kernel for any other (which
-    raises off a card)."""
+    raises off a card); with `backward_images`, the kernel's outputs and the
+    images of its pack, which the backward reuses."""
     plain, _, launch, _ = _ROUTES[mode]
     if positions.device.type == "cpu":
         return plain(positions, weights, biases, **kw)
-    return launch(positions, weights, biases, kw["skip"], kw["activation"], kw["beta"], pe)
+    if mode == "jvp":
+        out = launch(positions, weights, biases, kw["skip"], kw["activation"], kw["beta"], pe,
+                     backward_images)
+    else:
+        out = launch(positions, weights, biases, kw["skip"], kw["activation"], kw["beta"], pe)
+    return out if backward_images else out[:3]
 
 
 def fused_sdf_chain(
@@ -580,36 +582,38 @@ def fused_chain_adjoint_bwd_plain(x, weights, biases, gy, ga, *, skip=(), activa
     return ghin.to(torch.bfloat16), gws, gbs
 
 
-def _k5_args(x, weights, biases, skip, activation, beta, channel):
-    d_in = x.shape[1]
-    ca = _CardArgs(x.to(torch.bfloat16).contiguous(), d_in, weights, biases, skip, activation,
-                   beta)
-    ca.args += [d_in, channel]
-    return ca
-
-
 def _launch_adj_fwd(x, weights, biases, skip, activation, beta, channel):
-    """K5's forward kernel: (y, adj)."""
-    ca = _k5_args(x, weights, biases, skip, activation, beta, channel)
-    dev, n, d_out = x.device, ca.n, weights[-1].shape[1]
-    y = torch.empty((n, d_out), dtype=torch.bfloat16, device=dev)
-    adj = torch.empty((n, x.shape[1]), dtype=torch.float32, device=dev)
-    if n:
-        scratch, ctas = ca.scratch()
-        fn = build.function("sdf_chain", "mms_chain_adj_fwd", *_K5_TYPES, "ptr", "int", "ptr",
-                            "ptr", "int", "ptr")
-        status = fn(*ca.args, build.ptr(y), d_out, build.ptr(adj), build.ptr(scratch), ctas,
-                    ca.stream)
-        build.check(status, "fused_chain_adjoint")
-        ADJ_KERNEL.launches += 1
-    return y, adj
+    """K5's forward on the card: the pack of the weight images (the backward
+    images included: the adjoint sweep reads them, and the call's backward
+    reuses them), then the pass, two device operations. x is read as it is
+    (f32 or bf16) and rounded to bf16 in the kernel. Returns (y, adj, the
+    Packed images or None for N = 0)."""
+    check_card(x, activation, len(weights), "fused_chain_adjoint")
+    layout, geom = chain_of(x.shape[1], weights, skip, activation, beta, adjoint=True)
+    n, d_in, dev = x.shape[0], x.shape[1], x.device
+    y = torch.empty((n, layout.d_out), dtype=torch.bfloat16, device=dev)
+    adj = torch.empty((n, d_in), dtype=torch.float32, device=dev)
+    if n == 0:
+        return y, adj, None
+    xc = _card_operand(x)
+    packed = _launch_pack(layout, geom, weights, biases, True)
+    scratch = _scratch("mms_adj_fwd_bytes", geom, dev, n)
+    status = entry("mms_chain_adj_fwd")(
+        ctypes.byref(geom), xc.data_ptr(), int(xc.dtype == torch.bfloat16), n, channel,
+        packed.wfw.data_ptr(), packed.wbw.data_ptr(), packed.bpk.data_ptr(), y.data_ptr(),
+        layout.d_out, adj.data_ptr(), scratch.data_ptr(), _stream(dev))
+    build.check(status, "fused_chain_adjoint")
+    ADJ_KERNEL.launches += 1
+    return y, adj, packed
 
 
-def adj_bwd_card(x, weights, biases, skip, activation, beta, channel, gy, ga, count=None):
+def adj_bwd_card(x, weights, biases, skip, activation, beta, channel, gy, ga, count=None,
+                 packed=None):
     """K5's backward on the card, prepared (N > 0): (Backward, gx), the pass
     writing gx [N, D_in] bf16, gb and the last layer's column term of gW and
-    leaving the A and B stacks in scratch, chain_wgrad adding the stacked gW.
-    count (an int64 tensor or None) receives the gW atomics of both."""
+    leaving the A and B stacks in scratch, chain_wgrad adding the stacked gW;
+    on the forward's images `packed` where given. count (an int64 tensor or
+    None) receives the gW atomics of both."""
     check_card(x, activation, len(weights), "fused_chain_adjoint backward")
     n, d_in = x.shape
     layout, geom = chain_of(d_in, weights, skip, activation, beta, adjoint=True)
@@ -625,20 +629,23 @@ def adj_bwd_card(x, weights, biases, skip, activation, beta, channel, gy, ga, co
                 scratch.data_ptr(), cp)
 
     bw = prepare_backward(layout, geom, weights, biases, x.device, ("mms_adj_bwd_bytes", n),
-                          pass_args, -(-n // 64), "fused_chain_adjoint backward", count)
+                          pass_args, -(-n // 64), "fused_chain_adjoint backward", count,
+                          packed=packed)
     bw.keep = (xb, *cot)
     return bw, gx
 
 
-def _launch_adj_bwd(x, weights, biases, skip, activation, beta, channel, gy, ga):
-    """K5's backward: the per-tile pass and chain_wgrad over its stacks (and
-    the pack of the weight images). Returns (gx, gW list, gb list)."""
+def _launch_adj_bwd(x, weights, biases, skip, activation, beta, channel, gy, ga, packed=None):
+    """K5's backward: the per-tile pass and chain_wgrad over its stacks (on
+    the forward's images `packed`, or a pack of its own). Returns (gx, gW
+    list, gb list)."""
     if x.shape[0] == 0:
         check_card(x, activation, len(weights), "fused_chain_adjoint backward")
         return (torch.empty(x.shape, dtype=torch.bfloat16, device=x.device),
                 *zero_grads(chain_of(x.shape[1], weights, skip, activation, beta, True)[0],
                             x.device))
-    bw, gx = adj_bwd_card(x, weights, biases, skip, activation, beta, channel, gy, ga)
+    bw, gx = adj_bwd_card(x, weights, biases, skip, activation, beta, channel, gy, ga,
+                          packed=packed)
     bw.tile()
     ADJ_BWD_KERNEL.launches += 1
     bw.wgrad()
@@ -648,7 +655,7 @@ def _launch_adj_bwd(x, weights, biases, skip, activation, beta, channel, gy, ga)
 
 def _adj_forward(x, weights, biases, kw):
     """The plain version for a CPU tensor, the kernel for any other (which
-    raises off a card)."""
+    raises off a card): (y, adj), and on the card the images of its pack."""
     if x.device.type == "cpu":
         return fused_chain_adjoint_plain(x, weights, biases, **kw)
     return _launch_adj_fwd(x, weights, biases, kw["skip"], kw["activation"], kw["beta"],
@@ -656,15 +663,20 @@ def _adj_forward(x, weights, biases, kw):
 
 
 class _ChainAdjoint(torch.autograd.Function):
-    """K5 with its backward (chain_fwd / chain_bwd :1004-1022): saves only x
-    and the parameters; the backward recomputes per tile."""
+    """K5 with its backward (chain_fwd / chain_bwd :1004-1022): saves x and
+    the parameters, and on the card the images the forward's pack wrote; the
+    backward recomputes per tile on those images."""
 
     @staticmethod
     def forward(ctx, kw, x, *params):
         ws, bs = params[: len(params) // 2], params[len(params) // 2 :]
         ctx.kw = kw
         ctx.save_for_backward(x, *params)
-        return _adj_forward(x, ws, bs, kw)
+        ctx.packed = None
+        out = _adj_forward(x, ws, bs, kw)
+        if x.device.type != "cpu":
+            *out, ctx.packed = out
+        return tuple(out)
 
     @staticmethod
     def backward(ctx, gy, ga):
@@ -676,7 +688,8 @@ class _ChainAdjoint(torch.autograd.Function):
             gx, gws, gbs = fused_chain_adjoint_bwd_plain(x, ws, bs, gy, ga, **kw)
         else:
             gx, gws, gbs = _launch_adj_bwd(x, ws, bs, kw["skip"], kw["activation"], kw["beta"],
-                                           kw["channel"], gy, ga)
+                                           kw["channel"], gy, ga, ctx.packed)
+        ctx.packed = None
         return (None, gx.to(x.dtype), *gws, *gbs)
 
 
@@ -697,10 +710,12 @@ def fused_chain_adjoint(
     through K5's backward."""
     skip = tuple(sorted(skip))
     _check(weights, skip, activation)
-    chain_geometry(x.shape[1], weights, skip)  # raises on a width that does not fit the chain
+    if x.shape[1] != weights[0].shape[0]:
+        raise ValueError(f"fused_chain_adjoint: input width {x.shape[1]} != layer 0's "
+                         f"{weights[0].shape[0]}")
     if not 0 <= channel < weights[-1].shape[1]:
         raise ValueError(f"fused_chain_adjoint: channel {channel} out of range")
     kw = dict(skip=skip, activation=activation, beta=beta, channel=channel)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *weights, *biases)):
         return _ChainAdjoint.apply(kw, x, *weights, *biases)
-    return _adj_forward(x, weights, biases, kw)
+    return _adj_forward(x, weights, biases, kw)[:2]

@@ -15,11 +15,12 @@ mask, the in-kernel NeRF encoding and the dense chain:
   struct is built once per (grid, levels, radius, encoding).
 * `fused_slot_sdf_chain` (K3) also emits the geometric features and d sdf/dx
   from one reverse sweep of the chain. It replaces _fused_fwd_kernel (:353),
-  reached through fused_slot_sdf_chain (:1197). Its kernel
-  (csrc/slot_fused.cu) is the first design: wmma with weights from L2; a
-  tile keeps the chain's residual stacks in shared memory, or, where they do
-  not fit (deeper chains), in a per-CTA slab of device scratch that a
-  persistent grid reuses tile after tile.
+  reached through fused_slot_sdf_chain (:1197). Its kernel is the adjoint
+  forward pass on K1's blocks (csrc/adj_fwd.cuh, shared with K4 and K5) with
+  the grid and the encoding in front: the pack of the chain (backward images
+  included: the adjoint sweep reads them) and the pass, two device
+  operations a call; the hidden pre-activations live in a per-slot slab of
+  device memory between the chain and the sweep.
 
 The bf16 table (768 KB at the flagship size) stays in L2, and each (sample,
 level) reads one 32-byte entry.
@@ -54,14 +55,18 @@ the same kernel in a training mode that also writes the residuals the
 backward reads (bf16 pre-activations zs; for K3 the adjoint-sweep rows ss
 and the f32 adjoint adj, slot_fused.py:1092-1094). The backwards:
 
-* K2's (csrc/slot_bwd.cuh via csrc/slot_fused_bwd.cu) replaces
+* K2's (the value mode of K3's pass, csrc/slot_chain_bwd.cu, then
+  chain_wgrad over its stacks: one fill of gW, gb and the table gradient,
+  the pass and chain_wgrad on the forward's images, and the last layer's
+  gW and gb copied from the sdf column into the chain's shapes) replaces
   _value_bwd_kernel (:1370, via op_bwd :1737): one reverse sweep from the
   sdf cotangent, the grid slice of the input cotangent scattered into the
   table through the bf16 trilerp weights, and the trilerp weight
   cotangent folded into d pos (_fold_pos_cotangent :330).
 * K3's (csrc/slot_chain_bwd.cu, a per-tile pass on K1's building blocks,
-  then chain_wgrad over its stacks: the pack, one fill of gW, gb and the
-  table gradient, the pass and chain_wgrad, four device operations)
+  then chain_wgrad over its stacks: one fill of gW, gb and the table
+  gradient, the pass and chain_wgrad on the forward's images, three device
+  operations)
   replaces _fused_bwd_kernel (:474, via op_bwd :1149): reverse over
   reverse, since the outputs include d sdf / dx. The cotangent of the
   adjoint (through the PE and grid tangents) runs a forward chain that
@@ -78,22 +83,23 @@ put on the gradients at other places.
 
 MMS_SLOT_BWD_SPLIT=1, read at call time as the JAX package reads it
 (slot_fused.py:1274, 1851), selects the split backward for chains of at
-least 2 layers. The forward then also keeps the chain input x0 (bf16
-[N, P0], :1028-1032, 1626-1630), and the backward runs in three parts:
+least 2 layers. The plain forward then also keeps the chain input x0 (bf16
+[N, P0], :1028-1032, 1626-1630), which the plain weight gradients read
+(the card's pass rebuilds it), and the backward runs in three parts:
 
-* (a) a per-sample pass replacing _value_bwd_sample_kernel (:1485, K2s;
-  csrc/slot_split.cu) and _bwd_sample_kernel (:758, K3s; K3's pass of
-  csrc/slot_chain_bwd.cu with its split flag): everything the merged
+* (a) a per-sample pass replacing _value_bwd_sample_kernel (:1485, K2s)
+  and _bwd_sample_kernel (:758, K3s), both csrc/slot_chain_bwd.cu's pass
+  with its split flag (K2s's in value mode): everything the merged
   backward does per sample, without the table atomics. It writes d pos and
   each (sample, level)'s table cotangent compact as [N, K, 8F], bf16 (f32
   for an f32 table; the TPU's lane-padded [N, K*128] is a mechanism of its
-  one-hot MXU scatter); K2s also the gz [L-1, N, H] bf16 stack;
+  one-hot MXU scatter);
 * (b) a scatter of that cotangent into the f32 table gradient
   (csrc/slot_split.cu, replacing _bwd_scatter_kernel :925), recomputing
   each sample's entry from its position;
 * (c) the weight gradients (_wgrads_xla :938-977, _value_wgrads_xla
-  :1567-1590, XLA in the JAX package): K2s's as PyTorch matrix products
-  over its stack, K3s's chain_wgrad over its pass's stacks.
+  :1567-1590, XLA in the JAX package): chain_wgrad over the pass's stacks
+  (split_weight_grads, their plain version, keeps XLA's products).
 
 The split differs from the merged backward in one rounding: gb of a hidden
 layer sums the bf16 gz, where the merged one sums the f32 gz. K3s's gW at
@@ -117,19 +123,19 @@ from multimodalstudio_tpu_torch.ops.kernels import build
 from multimodalstudio_tpu_torch.ops.kernels.fused_mlp import (
     ACTIVATIONS,
     _launch_pack,
+    _scratch,
+    _stream,
     act_pair,
     adjoint_sweep,
     bf16_round,
     chain_forward,
-    chain_geometry,
     chain_of,
     entry,
     ga_forward,
     layer_input,
-    pack_chain,
     prepare_backward,
     reverse_sweep,
-    unpack_grads,
+    rup16,
     zero_grads,
 )
 from multimodalstudio_tpu_torch.ops.kernels.slot_grid import (
@@ -154,13 +160,13 @@ def _register(name: str, f32_name: str, source: str, line: int):
 VALUE_KERNEL, VALUE_F32_KERNEL = _register(
     "fused_slot_sdf_value", "fused_slot_sdf_value_f32", "slot_value.cu", 1307)
 CHAIN_KERNEL, CHAIN_F32_KERNEL = _register(
-    "fused_slot_sdf_chain", "fused_slot_sdf_chain_f32", "slot_fused.cu", 353)
+    "fused_slot_sdf_chain", "fused_slot_sdf_chain_f32", "adj_fwd.cu", 353)
 VALUE_BWD_KERNEL, VALUE_BWD_F32_KERNEL = _register(
-    "fused_slot_sdf_value_bwd", "fused_slot_sdf_value_f32_bwd", "slot_fused_bwd.cu", 1370)
+    "fused_slot_sdf_value_bwd", "fused_slot_sdf_value_f32_bwd", "slot_chain_bwd.cu", 1370)
 CHAIN_BWD_KERNEL, CHAIN_BWD_F32_KERNEL = _register(
     "fused_slot_sdf_chain_bwd", "fused_slot_sdf_chain_f32_bwd", "slot_chain_bwd.cu", 474)
 VALUE_SPLIT_KERNEL, VALUE_SPLIT_F32_KERNEL = _register(
-    "fused_slot_sdf_value_bwd_sample", "fused_slot_sdf_value_f32_bwd_sample", "slot_split.cu",
+    "fused_slot_sdf_value_bwd_sample", "fused_slot_sdf_value_f32_bwd_sample", "slot_chain_bwd.cu",
     1485)
 CHAIN_SPLIT_KERNEL, CHAIN_SPLIT_F32_KERNEL = _register(
     "fused_slot_sdf_chain_bwd_sample", "fused_slot_sdf_chain_f32_bwd_sample", "slot_chain_bwd.cu",
@@ -171,6 +177,10 @@ SCATTER_KERNEL, SCATTER_F32_KERNEL = _register(
 CHAIN_WGRAD_KERNEL = build.register(
     "fused_slot_sdf_chain_wgrad", source="multimodalstudio_tpu_torch/csrc/fused_chain.cu",
     replaces="multimodalstudio_tpu/ops/pallas/slot_fused.py:621")
+# and on the stacks of K2's backward pass (its value mode), merged and split
+VALUE_WGRAD_KERNEL = build.register(
+    "fused_slot_sdf_value_wgrad", source="multimodalstudio_tpu_torch/csrc/fused_chain.cu",
+    replaces="multimodalstudio_tpu/ops/pallas/slot_fused.py:1448")
 
 
 def _count(kernels, gspec: SlotGridSpec) -> None:
@@ -671,11 +681,6 @@ def slot_sdf_chain_bwd_split_plain(
     return d_pos, d_table, gws, gbs
 
 
-# the arguments every slot kernel entry point takes first (csrc/slot_bwd.cuh
-# SLOT_COMMON_PARAMS): operands, chain, grid and encoding, skip mask, table type
-_COMMON_TYPES = ("ptr", "int", "ptr", "ptr", "ptr", "ptr", "int", "ptr", "ptr", "int", "int",
-                 "int", "float", "int", "int", "int", "ptr", "ptr", "ptr", "ptr", "float",
-                 "float", "int", "int", "ptr", "int", "int")
 _GRID_TYPES = ("int", "int", "int", "ptr", "ptr", "ptr", "ptr", "float", "float")
 
 
@@ -696,68 +701,6 @@ def _grid_args(gspec: SlotGridSpec, k: int, radius: float) -> list:
     row offsets, radius, the clip bound."""
     shift, *per_level = _grid_geometry(gspec, k)
     return [k, gspec.feats, shift, *map(build.int_array, per_level), float(radius), CLIP_HI]
-
-
-class _CardArgs:
-    """The packed operands and the geometry arguments every slot kernel
-    entry point takes first (positions, table, mask, weights, grid and
-    encoding constants, skip mask, table type); `keep` holds the tensors
-    the pointers refer to."""
-
-    def __init__(self, positions, table, weights, biases, gspec, k, radius, pe, activation, beta,
-                 mask, skip=()):
-        self.skip = tuple(sorted(skip))
-        _check_card_value(positions, table, weights, gspec, self.skip)
-        self.f32 = gspec.table_dtype == "f32"
-        self.n, self.k, self.feats = positions.shape[0], k, gspec.feats
-        self.d_in = value_d_in(gspec, pe)
-        self.in_dims, self.out_dims, self.p0, self.hidden = chain_geometry(self.d_in, weights,
-                                                                           self.skip)
-        wpack, bpack = pack_chain(weights, biases, self.in_dims, self.out_dims, self.hidden,
-                                  self.skip)
-        pos = positions.float().contiguous()
-        tbl = (table.float() if self.f32 else table.to(torch.bfloat16)).contiguous()
-        self.keep = (pos, tbl, mask, wpack, bpack)
-        self.args = [
-            build.ptr(pos), self.n, build.ptr(tbl), build.ptr(mask), build.ptr(wpack),
-            build.ptr(bpack), len(weights), build.int_array(self.in_dims),
-            build.int_array(self.out_dims), self.hidden, self.p0, ACTIVATIONS[activation],
-            2.0 / beta, *_grid_args(gspec, k, radius), int(gspec.interpolation == "Smoothstep"),
-            len(pe), build.float_array(pe), sum(1 << l for l in self.skip), int(self.f32),
-        ]
-        self.stream = build.stream_of(pos)
-
-    def grads(self, weights, dev):
-        """Zeroed packed gradient buffers (gw, gb) and their unpacker."""
-        gw = torch.zeros(sum(a * b for a, b in zip(self.in_dims, self.out_dims)), device=dev)
-        gb = torch.zeros(sum(self.out_dims), device=dev)
-        return gw, gb, lambda: unpack_grads(gw, gb, weights, self.in_dims, self.out_dims,
-                                            self.hidden, self.skip)
-
-    def stack(self, n_layers, dev):
-        """An empty bf16 stack [L-1, N, H]."""
-        return torch.empty((n_layers - 1, self.n, self.hidden), dtype=torch.bfloat16, device=dev)
-
-    def _scratch(self, library: str, slab_fn: str, args):
-        """(scratch, max_ctas) for a kernel's residual stacks: (None, 0) when
-        they fit in shared memory beside the tile's buffers (slab_fn gives 0),
-        else one slab of device scratch per CTA of a persistent grid."""
-        slab = build.function(library, slab_fn, *["int"] * len(args), restype=ctypes.c_longlong)
-        if not slab(*args):
-            return None, 0
-        return build.persistent_scratch(library, slab_fn, args, self.keep[0].device, self.n)
-
-    def fwd_scratch(self):
-        """K3's forward keeps the z stack."""
-        return self._scratch("slot_fused", "mms_slot_fwd_slab", (
-            len(self.in_dims), self.hidden, self.p0, self.k, self.feats, self.out_dims[-1],
-            int(bool(self.skip)), int(self.f32)))
-
-    def bwd_scratch(self, library: str):
-        """K2's backwards keep the z stack."""
-        return self._scratch(library, "mms_slot_bwd_slab", (
-            len(self.in_dims), self.hidden, self.p0, self.k, self.feats, self.out_dims[-1],
-            int(bool(self.skip)), int(self.f32)))
 
 
 MAX_PE = 16  # csrc/enc.cuh MAXPE
@@ -831,15 +774,15 @@ def value_d_in(gspec: SlotGridSpec, pe) -> int:
 
 
 def value_outputs(n: int, weights, gspec: SlotGridSpec, pe, dev, resid=False, x0=False):
-    """K2's outputs as its kernel writes them, in the formats the unchanged
-    backwards read: sdf [N] f32; with `resid` the pre-activations zs
-    [L-1, N, H] bf16, row-major (csrc/slot_bwd.cuh); with `x0` the chain
-    input [N, rup16(d_in)] bf16, zero past d_in (the split's products);
-    else None."""
+    """K2's outputs as its kernel writes them, in the formats its backward
+    reads: sdf [N] f32; with `resid` the pre-activations zs [L-1, N, H]
+    bf16, row-major (csrc/slot_chain_bwd.cu's value mode); with `x0` the
+    chain input [N, rup16(d_in)] bf16, zero past d_in (the plain split's
+    products); else None."""
     hidden = weights[0].shape[1]
     zs = (torch.empty((len(weights) - 1, n, hidden), dtype=torch.bfloat16, device=dev)
           if resid else None)
-    x0_width = -(-value_d_in(gspec, pe) // 16) * 16
+    x0_width = rup16(value_d_in(gspec, pe))
     x0_out = torch.empty((n, x0_width), dtype=torch.bfloat16, device=dev) if x0 else None
     return torch.empty(n, dtype=torch.float32, device=dev), zs, x0_out
 
@@ -864,20 +807,23 @@ def _value_scratch(geom, params, n: int, f32: int, dev) -> Optional[torch.Tensor
 
 
 def _launch_value(positions, table, weights, biases, gspec, k, radius, pe, activation, beta,
-                  mask, resid=False, x0=False, skip=()):
-    """K2 (K2f) on the card: K1's pack of the chain cut to its sdf column,
-    then the kernel, two device operations; returns value_outputs."""
+                  mask, resid=False, x0=False, skip=(), backward_images=False):
+    """K2 (K2f) on the card: K1's pack of the chain cut to its sdf column
+    (with the backward images for `backward_images`, which the call's
+    backward reuses), then the kernel, two device operations; returns
+    (value_outputs, the Packed images or None for N = 0)."""
     skip = tuple(sorted(skip))
     _check_card_value(positions, table, weights, gspec, skip)
     n = positions.shape[0]
     ws, bs = value_chain(weights, biases)
     layout, geom = chain_of(value_d_in(gspec, pe), ws, skip, activation, beta)
     sdf, zs, x0_out = value_outputs(n, weights, gspec, pe, positions.device, resid, x0)
+    packed = None
     if n:
         # the kernel reads the f32 parameter itself, rounding it for a bf16 table
         pos, tbl = positions.float().contiguous(), table.float().contiguous()
         params, f32 = slot_params(gspec, k, radius, pe), int(gspec.table_dtype == "f32")
-        packed = _launch_pack(layout, geom, ws, bs, False)
+        packed = _launch_pack(layout, geom, ws, bs, backward_images)
         scratch = _value_scratch(geom, params, n, f32, pos.device)
         status = entry("mms_slot_value_fwd")(
             ctypes.byref(geom), ctypes.byref(params), build.ptr(pos), n, build.ptr(tbl), f32,
@@ -886,66 +832,65 @@ def _launch_value(positions, table, weights, biases, gspec, k, radius, pe, activ
             build.ptr(scratch), build.stream_of(pos))
         build.check(status, "fused slot sdf value")
         _count((VALUE_KERNEL, VALUE_F32_KERNEL), gspec)
-    return sdf, zs, x0_out
+    return (sdf, zs, x0_out), packed
+
+
+def _launch_chain(positions, table, weights, biases, gspec, radius, pe, activation, beta, mask,
+                  resid=False, x0=False, skip=()):
+    """K3 (K3f) on the card: K1's pack of the chain (the backward images
+    included: the adjoint sweep reads them, and the call's backward reuses
+    them), then the adjoint forward pass (csrc/adj_fwd.cu), two device
+    operations. Returns ((sdf [N] f32, geo [N, D_out-1] bf16, grad [N, 3]
+    f32, and with `resid` the residuals zs, ss [L-1, N, H] bf16 and adj [N,
+    D_in] f32, with `x0` the chain input [N, rup16(d_in)] bf16, else None),
+    the Packed images or None for N = 0)."""
+    skip = tuple(sorted(skip))
+    _check_card_value(positions, table, weights, gspec, skip)
+    n, dev = positions.shape[0], positions.device
+    d_in = value_d_in(gspec, pe)
+    layout, geom = chain_of(d_in, weights, skip, activation, beta, adjoint=True)
+    sdf = torch.empty(n, dtype=torch.float32, device=dev)
+    geo = torch.empty((n, layout.d_out - 1), dtype=torch.bfloat16, device=dev)
+    grad = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    zs = ss = adj = x0_out = None
+    if resid:
+        zs = torch.empty((len(weights) - 1, n, layout.hidden), dtype=torch.bfloat16, device=dev)
+        ss = torch.empty_like(zs)
+        adj = torch.empty((n, d_in), dtype=torch.float32, device=dev)
+    if x0:
+        x0_out = torch.empty((n, rup16(d_in)), dtype=torch.bfloat16, device=dev)
+    out = (sdf, geo, grad, zs, ss, adj, x0_out)
+    if n == 0:
+        return out, None
+    pos, tbl = positions.float().contiguous(), table.float().contiguous()
+    params = slot_params(gspec, gspec.num_levels, radius, pe)
+    packed = _launch_pack(layout, geom, weights, biases, True)
+    scratch = _scratch("mms_adj_fwd_bytes", geom, dev, n)
+    status = entry("mms_slot_sdf_fwd")(
+        ctypes.byref(geom), ctypes.byref(params), pos.data_ptr(), n, tbl.data_ptr(),
+        int(gspec.table_dtype == "f32"), mask.data_ptr(), packed.wfw.data_ptr(),
+        packed.wbw.data_ptr(), packed.bpk.data_ptr(), sdf.data_ptr(), geo.data_ptr(),
+        geo.shape[1], grad.data_ptr(), build.ptr(zs), build.ptr(ss), build.ptr(adj),
+        build.ptr(x0_out), 0 if x0_out is None else x0_out.shape[1], scratch.data_ptr(),
+        _stream(dev))
+    build.check(status, "fused slot sdf")
+    _count((CHAIN_KERNEL, CHAIN_F32_KERNEL), gspec)
+    return out, packed
 
 
 def _launch(positions, table, weights, biases, gspec, k, radius, pe, activation, beta,
             mask, with_grad, resid=False, x0=False, skip=()):
     """Launch the forward kernel, K2 (_launch_value) without `with_grad`, K3
-    with it; returns (sdf, geo, grad, zs, ss, adj, x0): geo and grad without
-    `with_grad`, the backward's residuals without `resid` (ss and adj come
-    with the gradient only) and the chain input x0 [N, P0] bf16 without `x0`
-    (the split backward's residual) are None."""
-    if not with_grad:
-        sdf, zs, x0_out = _launch_value(positions, table, weights, biases, gspec, k, radius, pe,
-                                        activation, beta, mask, resid, x0, skip)
-        return sdf, None, None, zs, None, None, x0_out
-    ca = _CardArgs(positions, table, weights, biases, gspec, k, radius, pe, activation, beta, mask,
-                   skip)
-    dev, n = positions.device, ca.n
-    d_out = weights[-1].shape[1]
-    sdf = torch.empty(n, dtype=torch.float32, device=dev)
-    geo = torch.empty((n, d_out - 1), dtype=torch.bfloat16, device=dev)
-    grad = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    zs = ss = adj = x0_out = None
-    if resid:
-        zs = ca.stack(len(weights), dev)
-        ss = torch.empty_like(zs)
-        adj = torch.empty((n, ca.d_in), dtype=torch.float32, device=dev)
-    if x0:
-        x0_out = torch.empty((n, ca.p0), dtype=torch.bfloat16, device=dev)
-    if n:
-        fn = build.function("slot_fused", "mms_slot_sdf_fwd", *_COMMON_TYPES,
-                            "ptr", "ptr", "int", "ptr", "ptr", "ptr", "ptr", "int", "ptr", "ptr",
-                            "int", "ptr")
-        scratch, ctas = ca.fwd_scratch()
-        status = fn(*ca.args, build.ptr(sdf), build.ptr(geo), d_out - 1, build.ptr(grad),
-                    build.ptr(zs), build.ptr(ss), build.ptr(adj), ca.d_in, build.ptr(x0_out),
-                    build.ptr(scratch), ctas, ca.stream)
-        build.check(status, "fused slot sdf")
-        _count((CHAIN_KERNEL, CHAIN_F32_KERNEL), gspec)
-    return sdf, geo, grad, zs, ss, adj, x0_out
-
-
-def _launch_value_bwd(positions, table, weights, biases, gspec, k, radius, pe, activation, beta,
-                      mask, zs, gsdf, skip=()):
-    """K2's backward kernel: (d_pos, d_table, gW list, gb list)."""
-    ca = _CardArgs(positions, table, weights, biases, gspec, k, radius, pe, activation, beta, mask,
-                   skip)
-    dev = positions.device
-    d_pos = torch.empty((ca.n, 3), dtype=torch.float32, device=dev)
-    d_table = torch.zeros(table.shape, dtype=torch.float32, device=dev)
-    gw, gb, unpack = ca.grads(weights, dev)
-    if ca.n:
-        fn = build.function("slot_fused_bwd", "mms_slot_value_bwd", *_COMMON_TYPES,
-                            "ptr", "ptr", "ptr", "ptr", "ptr", "ptr", "ptr", "int", "ptr")
-        g = gsdf.float().contiguous()
-        scratch, ctas = ca.bwd_scratch("slot_fused_bwd")
-        status = fn(*ca.args, build.ptr(zs), build.ptr(g), build.ptr(d_pos), build.ptr(d_table),
-                    build.ptr(gw), build.ptr(gb), build.ptr(scratch), ctas, ca.stream)
-        build.check(status, "fused slot sdf value backward")
-        _count((VALUE_BWD_KERNEL, VALUE_BWD_F32_KERNEL), gspec)
-    return (d_pos, d_table, *unpack())
+    (_launch_chain, over all levels) with it; returns (sdf, geo, grad, zs,
+    ss, adj, x0): geo and grad without `with_grad`, the backward's residuals
+    without `resid` (ss and adj come with the gradient only) and the chain
+    input x0 [N, rup16(d_in)] bf16 without `x0` are None."""
+    if with_grad:
+        return _launch_chain(positions, table, weights, biases, gspec, radius, pe, activation,
+                             beta, mask, resid, x0, skip)[0]
+    sdf, zs, x0_out = _launch_value(positions, table, weights, biases, gspec, k, radius, pe,
+                                    activation, beta, mask, resid, x0, skip)[0]
+    return sdf, None, None, zs, None, None, x0_out
 
 
 def _chain_cotangents(gsdf, ggeo, g3):
@@ -958,37 +903,26 @@ class _SlotBwdIo(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "pos", "table", "lmask", "zs", "ss", "adj", "gsdf", "ggeo", "g3", "d_pos", "d_table",
         "dcomp")] + [(name, ctypes.c_int) for name in (
-            "adj_width", "geo_width", "table_f32", "split")]
+            "adj_width", "geo_width", "table_f32", "split", "value")]
 
 
-def chain_bwd_card(positions, table, weights, biases, gspec, radius, pe, activation, beta, mask,
-                   zs, ss, adj, gsdf, ggeo, g3, skip=(), split=False):
-    """K3's backward on the card, prepared (N > 0): (Backward, d_pos, d_table
-    [rows, 128] f32 zeroed in the gradients' fill, d_comp or None). The pass
-    (csrc/slot_chain_bwd.cu) writes d_pos, and d_table's cotangents (merged)
-    or d_comp [N, K, 8F] (split, bf16; f32 for an f32 table), accumulates gb
-    and the last layer's column term of gW, and leaves the [hin | qin] and
-    [gz | v] stacks in scratch; chain_wgrad adds the stacked gW."""
-    skip = tuple(sorted(skip))
-    _check_card_value(positions, table, weights, gspec, skip)
-    k, n = gspec.num_levels, positions.shape[0]
-    layout, geom = chain_of(value_d_in(gspec, pe), weights, skip, activation, beta, adjoint=True)
+def _pass_card(layout, geom, weights, biases, gspec, k, radius, pe, mask, positions, table, io,
+               keep, split, what, packed, tail=0):
+    """The backward pass of csrc/slot_chain_bwd.cu on the card, prepared (N >
+    0): (Backward, d_pos, d_table [rows, 128] f32 zeroed in the gradients'
+    fill, d_comp or None), its operands in io (d_pos, d_comp and d_table
+    filled in here); `tail` more zeroed f32 of the same fill follow d_table
+    in the Backward's extra."""
+    n, dev = positions.shape[0], positions.device
     params = slot_params(gspec, k, radius, pe)
     pos, tbl = positions.float().contiguous(), table.float().contiguous()
-    cot = _chain_cotangents(gsdf, ggeo, g3)
-    zs, ss = zs.to(torch.bfloat16).contiguous(), ss.to(torch.bfloat16).contiguous()
-    adj = adj.float().contiguous()
-    dev = pos.device
     d_pos = torch.empty((n, 3), dtype=torch.float32, device=dev)
     d_comp = (torch.empty((n, k, NSLOT * gspec.feats), dtype=_dcomp_dtype(gspec), device=dev)
               if split else None)
     rows = _total_rows(gspec)
-    io = _SlotBwdIo(pos=pos.data_ptr(), table=tbl.data_ptr(), lmask=mask.data_ptr(),
-                    zs=zs.data_ptr(), ss=ss.data_ptr(), adj=adj.data_ptr(),
-                    gsdf=cot[0].data_ptr(), ggeo=cot[1].data_ptr(), g3=cot[2].data_ptr(),
-                    d_pos=d_pos.data_ptr(), dcomp=build.ptr(d_comp).value, adj_width=adj.shape[1],
-                    geo_width=ggeo.shape[1], table_f32=int(gspec.table_dtype == "f32"),
-                    split=int(split))
+    io.pos, io.table, io.lmask = pos.data_ptr(), tbl.data_ptr(), mask.data_ptr()
+    io.d_pos, io.dcomp = d_pos.data_ptr(), build.ptr(d_comp).value
+    io.table_f32, io.split = int(gspec.table_dtype == "f32"), int(split)
 
     def pass_args(packed, gw, gb, scratch, d_table):
         io.d_table = d_table.data_ptr()
@@ -997,30 +931,89 @@ def chain_bwd_card(positions, table, weights, biases, gspec, radius, pe, activat
                 scratch.data_ptr())
 
     bw = prepare_backward(layout, geom, weights, biases, dev, ("mms_slot_chain_pass_bytes", n),
-                          pass_args, -(-n // 64), "fused slot sdf chain backward",
-                          extra=rows * LANE)
-    bw.keep = (pos, tbl, mask, zs, ss, adj, *cot, io, params)
-    return bw, d_pos, bw.extra.view(rows, LANE), d_comp
+                          pass_args, -(-n // 64), what, extra=rows * LANE + tail, packed=packed)
+    bw.keep = (pos, tbl, mask, *keep, io, params)
+    return bw, d_pos, bw.extra[:rows * LANE].view(rows, LANE), d_comp
+
+
+def chain_bwd_card(positions, table, weights, biases, gspec, radius, pe, activation, beta, mask,
+                   zs, ss, adj, gsdf, ggeo, g3, skip=(), split=False, packed=None):
+    """K3's backward on the card, prepared (N > 0): (Backward, d_pos, d_table
+    [rows, 128] f32 zeroed in the gradients' fill, d_comp or None). The pass
+    (csrc/slot_chain_bwd.cu) writes d_pos, and d_table's cotangents (merged)
+    or d_comp [N, K, 8F] (split, bf16; f32 for an f32 table), accumulates gb
+    and the last layer's column term of gW, and leaves the [hin | qin] and
+    [gz | v] stacks in scratch; chain_wgrad adds the stacked gW. On the
+    forward's images `packed` where given."""
+    skip = tuple(sorted(skip))
+    _check_card_value(positions, table, weights, gspec, skip)
+    layout, geom = chain_of(value_d_in(gspec, pe), weights, skip, activation, beta, adjoint=True)
+    cot = _chain_cotangents(gsdf, ggeo, g3)
+    zs, ss = zs.to(torch.bfloat16).contiguous(), ss.to(torch.bfloat16).contiguous()
+    adj = adj.float().contiguous()
+    io = _SlotBwdIo(zs=zs.data_ptr(), ss=ss.data_ptr(), adj=adj.data_ptr(),
+                    gsdf=cot[0].data_ptr(), ggeo=cot[1].data_ptr(), g3=cot[2].data_ptr(),
+                    adj_width=adj.shape[1], geo_width=ggeo.shape[1])
+    return _pass_card(layout, geom, weights, biases, gspec, gspec.num_levels, radius, pe, mask,
+                      positions, table, io, (zs, ss, adj, *cot), split,
+                      "fused slot sdf chain backward", packed)
+
+
+def value_bwd_card(positions, table, weights, biases, gspec, k, radius, pe, activation, beta,
+                   mask, zs, gsdf, skip=(), split=False, packed=None):
+    """K2's backward on the card, prepared (N > 0): (Backward, d_pos, d_table,
+    d_comp or None) as chain_bwd_card's, from the pass's value mode on K2's
+    chain (its last layer cut to the sdf column): the reverse sweep from
+    [gsdf, 0] over the residual zs, the hin and gz stacks for chain_wgrad, and
+    the grid's first order. The Backward's last gW and gb are the sdf
+    column's; zeroed room for the whole last layer's follows d_table in its
+    extra (value_grads)."""
+    skip = tuple(sorted(skip))
+    _check_card_value(positions, table, weights, gspec, skip)
+    ws, bs = value_chain(weights, biases)
+    layout, geom = chain_of(value_d_in(gspec, pe), ws, skip, activation, beta)
+    zs, g = zs.to(torch.bfloat16).contiguous(), gsdf.float().contiguous()
+    io = _SlotBwdIo(zs=zs.data_ptr(), gsdf=g.data_ptr(), value=1)
+    din, d_out = weights[-1].shape
+    return _pass_card(layout, geom, ws, bs, gspec, k, radius, pe, mask, positions, table, io,
+                      (zs, g), split, "fused slot sdf value backward", packed,
+                      tail=din * d_out + d_out)
+
+
+def value_grads(bw, weights, gspec):
+    """K2's gW and gb lists in the chain's shapes: the last layer's, the sdf
+    column's, copied into the zeroed room after d_table in the Backward's
+    extra (two device copies)."""
+    din, d_out = weights[-1].shape
+    room = bw.extra[_total_rows(gspec) * LANE:]
+    gw, gb = room[:din * d_out].view(din, d_out), room[din * d_out:din * d_out + d_out]
+    gw[:, :1].copy_(bw.gws[-1])
+    gb[:1].copy_(bw.gbs[-1])
+    return [*bw.gws[:-1], gw], [*bw.gbs[:-1], gb]
+
+
+def _empty_bwd(positions, table, layout, gspec, k, split):
+    """A backward's outputs at N = 0: (d_pos, d_table, d_comp or None, gW
+    list, gb list)."""
+    dev = positions.device
+    d_comp = torch.zeros((0, k, NSLOT * gspec.feats), dtype=_dcomp_dtype(gspec), device=dev)
+    return (torch.empty((0, 3), device=dev), torch.zeros(table.shape, device=dev),
+            d_comp if split else None, *zero_grads(layout, dev))
 
 
 def _chain_bwd(positions, table, weights, biases, gspec, radius, pe, activation, beta, mask, zs,
-               ss, adj, gsdf, ggeo, g3, skip, split):
+               ss, adj, gsdf, ggeo, g3, skip, split, packed=None):
     """K3's backward pass and chain_wgrad on the card: (d_pos, d_table, d_comp
     or None, gW list, gb list); d_table holds the table gradient (merged) or
     zeros for the scatter (split)."""
-    n = positions.shape[0]
-    if n == 0:
-        _check_card_value(positions, table, weights, gspec, tuple(sorted(skip)))
-        layout = chain_of(value_d_in(gspec, pe), weights, tuple(sorted(skip)), activation, beta,
-                          True)[0]
-        d_comp = torch.zeros((0, gspec.num_levels, NSLOT * gspec.feats),
-                             dtype=_dcomp_dtype(gspec), device=positions.device)
-        return (torch.empty((0, 3), device=positions.device),
-                torch.zeros(table.shape, device=positions.device), d_comp if split else None,
-                *zero_grads(layout, positions.device))
+    if positions.shape[0] == 0:
+        skip = tuple(sorted(skip))
+        _check_card_value(positions, table, weights, gspec, skip)
+        layout = chain_of(value_d_in(gspec, pe), weights, skip, activation, beta, True)[0]
+        return _empty_bwd(positions, table, layout, gspec, gspec.num_levels, split)
     bw, d_pos, d_table, d_comp = chain_bwd_card(positions, table, weights, biases, gspec, radius,
                                                 pe, activation, beta, mask, zs, ss, adj, gsdf,
-                                                ggeo, g3, skip, split)
+                                                ggeo, g3, skip, split, packed)
     bw.tile()
     _count((CHAIN_SPLIT_KERNEL, CHAIN_SPLIT_F32_KERNEL) if split
            else (CHAIN_BWD_KERNEL, CHAIN_BWD_F32_KERNEL), gspec)
@@ -1029,37 +1022,61 @@ def _chain_bwd(positions, table, weights, biases, gspec, radius, pe, activation,
     return d_pos, d_table, d_comp, bw.gws, bw.gbs
 
 
+def _value_bwd(positions, table, weights, biases, gspec, k, radius, pe, activation, beta, mask,
+               zs, gsdf, skip, split, packed=None):
+    """K2's backward pass (value mode) and chain_wgrad on the card: (d_pos,
+    d_table, d_comp or None, gW list, gb list), gW and gb in the chain's
+    shapes (the last layer's columns past the sdf column zero)."""
+    if positions.shape[0] == 0:
+        skip = tuple(sorted(skip))
+        _check_card_value(positions, table, weights, gspec, skip)
+        layout = chain_of(value_d_in(gspec, pe), weights, skip, activation, beta)[0]
+        return _empty_bwd(positions, table, layout, gspec, k, split)
+    bw, d_pos, d_table, d_comp = value_bwd_card(positions, table, weights, biases, gspec, k,
+                                                radius, pe, activation, beta, mask, zs, gsdf,
+                                                skip, split, packed)
+    bw.tile()
+    _count((VALUE_SPLIT_KERNEL, VALUE_SPLIT_F32_KERNEL) if split
+           else (VALUE_BWD_KERNEL, VALUE_BWD_F32_KERNEL), gspec)
+    bw.wgrad()
+    VALUE_WGRAD_KERNEL.launches += 1
+    return (d_pos, d_table, d_comp, *value_grads(bw, weights, gspec))
+
+
 def _launch_chain_bwd(positions, table, weights, biases, gspec, radius, pe, activation, beta,
-                      mask, zs, ss, adj, gsdf, ggeo, g3, skip=()):
-    """K3's merged backward: the pass and chain_wgrad (and the pack of the
-    weight images and one fill of the gradients), four device operations.
-    Returns (d_pos, d_table, gW list, gb list)."""
+                      mask, zs, ss, adj, gsdf, ggeo, g3, skip=(), packed=None):
+    """K3's merged backward: the pass and chain_wgrad (and one fill of the
+    gradients, and the pack of the weight images unless given the forward's),
+    three device operations (four with the pack). Returns (d_pos, d_table, gW
+    list, gb list)."""
     d_pos, d_table, _, gws, gbs = _chain_bwd(positions, table, weights, biases, gspec, radius, pe,
                                              activation, beta, mask, zs, ss, adj, gsdf, ggeo, g3,
-                                             skip, False)
+                                             skip, False, packed)
+    return d_pos, d_table, gws, gbs
+
+
+def _launch_value_bwd(positions, table, weights, biases, gspec, k, radius, pe, activation, beta,
+                      mask, zs, gsdf, skip=(), packed=None):
+    """K2's merged backward: the pass's value mode and chain_wgrad (and one
+    fill of the gradients, the pack unless given the forward's images, and
+    the copies of the last layer's gW and gb into the chain's shapes).
+    Returns (d_pos, d_table, gW list, gb list)."""
+    d_pos, d_table, _, gws, gbs = _value_bwd(positions, table, weights, biases, gspec, k, radius,
+                                             pe, activation, beta, mask, zs, gsdf, skip, False,
+                                             packed)
     return d_pos, d_table, gws, gbs
 
 
 def _launch_value_bwd_sample(positions, table, weights, biases, gspec, k, radius, pe, activation,
-                             beta, mask, zs, gsdf, skip=()):
-    """K2s's per-sample kernel: (d_pos [N, 3] f32, d_comp [N, k, 8F] (bf16,
-    f32 for an f32 table), gz [L-1, N, H] bf16)."""
-    ca = _CardArgs(positions, table, weights, biases, gspec, k, radius, pe, activation, beta, mask,
-                   skip)
-    dev = positions.device
-    d_pos = torch.empty((ca.n, 3), dtype=torch.float32, device=dev)
-    d_comp = torch.empty((ca.n, k, NSLOT * gspec.feats), dtype=_dcomp_dtype(gspec), device=dev)
-    gzs = ca.stack(len(weights), dev)
-    if ca.n:
-        fn = build.function("slot_split", "mms_slot_value_bwd_sample", *_COMMON_TYPES,
-                            "ptr", "ptr", "ptr", "ptr", "ptr", "ptr", "int", "ptr")
-        g = gsdf.float().contiguous()
-        scratch, ctas = ca.bwd_scratch("slot_split")
-        status = fn(*ca.args, build.ptr(zs), build.ptr(g), build.ptr(d_pos), build.ptr(d_comp),
-                    build.ptr(gzs), build.ptr(scratch), ctas, ca.stream)
-        build.check(status, "fused slot sdf value backward, per-sample pass")
-        _count((VALUE_SPLIT_KERNEL, VALUE_SPLIT_F32_KERNEL), gspec)
-    return d_pos, d_comp, gzs
+                             beta, mask, zs, gsdf, skip=(), packed=None):
+    """K2s's per-sample pass (the value mode, split) and the split's weight
+    gradients (chain_wgrad over the pass's stacks, in place of
+    _value_wgrads_xla's products): (d_pos [N, 3] f32, d_comp [N, k, 8F]
+    (bf16, f32 for an f32 table), gW list, gb list)."""
+    d_pos, _, d_comp, gws, gbs = _value_bwd(positions, table, weights, biases, gspec, k, radius,
+                                            pe, activation, beta, mask, zs, gsdf, skip, True,
+                                            packed)
+    return d_pos, d_comp, gws, gbs
 
 
 def _launch_chain_bwd_sample(positions, table, weights, biases, gspec, radius, pe, activation,
@@ -1098,27 +1115,26 @@ def _launch_table_scatter(positions, d_comp, gspec, radius, d_table=None):
 
 
 def _value_split_card(positions, table, weights, biases, gspec, k, radius, pe, activation, beta,
-                      mask, zs, x0, gsdf, skip=()):
-    """K2's split backward on the card: the per-sample kernel, the scatter
-    kernel and the weight-gradient products. Returns (d_pos, d_table, gW
-    list, gb list)."""
-    d_pos, d_comp, gzs = _launch_value_bwd_sample(positions, table, weights, biases, gspec, k,
+                      mask, zs, gsdf, skip=(), packed=None):
+    """K2's split backward on the card: the per-sample pass (value mode),
+    chain_wgrad over its stacks and the scatter kernel. Returns (d_pos,
+    d_table, gW list, gb list)."""
+    d_pos, d_table, d_comp, gws, gbs = _value_bwd(positions, table, weights, biases, gspec, k,
                                                   radius, pe, activation, beta, mask, zs, gsdf,
-                                                  skip)
-    d_table = _launch_table_scatter(positions, d_comp, gspec, radius)
-    gws, gbs = split_weight_grads(weights, x0, zs, _value_gy(gsdf, weights), gzs, activation,
-                                  beta, skip=skip)
+                                                  skip, True, packed)
+    d_table = _launch_table_scatter(positions, d_comp, gspec, radius, d_table)
     return d_pos, d_table, gws, gbs
 
 
 def _chain_split_card(positions, table, weights, biases, gspec, radius, pe, activation, beta,
-                      mask, zs, ss, adj, x0, gsdf, ggeo, g3, skip=()):
+                      mask, zs, ss, adj, gsdf, ggeo, g3, skip=(), packed=None):
     """K3's split backward on the card: the per-sample pass, chain_wgrad over
-    its stacks and the scatter kernel (x0, the split's residual, is in the
-    pass's stacks already). Returns (d_pos, d_table, gW list, gb list)."""
+    its stacks and the scatter kernel (the pass rebuilds the chain input x0,
+    the plain split's residual). Returns (d_pos, d_table, gW list, gb
+    list)."""
     d_pos, d_table, d_comp, gws, gbs = _chain_bwd(positions, table, weights, biases, gspec, radius,
                                                   pe, activation, beta, mask, zs, ss, adj, gsdf,
-                                                  ggeo, g3, skip, True)
+                                                  ggeo, g3, skip, True, packed)
     d_table = _launch_table_scatter(positions, d_comp, gspec, radius, d_table)
     return d_pos, d_table, gws, gbs
 
@@ -1133,17 +1149,20 @@ def _on_card(positions: torch.Tensor) -> bool:
 
 class _SlotValue(torch.autograd.Function):
     """K2 with its backward (op_fwd/op_bwd :1728-1766): the forward keeps
-    the bf16 pre-activations, and in split mode the chain input x0; the
-    mask's cotangent is dropped (:1765)."""
+    the bf16 pre-activations, on the card the images its pack wrote
+    (backward images included) and off it, in split mode, the chain input
+    x0 the plain products read; the mask's cotangent is dropped (:1765)."""
 
     @staticmethod
     def forward(ctx, cfg, positions, table, mask, *params):
         gspec, k, pe, split, kw = cfg
         ws, bs = params[: len(params) // 2], params[len(params) // 2 :]
         chain = (kw["activation"], kw["beta"], mask)
+        ctx.packed = x0 = None
         if _on_card(positions):
-            sdf, _, _, zs, _, _, x0 = _launch(positions, table, ws, bs, gspec, k, kw["radius"], pe,
-                                              *chain, False, resid=True, x0=split, skip=kw["skip"])
+            (sdf, zs, _), ctx.packed = _launch_value(
+                positions, table, ws, bs, gspec, k, kw["radius"], pe, *chain, resid=True,
+                skip=kw["skip"], backward_images=True)
         else:
             sdf, zs, x0 = _value_fwd_plain(positions, table, ws, bs, gspec, k, kw["radius"], pe,
                                            *chain, kw["skip"])
@@ -1163,28 +1182,31 @@ class _SlotValue(torch.autograd.Function):
                                              *((x0,) if split else ()), gsdf, level_mask=mask,
                                              num_levels=k, **kw)
         elif split:
-            d_pos, d_table, gws, gbs = _value_split_card(positions, table, ws, bs, *geom, zs, x0,
-                                                         gsdf, kw["skip"])
+            d_pos, d_table, gws, gbs = _value_split_card(positions, table, ws, bs, *geom, zs, gsdf,
+                                                         kw["skip"], ctx.packed)
         else:
             d_pos, d_table, gws, gbs = _launch_value_bwd(positions, table, ws, bs, *geom, zs,
-                                                         gsdf, kw["skip"])
+                                                         gsdf, kw["skip"], ctx.packed)
+        ctx.packed = None
         return (None, d_pos, d_table, None, *gws, *gbs)
 
 
 class _SlotChain(torch.autograd.Function):
     """K3 with its backward (op_fwd/op_bwd :1140-1191): the forward keeps
-    zs, ss and adj, and in split mode the chain input x0; the mask's
-    cotangent is dropped (:1188-1190)."""
+    zs, ss and adj, on the card the images its pack wrote (backward images
+    included) and off it, in split mode, the chain input x0 the plain
+    products read; the mask's cotangent is dropped (:1188-1190)."""
 
     @staticmethod
     def forward(ctx, cfg, positions, table, mask, *params):
         gspec, _, pe, split, kw = cfg
         ws, bs = params[: len(params) // 2], params[len(params) // 2 :]
         chain = (kw["activation"], kw["beta"], mask)
+        ctx.packed = x0 = None
         if _on_card(positions):
-            sdf, geo, grad, zs, ss, adj, x0 = _launch(
-                positions, table, ws, bs, gspec, gspec.num_levels, kw["radius"], pe, *chain, True,
-                resid=True, x0=split, skip=kw["skip"])
+            (sdf, geo, grad, zs, ss, adj, _), ctx.packed = _launch_chain(
+                positions, table, ws, bs, gspec, kw["radius"], pe, *chain, resid=True,
+                skip=kw["skip"])
         else:
             (sdf, geo, grad), (zs, ss, adj, x0) = _chain_fwd_plain(
                 positions, table, ws, bs, gspec, kw["radius"], pe, *chain, kw["skip"])
@@ -1206,10 +1228,13 @@ class _SlotChain(torch.autograd.Function):
                                              level_mask=mask, **kw)
         elif split:
             d_pos, d_table, gws, gbs = _chain_split_card(positions, table, ws, bs, *geom, zs, ss,
-                                                         adj, x0, gsdf, ggeo, g3, kw["skip"])
+                                                         adj, gsdf, ggeo, g3, kw["skip"],
+                                                         ctx.packed)
         else:
             d_pos, d_table, gws, gbs = _launch_chain_bwd(positions, table, ws, bs, *geom, zs, ss,
-                                                         adj, gsdf, ggeo, g3, kw["skip"])
+                                                         adj, gsdf, ggeo, g3, kw["skip"],
+                                                         ctx.packed)
+        ctx.packed = None
         return (None, d_pos, d_table, None, *gws, *gbs)
 
 

@@ -16,9 +16,8 @@ hold:
   rel-L2 1e-6 (the last product summed in another order on the CPU);
 * SlotParams against the geometry arguments the first design's entry points
   took (_grid_args), and built once;
-* the outputs K2 allocates against the residuals the unchanged backwards
-  read (the plain forward's): zs [L-1, N, H] bf16 and x0 [N, rup16(d_in)]
-  bf16;
+* the outputs K2 allocates against the residuals its backward reads (the
+  plain forward's): zs [L-1, N, H] bf16, and x0 [N, rup16(d_in)] bf16;
 * a chain wider than the card's hidden widths refused, naming the bound.
 """
 
@@ -125,10 +124,10 @@ def test_outputs_are_the_residuals_the_backwards_read(name):
     assert sdf.dtype == torch.float32 and sdf.shape == p_sdf.shape
     assert zs.dtype == p_zs.dtype == torch.bfloat16 and zs.shape == p_zs.shape
     assert tuple(zs.shape) == (len(ws) - 1, n, 128)
-    # the split's products read x0 at the chain's 16-column width
+    # x0 at the chain input's 16-column width
     d_in = sf.value_d_in(gspec, PE)
     assert x0.dtype == torch.bfloat16 and tuple(x0.shape) == (n, -(-d_in // 16) * 16)
-    assert x0.shape[1] == sf.chain_geometry(d_in, ws, skip)[2] and p_x0.shape[1] == d_in
+    assert x0.shape[1] == fm.rup16(d_in) and p_x0.shape[1] == d_in
     none = sf.value_outputs(n, ws, gspec, PE, torch.device("cpu"))
     assert none[1] is None and none[2] is None
 
