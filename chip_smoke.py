@@ -41,7 +41,13 @@
    the K4, K5, K1t and K4j forwards and backwards, past 512 also K2's and
    K3's forwards and backwards, merged and split, on both tables, each
    against its plain version, and every one bit for bit against the
-   512-wide kernel on chains padded with dead units. K3's backward checks
+   512-wide kernel on chains padded with dead units. Then K6v again at
+   positions ordered as the sampler emits them (512 rays of 320 sorted
+   samples through the unit cube, and their curvature taps), forward and
+   backward with one and with three active levels, each within 1e-4 of its
+   plain version, its wrapper and kernel-alone ms printed beside the
+   uniform draw's (which, as K6's, print the kernel alone and the device
+   ops of a call too). K3's backward checks
    also run at positions ordered as the sampler emits them (rays of
    consecutive samples) and print the pass's and chain_wgrad's time alone,
    the device ops of a call and the table reductions issued. The forward
@@ -186,15 +192,19 @@ def kernel_alone_ms(fn, names, reps=10) -> float:
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and any(s in e.key for s in names))
-    if us <= 0:
-        fail(f"the profiler saw no device time of {names}")
-    return us / reps / 1e3
+    # the profiler has been seen to drop every event of a window of short kernels: a window
+    # that shows none of them is taken again, twice at most
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and any(s in e.key for s in names))
+        if us > 0:
+            return us / reps / 1e3
+        print(f"  the profiler saw no device time of {names}: profiling again")
+    fail(f"the profiler saw no device time of {names}")
 
 
 # the K2/K2f forward's kernel, by its name in a profile: the wgmma design's,
@@ -452,6 +462,15 @@ def f32_spec():
 
     return SlotGridSpec(num_levels=6, min_res=16, max_res=512, rows_per_level=512, layout="cell",
                         feats=16, table_dtype="f32")
+
+
+def vertex_spec():
+    """The slot grid of grid_raw_tpu without PE on the vertex layout's table:
+    6 levels of 2048 rows, F = 16, f32 (K6v)."""
+    from multimodalstudio_tpu_torch.ops.kernels.slot_grid import SlotGridSpec
+
+    return SlotGridSpec(num_levels=6, min_res=16, max_res=512, rows_per_level=2048,
+                        layout="vertex", feats=16, table_dtype="f32")
 
 
 def slot_d_in(gspec):
@@ -2179,6 +2198,14 @@ def lookup_fns(gspec):
             lambda *a: _lookup_library(*a, feats), 1e-2 if bf16 else 1e-4)
 
 
+def lookup_kernels(gspec):
+    """The forward's and the backward's kernel names of K6 (K6v), as a
+    profile shows them."""
+    if gspec.layout == "vertex":
+        return ("slot_vertex_fwd_kernel",), ("slot_vertex_bwd_kernel",)
+    return ("slot_lookup_fwd_kernel",), ("slot_lookup_bwd_kernel",)
+
+
 def lookup_tag(gspec):
     """A lookup kernel's label: K6, K6 with an f32 table, or K6v."""
     if gspec.layout == "vertex":
@@ -2206,6 +2233,24 @@ def lookup_bytes(gspec, table, idx, *tensors):
     k = idx.shape[1] // (8 if gspec.layout == "vertex" else 1)
     rows = gspec.total_rows if k >= gspec.num_levels else int(gspec.level_offsets[k])
     return rows * table.shape[1] * table.element_size() + 4 * idx.numel() + nbytes(*tensors)
+
+
+def lookup_bwd_bytes(gspec, table, idx, w, dw, genc, gtenc, outs):
+    """Bytes K6's (K6v's) backward must move on these cotangents: genc
+    (gtenc) and the outputs `outs` whole; idx (4 bytes an index), w (and dw) only of the
+    (sample, level)s whose cotangents are not all zero, and the table rows
+    only of the levels some of them reach (elsewhere the outputs are zero
+    whatever those hold: the coarse-to-fine mask)."""
+    n, feats = genc.shape[0], gspec.feats
+    live = (genc.reshape(n, -1, feats) != 0).any(-1)  # [n, k]
+    if gtenc is not None:
+        live |= (gtenc.reshape(n, 3, -1, feats) != 0).any(-1).any(1)
+    offs = [int(o) for o in gspec.level_offsets] + [gspec.total_rows]
+    table_rows = sum(offs[l + 1] - offs[l] for l, a in enumerate(live.any(0).tolist()) if a)
+    # a 4-byte index, as lookup_bytes counts it
+    per_level = (4 * idx.numel() + nbytes(w, *([dw] if dw is not None else []))) / live.numel()
+    return (table_rows * table.shape[1] * table.element_size() + per_level * int(live.sum())
+            + nbytes(genc, *outs, *([gtenc] if gtenc is not None else [])))
 
 
 def _moved(ts, gen):
@@ -2237,15 +2282,18 @@ def check_slot_grid_lookup(gen, dev, gspec, timed=True):
         _compare_outputs(what + ", plain vs plain with w, dw moved by 1e-6", names,
                          spread if tang else (spread,), ref if tang else (ref,), tol=float("inf"))
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, bytes=0.0, err=err,
-               peak=H100_F32_FLOPS)
+               peak=H100_F32_FLOPS, kernel_ms=0.0, ops=0)
     if not timed:
         return tot
+    names = lookup_kernels(gspec)[0]
     for n, k, tang, count in ((32768, 4, False, 1), (8192, 4, False, 3),
                               (65536, gspec.num_levels, True, 1)):
         table, idx, w, dw = lookup_inputs(gen, dev, gspec, n, k)
         dw = dw if tang else None
         out = fwd(table, idx, w, dw)
         tot["ms"] += count * time_ms(lambda: fwd(table, idx, w, dw))
+        tot["kernel_ms"] += count * kernel_alone_ms(lambda: fwd(table, idx, w, dw), names)
+        tot["ops"] = max(tot["ops"], device_ops(lambda: fwd(table, idx, w, dw)))
         tot["plain_ms"] += count * time_ms(lambda: plain(table, idx, w, dw))
         tot["library_ms"] += count * time_ms(lambda: library(table, idx, w, dw))
         tot["flops"] += count * lookup_flops(n, k, feats, tang)
@@ -2263,7 +2311,7 @@ def check_slot_grid_lookup_bwd(gen, dev, gspec, timed=True):
     tag, feats, k = lookup_tag(gspec), gspec.feats, gspec.num_levels
     mask = (torch.arange(k * feats, device=dev) < 3 * feats).float()
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, bytes=0.0, err=0.0,
-               peak=H100_F32_FLOPS)
+               peak=H100_F32_FLOPS, kernel_ms=0.0, ops=0)
     for n, tang in ((163840, True), (81920, False)):
         table, idx, w, dw = lookup_inputs(gen, dev, gspec, n, k)
         dw = dw if tang else None
@@ -2298,14 +2346,108 @@ def check_slot_grid_lookup_bwd(gen, dev, gspec, timed=True):
             return torch.autograd.grad(outs, leaves, cot, retain_graph=True)
 
         tot["ms"] += time_ms(lambda: bwd(*args))
+        tot["kernel_ms"] += kernel_alone_ms(lambda: bwd(*args), lookup_kernels(gspec)[1])
+        tot["ops"] = max(tot["ops"], device_ops(lambda: bwd(*args)))
         tot["plain_ms"] += time_ms(lambda: plain(*args))
         tot["library_ms"] += time_ms(lib)
         del outs
         # d_w and d_dw: a product per corner, feature and output; u: 2 (4) per lane
         tot["flops"] += lookup_flops(n, k, feats, tang) * 2
-        tot["bytes"] += lookup_bytes(gspec, table, idx, w, genc, got[0], got[1],
-                                     *([dw, gtenc, got[2]] if tang else []))
+        tot["bytes"] += lookup_bwd_bytes(gspec, table, idx, w, dw, genc, gtenc,
+                                         got[:3 if tang else 2])
     return tot
+
+
+def unit_rays(gen, dev, rays=512, per_ray=320):
+    """Grid positions [rays * per_ray, 3] in [0, 1] ordered as the sampler
+    emits them: each ray a line through a uniform point of the unit cube in
+    a uniform direction, its samples uniform along the chord the cube cuts
+    from it and sorted along it (512 x 320: one training microbatch's render
+    samples), all drawn from gen."""
+    from multimodalstudio_tpu_torch.ops.kernels.slot_grid import CLIP_HI
+
+    o = torch.rand(rays, 1, 3, generator=gen, device=dev)
+    d = F.normalize(torch.randn(rays, 1, 3, generator=gen, device=dev), dim=-1)
+    d = torch.where(d.abs() < 1e-6, torch.full_like(d, 1e-6), d)
+    lo, hi = -o / d, (1.0 - o) / d
+    t0 = torch.minimum(lo, hi).amax(-1, keepdim=True)
+    t1 = torch.maximum(lo, hi).amin(-1, keepdim=True)
+    t = torch.sort(torch.rand(rays, per_ray, 1, generator=gen, device=dev), dim=1).values
+    return (o + (t0 + (t1 - t0) * t) * d).reshape(-1, 3).clamp(0.0, CLIP_HI)
+
+
+def ray_taps(x, per_ray=320, stride=4, delta=1.0 / 16):
+    """The curvature taps of ray-ordered samples x as training takes them
+    (curvature_tap_stride 4, curvature_taps 2): every stride-th sample of
+    each ray +- a tetrahedron direction k_j (j = its index % 4) of length
+    delta / sqrt 3, delta that of a first active level of resolution 16 in
+    grid units; [rays * per_ray / stride * 2, 3], in ray order."""
+    from multimodalstudio_tpu_torch.models.model import TETRAHEDRON
+    from multimodalstudio_tpu_torch.ops.kernels.slot_grid import CLIP_HI
+
+    pos = x.reshape(-1, per_ray, 3)[:, ::stride]
+    k = torch.tensor(TETRAHEDRON, device=x.device)
+    kj = k[torch.arange(pos.shape[1], device=x.device) % 4] * (delta / 3**0.5)
+    return torch.stack([pos + kj, pos - kj], dim=-2).reshape(-1, 3).clamp(0.0, CLIP_HI)
+
+
+def check_vertex_ray_order(gen, dev, gspec):
+    """K6v at positions ordered as the sampler emits them (unit_rays, a
+    table and cotangents all drawn from gen), where consecutive samples share
+    most corner rows: the forward at one training microbatch's render
+    samples (N = 163840, 6 levels, with tangents) and curvature taps (N =
+    81920, ray_taps, without), and the backward at both with cotangents on
+    level 0 only (one active level, as training runs it) and on the first 3
+    (the uniform check's case), each within 1e-4 of its plain version.
+    Returns the forward's, the 1-level and the 3-level backward's wrapper
+    and kernel-alone ms, each summed over the two calls, with their bounds'
+    flops and bytes."""
+    from multimodalstudio_tpu_torch.ops.kernels.slot_grid import slot_geometry
+
+    fwd, plain, bwd, plain_bwd, _, tol = lookup_fns(gspec)
+    fwd_names, bwd_names = lookup_kernels(gspec)
+    k, feats = gspec.num_levels, gspec.feats
+    table = slot_inputs(gen, dev, gspec)[0]
+    x = unit_rays(gen, dev)
+    calls = []
+    for pos, tang in ((x, True), (ray_taps(x), False)):
+        idx, w, dw = slot_geometry(pos, gspec, k)
+        calls.append((pos.shape[0], idx, w, dw if tang else None))
+    parts = [dict(ms=0.0, kernel_ms=0.0, flops=0.0, bytes=0.0, err=0.0) for _ in range(3)]
+    for n, idx, w, dw in calls:
+        tang = dw is not None
+        names = ("enc", "tenc") if tang else ("enc",)
+        out, ref = fwd(table, idx, w, dw), plain(table, idx, w, dw)
+        what = f"K6v fwd N={n}, ray-ordered" + (" with tangents" if tang else "")
+        r = parts[0]
+        r["err"] = max(r["err"], _compare_outputs(what, names, out if tang else (out,),
+                                                  ref if tang else (ref,), tol=tol))
+        r["ms"] += time_ms(lambda: fwd(table, idx, w, dw))
+        r["kernel_ms"] += kernel_alone_ms(lambda: fwd(table, idx, w, dw), fwd_names)
+        r["flops"] += lookup_flops(n, k, feats, tang)
+        r["bytes"] += lookup_bytes(gspec, table, idx, w, *([dw] if tang else []), out)
+        for r, active in zip(parts[1:], (1, 3)):
+            mask = (torch.arange(k * feats, device=dev) < active * feats).float()
+            genc = torch.randn(n, k * feats, generator=gen, device=dev) * mask
+            gtenc = (torch.randn(n, 3, k * feats, generator=gen, device=dev) * mask).reshape(n, -1)
+            args = (table, idx, w, dw, genc, gtenc if tang else None)
+            got, want = bwd(*args), plain_bwd(*args)
+            torch.cuda.synchronize()
+            grads = ("d_table", "d_w", "d_dw") if tang else ("d_table", "d_w")
+            r["err"] = max(r["err"], _compare_grads(
+                f"K6v bwd N={n}, ray-ordered, {active} active level(s)", grads, got, want,
+                tol=tol))
+            r["ms"] += time_ms(lambda: bwd(*args))
+            r["kernel_ms"] += kernel_alone_ms(lambda: bwd(*args), bwd_names)
+            r["flops"] += lookup_flops(n, k, feats, tang) * 2
+            r["bytes"] += lookup_bwd_bytes(gspec, table, idx, w, dw, genc, args[5],
+                                           got[:3 if tang else 2])
+    for what, r in zip(("fwd (render samples and taps)", "bwd, 1 active level",
+                        "bwd, 3 active levels"), parts):
+        b_ms, b_by = bound(r["flops"], r["bytes"], H100_F32_FLOPS)
+        print(f"  K6v {what}, ray-ordered, per 512-ray training microbatch: {r['ms']:.3f} ms, "
+              f"kernel alone {r['kernel_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return tuple(parts)
 
 
 def check_lookup_edges(gen, dev, gspec) -> None:
@@ -3196,7 +3338,9 @@ def profile_device(fn, label: str, ref_ms: float, top: int = 12):
     print(f"  profile of {label}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
           f"({100 * busy_ms / wall_ms:.1f}%; {100 * busy_ms / ref_ms:.1f}% of an unprofiled "
           f"call's {ref_ms:.2f} ms), {sum(r[1] for r in rows)} device ops")
-    for ms, count, key in sorted(rows, reverse=True)[:top]:
+    ranked = sorted(rows, reverse=True)
+    # the top kernels, and below them K6v's (PERF.md follows all four of its instantiations)
+    for ms, count, key in ranked[:top] + [r for r in ranked[top:] if "slot_vertex" in r[2]]:
         print(f"    {ms:9.3f} ms {count:6d}x {key[:90]}")
     return busy_ms / ref_ms, busy_ms, sum(r[1] for r in rows)
 
@@ -3612,8 +3756,7 @@ def main() -> None:
     phase("K6 with an f32 table", lambda: (check_slot_grid_lookup(gen, dev, f32spec, timed=False),
                                            check_slot_grid_lookup_bwd(gen, dev, f32spec,
                                                                       timed=False)))
-    vspec = SlotGridSpec(num_levels=6, min_res=16, max_res=512, rows_per_level=2048,
-                         layout="vertex", feats=16, table_dtype="f32")
+    vspec = vertex_spec()
     print("kernel checks of K6v (grid_raw_tpu without PE, vertex layout; forward: per 1024-ray "
           "eval chunk; backward: per 512-ray training microbatch):")
     results.update(phase("K6v", lambda: {
@@ -3646,6 +3789,12 @@ def main() -> None:
           "split; every forward and backward bit for bit against the 512-wide kernels on padded "
           "chains):")
     phase("hidden widths 640, 768 and 1024", check_wide_hidden, gen, dev, (640, 768, 1024))
+    # the ray-ordered K6v draws from `gen` after every earlier phase
+    print("kernel checks of K6v at ray-ordered positions (grid_raw_tpu without PE, vertex "
+          "layout; per 512-ray training microbatch):")
+    ray = phase("K6v at ray-ordered positions", check_vertex_ray_order, gen, dev, vspec)
+    for name, r in zip(("slot_grid_lookup_vertex",) + ("slot_grid_lookup_vertex_bwd",) * 2, ray):
+        results[name]["err"] = max(results[name]["err"], r["err"])
     rays_per_s, train, launches = {}, {}, {}
     for method in CONFIGS:
         with config_env(method):

@@ -51,18 +51,25 @@ kernels (_fwd_kernel :487-507, _bwd_kernel :645-662): T[n, l, f, p] =
 table[idx[n, l*8 + p], f*8 + p], the parity-p lanes of corner p's row,
 then enc and tenc by the cell formula in exact f32 (the TPU's copy gather
 and its float32 dots); the backward adds u[n, l, f, p] into those lanes
-of d_table by f32 atomics. The plain versions gather by flat element
-index (row * 128 + lane), never whole rows.
+of d_table. The plain versions gather by flat element index (row * 128 +
+lane), never whole rows.
 
 Bound on an H100: per (sample, level) the forward reads 8 + 24 f32
 weights, an index and 8F table values (L2-resident: 1.5 MB at the
 flagship size) and writes 4F floats; about 8F multiply-adds per output:
 the bytes bound it. The backward adds F + 3F cotangents, writes 32 f32
-weight cotangents and 8F atomics. K6v reads 8 indices and the parity
-lanes of 8 rows per (sample, level): 16 floats at a 32-byte stride from
-each 512-byte row, so each corner touches its whole row (about 4 KB of L2
-sectors for 512 B of data); its backward's atomics contend on the dense
-coarsest level, which every sample reads.
+weight cotangents and 8F atomics. K6v's corner spans all 16 sectors of
+its 512-byte row, so what bounds it is the L2 sectors of the distinct rows
+a sample reads (3.4 of 8 on average at uniform positions), the device
+bytes of idx, w, dw and the outputs, the instructions a warp spends a
+sample, and in the backward the atomics on the dense coarse level. Its
+kernels give a warp a run of up to 32 consecutive samples at one level,
+staged in shared memory: each distinct row of the slots that moved is read
+once, 32 lanes x 16 bytes, and a slot whose row did not move (along a ray
+a corner keeps its parity) keeps its values; the backward skips samples
+whose cotangents are all zero (the masked levels) and sums a kept row's
+table cotangent in registers, adding it by vector reductions when the row
+moves.
 """
 
 from __future__ import annotations
