@@ -18,8 +18,10 @@ check_chain_adjoint_bwd:dims=VERTEX_DIMS or check_slot_value:gspec=f32_spec()
 for the f32 table's K2f; beside it
 "<check> kernel" for its kernels alone, without the wrapper, "<check>
 standalone" for K1's backward packing its own images, and "<check> library"
-for the library call and "<check> ops" for the device ops of one wrapper
-call, where the check measures them). --train times chip_smoke's
+for the library call, "<check> scatter" and "<check> scatter_kernel" for
+the split checks' table scatter (wrapper and kernel alone), and "<check>
+ops" for the device ops of one wrapper call, where the check measures
+them). --train times chip_smoke's
 timed_training for each label of its CONFIGS (2 warm-up steps, 5 timed, one
 profiled) and records "train <label> step_ms", "busy_ms", "ops" (the device
 ops of the profiled step) and "rays_per_s"; --checks "" runs no check.
@@ -61,7 +63,8 @@ for name in filter(None, sys.argv[2].split(",")):
         if isinstance(part, dict):
             key = name if not isinstance(r, tuple) else f"{name}[{i}]"
             out[key] = round(part["ms"], 4)
-            for what in ("kernel", "standalone", "library", "products"):
+            for what in ("kernel", "standalone", "library", "products", "scatter",
+                         "scatter_kernel"):
                 if part.get(what + "_ms") is not None:
                     out[f"{key} {what}"] = round(part[what + "_ms"], 4)
             if part.get("ops") is not None:

@@ -32,9 +32,10 @@
    layout's lookup, at the shapes of grid_raw_tpu without its position
    encoding on a vertex table (6 x 2048 rows, F = 16, f32), each within
    rel-L2 1e-4 of its plain version (both exact f32), with a ragged N and
-   3 levels off those shapes. Then K5 and K1 on that label's SDF head (99
-   -> 128 -> 128 -> 257): K5 forward at the render samples of a chunk and
-   of a microbatch and backward at a microbatch's, K1 forward at the
+   3 levels off those shapes (K6's edge cases also at F = 4 and 8). Then
+   K5 and K1 on that label's SDF head (99 -> 128 -> 128 -> 257): K5
+   forward at the render samples of a chunk and of a microbatch and
+   backward at a microbatch's, K1 forward at the
    sampler's queries and the taps and backward at the taps, the SoftplusQuad
    backwards' limits following the plain version's spread. Then hidden
    widths 384 and 512, and 640, 768 and 1024: K1 forward and backward and
@@ -47,7 +48,13 @@
    backward with one and with three active levels, each within 1e-4 of its
    plain version, its wrapper and kernel-alone ms printed beside the
    uniform draw's (which, as K6's, print the kernel alone and the device
-   ops of a call too). K3's backward checks
+   ops of a call too); then K6 the same way on grid_raw_tpu's bf16 cell
+   table (within 1e-2), and the split's table scatter, bf16 and f32
+   tables, on K3s's and K2s's own table cotangents at those render samples
+   and their taps with one active level, each within 1e-2 of its plain
+   version and each whole split backward against the merged backward
+   kernel there at the JAX test's limits, the scatter's wrapper and
+   kernel-alone ms printed beside its bound. K3's backward checks
    also run at positions ordered as the sampler emits them (rays of
    consecutive samples) and print the pass's and chain_wgrad's time alone,
    the device ops of a call and the table reductions issued. The forward
@@ -2391,22 +2398,23 @@ def ray_taps(x, per_ray=320, stride=4, delta=1.0 / 16):
     return torch.stack([pos + kj, pos - kj], dim=-2).reshape(-1, 3).clamp(0.0, CLIP_HI)
 
 
-def check_vertex_ray_order(gen, dev, gspec):
-    """K6v at positions ordered as the sampler emits them (unit_rays, a
-    table and cotangents all drawn from gen), where consecutive samples share
-    most corner rows: the forward at one training microbatch's render
-    samples (N = 163840, 6 levels, with tangents) and curvature taps (N =
-    81920, ray_taps, without), and the backward at both with cotangents on
-    level 0 only (one active level, as training runs it) and on the first 3
-    (the uniform check's case), each within 1e-4 of its plain version.
-    Returns the forward's, the 1-level and the 3-level backward's wrapper
-    and kernel-alone ms, each summed over the two calls, with their bounds'
-    flops and bytes."""
+def check_lookup_ray_order(gen, dev, gspec):
+    """K6v (or K6, for the cell layout) at positions ordered as the sampler
+    emits them (unit_rays, a table and cotangents all drawn from gen), where
+    consecutive samples share most corner rows (entries): the forward at one
+    training microbatch's render samples (N = 163840, 6 levels, with
+    tangents) and curvature taps (N = 81920, ray_taps, without), and the
+    backward at both with cotangents on level 0 only (one active level, as
+    training runs it) and on the first 3 (the uniform check's case), each
+    within its plain version's limit (lookup_fns: 1e-4 exact f32, 1e-2 a
+    bf16 table). Returns the forward's, the 1-level and the 3-level
+    backward's wrapper and kernel-alone ms, each summed over the two calls,
+    with their bounds' flops and bytes."""
     from multimodalstudio_tpu_torch.ops.kernels.slot_grid import slot_geometry
 
     fwd, plain, bwd, plain_bwd, _, tol = lookup_fns(gspec)
     fwd_names, bwd_names = lookup_kernels(gspec)
-    k, feats = gspec.num_levels, gspec.feats
+    tag, k, feats = lookup_tag(gspec), gspec.num_levels, gspec.feats
     table = slot_inputs(gen, dev, gspec)[0]
     x = unit_rays(gen, dev)
     calls = []
@@ -2418,7 +2426,7 @@ def check_vertex_ray_order(gen, dev, gspec):
         tang = dw is not None
         names = ("enc", "tenc") if tang else ("enc",)
         out, ref = fwd(table, idx, w, dw), plain(table, idx, w, dw)
-        what = f"K6v fwd N={n}, ray-ordered" + (" with tangents" if tang else "")
+        what = f"{tag} fwd N={n}, ray-ordered" + (" with tangents" if tang else "")
         r = parts[0]
         r["err"] = max(r["err"], _compare_outputs(what, names, out if tang else (out,),
                                                   ref if tang else (ref,), tol=tol))
@@ -2435,7 +2443,7 @@ def check_vertex_ray_order(gen, dev, gspec):
             torch.cuda.synchronize()
             grads = ("d_table", "d_w", "d_dw") if tang else ("d_table", "d_w")
             r["err"] = max(r["err"], _compare_grads(
-                f"K6v bwd N={n}, ray-ordered, {active} active level(s)", grads, got, want,
+                f"{tag} bwd N={n}, ray-ordered, {active} active level(s)", grads, got, want,
                 tol=tol))
             r["ms"] += time_ms(lambda: bwd(*args))
             r["kernel_ms"] += kernel_alone_ms(lambda: bwd(*args), bwd_names)
@@ -2445,28 +2453,43 @@ def check_vertex_ray_order(gen, dev, gspec):
     for what, r in zip(("fwd (render samples and taps)", "bwd, 1 active level",
                         "bwd, 3 active levels"), parts):
         b_ms, b_by = bound(r["flops"], r["bytes"], H100_F32_FLOPS)
-        print(f"  K6v {what}, ray-ordered, per 512-ray training microbatch: {r['ms']:.3f} ms, "
+        print(f"  {tag} {what}, ray-ordered, per 512-ray training microbatch: {r['ms']:.3f} ms, "
               f"kernel alone {r['kernel_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
     return tuple(parts)
 
 
 def check_lookup_edges(gen, dev, gspec) -> None:
     """K6 (K6v) off the main path's shapes: a ragged N = 1000 on 3 levels
-    without tangents and on all with, forward and backward."""
+    without tangents and on all with, forward and backward; for the cell
+    layout also F = 4 and F = 8 (no registered method's grid) at a ragged
+    N = 999 on 3 levels with tangents, drawn from a generator of their own
+    so that later phases draw what they drew before."""
+    import dataclasses
+
+    cases = [(gspec, gen, 1000, 3, False), (gspec, gen, 1000, gspec.num_levels, True)]
+    if gspec.layout == "cell":
+        own = torch.Generator(device=dev).manual_seed(SEED + 7)
+        cases += [(dataclasses.replace(gspec, feats=f), own, 999, 3, True) for f in (4, 8)]
+    for spec, g, n, k, tang in cases:
+        check_lookup_call(g, dev, spec, n, k, tang)
+
+
+def check_lookup_call(gen, dev, gspec, n, k, tang) -> None:
+    """K6 (K6v) forward and backward on one draw of n samples at k levels,
+    with tangents or without, against their plain versions."""
     fwd, plain, bwd, plain_bwd, _, tol = lookup_fns(gspec)
-    tag, n, feats = lookup_tag(gspec), 1000, gspec.feats
-    for k, tang in ((3, False), (gspec.num_levels, True)):
-        table, idx, w, dw = lookup_inputs(gen, dev, gspec, n, k)
-        dw = dw if tang else None
-        names = ("enc", "tenc") if tang else ("enc",)
-        out, ref = fwd(table, idx, w, dw), plain(table, idx, w, dw)
-        _compare_outputs(f"{tag} fwd {k} levels N={n}", names, out if tang else (out,),
-                         ref if tang else (ref,), tol=tol)
-        genc = torch.randn(n, k * feats, generator=gen, device=dev)
-        gtenc = torch.randn(n, 3 * k * feats, generator=gen, device=dev) if tang else None
-        _compare_grads(f"{tag} bwd {k} levels N={n}", ("d_table", "d_w", "d_dw")[:len(names) + 1],
-                       bwd(table, idx, w, dw, genc, gtenc),
-                       plain_bwd(table, idx, w, dw, genc, gtenc), tol=tol)
+    tag, feats = f"{lookup_tag(gspec)} F={gspec.feats}", gspec.feats
+    table, idx, w, dw = lookup_inputs(gen, dev, gspec, n, k)
+    dw = dw if tang else None
+    names = ("enc", "tenc") if tang else ("enc",)
+    out, ref = fwd(table, idx, w, dw), plain(table, idx, w, dw)
+    _compare_outputs(f"{tag} fwd {k} levels N={n}", names, out if tang else (out,),
+                     ref if tang else (ref,), tol=tol)
+    genc = torch.randn(n, k * feats, generator=gen, device=dev)
+    gtenc = torch.randn(n, 3 * k * feats, generator=gen, device=dev) if tang else None
+    _compare_grads(f"{tag} bwd {k} levels N={n}", ("d_table", "d_w", "d_dw")[:len(names) + 1],
+                   bwd(table, idx, w, dw, genc, gtenc), plain_bwd(table, idx, w, dw, genc, gtenc),
+                   tol=tol)
 
 
 def check_chain_adjoint(gen, dev, dims=NOPE_DIMS, what="K5"):
@@ -2661,6 +2684,9 @@ def print_timing(what, r, peak=H100_BF16_FLOPS):
 
 # ------------------------------------------------- K2s, K3s and the table scatter
 
+# the split's table scatter kernel, by its name in a profile
+SCATTER_KERNELS = ("slot_table_scatter_kernel",)
+
 # the per-sample passes' outputs held against their plain versions: the pass's d pos
 # and table cotangent (their gW and gb, from chain_wgrad over the pass's stacks, are
 # held in the whole split backward against the merged one's)
@@ -2721,6 +2747,9 @@ def _split_checks(what, names, sample, sample_plain, scatter_args, merged, whole
                 atomics=int((d_comp != 0).sum()), dcomp_bytes=nbytes(d_comp),
                 ms=time_ms(sample), plain_ms=time_ms(sample_plain),
                 scatter_ms=time_ms(lambda: _launch_table_scatter(pos, d_comp, gspec, 1.0)),
+                scatter_kernel_ms=kernel_alone_ms(
+                    lambda: _launch_table_scatter(pos, d_comp, gspec, 1.0), SCATTER_KERNELS),
+                scatter_ops=device_ops(lambda: _launch_table_scatter(pos, d_comp, gspec, 1.0)),
                 scatter_plain_ms=time_ms(lambda: slot_table_scatter_plain(pos, d_comp, gspec,
                                                                           radius=1.0)),
                 whole_ms=time_ms(whole), merged_ms=time_ms(merged))
@@ -2863,12 +2892,88 @@ def split_results(value, chain, f32=False):
                                 else {}))
     entries[f"slot_table_scatter{sfx}"] = dict(
         ms=value["scatter_ms"] + chain["scatter_ms"],
+        kernel_ms=value["scatter_kernel_ms"] + chain["scatter_kernel_ms"],
+        ops=max(value["scatter_ops"], chain["scatter_ops"]),
         plain_ms=value["scatter_plain_ms"] + chain["scatter_plain_ms"],
         # one f32 add per cotangent value, outside the tensor cores
         flops=float(value["dcomp_values"] + chain["dcomp_values"]),
         bytes=value["scatter_bytes"] + chain["scatter_bytes"],
         err=max(value["scatter_err"], chain["scatter_err"]), peak=H100_F32_FLOPS)
     return entries
+
+
+def check_scatter_ray_order(gen, dev, gspec):
+    """The split's table scatter (gspec's table) at positions ordered as the
+    sampler emits them, on the per-sample passes' own table cotangents with
+    one active level, as training runs it: K3s's at one training
+    microbatch's render samples (unit_rays in the box of radius 1, N =
+    163840, cotangents on sdf, geo and grad) and K2s's at their curvature
+    taps (ray_taps, N = 81920). Each scatter within 1e-2 of its plain
+    version, each whole split backward within the JAX test's limits of the
+    merged backward kernel on the same input (d_table and d_pos 1e-5, gW
+    and gb 2e-2). Returns the scatter's wrapper and kernel-alone ms, summed
+    over the two calls, with its bound's flops and bytes."""
+    from multimodalstudio_tpu_torch.ops.kernels.slot_fused import (
+        _chain_split_card,
+        _launch,
+        _launch_chain_bwd,
+        _launch_chain_bwd_sample,
+        _launch_table_scatter,
+        _launch_value_bwd,
+        _launch_value_bwd_sample,
+        _value_split_card,
+        pe_scales,
+        slot_table_scatter_plain,
+    )
+
+    table, ws, bs = slot_inputs(gen, dev, gspec)
+    x = unit_rays(gen, dev)
+    pe = pe_scales(6, 0.0, 5.0)
+    mask = (torch.arange(gspec.out_dim, device=dev) < gspec.feats).float()
+    k3, k2 = slot_tag("K3", gspec), slot_tag("K2", gspec)
+    pos = x * 2 - 1
+    n = pos.shape[0]
+    fwd = (pos, table, ws, bs, gspec, 1.0, pe, "SoftplusQuad", 100.0, mask)
+    out = _launch(*fwd[:5], gspec.num_levels, *fwd[5:], True, resid=True, x0=True)
+    res = (*out[3:6], torch.randn(n, generator=gen, device=dev),
+           (0.1 * torch.randn(n, 256, generator=gen, device=dev)).to(torch.bfloat16),
+           torch.randn(n, 3, generator=gen, device=dev))
+    tpos = ray_taps(x) * 2 - 1
+    nt = tpos.shape[0]
+    vfwd = (tpos, table, ws, bs, gspec, gspec.num_levels, 1.0, pe, "SoftplusQuad", 100.0, mask)
+    vres = (_launch(*vfwd, False, resid=True, x0=True)[3],
+            torch.randn(nt, generator=gen, device=dev))
+    calls = ((f"{k3}s N={n}", pos, _launch_chain_bwd_sample(*fwd, *res)[1],
+              lambda: _chain_split_card(*fwd, *res), lambda: _launch_chain_bwd(*fwd, *res)),
+             (f"{k2}s N={nt}", tpos, _launch_value_bwd_sample(*vfwd, *vres)[1],
+              lambda: _value_split_card(*vfwd, *vres), lambda: _launch_value_bwd(*vfwd, *vres)))
+    r = dict(ms=0.0, kernel_ms=0.0, flops=0.0, bytes=0.0, err=0.0)
+    for what, p, d_comp, whole, merged in calls:
+        what += ", ray-ordered, one active level"
+        got = _launch_table_scatter(p, d_comp, gspec, 1.0)
+        want = slot_table_scatter_plain(p, d_comp, gspec, radius=1.0)
+        split, ref = whole(), merged()
+        torch.cuda.synchronize()
+        r["err"] = max(r["err"], _compare_outputs(f"{what}: table scatter", ("d_table",), (got,),
+                                                  (want,)))
+        _compare_grads(f"{what}: whole split backward vs the merged backward kernel",
+                       SLOT_GRADS[:2], split[:2], ref[:2], tol=1e-5)
+        _compare_grads(f"{what}: whole split backward vs the merged backward kernel",
+                       SLOT_GRADS[2:], split[2:], ref[2:], tol=2e-2)
+        live = float((d_comp != 0).any(-1).float().mean())
+        print(f"  {what}: {100 * live:.1f}% of (sample, level) chunks not all zero")
+        r["ms"] += time_ms(lambda: _launch_table_scatter(p, d_comp, gspec, 1.0))
+        r["kernel_ms"] += kernel_alone_ms(lambda: _launch_table_scatter(p, d_comp, gspec, 1.0),
+                                          SCATTER_KERNELS)
+        # the positions and the cotangent read once, the table gradient written once; an f32
+        # add per cotangent value
+        r["flops"] += float(d_comp.numel())
+        r["bytes"] += nbytes(p, d_comp) + 4 * gspec.total_rows * 128
+    b_ms, b_by = bound(r["flops"], r["bytes"], H100_F32_FLOPS)
+    print(f"  {k3}s and {k2}s table scatter, ray-ordered, one active level, per 512-ray training "
+          f"microbatch: {r['ms']:.3f} ms, kernel alone {r['kernel_ms']:.3f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})")
+    return r
 
 
 # --------------------------------------------------- depth past the registered methods
@@ -3792,8 +3897,19 @@ def main() -> None:
     # the ray-ordered K6v draws from `gen` after every earlier phase
     print("kernel checks of K6v at ray-ordered positions (grid_raw_tpu without PE, vertex "
           "layout; per 512-ray training microbatch):")
-    ray = phase("K6v at ray-ordered positions", check_vertex_ray_order, gen, dev, vspec)
+    ray = phase("K6v at ray-ordered positions", check_lookup_ray_order, gen, dev, vspec)
     for name, r in zip(("slot_grid_lookup_vertex",) + ("slot_grid_lookup_vertex_bwd",) * 2, ray):
+        results[name]["err"] = max(results[name]["err"], r["err"])
+    # the ray-ordered K6 and scatters draw from `gen` after every earlier phase
+    print("kernel checks of K6 at ray-ordered positions (grid_raw_tpu without PE; per 512-ray "
+          "training microbatch):")
+    ray = phase("K6 at ray-ordered positions", check_lookup_ray_order, gen, dev, gspec)
+    for name, r in zip(("slot_grid_lookup",) + ("slot_grid_lookup_bwd",) * 2, ray):
+        results[name]["err"] = max(results[name]["err"], r["err"])
+    print("kernel checks of the table scatters at ray-ordered positions (grid_raw_tpu with split "
+          "backward, bf16 and f32 tables; per 512-ray training microbatch):")
+    for name, spec in (("slot_table_scatter", gspec), ("slot_table_scatter_f32", f32spec)):
+        r = phase(f"{name} at ray-ordered positions", check_scatter_ray_order, gen, dev, spec)
         results[name]["err"] = max(results[name]["err"], r["err"])
     rays_per_s, train, launches = {}, {}, {}
     for method in CONFIGS:

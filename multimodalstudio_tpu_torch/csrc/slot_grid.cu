@@ -12,23 +12,46 @@
 //
 // The TPU gathers a level's rows with a one-hot matrix product over the level's rows and
 // keeps the gathered rows (`comp`, [N, k*128] f32: 503 MB at 163,840 samples) for the
-// backward. Here one thread owns one (sample, level): it reads the sample's 8F values of
-// the entry directly (the entry's absolute index e; its values are floats e*8F ..
-// e*8F + 8F - 1 of the table, lane f*8 + p for feature f of corner p), and the backward
-// reads them again instead of a residual. The scatter into d_table is f32 atomics, one per
-// nonzero lane, so its summation order changes from run to run; the dense coarse levels
-// take every sample, so their entries are contended.
+// backward. The card reads each sample's entry directly (the entry's absolute index e; its
+// values are floats e*8F .. e*8F + 8F - 1 of the table, lane f*8 + p for feature f of
+// corner p), and the backward reads it again instead of a residual.
+//
+// What bounds K6 on an H100: device-memory bytes. A (sample, level) moves an 8-byte index,
+// 32 bytes of w and 96 of dw (with tangents), and 16F bytes of outputs (the table, 1.5 MB at
+// the flagship size, stays in L2); the backward adds its cotangents and d_w and d_dw, and
+// needs the index and weights only of a (sample, level) whose cotangents are not all zero;
+// its reductions on the dense coarse level take every sample. The first design ran a thread
+// per (sample, level) both ways, reading w and dw a float at a time, and added each value of
+// the backward's table cotangent by its own f32 atomic. The design:
+// - the forward keeps a thread per (sample, level) in memory order: every operand is
+//   row-major [N, (3,) k, .], so a warp's reads and writes are contiguous runs, and at F = 2
+//   a thread does a (sample, level)'s work without the shuffles and repeated roundings that
+//   lanes sharing it would need (lane groups walking runs at one level, the backward's
+//   design, read those operands level-strided and ran 1.5-2x slower, NVIDIA H100 80GB HBM3,
+//   700 W); w, dw and the entry are read as 16-byte loads, the entry's all in flight at once;
+// - the backward's block takes one level and 128 / G lane groups of G = 2F lanes: lane j
+//   holds 16 bytes of the entry, corners 4h .. 4h + 3 of feature f = j >> 1 (h = j & 1), so a
+//   group reads an entry whole and a (sample, level)'s w and dw as whole 32-byte sectors; a
+//   group walks a run of up to 32 consecutive samples (group_run), the next sample's index,
+//   w, dw and cotangents read a sample ahead into registers (staging a batch of 8 samples in
+//   shared memory by cp.async was no faster at the main path's largest calls and slower at
+//   the small ones; capping the registers for more warps was slower);
+// - the backward skips a block whose cotangents at its level are all zero (the levels the
+//   coarse-to-fine mask cuts: no index, weight or entry read, nothing added, its d_w and
+//   d_dw written zero), and within a block a sample whose cotangents are all zero (a ballot
+//   over the group); a group reads its entry only when it moves (along a ray a coarse level's
+//   entry holds for tens of samples). d_w and d_dw sum over the group's features by a
+//   butterfly. A lane sums its table cotangent in registers while the group's entry stays
+//   and adds it by one red.global.add.v4.f32 when the entry moves or the run ends; the order
+//   of those f32 sums changes from run to run.
 //
 // Cast points in bf16-table mode (_fwd_kernel :509-523, _bwd_kernel :578-629): T, w and dw
 // rounded to bf16; enc = sum_p bf16(T * w_p) and tenc_t = sum_p bf16(T * dw_t,p) in f32;
 // gt = bf16(genc), gtk = bf16(gtenc_t); d_w[p] = sum_f bf16(T * gt), d_dw the same with gtk;
-// u = gt * w + sum_t gtk * dw_t in f32 (in that order), rounded to bf16 before the atomic
-// add. The f32 table runs the same sums without the roundings. Compiled without fused
-// multiply-adds (build.py), so each product is rounded before its sum, as in the reference.
-//
-// Bound on an H100: per (sample, level) the forward reads 32 + 96 bytes of weights (with
-// tangents), an 8-byte index and 8F table values (the table is L2-resident: 1.5 MB at the
-// flagship size), writes 16F bytes and does about 32F multiply-adds: the bytes bound it.
+// u = gt * w + sum_t gtk * dw_t in f32 (in that order), rounded to bf16 per sample before it
+// joins a lane's f32 sum, which is never rounded. The f32 table runs the same sums without
+// the roundings. Compiled without fused multiply-adds (build.py), so each product is rounded
+// before its sum, as in the reference.
 //
 // K6v replaces the same two Pallas kernels in the vertex layout (exact C0; F = 16, an f32
 // table, the TPU's copy gather: _fwd_kernel's vertex branch :487-507, _bwd_kernel's
@@ -61,128 +84,244 @@
 #include <initializer_list>
 
 #include "chain.cuh"
+#include "warp.cuh"
 
 using namespace mms;
 
 namespace {
 
-constexpr int BLOCK = 256;
-
 __device__ __forceinline__ float rnd(float x, bool bf) { return bf ? round_bf16(x) : x; }
 
+__device__ __forceinline__ float4 rnd4(float4 v, bool bf) {
+  return bf ? make_float4(round_bf16(v.x), round_bf16(v.y), round_bf16(v.z), round_bf16(v.w)) : v;
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+__device__ __forceinline__ float comp(const float4& v, int q) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
+
+// ---- K6: the cell layout's lookup.
+
+// 4 corners times 4 weights, each product rounded in bf16 mode, summed in order.
+__device__ __forceinline__ float dot4r(const float4& T, const float4& a, bool bf) {
+  float s = rnd(T.x * a.x, bf);
+  s = s + rnd(T.y * a.y, bf);
+  s = s + rnd(T.z * a.z, bf);
+  return s + rnd(T.w * a.w, bf);
+}
+
+// K6's forward: a thread per (sample, level) in memory order. Every operand is row-major
+// [N, (3,) k, .], so a warp's 32 (sample, level)s read idx, w and dw and write enc and tenc as
+// contiguous runs; a thread reads its entry as 2F 16-byte loads (L2), all in flight at once,
+// and its w and dw as 16-byte loads.
+constexpr int FBLOCK = 256;
+
 template <int F, bool TANG>
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(FBLOCK)
 slot_lookup_fwd_kernel(const float* __restrict__ table, const long long* __restrict__ idx,
                        const float* __restrict__ w, const float* __restrict__ dw, int n, int k,
                        bool bf, float* __restrict__ enc, float* __restrict__ tenc) {
-  const long long i = (long long)blockIdx.x * BLOCK + threadIdx.x;
+  const long long i = (long long)blockIdx.x * FBLOCK + threadIdx.x;
   if (i >= (long long)n * k) return;
   const long long s = i / k;
-  const int l = (int)(i % k);
-  const float* T = table + idx[i] * (8 * F);
-  float wb[8];
+  const int l = (int)(i - s * k);
+  const float* T = table + __ldg(idx + i) * (8 * F);
+  float4 wq[2], dq[3][2];
 #pragma unroll
-  for (int p = 0; p < 8; ++p) wb[p] = rnd(w[i * 8 + p], bf);
-  float dwb[3][8];
-  if (TANG) {
+  for (int h = 0; h < 2; ++h) {
+    wq[h] = rnd4(ld4(w + i * 8 + 4 * h), bf);
+    if (TANG) {
 #pragma unroll
-    for (int t = 0; t < 3; ++t)
-#pragma unroll
-      for (int p = 0; p < 8; ++p) dwb[t][p] = rnd(dw[(s * 3 + t) * k * 8 + l * 8 + p], bf);
+      for (int t = 0; t < 3; ++t)
+        dq[t][h] = rnd4(ld4(dw + ((s * 3 + t) * k + l) * 8 + 4 * h), bf);
+    }
   }
 #pragma unroll
   for (int f = 0; f < F; ++f) {
-    float v[8];
-    const float4* T4 = reinterpret_cast<const float4*>(T + f * 8);
-    const float4 lo = T4[0], hi = T4[1];
-    v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
-    v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
-    float acc = 0.f, ta[3] = {0.f, 0.f, 0.f};
-#pragma unroll
-    for (int p = 0; p < 8; ++p) {
-      const float tv = rnd(v[p], bf);
-      acc += rnd(tv * wb[p], bf);
-      if (TANG) {
-#pragma unroll
-        for (int t = 0; t < 3; ++t) ta[t] += rnd(tv * dwb[t][p], bf);
-      }
-    }
-    enc[i * F + f] = acc;
+    const float4 lo = rnd4(ld4(T + f * 8), bf), hi = rnd4(ld4(T + f * 8 + 4), bf);
+    enc[i * F + f] = dot4r(lo, wq[0], bf) + dot4r(hi, wq[1], bf);
     if (TANG) {
 #pragma unroll
-      for (int t = 0; t < 3; ++t) tenc[(s * 3 + t) * k * F + l * F + f] = ta[t];
+      for (int t = 0; t < 3; ++t)
+        tenc[((s * 3 + t) * k + l) * F + f] = dot4r(lo, dq[t][0], bf) + dot4r(hi, dq[t][1], bf);
     }
+  }
+}
+
+// K6's backward.
+
+constexpr int CBLOCK = 128;  // threads of a K6 backward block: 128 / (2F) groups of one level
+
+// A lane's group: G = 2F lanes, lane j holding corners 4h .. 4h + 3 of feature f = j >> 1
+// (h = j & 1), 16 bytes of the entry; the group walks samples [sb, se) at level l.
+struct CellGroup {
+  int l, j, f, h;
+  unsigned gm;  // the group's lanes
+  long long sb, se;
+};
+
+template <int F>
+__device__ __forceinline__ CellGroup cell_group(int n, int k, int seg) {
+  constexpr int G = 2 * F;
+  CellGroup c;
+  c.l = (int)(blockIdx.x % k);
+  c.j = threadIdx.x % G;
+  c.f = c.j >> 1;
+  c.h = c.j & 1;
+  c.gm = group_mask<G>();
+  c.sb = ((long long)(blockIdx.x / k) * (CBLOCK / G) + threadIdx.x / G) * seg;
+  c.se = min(c.sb + seg, (long long)n);
+  return c;
+}
+
+// A sample's inputs at the group's level, read a sample ahead: its entry, the lane's half of
+// w and dw and the lane's feature of its cotangents.
+template <int NQ>
+struct CellIn {
+  long long e;
+  float4 w, dw[3];
+  float g[NQ];
+};
+
+template <int F, bool TANG>
+__device__ __forceinline__ void cell_load(CellIn<TANG ? 4 : 1>& in, const CellGroup& c,
+                                          const long long* __restrict__ idx,
+                                          const float* __restrict__ w,
+                                          const float* __restrict__ dw,
+                                          const float* __restrict__ genc,
+                                          const float* __restrict__ gtenc, long long s, int k) {
+  const long long sl = s * k + c.l;
+  in.e = __ldg(idx + sl);
+  in.w = ld4(w + sl * 8 + 4 * c.h);
+  in.g[0] = genc[sl * F + c.f];
+  if (TANG) {
+#pragma unroll
+    for (int t = 0; t < 3; ++t) {
+      in.dw[t] = ld4(dw + ((s * 3 + t) * k + c.l) * 8 + 4 * c.h);
+      in.g[1 + t] = gtenc[((s * 3 + t) * k + c.l) * F + c.f];
+    }
+  }
+}
+
+// Whether any of the F floats at p (8-byte aligned for F = 2, else 16-byte) is not zero.
+template <int F>
+__device__ __forceinline__ bool any_nonzero(const float* p) {
+  if constexpr (F == 2) {
+    const float2 v = __ldg(reinterpret_cast<const float2*>(p));
+    return v.x != 0.f || v.y != 0.f;
+  } else {
+    bool nz = false;
+#pragma unroll
+    for (int q = 0; q < F; q += 4) {
+      const float4 v = ld4(p + q);
+      nz |= v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f;
+    }
+    return nz;
   }
 }
 
 template <int F, bool TANG>
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(CBLOCK)
 slot_lookup_bwd_kernel(const float* __restrict__ table, const long long* __restrict__ idx,
                        const float* __restrict__ w, const float* __restrict__ dw,
                        const float* __restrict__ genc, const float* __restrict__ gtenc, int n,
-                       int k, bool bf, float* __restrict__ d_table, float* __restrict__ d_w,
-                       float* __restrict__ d_dw) {
-  const long long i = (long long)blockIdx.x * BLOCK + threadIdx.x;
-  if (i >= (long long)n * k) return;
-  const long long s = i / k;
-  const int l = (int)(i % k);
-  const long long e0 = idx[i] * (8 * F);
-  const float* T = table + e0;
-  float wb[8], gw[8];
-#pragma unroll
-  for (int p = 0; p < 8; ++p) {
-    wb[p] = rnd(w[i * 8 + p], bf);
-    gw[p] = 0.f;
+                       int k, int seg, bool bf, float* __restrict__ d_table,
+                       float* __restrict__ d_w, float* __restrict__ d_dw) {
+  constexpr int NQ = TANG ? 4 : 1;  // the cotangent's quantities: enc (and 3 tangents)
+  constexpr int G = 2 * F;
+  const CellGroup c = cell_group<F>(n, k, seg);
+  // the (sample, level) row of quantity q: genc and d_w (q = 0), or gtenc and d_dw of
+  // tangent q - 1
+  const auto at = [&](long long s, int q) {
+    return q == 0 ? s * k + c.l : (s * 3 + q - 1) * k + c.l;
+  };
+  // the block's samples; a block whose cotangents are all zero (a level the coarse-to-fine
+  // mask cuts) reads no index, weight or entry and adds nothing: it writes zero d_w and d_dw
+  const long long s0 = (long long)(blockIdx.x / k) * (CBLOCK / G) * seg;
+  const long long ns = min(s0 + (long long)(CBLOCK / G) * seg, (long long)n) - s0;
+  bool nz = false;
+#pragma unroll 4
+  for (long long i = threadIdx.x; i < ns * NQ; i += CBLOCK) {
+    const int q = (int)(i % NQ);
+    nz |= any_nonzero<F>((q == 0 ? genc : gtenc) + at(s0 + i / NQ, q) * F);
   }
-  float dwb[3][8], gdw[3][8];
-  if (TANG) {
-#pragma unroll
-    for (int t = 0; t < 3; ++t)
-#pragma unroll
-      for (int p = 0; p < 8; ++p) {
-        dwb[t][p] = rnd(dw[(s * 3 + t) * k * 8 + l * 8 + p], bf);
-        gdw[t][p] = 0.f;
-      }
-  }
-#pragma unroll
-  for (int f = 0; f < F; ++f) {
-    const float gt = rnd(genc[i * F + f], bf);
-    float gtk[3] = {0.f, 0.f, 0.f};
-    if (TANG) {
-#pragma unroll
-      for (int t = 0; t < 3; ++t) gtk[t] = rnd(gtenc[(s * 3 + t) * k * F + l * F + f], bf);
+  if (!__syncthreads_or(nz)) {
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (long long i = threadIdx.x; i < ns * NQ * 2; i += CBLOCK) {
+      const int q = (int)(i % (NQ * 2)) >> 1;
+      reinterpret_cast<float4*>((q == 0 ? d_w : d_dw) + at(s0 + i / (NQ * 2), q) * 8)[i & 1] = z;
     }
-    float v[8];
-    const float4* T4 = reinterpret_cast<const float4*>(T + f * 8);
-    const float4 lo = T4[0], hi = T4[1];
-    v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
-    v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+    return;
+  }
+  CellIn<NQ> nx;
+  if (c.sb < c.se) cell_load<F, TANG>(nx, c, idx, w, dw, genc, gtenc, c.sb, k);
+  long long key = -1;
+  float4 T = make_float4(0.f, 0.f, 0.f, 0.f);
+  float pend[4] = {0.f, 0.f, 0.f, 0.f};  // the lane's table cotangent not yet added
+  for (long long s = c.sb; s < c.se; ++s) {
+    const CellIn<NQ> in = nx;
+    if (s + 1 < c.se) cell_load<F, TANG>(nx, c, idx, w, dw, genc, gtenc, s + 1, k);
+    float cq[NQ];
+    bool live = false;
 #pragma unroll
-    for (int p = 0; p < 8; ++p) {
-      const float tv = rnd(v[p], bf);
-      gw[p] += rnd(tv * gt, bf);
-      float u = gt * wb[p];
+    for (int q = 0; q < NQ; ++q) {
+      cq[q] = rnd(in.g[q], bf);
+      live |= cq[q] != 0.f;
+    }
+    float v[4 * NQ];  // the lane's d_w (and d_dw) terms of corners 4h + q, then their sums
+#pragma unroll
+    for (int i = 0; i < 4 * NQ; ++i) v[i] = 0.f;
+    // a sample whose cotangents are all zero reads no entry and adds nothing
+    if (__any_sync(c.gm, live)) {
+      if (in.e != key) {  // the entry moved: add the sums of the old one, read the new one
+        if (key >= 0) red4_nonzero(d_table + key * (8 * F) + 4 * c.j, pend);
+        key = in.e;
+        T = rnd4(ld4(table + key * (8 * F) + 4 * c.j), bf);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) pend[q] = 0.f;
+      }
+      const float4 wq = rnd4(in.w, bf);
+      float4 dq[3];
       if (TANG) {
 #pragma unroll
-        for (int t = 0; t < 3; ++t) {
-          gdw[t][p] += rnd(tv * gtk[t], bf);
-          u = u + gtk[t] * dwb[t][p];
-        }
+        for (int t = 0; t < 3; ++t) dq[t] = rnd4(in.dw[t], bf);
       }
-      u = rnd(u, bf);
-      if (u != 0.f) atomicAdd(d_table + e0 + f * 8 + p, u);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float tv = comp(T, q);
+        v[q] = rnd(tv * cq[0], bf);
+        float u = cq[0] * comp(wq, q);
+        if (TANG) {
+#pragma unroll
+          for (int t = 0; t < 3; ++t) {
+            v[4 * (1 + t) + q] = rnd(tv * cq[1 + t], bf);
+            u = u + cq[1 + t] * comp(dq[t], q);
+          }
+        }
+        pend[q] += rnd(u, bf);
+      }
+      // d_w[4h + q] (and d_dw's) sum over the group's features: the lanes of equal h
+#pragma unroll
+      for (int m = 2; m < G; m <<= 1) {
+#pragma unroll
+        for (int i = 0; i < 4 * NQ; ++i) v[i] += __shfl_xor_sync(c.gm, v[i], m);
+      }
+    }
+    // lane (f, h) stores half h of quantities f, f + F, ...: d_w, then d_dw's tangents
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      if (q % F == c.f)
+        reinterpret_cast<float4*>((q == 0 ? d_w : d_dw) + at(s, q) * 8)[c.h] =
+            make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
     }
   }
-#pragma unroll
-  for (int p = 0; p < 8; ++p) d_w[i * 8 + p] = gw[p];
-  if (TANG) {
-#pragma unroll
-    for (int t = 0; t < 3; ++t)
-#pragma unroll
-      for (int p = 0; p < 8; ++p) d_dw[(s * 3 + t) * k * 8 + l * 8 + p] = gdw[t][p];
-  }
+  if (key >= 0) red4_nonzero(d_table + key * (8 * F) + 4 * c.j, pend);
 }
-
 
 // ---- K6v: the vertex layout's lookup, a warp per (run of samples, level).
 
@@ -190,29 +329,12 @@ constexpr int VF = 16;       // features per vertex in the vertex layout
 constexpr int VRUN = 32;     // the longest run of consecutive samples a warp walks
 constexpr int VBLOCK = 128;  // threads of a K6v block: 4 warps of one level
 constexpr int VROWS = 8 * 128;  // shared-memory floats of a warp's row buffer, a row a slot
-constexpr unsigned FULL = 0xffffffffu;
 
 // Shared-memory floats of one warp: its row buffer, then its run's staged inputs: the corner
 // rows (int64, 16 words a sample), w (8) and dw (24); the backward adds the cotangents genc
 // (16) and gtenc (48).
 __host__ __device__ constexpr int stage_words(bool bwd, bool tang) {
   return VROWS + VRUN * ((16 + 8 + (tang ? 24 : 0)) + (bwd ? 16 + (tang ? 48 : 0) : 0));
-}
-
-__device__ __forceinline__ float comp(const float4& v, int q) {
-  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
-}
-
-// 16 bytes from device memory to shared memory, asynchronously (L2 only).
-__device__ __forceinline__ void cp16(void* smem, const void* gmem) {
-  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst), "l"(gmem));
-}
-
-// Every copy of the lane retired, then the warp's copies visible to the warp.
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_all;" ::: "memory");
-  __syncwarp();
 }
 
 // Copy `rows` of `words` floats each (a multiple of 4), the i-th from src + i * stride, to
@@ -318,18 +440,6 @@ struct VertexCorners {
 // the build's --fmad=false leaves to the intrinsic.
 __device__ __forceinline__ float dot4(const float (&T)[4], const float4& a) {
   return __fmaf_rn(T[3], a.w, __fmaf_rn(T[2], a.z, __fmaf_rn(T[1], a.y, T[0] * a.x)));
-}
-
-// Hopper's vector reductions (PTX ISA 8.1, sm_90): no value returned.
-__device__ __forceinline__ void red1(float* p, float a) {
-  asm volatile("red.global.add.f32 [%0], %1;" ::"l"(p), "f"(a));
-}
-__device__ __forceinline__ void red2(float* p, float a, float b) {
-  asm volatile("red.global.add.v2.f32 [%0], {%1, %2};" ::"l"(p), "f"(a), "f"(b));
-}
-__device__ __forceinline__ void red4(float* p, float a, float b, float c, float d) {
-  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(p), "f"(a), "f"(b), "f"(c),
-               "f"(d));
 }
 
 // Add the lane's pending table cotangents of its slots 4h + q in `fl` into their rows kq[q]:
@@ -544,17 +654,23 @@ slot_vertex_bwd_kernel(const float* __restrict__ table, const long long* __restr
   flush_rows(d_table, kq, 0xffu, lane, pend);
 }
 
+// K6's backward grid: a block per (128 / 2F groups of `seg` samples, level).
+template <int F>
+unsigned cell_grid(int n, int k, int seg) {
+  const long long per = (long long)(CBLOCK / (2 * F)) * seg;
+  return (unsigned)((n + per - 1) / per * k);
+}
+
 template <int F>
 int fwd_f(const float* table, const long long* idx, const float* w, const float* dw, int n, int k,
           bool bf, float* enc, float* tenc, cudaStream_t stream) {
-  const long long work = (long long)n * k;
-  const unsigned grid = (unsigned)((work + BLOCK - 1) / BLOCK);
+  const unsigned grid = (unsigned)(((long long)n * k + FBLOCK - 1) / FBLOCK);
   if (dw)
-    slot_lookup_fwd_kernel<F, true><<<grid, BLOCK, 0, stream>>>(table, idx, w, dw, n, k, bf, enc,
-                                                                 tenc);
+    slot_lookup_fwd_kernel<F, true><<<grid, FBLOCK, 0, stream>>>(table, idx, w, dw, n, k, bf, enc,
+                                                                  tenc);
   else
-    slot_lookup_fwd_kernel<F, false><<<grid, BLOCK, 0, stream>>>(table, idx, w, dw, n, k, bf,
-                                                                  enc, tenc);
+    slot_lookup_fwd_kernel<F, false><<<grid, FBLOCK, 0, stream>>>(table, idx, w, dw, n, k, bf, enc,
+                                                                   tenc);
   return (int)cudaGetLastError();
 }
 
@@ -562,22 +678,20 @@ template <int F>
 int bwd_f(const float* table, const long long* idx, const float* w, const float* dw,
           const float* genc, const float* gtenc, int n, int k, bool bf, float* d_table,
           float* d_w, float* d_dw, cudaStream_t stream) {
-  const long long work = (long long)n * k;
-  const unsigned grid = (unsigned)((work + BLOCK - 1) / BLOCK);
+  const int seg = group_run(n, k, 2 * F);
+  const unsigned grid = cell_grid<F>(n, k, seg);
   if (dw)
-    slot_lookup_bwd_kernel<F, true><<<grid, BLOCK, 0, stream>>>(table, idx, w, dw, genc, gtenc, n,
-                                                                 k, bf, d_table, d_w, d_dw);
+    slot_lookup_bwd_kernel<F, true><<<grid, CBLOCK, 0, stream>>>(
+        table, idx, w, dw, genc, gtenc, n, k, seg, bf, d_table, d_w, d_dw);
   else
-    slot_lookup_bwd_kernel<F, false><<<grid, BLOCK, 0, stream>>>(table, idx, w, dw, genc, gtenc,
-                                                                  n, k, bf, d_table, d_w, d_dw);
+    slot_lookup_bwd_kernel<F, false><<<grid, CBLOCK, 0, stream>>>(
+        table, idx, w, dw, genc, gtenc, n, k, seg, bf, d_table, d_w, d_dw);
   return (int)cudaGetLastError();
 }
 
 bool bad_args(int n, int k, int feats) {
   return n < 1 || k < 1 || (feats != 2 && feats != 4 && feats != 8 && feats != 16);
 }
-
-bool aligned16(const void* p) { return ((unsigned long long)p & 15) == 0; }
 
 // K6v's run length: VRUN consecutive samples a warp, fewer where the call has too few
 // (sample, level)s to give every SM 64 warps.
@@ -614,11 +728,13 @@ size_t vertex_smem(K kernel, bool bwd, bool tang) {
 }  // namespace
 
 // enc [n, k*feats] (and tenc [n, 3*k*feats] when dw is not null) from the f32 table
-// [rows, 128], idx [n, k] int64 absolute entry indices, w [n, k*8] and dw [n, 3*k*8].
+// [rows, 128], idx [n, k] int64 absolute entry indices, w [n, k*8] and dw [n, 3*k*8]; table,
+// w and dw 16-byte aligned.
 extern "C" int mms_slot_lookup_fwd(const void* table, const void* idx, const void* w,
                                    const void* dw, int n, int k, int feats, int bf16_table,
                                    void* enc, void* tenc, void* stream) {
   if (bad_args(n, k, feats) || (dw != nullptr) != (tenc != nullptr)) return -1;
+  for (const void* p : {table, w, dw}) if (!aligned16(p)) return -1;
   const auto* t = (const float*)table;
   const auto* ix = (const long long*)idx;
   const auto s = (cudaStream_t)stream;
@@ -632,7 +748,8 @@ extern "C" int mms_slot_lookup_fwd(const void* table, const void* idx, const voi
 }
 
 // d_table [rows, 128] (zeroed by the caller, accumulated), d_w [n, k*8] and, when dw is not
-// null, d_dw [n, 3*k*8] from the cotangents genc [n, k*feats] (and gtenc [n, 3*k*feats]).
+// null, d_dw [n, 3*k*8] from the cotangents genc [n, k*feats] (and gtenc [n, 3*k*feats]);
+// every pointer but idx 16-byte aligned.
 extern "C" int mms_slot_lookup_bwd(const void* table, const void* idx, const void* w,
                                    const void* dw, const void* genc, const void* gtenc, int n,
                                    int k, int feats, int bf16_table, void* d_table, void* d_w,
@@ -640,6 +757,9 @@ extern "C" int mms_slot_lookup_bwd(const void* table, const void* idx, const voi
   if (bad_args(n, k, feats) || (dw != nullptr) != (gtenc != nullptr) ||
       (dw != nullptr) != (d_dw != nullptr))
     return -1;
+  for (const void* p : {table, w, dw, genc, gtenc, (const void*)d_table, (const void*)d_w,
+                        (const void*)d_dw})
+    if (!aligned16(p)) return -1;
   const auto* t = (const float*)table;
   const auto* ix = (const long long*)idx;
   const auto* ge = (const float*)genc;

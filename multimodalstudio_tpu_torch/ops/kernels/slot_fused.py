@@ -695,12 +695,15 @@ def _grid_geometry(gspec: SlotGridSpec, k: int):
             [int(o) for o in gspec.level_offsets[:k]])
 
 
-def _grid_args(gspec: SlotGridSpec, k: int, radius: float) -> list:
+@functools.lru_cache(maxsize=64)
+def _grid_args(gspec: SlotGridSpec, k: int, radius: float) -> tuple:
     """The cell geometry of the first k levels, as the entry points take it:
     levels, F, log2(entries per row), resolutions, dense flags, entry masks,
-    row offsets, radius, the clip bound."""
+    row offsets, radius, the clip bound; built once per (gspec, k, radius),
+    as the numpy behind gspec's properties costs the wrapper more host time
+    than the kernel takes."""
     shift, *per_level = _grid_geometry(gspec, k)
-    return [k, gspec.feats, shift, *map(build.int_array, per_level), float(radius), CLIP_HI]
+    return (k, gspec.feats, shift, *map(build.int_array, per_level), float(radius), CLIP_HI)
 
 
 MAX_PE = 16  # csrc/enc.cuh MAXPE
@@ -1103,7 +1106,7 @@ def _launch_table_scatter(positions, d_comp, gspec, radius, d_table=None):
     pos = positions.float().contiguous()
     dc = d_comp.contiguous()
     if d_table is None:
-        d_table = torch.zeros((gspec.total_rows, LANE), dtype=torch.float32, device=pos.device)
+        d_table = torch.zeros((_total_rows(gspec), LANE), dtype=torch.float32, device=pos.device)
     if n:
         fn = build.function("slot_split", "mms_slot_table_scatter", "ptr", "int", "ptr", "int",
                             *_GRID_TYPES, "ptr", "ptr")

@@ -33,8 +33,8 @@ _lookup_fn's custom VJP (:768-884). The TPU gathers rows by one-hot
 matrix products and keeps the gathered rows `comp` [N, K*128] f32 as the
 backward's residual; the card gathers the sample's 8F values directly, in
 the forward and again in the backward, and keeps no residual. The
-backward returns d_table (a scatter-add by f32 atomics, whose order
-changes from run to run), d_w [N, K*8] and d_dw [N, 3*K*8].
+backward returns d_table (a scatter-add by f32 vector reductions, whose
+order changes from run to run), d_w [N, K*8] and d_dw [N, 3*K*8].
 
 Cast points of the bf16-table mode (_fwd_kernel :509-523, _bwd_kernel
 :578-629): enc = sum_p bf16(bf16(T) * bf16(w_p)) and tenc_t the same with
@@ -57,19 +57,26 @@ lane), never whole rows.
 Bound on an H100: per (sample, level) the forward reads 8 + 24 f32
 weights, an index and 8F table values (L2-resident: 1.5 MB at the
 flagship size) and writes 4F floats; about 8F multiply-adds per output:
-the bytes bound it. The backward adds F + 3F cotangents, writes 32 f32
-weight cotangents and 8F atomics. K6v's corner spans all 16 sectors of
-its 512-byte row, so what bounds it is the L2 sectors of the distinct rows
-a sample reads (3.4 of 8 on average at uniform positions), the device
-bytes of idx, w, dw and the outputs, the instructions a warp spends a
-sample, and in the backward the atomics on the dense coarse level. Its
-kernels give a warp a run of up to 32 consecutive samples at one level,
-staged in shared memory: each distinct row of the slots that moved is read
-once, 32 lanes x 16 bytes, and a slot whose row did not move (along a ray
-a corner keeps its parity) keeps its values; the backward skips samples
-whose cotangents are all zero (the masked levels) and sums a kept row's
-table cotangent in registers, adding it by vector reductions when the row
-moves.
+the bytes bound it. The backward adds F + 3F cotangents and writes 32 f32
+weight cotangents; it needs the index and weights only where the
+cotangents are not all zero. K6's forward runs a thread per (sample,
+level) in memory order, so that every operand is read and written in
+contiguous runs; its backward gives a lane group of 2F lanes (16 bytes of
+the entry each) a run of up to 32 consecutive samples at one level: the
+group reads its entry only when it moves, skips a level (and a sample)
+whose cotangents are all zero and adds a kept entry's table cotangent by
+one vector reduction a lane when the entry moves. K6v's corner spans all
+16 sectors of its 512-byte row, so what bounds it is the L2 sectors of the
+distinct rows a sample reads (3.4 of 8 on average at uniform positions),
+the device bytes of idx, w, dw and the outputs, the instructions a warp
+spends a sample, and in the backward the atomics on the dense coarse
+level. Its kernels give a warp a run of up to 32 consecutive samples at
+one level, staged in shared memory: each distinct row of the slots that
+moved is read once, 32 lanes x 16 bytes, and a slot whose row did not
+move (along a ray a corner keeps its parity) keeps its values; the
+backward skips samples whose cotangents are all zero (the masked levels)
+and sums a kept row's table cotangent in registers, adding it by vector
+reductions when the row moves.
 """
 
 from __future__ import annotations
