@@ -91,14 +91,47 @@
    route of mlp_raw_tpu on one microbatch's render samples inside the unit
    cube, where the contraction is the identity.
 
+4. Then the trained checkpoints and the port's entry points. (A) For
+   each committed rehearsal run of rehearsals.py (rehearsal_mlp_dense and
+   rehearsal_grid_dense at step 99999, rehearsal_grid_packed_confirm at
+   62499; their weights files, converted on the CPU by
+   convert_checkpoints.py, beside the orbax directories): the config
+   through load_config with a dict of the leaves its confs/*.yaml sets,
+   the 36-view, 256 x 256 raw scene through launcher.build_datasets, the
+   weights through engine/checkpoints.py; every kernel call of view 0's
+   central 4096-ray eval chunk (through the sphere) held against its
+   plain version on the trained inputs; then
+   RawEvaluator.render_all_eval_views at rendering_scale 1.0 (every eval
+   view, 7 per modality), exact launch counts, rays/s, each modality's
+   metrics beside the run's results.txt block (the JAX package's eval of
+   the same weights; it fails when a mosaicked PSNR falls more than 1.0 dB
+   below it, or, for packed_confirm, whose file is 2500 steps past its
+   last block, under 30 dB) and each view's mosaicked PSNR. Then,
+   uncounted, for the two runs results.txt scores at their checkpoint's
+   step: every view again through the plain versions on the card (it
+   fails when a modality's PSNR through the kernels is more than 1.0 dB
+   below it), and view 0 with one kernel wrapper at a time through its
+   plain version, and with the SH encoding's matmuls rounded to bf16 as
+   the JAX package computes them on a TPU. (B) export_mesh of
+   rehearsal_grid_dense at 256^3: its first SDF chunk against K2f's plain
+   version, one K2f launch a 262,144-point chunk, and the median radial
+   error against the scene's sphere of radius 0.5, at most 2 grid
+   spacings. (C) grid_raw_tpu at full width on
+   synthetic_raw:views=12,size=96 in a temporary directory: launcher
+   --mode train for 10 steps (a whole-state checkpoint), a Trainer whose
+   every cadence fires once in 20 steps resuming from it, then launcher
+   --mode eval; the resumed steps and the files written.
+
 Prints each phase's seconds and the whole run's, one {"kernels": [...]}
-line (launches summed over the training runs, each counted from 0), each
+line (launches summed over the training runs and phases A-C, each counted
+from 0), each
 path's rays/s, step time and busy share, and last the {"ok": true,
 "device": ...} line. Exits
 non-zero, printing no result, when a phase fails or no card is present.
 """
 
 import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -106,6 +139,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -3304,6 +3338,13 @@ CONFIGS = {  # label: (registered method, load_config overrides, environment of 
                                                        {"MMS_SLOT_BWD_SPLIT": "1"}),
     "grid_raw_tpu without PE, vertex layout": ("grid_raw_tpu", VERTEX_TABLE, {}),
 }
+# The committed rehearsal runs whose checkpoints the card renders (phase A) are rehearsals.py's
+# catalog; for each, the CONFIGS label whose PER_CHUNK launches one of its eval chunks makes.
+REHEARSAL_LABELS = {"rehearsal_mlp_dense": "mlp_raw_tpu",
+                    "rehearsal_grid_dense": "grid_raw_tpu with f32 table",
+                    "rehearsal_grid_packed_confirm": "grid_raw_tpu"}
+
+
 # labels whose render is another label's (the split backward changes nothing a render
 # runs): their render phase is not repeated
 SAME_RENDER = {"grid_raw_tpu with f32 table and split backward": "grid_raw_tpu with f32 table"}
@@ -3747,6 +3788,513 @@ def cross_check_k4(cfg, model, cams, state, cache, gen, dev) -> None:
             fail(f"the contraction route's {name} disagrees with the K4 route")
 
 
+# ------------------------------------------------------ trained checkpoints and entry points
+
+# each wrapper a rehearsal render or mesh launches, where models/ and fields/ call it, and the
+# plain version its outputs are held against (rel-L2 <= 1e-2 and finite, as the kernel checks)
+KERNEL_WRAPPERS = {  # wrapper: (its module, the modules that call it, its plain version)
+    "fused_chain": ("fused_mlp", ("models.model", "fields.mlp"), "fused_chain_plain"),
+    "fused_sdf_chain": ("sdf_chain", ("models.model",), "fused_sdf_chain_plain"),
+    "fused_slot_sdf_value": ("slot_fused", ("models.model",), "slot_sdf_value_plain"),
+    "fused_slot_sdf_chain": ("slot_fused", ("models.model",), "slot_sdf_chain_plain"),
+}
+
+
+@contextlib.contextmanager
+def wrappers_replaced(replacement, names=None):
+    """Each wrapper of KERNEL_WRAPPERS in `names` (default: all), in every module that calls
+    it, replaced for the block by replacement(name, wrapper)."""
+    import importlib
+
+    saved = []
+    for name, (_, users, _) in KERNEL_WRAPPERS.items():
+        if names is not None and name not in names:
+            continue
+        for user in users:
+            mod = importlib.import_module(f"multimodalstudio_tpu_torch.{user}")
+            fn = getattr(mod, name)
+            saved.append((mod, name, fn))
+            setattr(mod, name, replacement(name, fn))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def plain_version(name):
+    """The plain PyTorch version of a KERNEL_WRAPPERS wrapper."""
+    import importlib
+
+    module, _, plain_name = KERNEL_WRAPPERS[name]
+    return getattr(importlib.import_module(f"multimodalstudio_tpu_torch.ops.kernels.{module}"),
+                   plain_name)
+
+
+@contextlib.contextmanager
+def recorded_kernel_calls():
+    """Record every call of the KERNEL_WRAPPERS made through the model: a list of (wrapper,
+    args, kwargs, outputs)."""
+    calls = []
+
+    def recorder(name, fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            calls.append((name, args, kw, out))
+            return out
+        return call
+
+    with wrappers_replaced(recorder):
+        yield calls
+
+
+def plain_kernel_calls(names=None):
+    """Every call of the KERNEL_WRAPPERS in `names` (default: all) made through the model
+    runs the wrapper's plain version on the same (card) tensors instead, launching nothing:
+    a render through the plain versions, to hold against the kernels' render of the same
+    view."""
+
+    def plain(name, _):
+        fn = plain_version(name)
+
+        def call(*args, **kw):
+            kw.pop("mode", None)
+            return fn(*args, **kw)
+        return call
+
+    return wrappers_replaced(plain, names)
+
+
+def check_recorded_calls(what, calls, tol=1e-2):
+    """Hold each recorded kernel call against its plain version on the same inputs; returns
+    the largest max-abs error by wrapper."""
+    if not calls:
+        fail(f"{what}: no kernel was called")
+    worst = {}
+    for name, args, kw, out in calls:
+        kw = {k: v for k, v in kw.items() if k != "mode"}
+        with torch.no_grad():
+            ref = plain_version(name)(*args, **kw)
+        outs = out if isinstance(out, tuple) else (out,)
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        for i, (a, b) in enumerate(zip(outs, refs)):
+            a, b = a.float(), b.float()
+            rel = rel_l2(a, b)
+            err = float((a - b).abs().max())
+            worst[name] = max(worst.get(name, 0.0), err)
+            if not (rel <= tol and torch.isfinite(a).all()):
+                fail(f"{what}: {name} output {i} (N={args[0].shape[0]}) disagrees with its plain "
+                     f"version on the trained inputs: rel_l2={rel:.3e} (tolerance {tol:g})")
+    counts = {n: sum(c[0] == n for c in calls) for n in worst}
+    print(f"  {what}: {len(calls)} kernel calls held against their plain versions ({counts}), "
+          f"each output within rel_l2 {tol:g}; max_abs " +
+          " ".join(f"{n}={e:.3e}" for n, e in worst.items()))
+    return worst
+
+
+def results_block(run, step):
+    """{modality: {metric: value}} of the results.txt block at `step` of a run."""
+    out, block = {}, None
+    with open(os.path.join(run, "results.txt")) as f:
+        for line in f:
+            if line.startswith("step "):
+                block = int(line.split()[1])
+            elif block == step and line.strip():
+                mod, _, vals = line.strip().partition(": ")
+                out[mod] = {k: float(v) for k, v in (kv.split("=") for kv in vals.split())}
+    if not out:
+        fail(f"{run}/results.txt has no block at step {step}")
+    return out
+
+
+def rehearsal_scene(dev):
+    """The 36-view, 256 x 256 raw scene the rehearsals trained on (train, eval)."""
+    import rehearsals
+    from multimodalstudio_tpu_torch import launcher
+
+    return launcher.build_datasets(rehearsals.rehearsal_config("rehearsal_mlp_dense"),
+                                   rehearsals.SCENE, device=dev)
+
+
+def load_rehearsal(dev, name, datasets):
+    """(config, model, state) of a rehearsal run: its weights file through
+    engine/checkpoints.py into a model of its config, channels bound by the dataset."""
+    import rehearsals
+    from multimodalstudio_tpu_torch import launcher
+    from multimodalstudio_tpu_torch.cameras.camera_optimizer import init_camera_poses
+    from multimodalstudio_tpu_torch.engine import checkpoints
+    from multimodalstudio_tpu_torch.engine.train import TrainState
+    from multimodalstudio_tpu_torch.models.model import MMSModel
+
+    r = rehearsals.REHEARSALS[name]
+    cfg = launcher.resolve_model_channels(rehearsals.rehearsal_config(name), datasets[0])
+    model = MMSModel(cfg.model, device=dev)
+    num_cameras = {m: datasets[0].num_frames(m) for m in cfg.modalities}
+    poses = init_camera_poses(cfg.datamanager.camera_optimizer, cfg.modalities, num_cameras,
+                              device=dev)
+    state, next_step = checkpoints.load_checkpoint(os.path.join(r["run"], "checkpoints"), model,
+                                                   TrainState(camera_poses=poses, step=0),
+                                                   r["step"])
+    if state.step != r["step"] or next_step != r["step"] + 1 or state.opt_state is not None:
+        fail(f"{name}: the weights file did not load as step {r['step']} without optimizer state")
+    return cfg, model, state
+
+
+@contextlib.contextmanager
+def tpu_sh_rounding():
+    """The model's SH encoding of directions computed as the JAX package computes it on a
+    TPU: its flagships run matmul_precision 'default' (jax_default_matmul_precision
+    bfloat16, JAX configs/methods.py and engine/trainer.py), so each of the four matmuls
+    of sh_encoding_dense (JAX ops/encodings.py:115-122, not pinned to f32) takes its f32
+    inputs rounded to bf16 and sums in f32. JAX on the CPU ignores that precision, so the
+    CPU tests cannot see it; the rehearsal weights were trained under it."""
+    import multimodalstudio_tpu_torch.models.model as model_mod
+    from multimodalstudio_tpu_torch.ops.encodings import _sh_dense_coeffs
+
+    def rounded(t):
+        return t.to(torch.bfloat16).float()
+
+    def sh(directions, degree):
+        c0, c1, c2, c3, c4 = (torch.as_tensor(c, device=directions.device)
+                              for c in _sh_dense_coeffs(degree + 1))
+        lead = directions.shape[:-1]
+        d = directions.reshape(-1, 3)
+        m2 = (d[:, :, None] * d[:, None, :]).reshape(-1, 9)
+        m3 = (m2[:, :, None] * d[:, None, :]).reshape(-1, 27)
+        m4 = (m3[:, :, None] * d[:, None, :]).reshape(-1, 81)
+        out = c0[0] + sum(rounded(m) @ rounded(c) for m, c in
+                          ((d, c1), (m2, c2), (m3, c3), (m4, c4)))
+        return out.reshape(*lead, -1)
+
+    saved = model_mod.sh_encoding_dense
+    model_mod.sh_encoding_dense = sh
+    try:
+        yield
+    finally:
+        model_mod.sh_encoding_dense = saved
+
+
+@contextlib.contextmanager
+def all_eval_views():
+    """MMS_EVAL_MAX_VIEWS unset while a render scores every eval view."""
+    saved = os.environ.pop("MMS_EVAL_MAX_VIEWS", None)
+    try:
+        yield
+    finally:
+        if saved is not None:
+            os.environ["MMS_EVAL_MAX_VIEWS"] = saved
+
+
+def mosaicked_psnr(vals):
+    return vals.get("psnr_mosaicked", vals["psnr"])
+
+
+def run_checkpoint(dev, card, name, datasets):
+    """Phase A for one rehearsal run: the kernels of view 0's central eval chunk against
+    their plain versions on the trained inputs, then every eval view through
+    RawEvaluator.render_all_eval_views at rendering_scale 1 in chunks of 4096, the launch
+    counts, each modality's metrics beside the JAX package's eval of the same weights in
+    the run's results.txt, and each view's mosaicked PSNR. Then, where results.txt scores
+    the same weights, uncounted witnesses of where a gap to JAX's eval lies: every eval view
+    again through the plain versions on the card (it fails when a modality's mosaicked PSNR
+    through the kernels is more than 1.0 dB below it, the limit held against JAX's), and view
+    0 of each modality with one wrapper at a time through its plain version, and with the SH
+    encoding rounded as JAX computes it on a TPU (tpu_sh_rounding). Returns (launches,
+    rays/s, metrics, max-abs errors of the central chunk's kernels)."""
+    import rehearsals
+    from multimodalstudio_tpu_torch.data.sampler import dense_pixel_batch
+    from multimodalstudio_tpu_torch.engine.evaluator import RawEvaluator
+    from multimodalstudio_tpu_torch.ops.kernels import build
+
+    r = rehearsals.REHEARSALS[name]
+    cfg, model, state = load_rehearsal(dev, name, datasets)
+    ev = RawEvaluator(cfg, model, datasets[0], datasets[1], device=dev)
+    chunk = cfg.evaluator.eval_num_rays_per_chunk
+    if (cfg.evaluator.rendering_scale, chunk) != (1.0, 4096):
+        fail(f"{name}: not the run's eval geometry")
+
+    # the central chunk of view 0, through the sphere's silhouette and surface
+    batch = dense_pixel_batch(datasets[1], "rgb", 0, 1.0)
+    mid = batch.pixel_coords.shape[0] // chunk // 2 * chunk
+    with recorded_kernel_calls() as calls:
+        ev._render_chunk(state, "rgb", datasets[1].data["rgb"].cameras,
+                         batch.camera_indices[mid:mid + chunk], batch.pixel_coords[mid:mid + chunk])
+    errs = check_recorded_calls(f"{name}, central eval chunk", calls)
+    used = sorted({c[0] for c in calls})
+    del calls
+
+    # each view's metrics as render_all_eval_views scores them
+    per_view = {}
+
+    def recording(frames, mod, _score=ev.view_metrics):
+        vals = _score(frames, mod)
+        per_view.setdefault(mod, []).append(vals)
+        return vals
+
+    ev.view_metrics = recording
+    with all_eval_views():
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        results = ev.render_all_eval_views(state)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    del ev.view_metrics
+    launches = {n: info.launches for n, info in build.KERNELS.items()}
+    views = {m: datasets[1].num_frames(m) for m in cfg.modalities}
+    cams = datasets[1].data["rgb"].cameras
+    per_image = -(-cams.height * cams.width // chunk)
+    chunks = per_image * sum(views.values())
+    want = {n: PER_CHUNK[REHEARSAL_LABELS[name]].get(n, 0) * chunks for n in build.KERNELS}
+    print(f"  launches {launches}, expected {want} for {chunks} chunks of {chunk} rays")
+    if launches != want or not any(launches.values()):
+        fail(f"{name}: the render did not go through every kernel as often as expected")
+    n_rays = cams.height * cams.width * sum(views.values())
+    print(f"  rendered {sum(views.values())} views, {n_rays} rays in {seconds:.3f} s: "
+          f"{n_rays / seconds:.1f} rays/s (eval, {name} step {state.step}, {card})")
+
+    jax = results_block(r["run"], r["jax_step"])
+    gap = "" if r["jax_step"] == r["step"] else (
+        f"; the weights are step {r['step']}, {r['step'] - r['jax_step']} steps past that block, "
+        "so the columns are not the same weights")
+    print(f"  metrics (port, this run) beside the JAX package's eval in results.txt at step "
+          f"{r['jax_step']}{gap}:")
+    for mod, vals in results.items():
+        ref = jax.get(mod, {})
+        print(f"    {mod}: " + "  ".join(
+            f"{k}={v:.4f}" + (f" (JAX {ref[k]:.4f}, {v - ref[k]:+.4f})" if k in ref else "")
+            for k, v in vals.items()))
+        psnr = mosaicked_psnr(vals)
+        if not all(np.isfinite(v) for v in vals.values()):
+            fail(f"{name}: non-finite metrics for {mod}")
+        if r["jax_step"] == r["step"]:
+            jpsnr = mosaicked_psnr(ref)
+            if psnr < jpsnr - 1.0:
+                fail(f"{name}: {mod} mosaicked PSNR {psnr:.4f} is more than 1.0 dB below the "
+                     f"JAX package's {jpsnr:.4f}")
+        elif psnr < 30.0:
+            fail(f"{name}: {mod} mosaicked PSNR {psnr:.4f} is under 30 dB")
+    print("  mosaicked PSNR of each eval view (view 0 first):")
+    for mod, vals in per_view.items():
+        print(f"    {mod}: " + " ".join(f"{mosaicked_psnr(v):.4f}" for v in vals))
+
+    if r["jax_step"] != r["step"]:
+        return launches, n_rays / seconds, results, errs
+    t0 = time.perf_counter()
+    build.reset_launch_counts()
+    with plain_kernel_calls(), all_eval_views():
+        plain = ev.render_all_eval_views(state)
+    torch.cuda.synchronize()
+    if any(info.launches for info in build.KERNELS.values()):
+        fail(f"{name}: the plain versions' render launched a kernel")
+    print(f"  every eval view again through the plain versions on the card "
+          f"({time.perf_counter() - t0:.1f} s), mosaicked PSNR:")
+    for mod, vals in plain.items():
+        k, p, j = mosaicked_psnr(results[mod]), mosaicked_psnr(vals), mosaicked_psnr(jax[mod])
+        print(f"    {mod}: kernels {k:.4f}, plain {p:.4f} (kernels {k - p:+.4f}); JAX {j:.4f} "
+              f"(plain {p - j:+.4f})")
+        if not (np.isfinite(p) and k >= p - 1.0):
+            fail(f"{name}: {mod} mosaicked PSNR through the kernels, {k:.4f}, is more than 1.0 dB "
+                 f"below the plain versions' {p:.4f}")
+
+    t0 = time.perf_counter()
+    variants = [(f"{n} plain", plain_kernel_calls({n})) for n in used]
+    variants.append(("SH encoding rounded as JAX on a TPU", tpu_sh_rounding()))
+    print("  view 0 of each modality, mosaicked PSNR minus the kernels' render of it, with:")
+    for label, ctx in variants:
+        with ctx:
+            moved = {m: mosaicked_psnr(ev.view_metrics(ev.render_view(state, datasets[1], m, 0), m))
+                     - mosaicked_psnr(per_view[m][0]) for m in cfg.modalities}
+        print(f"    {label}: " + "  ".join(f"{m} {v:+.4f}" for m, v in moved.items()))
+    print(f"  ({time.perf_counter() - t0:.1f} s)")
+    return launches, n_rays / seconds, results, errs
+
+
+def ply_vertices(path):
+    """(vertices [V, 3], face count) of an ASCII PLY mesh."""
+    with open(path) as f:
+        header = []
+        for line in f:
+            header.append(line.split())
+            if line.startswith("end_header"):
+                break
+        counts = {h[1]: int(h[2]) for h in header if h[0] == "element"}
+        verts = np.loadtxt(f, max_rows=counts["vertex"], dtype=np.float64, ndmin=2)
+    return verts.reshape(-1, 3), counts.get("face", 0)
+
+
+def run_mesh(dev, card, name, datasets, resolution=256):
+    """Phase B: export_mesh of a rehearsal run at `resolution`: its first 262,144-point SDF
+    chunk against the plain version, the launches, and the mesh against the scene's sphere
+    of radius 0.5 at the origin (data/synthetic.py)."""
+    import tempfile
+
+    from multimodalstudio_tpu_torch.engine.evaluator import RawEvaluator
+    from multimodalstudio_tpu_torch.engine.train import make_schedules
+    from multimodalstudio_tpu_torch.ops.kernels import build
+
+    cfg, model, state = load_rehearsal(dev, name, datasets)
+    cfg = dataclasses.replace(cfg, evaluator=dataclasses.replace(cfg.evaluator,
+                                                                 mesh_resolution=resolution))
+    lo, hi = -cfg.model.scene_radius, cfg.model.scene_radius
+    xs = np.linspace(lo, hi, resolution, dtype=np.float32)
+    grid = np.stack(np.meshgrid(xs, xs, xs, indexing="ij"), axis=-1).reshape(-1, 3)[:262144]
+    active = make_schedules(cfg, state.step).active_level
+    with recorded_kernel_calls() as calls, torch.no_grad():
+        model.sdf_only(torch.as_tensor(grid, device=dev), active)
+    errs = check_recorded_calls(f"{name}, first mesh chunk", calls)
+    del calls
+    with tempfile.TemporaryDirectory() as out:
+        ev = RawEvaluator(cfg, model, datasets[0], datasets[1], out, device=dev)
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        path = ev.export_mesh(state, state.step)
+        seconds = time.perf_counter() - t0
+        launches = {n: info.launches for n, info in build.KERNELS.items()}
+        verts, n_faces = ply_vertices(path)
+    chunks = -(-resolution ** 3 // 262144)
+    kernel = ("fused_slot_sdf_value_f32" if "f32" in REHEARSAL_LABELS[name]
+              else "fused_slot_sdf_value")
+    want = {n: chunks if n in (kernel, "fused_chain_pack") else 0 for n in build.KERNELS}
+    err = np.abs(np.linalg.norm(verts, axis=-1) - 0.5)
+    spacing = (hi - lo) / (resolution - 1)
+    med, p95 = float(np.median(err)), float(np.percentile(err, 95))
+    print(f"  mesh at {resolution}^3 in {seconds:.2f} s: {len(verts)} vertices, {n_faces} faces; "
+          f"| |v| - 0.5 | median {med:.3e}, 95th percentile {p95:.3e} ({med / spacing:.3f} and "
+          f"{p95 / spacing:.3f} grid spacings of {spacing:.3e}); launches {launches}, expected "
+          f"{want} ({card})")
+    if launches != want:
+        fail(f"{name}: the mesh's SDF did not go through {kernel} once a chunk")
+    if not (len(verts) > 0 and n_faces > 0 and med <= 2 * spacing):
+        fail(f"{name}: the mesh is not the scene's sphere (median radial error {med:.3e} > "
+             f"2 grid spacings)")
+    return launches, errs
+
+
+ENTRY_SCENE = "synthetic_raw:views=12,size=96"
+# every cadence of a Trainer once in 20 steps, the demosaicked regimes scored (phase C)
+EVERY_CADENCE = {
+    "max_num_iterations": 20, "steps_per_eval_batch": 20, "steps_per_eval_image": 20,
+    "steps_per_eval_all_images": 20, "steps_per_save": 20, "steps_per_export_mesh": 20,
+    "steps_per_export_poses": 20,
+    "evaluator": {"export_mesh": True, "export_poses": True, "mesh_resolution": 128,
+                  "rendering_scale": 1.0},
+    "logging": {"steps_per_log": 20, "steps_per_flush_buffer": 20},
+}
+
+
+def run_entry_points(dev, card, root):
+    """Phase C: grid_raw_tpu at full width through the port's own entry points in `root`:
+    launcher --mode train for 10 steps (a whole-state checkpoint), a Trainer whose every
+    cadence fires once in 20 steps resuming from it, then launcher --mode eval on the same
+    run; checks resume steps and outputs. Returns the launches."""
+    import glob
+
+    from multimodalstudio_tpu_torch import launcher
+    from multimodalstudio_tpu_torch.configs.config import load_config
+    from multimodalstudio_tpu_torch.engine import checkpoints
+    from multimodalstudio_tpu_torch.engine.trainer import Trainer
+    from multimodalstudio_tpu_torch.ops.kernels import build
+
+    args = ["--method", "grid_raw_tpu", "--scene", ENTRY_SCENE, "--version", "smoke",
+            "--output", root, "--device", str(dev)]
+    run = os.path.join(root, "synthetic_raw", "grid_raw_tpu", "grid_raw_tpu", "smoke")
+    ckpts = os.path.join(run, "checkpoints")
+    build.reset_launch_counts()
+    launches = {}
+
+    def add_launches():
+        for n, info in build.KERNELS.items():
+            launches[n] = launches.get(n, 0) + info.launches
+        build.reset_launch_counts()
+
+    t0 = time.perf_counter()
+    launcher.main(["--mode", "train", *args, "--max_iterations", "10"])
+    torch.cuda.synchronize()
+    add_launches()
+    first = checkpoints.latest_checkpoint_step(ckpts)
+    ckpt = torch.load(checkpoints.checkpoint_path(ckpts, first), weights_only=True)
+    print(f"  launcher --mode train: 10 steps in {time.perf_counter() - t0:.1f} s, saved step "
+          f"{first} with optimizer state count {ckpt.get('opt_state', {}).get('count')}")
+    if first != 10 or ckpt.get("opt_state", {}).get("count") != 10:
+        fail("launcher --mode train did not save a whole-state checkpoint at step 10")
+
+    t0 = time.perf_counter()
+    cfg = load_config(method="grid_raw_tpu", overrides=EVERY_CADENCE)
+    train, evald = launcher.build_datasets(cfg, ENTRY_SCENE, device=dev)
+    cfg = launcher.resolve_model_channels(cfg, train)
+    trainer = Trainer(cfg, train, evald, run, device=dev)
+    trainer.setup()
+    resumed = (trainer.state.step, trainer.step_start, trainer.state.opt_state.count)
+    trainer.train()
+    torch.cuda.synchronize()
+    add_launches()
+    second = checkpoints.latest_checkpoint_step(ckpts)
+    print(f"  Trainer, every cadence once: resumed at state step {resumed[0]} (next step "
+          f"{resumed[1]}, update count {resumed[2]}), trained to step {trainer.state.step} in "
+          f"{time.perf_counter() - t0:.1f} s, saved step {second}")
+    if resumed != (first, first + 1, first) or second != trainer.state.step:
+        fail("the Trainer did not resume from the launcher's checkpoint")
+
+    t0 = time.perf_counter()
+    results = launcher.main(["--mode", "eval", *args])
+    torch.cuda.synchronize()
+    add_launches()
+    with open(os.path.join(run, "results.txt")) as f:
+        newest = int(f.readline().split()[1])
+    print(f"  launcher --mode eval in {time.perf_counter() - t0:.1f} s at step {newest}: "
+          + "; ".join(f"{m} psnr={v['psnr']:.3f}" for m, v in results.items()))
+    if newest != second:
+        fail(f"launcher --mode eval scored step {newest}, not the saved step {second}")
+    found = {what: sorted(glob.glob(os.path.join(run, pattern))) for what, pattern in (
+        ("checkpoints", "checkpoints/step-*.pt"), ("results", "results.txt"),
+        ("renders", "renders/step-*/*/*.png"), ("demosaicked renders",
+                                                 "renders/step-*/demosaicked/*/*.png"),
+        ("meshes", "meshes/step-*.ply"), ("poses", "poses/step-*.ply"),
+        ("config", "config.yaml"))}
+    print("  outputs: " + ", ".join(f"{len(v)} {k}" for k, v in found.items()))
+    missing = [k for k, v in found.items() if not v]
+    if missing:
+        fail(f"the entry points wrote no {missing}")
+    if not all(np.isfinite(v).all() for m in results.values() for v in m.values()):
+        fail("launcher --mode eval gave non-finite metrics")
+    return launches
+
+
+def run_trained(dev, card):
+    """Phases A-C; returns the launches of their runs, summed, and the rehearsal renders'
+    rays/s and max-abs errors against the plain versions by wrapper."""
+    import tempfile
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    launches, rays, errs = {}, {}, {}
+
+    def add(counts, e):
+        for n, c in counts.items():
+            launches[n] = launches.get(n, 0) + c
+        for n, v in e.items():
+            errs[n] = max(errs.get(n, 0.0), v)
+
+    datasets = phase("rehearsal scene", rehearsal_scene, dev)
+    for name in REHEARSAL_LABELS:
+        print(f"trained checkpoint {name} (RawEvaluator, rendering_scale 1.0):")
+        counts, rays[name], _, e = phase(f"checkpoint {name}", run_checkpoint, dev, card, name,
+                                         datasets)
+        add(counts, e)
+    print("mesh of rehearsal_grid_dense (export_mesh at 256^3):")
+    add(*phase("mesh", run_mesh, dev, card, "rehearsal_grid_dense", datasets))
+    print(f"entry points: launcher and Trainer on grid_raw_tpu, {ENTRY_SCENE}:")
+    with tempfile.TemporaryDirectory() as root:
+        add(phase("entry points", run_entry_points, dev, card, root), {})
+    return launches, rays, errs
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
@@ -3924,6 +4472,11 @@ def main() -> None:
             train[method] = phase(f"training {method}", run_training, dev, card, method)
         for name, count in train[method]["launches"].items():  # each run counts from 0
             launches[name] = launches.get(name, 0) + count
+    # phases A-C: the trained checkpoints, the mesh and the entry points, each run from 0
+    trained, rehearsal_rays, _ = phase("trained checkpoints and entry points", run_trained, dev,
+                                       card)
+    for name, count in trained.items():
+        launches[name] = launches.get(name, 0) + count
 
     entries = []
     for name, r in results.items():
@@ -3941,6 +4494,8 @@ def main() -> None:
         t = train[method]
         print(f"{method}: eval rays/s {rays_per_s[method]:.1f}, train rays/s {t['rays_per_s']:.1f}, "
               f"step {t['step_ms']:.2f} ms, card busy {100 * t['busy']:.1f}% of a step ({card})")
+    for name, r in rehearsal_rays.items():
+        print(f"{name}: eval rays/s {r:.1f} at rendering_scale 1.0 ({card})")
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s ({card})")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,14 @@
 """Top-level configuration tree (JAX reference: configs/config.py): frozen
 dataclass specs, the transforms that opt every MLP into bf16 compute and
-into the fused chain kernel, and `load_config` (a registered method with
-leaf overrides from a YAML file or a dict)."""
+into the fused chain kernel, `load_config` (a registered method with leaf
+overrides from a YAML file or a dict), the slot-grid overrides from the
+environment, the run directory and the config's printed form."""
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
+import os
 from typing import Any, Dict, Optional, Tuple
 
 from multimodalstudio_tpu_torch.cameras.camera_optimizer import CameraOptimizerSpec
@@ -175,3 +178,26 @@ def load_config(conf_path: Optional[str] = None, method: Optional[str] = None,
     if overrides:
         config = _apply_overrides(config, overrides)
     return config
+
+
+def make_output_dir(base: str, scene: str, method: str, conf_name: str,
+                    version: Optional[str] = None) -> str:
+    """<base>/<scene>/<method>/<conf_name>/<version>, made (config.py:254-262);
+    the version defaults to the current time."""
+    version = version or datetime.datetime.now().strftime("%Y-%m-%d_%H%M%S")
+    path = os.path.join(base, scene, method, conf_name, version)
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def config_to_string(config: Any, indent: int = 0) -> str:
+    """The config tree as a run's config.yaml prints it (config.py:265-274):
+    a dataclass as its name and one indented line per field, any other
+    value as its repr."""
+    pad = "    " * indent
+    if dataclasses.is_dataclass(config) and not isinstance(config, type):
+        lines = [type(config).__name__ + ":"]
+        for f in dataclasses.fields(config):
+            lines.append(f"{pad}    {f.name}: {config_to_string(getattr(config, f.name), indent + 1)}")
+        return "\n".join(lines)
+    return repr(config)

@@ -324,3 +324,25 @@ def make_train_steps(config: TrainerConfig, model: MMSModel, cameras: Dict[str, 
         return state, aux
 
     return train_steps
+
+
+def make_eval_batch_step(config: TrainerConfig, model: MMSModel, cameras: Dict[str, Cameras]):
+    """eval_step(state, batch) -> {"losses", "metrics"}: the losses and each
+    modality's PSNR of one pixel batch rendered in eval mode, with no
+    gradient (train.py:408-430)."""
+    grid = config.model.surface.surface_field.field.grid
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch: Dict[str, PixelBatch]):
+        schedules = make_schedules(config, state.step)
+        rays, segments = build_rays(config, state.camera_poses, cameras, batch)
+        outputs = select_mosaick_channels(config, model(rays, segments, schedules, train=False),
+                                          batch)
+        targets = {mod: batch[mod].pixels for mod in config.modalities}
+        losses, total = compute_losses(config.loss_manager, outputs, targets, state.step,
+                                       config.max_num_iterations, grid, None, train=False)
+        metrics = {f"psnr_{mod}": psnr(outputs[mod], targets[mod]) for mod in config.modalities}
+        losses["total_loss"] = total
+        return {"losses": losses, "metrics": metrics}
+
+    return eval_step

@@ -1,0 +1,108 @@
+"""Command-line launcher: train or evaluate a scene (JAX reference:
+launcher.py).
+
+    python -m multimodalstudio_tpu_torch.launcher --mode train \
+        --method grid_raw_tpu --scene synthetic_raw:views=12,size=96 --version v1
+    python -m multimodalstudio_tpu_torch.launcher --mode eval \
+        --method grid_raw_tpu --scene synthetic_raw:views=12,size=96 --version v1
+
+`--conf_path` takes a YAML file of leaf overrides whose `method` key
+selects the method (PyYAML is imported only then); `--method` alone needs
+no YAML. `--scene` is the built-in analytic scene, `synthetic` or
+`synthetic_raw`, with optional `:views=N,size=S,texfreq=F` (every 5th view
+held out for eval). Scene directories on disk are not ported yet. The run
+lives in <output>/<scene>/<method>/<conf>/<version>; a second call on the
+same directory resumes from its newest checkpoint. Runs on the card
+unless `--device cpu` is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+
+from multimodalstudio_tpu_torch.configs.config import load_config, make_output_dir
+
+
+def build_datasets(config, scene: str, device="cuda"):
+    """(train, eval) splits of the built-in synthetic scene
+    (launcher.py:27-60): views, size and texfreq from the scene string,
+    every view with i % 5 == 4 held out for eval."""
+    if not scene.startswith("synthetic"):
+        raise NotImplementedError(
+            f"scene {scene!r}: loading scenes from disk is not ported yet (ROADMAP.md Queue 1, "
+            "`launcher.py` with the disk datasets); use synthetic or synthetic_raw[:views=..]")
+    from multimodalstudio_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    views, size, texfreq = 12, 96, 6.0
+    if ":" in scene:
+        for kv in scene.split(":", 1)[1].split(","):
+            k, _, v = kv.partition("=")
+            if k == "views":
+                views = int(v)
+            elif k == "size":
+                size = int(v)
+            elif k == "texfreq":
+                texfreq = float(v)
+            else:
+                raise ValueError(f"unknown synthetic scene option {kv!r}")
+    kw = dict(num_views=views, height=size, width=size, raw=config.datamanager.raw,
+              tex_freq=texfreq, device=device)
+    train = make_synthetic_dataset(config.modalities,
+                                   view_ids=[i for i in range(views) if i % 5 != 4], **kw)
+    evald = make_synthetic_dataset(config.modalities,
+                                   view_ids=[i for i in range(views) if i % 5 == 4], **kw)
+    return train, evald
+
+
+def resolve_model_channels(config, dataset):
+    """Bind each modality's channel count from the dataset into the model
+    spec (launcher.py:63-72)."""
+    channels = dataset.channels_per_modality
+    model = dataclasses.replace(config.model,
+                                modalities=tuple((m, channels[m]) for m in config.modalities))
+    return dataclasses.replace(config, model=model)
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="mms-tpu PyTorch launcher")
+    parser.add_argument("--mode", choices=["train", "eval"], default="train")
+    parser.add_argument("--conf_path", default=None, help="YAML config path")
+    parser.add_argument("--method", default=None, help="method registry name")
+    parser.add_argument("--scene", required=True, help="'synthetic' or 'synthetic_raw[:opts]'")
+    parser.add_argument("--version", default=None, help="run version tag")
+    parser.add_argument("--output", default="output", help="output root")
+    parser.add_argument("--view_ids", type=int, nargs="*", default=None)
+    parser.add_argument("--max_iterations", type=int, default=None)
+    parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = parser.parse_args(argv)
+
+    config = load_config(args.conf_path, method=args.method)
+    if args.max_iterations:
+        config = dataclasses.replace(config, max_num_iterations=args.max_iterations)
+
+    train_ds, eval_ds = build_datasets(config, args.scene, device=args.device)
+    config = resolve_model_channels(config, train_ds)
+
+    scene_name = args.scene.split(":", 1)[0]
+    conf_name = (os.path.splitext(os.path.basename(args.conf_path))[0] if args.conf_path
+                 else config.method_name)
+    out_dir = make_output_dir(args.output, scene_name, config.method_name, conf_name,
+                              args.version)
+    print(f"output dir: {out_dir}")
+
+    from multimodalstudio_tpu_torch.engine.trainer import Trainer
+
+    trainer = Trainer(config, train_ds, eval_ds, out_dir, device=args.device)
+    trainer.setup()
+    if args.mode == "train":
+        trainer.train()
+        return None
+    results = trainer.eval(view_ids=args.view_ids)
+    print(results)
+    return results
+
+
+if __name__ == "__main__":
+    main()

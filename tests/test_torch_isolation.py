@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: it imports nothing of JAX or of the JAX
-package, its entry points refuse to run without a card unless the caller
-asks for the CPU, and its kernel wrappers never hand a non-CPU tensor to a
-plain version."""
+package (nor OpenCV, matplotlib, PyYAML or convert_checkpoints.py, which
+the card's machine lacks or which import JAX), its entry points refuse to
+run without a card unless the caller asks for the CPU, and its kernel
+wrappers never hand a non-CPU tensor to a plain version."""
 
 import json
 import shutil
@@ -23,7 +24,10 @@ from multimodalstudio_tpu_torch.ops.kernels import fused_mlp, sdf_chain, slot_fu
 torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "multimodalstudio_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "multimodalstudio_tpu")
+# imported only inside the functions that need them (load_config given a YAML path), or
+# never (the converter imports JAX; the card's machine has no cv2 and no matplotlib)
+NOT_AT_IMPORT = ("cv2", "matplotlib", "yaml", "convert_checkpoints")
 
 PROBE = """
 import importlib, json, pkgutil, sys
@@ -31,15 +35,24 @@ import multimodalstudio_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-import chip_smoke
+import chip_smoke, rehearsals
 print(json.dumps({"imported": names, "modules": sorted(sys.modules)}))
 """
 
 
-def test_port_and_chip_smoke_import_no_jax():
+@pytest.fixture(scope="module")
+def probe():
     out = subprocess.run([sys.executable, "-c", PROBE], cwd=REPO, capture_output=True,
                          text=True, timeout=300, check=True)
-    probe = json.loads(out.stdout.strip().splitlines()[-1])
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def _leaked(modules, names):
+    # exact names: the port's own package shares the JAX package's prefix
+    return [m for m in modules if any(m == f or m.startswith(f + ".") for f in names)]
+
+
+def test_port_and_chip_smoke_import_no_jax(probe):
     assert "multimodalstudio_tpu_torch.models.model" in probe["imported"]
     assert "multimodalstudio_tpu_torch.ops.kernels.slot_fused" in probe["imported"]
     assert "multimodalstudio_tpu_torch.ops.kernels.sdf_chain" in probe["imported"]
@@ -47,10 +60,16 @@ def test_port_and_chip_smoke_import_no_jax():
     assert "multimodalstudio_tpu_torch.configs.config" in probe["imported"]
     assert "multimodalstudio_tpu_torch.engine.train" in probe["imported"]
     assert "multimodalstudio_tpu_torch.data.device_cache" in probe["imported"]
-    # exact names: the port's own package shares the JAX package's prefix
-    leaked = [m for m in probe["modules"]
-              if any(m == f or m.startswith(f + ".") for f in FORBIDDEN)]
-    assert leaked == []
+    assert "rehearsals" in probe["modules"]
+    assert _leaked(probe["modules"], FORBIDDEN) == []
+
+
+def test_entry_point_modules_import_no_opencv_matplotlib_yaml_or_converter(probe):
+    for name in ("engine.checkpoints", "engine.trainer", "engine.evaluator", "engine.mesh",
+                 "launcher", "preprocessing.demosaick", "utils.images", "utils.meshio",
+                 "utils.writer", "utils.profiler", "convert"):
+        assert f"multimodalstudio_tpu_torch.{name}" in probe["imported"], name
+    assert _leaked(probe["modules"], NOT_AT_IMPORT) == []
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
@@ -273,3 +292,25 @@ def test_tangent_kernels_refuse_other_devices(monkeypatch, requires_grad):
                                   slot_fused.pe_scales(2, 0.0, 1.0),
                                   torch.empty(8, device="meta"), torch.empty(8, 4, device="meta"),
                                   torch.empty(8, 3, device="meta"))
+
+
+def test_trainer_and_launcher_raise_without_a_card(monkeypatch):
+    from multimodalstudio_tpu_torch import launcher
+    from multimodalstudio_tpu_torch.engine.trainer import Trainer
+
+    cfg = method_configs()["grid_raw_tpu"]
+    data = make_synthetic_dataset(("rgb",), num_views=2, height=4, width=4, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg, data, data)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launcher.build_datasets(cfg, "synthetic_raw:views=2,size=4")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launcher.main(["--method", "grid_raw_tpu", "--scene", "synthetic_raw:views=2,size=4",
+                       "--output", "unused"])
+    # one card until the data-parallel slice
+    import dataclasses
+
+    for n in (2, 8):
+        with pytest.raises(NotImplementedError, match="n_devices"):
+            Trainer(dataclasses.replace(cfg, n_devices=n), data, data, device="cpu")
