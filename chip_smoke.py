@@ -84,12 +84,26 @@
    versions; then trains at the bench geometry (2048 rays per modality in 4
    microbatches of 512, sampled on the card; 2 warm-up steps, then 5 timed
    steps), checks finite losses and gradients, that every parameter moved
-   and the exact launches of every step, prints train rays/s, profiles one
-   step, and compares one 64-ray-per-modality microbatch's loss and
-   gradients with the same microbatch through the plain versions on the
-   CPU. On the contraction path it also holds the K1t route against the K4
+   in one of the steps and the exact launches of every step, prints train
+   rays/s, profiles one step, and compares one 64-ray-per-modality
+   microbatch's loss and gradients with the same microbatch through the
+   plain versions on the CPU. On the contraction path it also holds the K1t route against the K4
    route of mlp_raw_tpu on one microbatch's render samples inside the unit
    cube, where the contraction is the identity.
+   Then the same for the reference methods, which launch no kernel of the
+   port (REFERENCE_LABELS: float32 unfused MLPs with TF32 off, the plain
+   hash grid of 16 levels x 2^19 entries, remat): grid_raw and mlp_raw
+   through confs/grid_raw.yaml and confs/mlp_raw.yaml, grid through
+   confs/grid.yaml on a demosaicked scene through Evaluator, and
+   grid_raw_grid_bg_unbalanced (a hash-grid background) from the registry
+   with 512-ray microbatches. Each must launch no kernel; its render chunk
+   must agree with the CPU's within rel-L2 1e-3, and its microbatch's loss
+   and every gradient group within max(1e-3, twice the CPU run's distance
+   to itself with its parameters moved by 1e-6; 5e-2 for the camera poses,
+   POSE_TOL); each prints the peak device memory of its timed steps, the
+   share of the profiled step's busy time in index_select's and
+   index_add_'s kernels, and each of its hash grids timed alone, forward
+   and backward, at a microbatch's largest call.
 
 4. Then the trained checkpoints and the port's entry points. (A) For
    each committed rehearsal run of rehearsals.py (rehearsal_mlp_dense and
@@ -3284,6 +3298,10 @@ def check_skip_edges(gen, dev, gspecs) -> None:
                        merged[2:], tol=2e-2)
 
 
+# the reference methods' labels (CONFIGS): float32 with TF32 off and no kernel, so a render
+# chunk and a training microbatch must agree with the CPU's to float32 summation order
+REFERENCE_LABELS = ("grid_raw", "mlp_raw", "grid", "grid_raw_grid_bg_unbalanced")
+
 PER_CHUNK = {  # kernel launches of one 1024-ray eval chunk (derived in PERF.md)
     # every K1 forward call launches the pack of its weights, then the chain,
     # and so does every K2 call (its chain cut to the sdf column) and every
@@ -3311,6 +3329,8 @@ PER_CHUNK = {  # kernel launches of one 1024-ray eval chunk (derived in PERF.md)
     "grid_raw_tpu without PE, vertex layout": {"fused_chain": 9, "fused_chain_pack": 10,
                                                "slot_grid_lookup_vertex": 5,
                                                "fused_chain_adjoint": 1},
+    # the reference methods run no kernel: f32 unfused MLPs and the plain hash grid
+    **{label: {} for label in REFERENCE_LABELS},
 }
 
 NO_PE = {"model": {"surface": {"surface_field": {"use_position_encoding": False}}}}
@@ -3337,6 +3357,14 @@ CONFIGS = {  # label: (registered method, load_config overrides, environment of 
     "grid_raw_tpu with f32 table and split backward": ("grid_raw_tpu", F32_TABLE,
                                                        {"MMS_SLOT_BWD_SPLIT": "1"}),
     "grid_raw_tpu without PE, vertex layout": ("grid_raw_tpu", VERTEX_TABLE, {}),
+    # the reference methods, through the committed YAMLs of the reference (16 hash-grid levels
+    # of 2^19 entries to max_res 1024; the grid SDF MLP 3 x 256 with numerical taps, the mlp one
+    # 8 x 256 through jacfwd) or the registry at the bench microbatch
+    "grid_raw": ("confs/grid_raw.yaml", None, {}),
+    "mlp_raw": ("confs/mlp_raw.yaml", None, {}),
+    "grid": ("confs/grid.yaml", None, {}),
+    "grid_raw_grid_bg_unbalanced": ("grid_raw_grid_bg_unbalanced",
+                                    {"datamanager": {"microbatch_rays": 512}}, {}),
 }
 # The committed rehearsal runs whose checkpoints the card renders (phase A) are rehearsals.py's
 # catalog; for each, the CONFIGS label whose PER_CHUNK launches one of its eval chunks makes.
@@ -3351,14 +3379,19 @@ SAME_RENDER = {"grid_raw_tpu with f32 table and split backward": "grid_raw_tpu w
 
 
 def load(label):
-    """The config of one label, five modalities, through load_config."""
+    """The config of one label, five modalities, through load_config (of a
+    YAML file where the label names one)."""
     import dataclasses
 
     from multimodalstudio_tpu_torch.configs.config import load_config
     from multimodalstudio_tpu_torch.configs.methods import FIVE_MODALITIES
 
     method, overrides, _ = CONFIGS[label]
-    cfg = load_config(method=method, overrides=overrides)
+    if method.endswith(".yaml"):
+        path = os.path.join(os.path.dirname(os.path.abspath(__file__)), method)
+        cfg = load_config(path, overrides=overrides)
+    else:
+        cfg = load_config(method=method, overrides=overrides)
     return dataclasses.replace(cfg, modalities=FIVE_MODALITIES)
 
 
@@ -3380,8 +3413,8 @@ def config_env(label):
 
 def run_slice(dev, card, method):
     """Render one eval view of every modality through the port's
-    RawEvaluator and check outputs, launch counts and a CPU re-render.
-    `method` is a label of CONFIGS."""
+    RawEvaluator (Evaluator on demosaicked frames) and check outputs,
+    launch counts and a CPU re-render. `method` is a label of CONFIGS."""
     import dataclasses
 
     import numpy as np
@@ -3389,21 +3422,23 @@ def run_slice(dev, card, method):
     from multimodalstudio_tpu_torch.cameras.camera_optimizer import init_camera_poses
     from multimodalstudio_tpu_torch.configs.methods import FIVE_MODALITIES
     from multimodalstudio_tpu_torch.data.synthetic import make_synthetic_dataset
-    from multimodalstudio_tpu_torch.engine.evaluator import RawEvaluator
+    from multimodalstudio_tpu_torch.engine.evaluator import Evaluator, RawEvaluator
     from multimodalstudio_tpu_torch.engine.train import TrainState
     from multimodalstudio_tpu_torch.models.model import MMSModel
     from multimodalstudio_tpu_torch.ops.kernels import build
 
     cfg = load(method)
+    raw = cfg.datamanager.raw
+    evaluator_cls = RawEvaluator if raw else Evaluator
     dataset = make_synthetic_dataset(FIVE_MODALITIES, num_views=10, height=256, width=256,
-                                     raw=True, device=dev)
+                                     raw=raw, device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     model = MMSModel(cfg.model, device=dev).init(gen)
     num_cameras = {m: dataset.data[m].cameras.camera_to_worlds.shape[0] for m in FIVE_MODALITIES}
     poses = init_camera_poses(cfg.datamanager.camera_optimizer, FIVE_MODALITIES, num_cameras,
                               device=dev)
     state = TrainState(camera_poses=poses, step=cfg.max_num_iterations)
-    evaluator = RawEvaluator(cfg, model, dataset, dataset, device=dev)
+    evaluator = evaluator_cls(cfg, model, dataset, dataset, device=dev)
     chunk = cfg.evaluator.eval_num_rays_per_chunk
 
     evaluator.render_view(state, dataset, "rgb", 0)  # warm-up
@@ -3438,7 +3473,7 @@ def run_slice(dev, card, method):
     # one chunk again on the CPU through the plain versions
     cpu_model = MMSModel(cfg.model, device="cpu")
     cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-    cpu_eval = RawEvaluator(cfg, cpu_model, dataset, dataset, device="cpu")
+    cpu_eval = evaluator_cls(cfg, cpu_model, dataset, dataset, device="cpu")
     from multimodalstudio_tpu_torch.data.sampler import dense_pixel_batch
 
     batch = dense_pixel_batch(dataset, "rgb", 0, cfg.evaluator.rendering_scale)
@@ -3455,39 +3490,66 @@ def run_slice(dev, card, method):
         rel = rel_l2(gpu_out[key].float().cpu(), ref.float())
         worst = max(worst, rel)
         print(f"  chunk vs CPU plain: {key} rel_l2={rel:.3e}")
-    # importance samples can move with bf16 noise between the two, so loose
-    if not worst <= 5e-2:
-        fail("the card's render disagrees with the CPU plain render (rel_l2 > 5e-2)")
+    # importance samples can move with bf16 noise between the two, so loose; the reference
+    # methods run float32 on both sides with TF32 off
+    tol = 1e-3 if method in REFERENCE_LABELS else 5e-2
+    print(f"  chunk vs CPU plain: worst rel_l2 {worst:.3e} (tolerance {tol:g})")
+    if not worst <= tol:
+        fail(f"the card's render disagrees with the CPU plain render (rel_l2 > {tol:g})")
     profile_device(lambda: evaluator.render_view(state, dataset, "rgb", 0), "one rgb view",
                    1e3 * seconds / len(frames))
     return launches, n_rays / seconds
 
 
-def profile_device(fn, label: str, ref_ms: float, top: int = 12):
+# the device kernels of the hash grid's row gather (index_select's, which torch.gather's shares)
+# and table scatter (index_add_'s), by their names in a profile
+INDEX_KERNELS = ("_scatter_gather_elementwise_kernel", "indexFunc")
+
+
+def profile_device(fn, label: str, ref_ms: float, top: int = 12, parts=None):
     """Device time by kernel over one call of fn (torch.profiler), and the
     share of its wall time the card was busy, under the profiler and
     against an unprofiled call's time `ref_ms`; returns the latter share,
-    the busy ms and the device ops."""
+    the busy ms and the device ops. Where index_add_ ran (a hash grid's
+    backward), the device ms of the INDEX_KERNELS (its gather and scatter)
+    are printed, and stored in `parts["index_ms"]` when given.
+
+    Only the device activity is recorded, and its events are summed by
+    kernel name in one pass: with the CPU ops too, parsing and averaging a
+    training step's events took 10-20 s a profile."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only: a CPU op's device time repeats its kernels'
-    rows = [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    t1 = time.perf_counter()
+    by_key = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms, n = by_key.get(e.key, (0.0, 0))
+            by_key[e.key] = (ms + e.device_time_total / 1e3, n + 1)
+    rows = [(ms, n, key) for key, (ms, n) in by_key.items() if ms > 0]
+    index_ms = 0.0
+    if any("indexFunc" in r[2] for r in rows):
+        index_ms = sum(r[0] for r in rows if any(k in r[2] for k in INDEX_KERNELS))
     busy_ms = sum(r[0] for r in rows)
     print(f"  profile of {label}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
           f"({100 * busy_ms / wall_ms:.1f}%; {100 * busy_ms / ref_ms:.1f}% of an unprofiled "
-          f"call's {ref_ms:.2f} ms), {sum(r[1] for r in rows)} device ops")
+          f"call's {ref_ms:.2f} ms), {sum(r[1] for r in rows)} device ops (events collected in "
+          f"{t1 - t0 - wall_ms / 1e3:.1f} s, summed in {time.perf_counter() - t1:.1f} s)")
     ranked = sorted(rows, reverse=True)
     # the top kernels, and below them K6v's (PERF.md follows all four of its instantiations)
     for ms, count, key in ranked[:top] + [r for r in ranked[top:] if "slot_vertex" in r[2]]:
         print(f"    {ms:9.3f} ms {count:6d}x {key[:90]}")
+    if index_ms:
+        print(f"  index_select's gather and index_add_'s scatter kernels: {index_ms:.2f} ms, "
+              f"{100 * index_ms / busy_ms:.1f}% of the device busy time")
+    if parts is not None:
+        parts["index_ms"] = index_ms
     return busy_ms / ref_ms, busy_ms, sum(r[1] for r in rows)
 
 
@@ -3564,6 +3626,7 @@ PER_MICROBATCH = {  # kernel launches of one training microbatch (derived in PER
         "slot_grid_lookup_vertex": 6, "slot_grid_lookup_vertex_bwd": 2,
         "fused_chain_adjoint": 1, "fused_chain_adjoint_bwd": 1, "fused_chain_adjoint_wgrad": 1,
     },
+    **{label: {} for label in REFERENCE_LABELS},
 }
 
 
@@ -3575,20 +3638,31 @@ PER_MICROBATCH = {  # kernel launches of one training microbatch (derived in PER
 # 3e-1, as on its contraction and jvp-mode variants; so is the vertex
 # table's, whose CPU run moves by 2.2e-1 under the same move (the card read
 # 9.8e-2). Every other group, and grid_raw_tpu's poses, keep 1e-1.
+# On the float32 reference labels every other group is held to the noise-derived limit, the
+# camera poses to 5e-2: their gradient sums each background sample's position gradient through
+# the background's encoding (frequencies up to 2^5), and on the card one sample's position
+# gradient came out 5.5e-2 off the CPU's while the background field's outputs agreed to 1e-6
+# (a ReLU pre-activation that float32 rounding puts on the other side of zero would do it),
+# which moved the pose gradient by about 1.2e-2, more than 1e-6 moves of the parameters do
+# (PERF.md §6, the reference methods' entry; with the background off the card and the CPU
+# agree to 1.8e-5).
 POSE_TOL = {"grid_raw_tpu": 1e-1, "mlp_raw_tpu": 3e-1, "grid_raw_tpu without PE": 1e-1,
             "mlp_raw_tpu with contraction": 3e-1, "mlp_raw_tpu in jvp mode": 3e-1,
             "grid_raw_tpu with split backward": 1e-1, "grid_raw_tpu with f32 table": 1e-1,
             "grid_raw_tpu with f32 table and split backward": 1e-1,
-            "grid_raw_tpu without PE, vertex layout": 3e-1}
+            "grid_raw_tpu without PE, vertex layout": 3e-1,
+            **{label: 5e-2 for label in REFERENCE_LABELS}}
 
 
 def _param_groups(named):
-    """Parameter names grouped by module: the table, the variance, each MLP."""
+    """Parameter names grouped by module: each table (by its grid), the
+    variance, each MLP."""
     groups = {}
     for k in named:
         parts = k.split(".")
-        g = ("table" if parts[-1] == "table" else "variance" if parts[0] == "variance"
-             else ".".join(p for p in parts[:-1] if not p.startswith("layer_")))
+        g = (".".join(parts[:-1]) if parts[-1] == "table" else "variance"
+             if parts[0] == "variance" else
+             ".".join(p for p in parts[:-1] if not p.startswith("layer_")))
         groups.setdefault(g, []).append(k)
     return groups
 
@@ -3596,10 +3670,12 @@ def _param_groups(named):
 def timed_training(dev, card, method, steps=5):
     """Train `method` (a label of CONFIGS) at the bench geometry through
     train_steps: 2 warm-up steps, then `steps` timed ones, each checked for
-    finite losses and gradients, and one profiled step. Returns (the run's
-    objects, its stats: launches, rays/s, step ms, busy share, busy ms and
-    device ops of the profiled step). chip_ab.py --train times this alone,
-    for a paired run of two commits."""
+    finite losses and gradients and for the parameter tensors it changed,
+    and one profiled step. Returns (the run's objects with the names of the
+    parameters a checked step changed, its stats: launches, rays/s, step
+    ms, the peak device memory of the timed steps, busy share, busy ms,
+    device ops and index kernels' ms of the profiled step).
+    chip_ab.py --train times this alone, for a paired run of two commits."""
     from multimodalstudio_tpu_torch.cameras.camera_optimizer import init_camera_poses
     from multimodalstudio_tpu_torch.configs.methods import FIVE_MODALITIES
     from multimodalstudio_tpu_torch.data.device_cache import build_device_cache
@@ -3614,7 +3690,7 @@ def timed_training(dev, card, method, steps=5):
         fail(f"{method} no longer has the bench geometry")
     microbatches = dm.num_rays_per_modality // dm.microbatch_rays
     dataset = make_synthetic_dataset(FIVE_MODALITIES, num_views=10, height=256, width=256,
-                                     raw=True, device=dev)
+                                     raw=dm.raw, device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     model = MMSModel(cfg.model, device=dev).init(gen)
     num_cameras = {m: dataset.data[m].cameras.camera_to_worlds.shape[0] for m in FIVE_MODALITIES}
@@ -3623,7 +3699,11 @@ def timed_training(dev, card, method, steps=5):
     cache = build_device_cache(dataset, device=dev)
     cams = {m: dataset.data[m].cameras for m in FIVE_MODALITIES}
     train_steps = T.make_train_steps(cfg, model, cams)
-    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    # each parameter tensor's value before the last step, and the tensors a step has changed:
+    # at the warm-up's learning rates (1e-7 to 7e-7) an update of a value near 1 is about one
+    # ulp, and a sign-alternating gradient can take it back to where it started
+    last = {k: p.detach().clone() for k, p in model.named_parameters()}
+    moved = set()
 
     def check(aux, step):
         bad = [k for k, v in aux["losses"].items() if not torch.isfinite(torch.as_tensor(v)).all()]
@@ -3631,6 +3711,10 @@ def timed_training(dev, card, method, steps=5):
             fail(f"non-finite losses {bad} at step {step}")
         if aux["metrics"]["grads_finite"] != 1.0:
             fail(f"non-finite gradient at step {step}")
+        for k, p in model.named_parameters():
+            if not torch.equal(p, last[k]):
+                moved.add(k)
+                last[k].copy_(p)
 
     t0 = time.perf_counter()
     for _ in range(2):  # warm-up
@@ -3639,6 +3723,7 @@ def timed_training(dev, card, method, steps=5):
     torch.cuda.synchronize()
     print(f"  warm-up: 2 steps in {time.perf_counter() - t0:.2f} s")
     build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
     step_s = []
     for _ in range(steps):
         t1 = time.perf_counter()
@@ -3649,22 +3734,34 @@ def timed_training(dev, card, method, steps=5):
         print(f"  step {state.step}: {step_s[-1] * 1e3:.1f} ms " + " ".join(
             f"{k}={float(v):.5g}" for k, v in sorted(aux["losses"].items())))
     seconds = sum(step_s)
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     launches = {name: info.launches for name, info in build.KERNELS.items()}
     rays = dm.num_rays_per_modality * len(FIVE_MODALITIES) * steps
     rays_per_s = rays / seconds
     print(f"  trained {rays} rays in {seconds:.3f} s: {rays_per_s:.1f} rays/s (train, {method},"
           f" 5 modalities, 2048 rays per modality in {microbatches} microbatches, {card})")
+    print(f"  peak device memory of a step (torch.cuda.max_memory_allocated): {peak_gib:.2f} GiB")
+    parts = {}
     busy, busy_ms, ops = profile_device(lambda: train_steps(state, cache, gen, 1),
-                                        "one training step", 1e3 * seconds / steps, top=20)
+                                        "one training step", 1e3 * seconds / steps, top=20,
+                                        parts=parts)
     stats = dict(launches=launches, rays_per_s=rays_per_s, step_ms=1e3 * seconds / steps,
-                 busy=busy, busy_ms=busy_ms, ops=ops)
-    return (cfg, model, cams, state, cache, gen, before), stats
+                 peak_gib=peak_gib, busy=busy, busy_ms=busy_ms, ops=ops, **parts)
+    return (cfg, model, cams, state, cache, gen, moved), stats
+
+
+# the least limit of the reference labels' microbatch against the CPU's: both run float32
+F32_FLOOR = 1e-3
 
 
 def run_training(dev, card, method, steps=5):
     """timed_training, then check its launch counts and that every parameter
     moved; then hold one small microbatch on the card against the plain
-    versions on the CPU."""
+    versions on the CPU: within fixed limits on the bf16 labels, and on the
+    reference labels the loss and each gradient group within max(F32_FLOOR,
+    twice the CPU run's distance to itself with every parameter moved by
+    1e-6), the noise-derived limit of the JAX comparisons in the tests, the
+    camera poses within max(POSE_TOL, that twice)."""
     import dataclasses
 
     from multimodalstudio_tpu_torch.configs.methods import FIVE_MODALITIES
@@ -3673,7 +3770,8 @@ def run_training(dev, card, method, steps=5):
     from multimodalstudio_tpu_torch.models.model import MMSModel
     from multimodalstudio_tpu_torch.ops.kernels import build
 
-    (cfg, model, cams, state, cache, gen, before), stats = timed_training(dev, card, method, steps)
+    (cfg, model, cams, state, cache, gen, stepped), stats = timed_training(dev, card, method,
+                                                                           steps)
     dm = cfg.datamanager
     microbatches = dm.num_rays_per_modality // dm.microbatch_rays
     launches = stats["launches"]
@@ -3682,11 +3780,11 @@ def run_training(dev, card, method, steps=5):
     print(f"  launches {launches}, expected {want} ({microbatches} microbatches x {steps} steps)")
     if launches != want:
         fail("the training steps did not go through every kernel as often as expected")
-    moved = [k for k, p in model.named_parameters() if not torch.equal(p, before[k])]
-    print(f"  {len(moved)} of {len(before)} parameter tensors moved in {state.step} steps; "
-          f"update count {state.opt_state.count}")
-    if len(moved) < len(before) or state.opt_state.count != state.step:
-        fail("the parameters did not all move")
+    names = [k for k, _ in model.named_parameters()]
+    print(f"  {len(stepped)} of {len(names)} parameter tensors moved in one of the {2 + steps} "
+          f"checked steps; update count {state.opt_state.count}")
+    if len(stepped) < len(names) or state.opt_state.count != state.step:
+        fail(f"the parameters did not all move: {sorted(set(names) - stepped)}")
     if CONFIGS[method][1] == CONTRACTION:
         cross_check_k4(cfg, model, cams, state, cache, gen, dev)
 
@@ -3709,18 +3807,24 @@ def run_training(dev, card, method, steps=5):
                                  sched)
     # the conditioning of each group: the CPU run again with every parameter
     # moved by 1e-5 (relative), about as far as the card's other summation
-    # orders move the bf16 roundings
+    # orders move the bf16 roundings; by 1e-6 on the float32 reference labels,
+    # the tests' move (one draw here, for the run's time; the tests take 3)
+    f32 = method in REFERENCE_LABELS
+    move = 1e-6 if f32 else 1e-5
     noise = torch.Generator().manual_seed(SEED)
-    cpu_model.load_state_dict({k: v * (1 + 1e-5 * torch.randn(v.shape, generator=noise))
+    cpu_model.load_state_dict({k: v * (1 + move * torch.randn(v.shape, generator=noise))
                                for k, v in cpu_model.state_dict().items()})
-    moved = T.batch_loss_and_grads(small, cpu_model, cpu_cams, cpu_poses, cpu_batch, state.step,
-                                   sched)
-    # loose: importance samples move with bf16 noise, and the card's sums
-    # run in other orders (atomics) than the CPU's
+    moved = [T.batch_loss_and_grads(small, cpu_model, cpu_cams, cpu_poses, cpu_batch, state.step,
+                                    sched)]
+    # loose on the bf16 labels: importance samples move with bf16 noise, and
+    # the card's sums run in other orders (atomics) than the CPU's
     rel = abs(float(gpu[0]) - float(cpu[0])) / abs(float(cpu[0]))
+    loss_noise = max(abs(float(m[0]) - float(cpu[0])) / abs(float(cpu[0])) for m in moved)
+    tol = max(F32_FLOOR, 2 * loss_noise) if f32 else 2e-2
     print(f"  microbatch vs CPU plain: total loss {float(gpu[0]):.6g} vs {float(cpu[0]):.6g} "
-          f"(rel {rel:.3e}, tolerance 2e-2)")
-    worst = rel if rel <= 2e-2 else float("inf")
+          f"(rel {rel:.3e}, tolerance {tol:.3g}; the CPU run moved by {move:g}: "
+          f"{loss_noise:.3e})")
+    worst = rel if rel <= tol else float("inf")
     fields_g, fields_c = gpu[3]["fields"], cpu[3]["fields"]
     groups = _param_groups(fields_c)
     groups["camera_poses"] = None
@@ -3728,16 +3832,65 @@ def run_training(dev, card, method, steps=5):
         flat = [torch.cat([g.reshape(-1).cpu() for g in
                            (run[3]["camera_poses"].values() if keys is None
                             else [run[3]["fields"][k] for k in keys])])
-                for run in (gpu, cpu, moved)]
-        r, cond = rel_l2(flat[0], flat[1]), rel_l2(flat[2], flat[1])
-        tol = POSE_TOL[method] if keys is None else 1e-1
-        print(f"  microbatch vs CPU plain: gradient of {name} rel_l2={r:.3e} (tolerance {tol:g}; "
-              f"the CPU run against itself with parameters moved by 1e-5: {cond:.3e})")
+                for run in (gpu, cpu, *moved)]
+        r, cond = rel_l2(flat[0], flat[1]), max(rel_l2(f, flat[1]) for f in flat[2:])
+        if f32:
+            tol = max(POSE_TOL[method] if keys is None else F32_FLOOR, 2 * cond)
+        else:
+            tol = POSE_TOL[method] if keys is None else 1e-1
+        print(f"  microbatch vs CPU plain: gradient of {name} rel_l2={r:.3e} (tolerance {tol:.3g}; "
+              f"the CPU run against itself with parameters moved by {move:g}: {cond:.3e})")
         if not (r <= tol and torch.isfinite(flat[0]).all()):
             worst = float("inf")
     if worst == float("inf"):
         fail("the card's training microbatch disagrees with the CPU plain versions")
+    if f32:
+        stats["hash_grid"] = time_hash_grids(dev, card, cfg)
     return stats
+
+
+def time_hash_grids(dev, card, cfg):
+    """The plain hash grid alone on the card, for each hash grid of `cfg`:
+    forward (the lookup) and backward (hash_lookup_backward: the table's
+    index_add_ and the position cotangent) at one training microbatch's
+    largest call, every render sample's 4 tetrahedron taps (2560 rays x 64
+    samples x 4) or, where the grid is not the SDF's, its 2560 x 64 render
+    samples (the background's 2560 x 16), on uniform positions with every
+    level live. Bytes of the bound: x read, the 8 corner rows of every
+    level read (at most the whole table once) and the features written;
+    the backward also reads the cotangent and writes d table (the whole
+    table) and d x. Returns {grid: (points, fwd ms, bwd ms, fwd bound ms,
+    bwd bound ms)}."""
+    from multimodalstudio_tpu_torch.ops.encodings import HashGridSpec, hash_lookup_backward
+    from multimodalstudio_tpu_torch.ops.encodings import hash_grid_lookup
+
+    m = cfg.model
+    rays = 512 * 5
+    grids = {"surface": (m.surface.surface_field.field.grid, rays * 64 * (
+        m.surface.numerical_gradient_taps if m.surface.use_numerical_gradients else 1)),
+             "radiance": (m.radiance.radiance_field.base_field.grid, rays * 64),
+             "background": (m.background.field.base_field.grid, rays * 16)}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out = {}
+    for name, (grid, n) in grids.items():
+        if grid is None or not isinstance(grid.encoding, HashGridSpec):
+            continue
+        spec = grid.encoding
+        table = (torch.rand(spec.num_levels * spec.table_size, spec.features_per_level,
+                            generator=gen, device=dev) * 2 - 1) * spec.hash_init_scale
+        x = torch.rand(n, 3, generator=gen, device=dev)
+        g = torch.randn(n, spec.out_dim, generator=gen, device=dev)
+        fwd = time_ms(lambda: hash_grid_lookup(table, x, spec))
+        bwd = time_ms(lambda: hash_lookup_backward(table, x, spec, g))
+        # the corner rows read, at most the whole table once
+        rows = min(spec.num_levels * 8 * n * spec.features_per_level * 4, nbytes(table))
+        fwd_bound = bound(0, rows + nbytes(x, g), H100_F32_FLOPS)[0]  # g: the output's size
+        bwd_bound = bound(0, rows + nbytes(x, g) + nbytes(table, x), H100_F32_FLOPS)[0]
+        print(f"  hash grid alone ({name}, {spec.num_levels} levels x 2^{spec.log2_hashmap_size}, "
+              f"N = {n}): forward {fwd:.3f} ms (bound {fwd_bound:.3f}), backward {bwd:.3f} ms "
+              f"(bound {bwd_bound:.3f}) ({card})")
+        out[name] = (n, fwd, bwd, fwd_bound, bwd_bound)
+    return out
 
 
 def cross_check_k4(cfg, model, cams, state, cache, gen, dev) -> None:
@@ -4492,8 +4645,11 @@ def main() -> None:
         })
     for method in rays_per_s:
         t = train[method]
+        share = 100 * t.get("index_ms", 0.0) / t["busy_ms"]
+        index = f", index_select's and index_add_'s kernels {share:.1f}% of it" if share else ""
         print(f"{method}: eval rays/s {rays_per_s[method]:.1f}, train rays/s {t['rays_per_s']:.1f}, "
-              f"step {t['step_ms']:.2f} ms, card busy {100 * t['busy']:.1f}% of a step ({card})")
+              f"step {t['step_ms']:.2f} ms, card busy {100 * t['busy']:.1f}% of a step, peak "
+              f"memory {t['peak_gib']:.2f} GiB{index} ({card})")
     for name, r in rehearsal_rays.items():
         print(f"{name}: eval rays/s {r:.1f} at rendering_scale 1.0 ({card})")
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s ({card})")

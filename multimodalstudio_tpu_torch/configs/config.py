@@ -171,7 +171,7 @@ def load_config(conf_path: Optional[str] = None, method: Optional[str] = None,
     yaml_conf.pop("method", None)
     configs = method_configs()
     if method not in configs:
-        raise KeyError(f"method {method!r} is not ported; the port registers {sorted(configs)}")
+        raise KeyError(f"unknown method {method!r}; the registry has {sorted(configs)}")
     config = configs[method]
     if yaml_conf:
         config = _apply_overrides(config, yaml_conf)

@@ -1,5 +1,7 @@
-"""Method registry (JAX reference: configs/methods.py). The port registers
-the methods it can run: the flagship `grid_raw_tpu` and `mlp_raw_tpu`."""
+"""Method registry (JAX reference: configs/methods.py): the eight reference
+methods (grid and mlp, their raw, unbalanced and decimated variants, and
+the hash-grid background) and the two TPU recipes `grid_raw_tpu` and
+`mlp_raw_tpu`."""
 
 from __future__ import annotations
 
@@ -205,6 +207,56 @@ def _raw(config: TrainerConfig, name: str) -> TrainerConfig:
     )
 
 
+def _unbalanced(config: TrainerConfig, name: str) -> TrainerConfig:
+    """Unaligned (unbalanced) dataset variant; the synthetic scenes read no
+    dataset_kind, so it runs as its balanced twin."""
+    return dataclasses.replace(
+        config, method_name=name,
+        datamanager=dataclasses.replace(config.datamanager, dataset_kind="unaligned"),
+    )
+
+
+def _grid_decimated() -> TrainerConfig:
+    """`grid` with channel decimation: one channel per pixel supervised,
+    drawn from each modality's channel distribution."""
+    base = _grid_config()
+    losses = dataclasses.replace(
+        base.loss_manager,
+        radiance_losses=(
+            ("rgb", RadianceLossSpec(per_channel_probability=(0.25, 0.5, 0.25))),
+            ("mono", RadianceLossSpec()),
+            ("multispectral", RadianceLossSpec(per_channel_probability=(0.1111,) * 9)),
+            ("infrared", RadianceLossSpec()),
+            ("polarization", RadianceLossSpec(saturation_threshold=0.9980,
+                                              per_channel_probability=(0.25, 0.25, 0.25, 0.25))),
+        ),
+    )
+    return dataclasses.replace(base, method_name="grid_decimated", loss_manager=losses)
+
+
+def _grid_raw_grid_bg_unbalanced() -> TrainerConfig:
+    """grid_raw_unbalanced with a hash-grid background field (radius 2, no
+    position encoding) on the infinity-norm contraction."""
+    base = _unbalanced(_raw(_grid_config(), "grid_raw"), "grid_raw_unbalanced")
+    background = BackgroundModelSpec(
+        field=NeRFFieldSpec(
+            base_field=FieldComponentSpec(
+                mlp=MLPSpec(num_layers=3, hidden_dim=128, out_activation="ReLU"),
+                grid=_grid_field(radius=2.0),
+            ),
+            base_output_dim=256,
+            head_field=MLPSpec(num_layers=4, hidden_dim=128, out_activation="ReLU"),
+            use_position_encoding=False,
+            use_direction_encoding=True,
+            direction_encoding=NeRFEncodingSpec(4, 0.0, 3.0, True),
+        ),
+        radiance_feature_dim=256,
+        contraction_order=float("inf"),
+    )
+    model = dataclasses.replace(base.model, background=background)
+    return dataclasses.replace(base, method_name="grid_raw_grid_bg_unbalanced", model=model)
+
+
 def _grid_raw_tpu() -> TrainerConfig:
     """The flagship: grid_raw with a packed bf16 slot-hash grid (6 levels,
     4096 entries per level, F=2), analytic SDF gradients through the fused
@@ -265,4 +317,17 @@ def _mlp_raw_tpu() -> TrainerConfig:
 
 
 def method_configs() -> Dict[str, TrainerConfig]:
-    return {"grid_raw_tpu": _grid_raw_tpu(), "mlp_raw_tpu": _mlp_raw_tpu()}
+    grid = _grid_config()
+    mlp = _mlp_config()
+    return {
+        "grid": grid,
+        "mlp": mlp,
+        "grid_raw": _raw(grid, "grid_raw"),
+        "mlp_raw": _raw(mlp, "mlp_raw"),
+        "grid_unbalanced": _unbalanced(grid, "grid_unbalanced"),
+        "grid_raw_unbalanced": _unbalanced(_raw(grid, "grid_raw"), "grid_raw_unbalanced"),
+        "grid_decimated": _grid_decimated(),
+        "grid_raw_grid_bg_unbalanced": _grid_raw_grid_bg_unbalanced(),
+        "grid_raw_tpu": _grid_raw_tpu(),
+        "mlp_raw_tpu": _mlp_raw_tpu(),
+    }

@@ -14,7 +14,7 @@ import torch
 from torch import nn
 
 from multimodalstudio_tpu_torch.fields.mlp import MLP, MLPSpec
-from multimodalstudio_tpu_torch.ops.encodings import HashGridSpec
+from multimodalstudio_tpu_torch.ops.encodings import HashEncoding, HashGridSpec
 from multimodalstudio_tpu_torch.ops.kernels.slot_grid import (
     CLIP_HI,
     LANE,
@@ -46,8 +46,9 @@ class SingleVariance(nn.Module):
 
 @dataclasses.dataclass(frozen=True)
 class FeatureGridSpec:
-    """`encoding` selects the backend: HashGridSpec (XLA hash grid, not
-    ported) or SlotGridSpec (the slot-hash grid of the fused kernels)."""
+    """`encoding` selects the backend: HashGridSpec (the multiresolution
+    hash grid, ops/encodings.py) or SlotGridSpec (the slot-hash grid of the
+    fused kernels)."""
 
     encoding: Union[HashGridSpec, SlotGridSpec] = HashGridSpec()
     coarse_to_fine: bool = True
@@ -75,16 +76,17 @@ class SlotGridEncoding(nn.Module):
 
 class FeatureGrid(nn.Module):
     """The grid of a field: positions in [-r, r] map to [0, 1] (clamped
-    below 1), then the slot-grid lookup; features of levels at or above the
-    active level are masked (coarse to fine). The fused slot kernels
-    (ops/kernels/slot_fused.py) run the same lookup inside them."""
+    below 1), then the hash-grid or slot-grid lookup; features of levels at
+    or above the active level are masked (coarse to fine). The fused slot
+    kernels (ops/kernels/slot_fused.py) run the slot lookup inside them."""
 
     def __init__(self, spec: FeatureGridSpec, device=None):
         super().__init__()
-        if not isinstance(spec.encoding, SlotGridSpec):
-            raise NotImplementedError("only the slot-grid encoding is ported")
         self.spec = spec
-        self.encoding = SlotGridEncoding(spec.encoding, device=device)
+        if isinstance(spec.encoding, SlotGridSpec):
+            self.encoding = SlotGridEncoding(spec.encoding, device=device)
+        else:
+            self.encoding = HashEncoding(spec.encoding, device=device)
 
     def forward(self, x: torch.Tensor, active_level: Optional[int] = None,
                 max_level: Optional[int] = None, with_tangents: bool = False):
@@ -92,7 +94,7 @@ class FeatureGrid(nn.Module):
         components.py:82-103); max_level keeps the first levels (the rest
         are zero). with_tangents: (features, d features / d x [3, N,
         num_levels * F]), the tangents through the rescale and the mask
-        (model.py:615-621)."""
+        (model.py:615-621), on a slot grid only."""
         r = self.spec.radius
         rescaled = ((x + r) / (2.0 * r)).clamp(0.0, CLIP_HI)
         mask = self.level_mask(active_level, self.spec.encoding.num_levels)

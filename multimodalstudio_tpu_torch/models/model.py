@@ -25,6 +25,15 @@ In training the kernels run as autograd Functions with CUDA backwards,
 and the curvature loss's hessian proxy comes from SDF taps through the
 SDF value route with gradient (curvature_hessian_taps).
 
+The reference methods (grid, mlp and their raw, unbalanced, decimated and
+hash-grid-background variants) run no kernel: their MLPs are float32
+chains and their grids the plain hash grid (ops/encodings.py). Their SDF
+gradients come from numerical taps (the grid methods: 4 or 6 SDF queries
+per sample, and the hessian diagonal from the same taps) or from
+vmap(jacfwd) through the SDF field (the mlp methods), and in training the
+three field regions (background, SDF with its gradients, radiance) are
+recomputed in the backward (`remat`, torch.utils.checkpoint).
+
 The module tree mirrors the reference's params tree, so every state-dict
 key is the dotted flax path (convert.py).
 """
@@ -37,6 +46,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from multimodalstudio_tpu_torch.core.rays import (
     RayBundle,
@@ -295,18 +305,13 @@ class MMSModel(nn.Module):
         )
         return sdf.reshape(positions.shape[:-1])
 
-    def _fused_sdf_gradients(self, positions: torch.Tensor, train: bool):
-        """The grid-less surface (model.py:432-503): through K4 (or K4j)
-        with geo bf16, or the generic route with geo f32; (sdf, geo, d
+    def _fused_sdf_gradients(self, positions: torch.Tensor):
+        """The grid-less fused surface (model.py:432-503): through K4 (or
+        K4j) with geo bf16, or the generic route with geo f32; (sdf, geo, d
         sdf/dx, None)."""
         spec = self.spec.surface
         fspec = spec.surface_field
         mspec, pspec = fspec.field.mlp, fspec.position_encoding
-        if not (can_fuse(mspec) and mspec.out_activation in (None, "None")
-                and not (train and spec.compute_hessian)):
-            raise NotImplementedError(
-                "the jacfwd SDF gradients of an unfused surface MLP (model.py:505-533) are not "
-                "ported")
         ws, bs = self.surface_field.field.mlp.effective_weights()
         if (spec.contraction_order is not None or not fspec.use_position_encoding
                 or not pspec.include_input):
@@ -319,6 +324,64 @@ class MMSModel(nn.Module):
         lead = positions.shape[:-1]
         # geo stays bf16 into the radiance trunk (model.py:471-474)
         return sdf.reshape(lead), geo.reshape(*lead, -1), grad.reshape(positions.shape), None
+
+    def _jacfwd_sdf_gradients(self, positions: torch.Tensor, active_level, hessian: bool):
+        """Autograd SDF gradients (model.py:505-533): value, geo and d sdf/dx
+        of each sample from one field pass with 3 forward tangents,
+        vmap(jacfwd(f, has_aux=True)); with `hessian`, the nested jacfwd and
+        the hessian's rows summed (H @ 1, the reference's autograd hessian).
+        Parameter gradients flow back through the tangents (the eikonal
+        loss's second-order term). Returns (sdf, geo, grad, hessians or
+        None)."""
+        def f_single(p):  # [3] -> (sdf, (sdf, geo))
+            s, g = self.sdf_geo(p[None, :], active_level)
+            return s[0], (s[0], g[0])
+
+        flat = positions.reshape(-1, 3)
+        lead = positions.shape[:-1]
+        hessians = None
+        if hessian:
+            def f_grad(p):
+                jac, aux = torch.func.jacfwd(f_single, has_aux=True)(p)
+                return jac, (jac, aux)
+
+            hess, (grads, (sdf, geo)) = torch.func.vmap(
+                torch.func.jacfwd(f_grad, has_aux=True))(flat)
+            hessians = hess.sum(-1).reshape(*lead, 3)
+        else:
+            grads, (sdf, geo) = torch.func.vmap(torch.func.jacfwd(f_single, has_aux=True))(flat)
+        return sdf.reshape(lead), geo.reshape(*lead, -1), grads.reshape(positions.shape), hessians
+
+    def _numerical_sdf_gradients(self, positions: torch.Tensor, schedules: ScheduleState,
+                                 train: bool):
+        """Numerical SDF gradients (model.py:535-545, 672-722): the
+        tetrahedron's 4 taps or the 6 axis taps at distance `delta`, each an
+        SDF query; in training with compute_hessian, the hessian diagonal
+        from the same taps."""
+        spec = self.spec.surface
+        lvl, delta = schedules.active_level, schedules.numerical_delta
+        sdf, geo = self.sdf_geo(positions, lvl)
+        hessian = train and spec.compute_hessian
+        hessians = None
+        if spec.numerical_gradient_taps == 4:
+            d = delta / math.sqrt(3.0)
+            k = torch.tensor(TETRAHEDRON, dtype=positions.dtype, device=positions.device)
+            tap_sdf = self.sdf_only(positions[..., None, :] + k * d, lvl)  # [..., 4]
+            gradients = (k * tap_sdf[..., None]).sum(-2) / (4.0 * d)
+            if hessian:
+                hxx = (tap_sdf.sum(-1) / 2.0 - 2.0 * sdf) / delta**2
+                hessians = torch.stack([hxx, hxx, hxx], dim=-1) / 3.0
+        elif spec.numerical_gradient_taps == 6:
+            eye = torch.eye(3, dtype=positions.dtype, device=positions.device)
+            offs = torch.cat([eye, -eye])  # [6, 3]
+            tap_sdf = self.sdf_only(positions[..., None, :] + offs * delta, lvl)  # [..., 6]
+            plus, minus = tap_sdf[..., :3], tap_sdf[..., 3:]
+            gradients = 0.5 * (plus - minus) / delta
+            if hessian:
+                hessians = (plus + minus - 2.0 * sdf[..., None]) / delta**2
+        else:
+            raise ValueError("numerical_gradient_taps must be 4 or 6")
+        return sdf, geo, gradients, hessians
 
     def _tangent_sdf_gradients(self, positions: torch.Tensor, ws, bs):
         """The generic route (model.py:477-503): enc(p) = PE(contract(p))
@@ -381,20 +444,28 @@ class MMSModel(nn.Module):
         return y[:, 0], y[:, 1:], grad.T
 
     def sdf_gradients(self, positions: torch.Tensor, schedules: ScheduleState, train: bool = False):
-        """(sdf [...], geo [..., G], d sdf/dx [..., 3], hessians). On a slot
-        surface (model.py:547-669): through K3 (geo bf16) with an
-        input-including position encoding, else through the K6 + K5
-        composition (geo f32); on a grid-less surface through K4 or K4j (geo
-        bf16), or with a contraction or without an input-including encoding
-        through K1t (geo f32).
-        In training with compute_hessian, hessians [..., S_tap, 3] come from
-        the curvature taps through sdf_only, else None."""
+        """(sdf [...], geo [..., G], d sdf/dx [..., 3], hessians), by the
+        reference's dispatch (model.py:402-545). Numerical taps when the
+        surface asks for them. Else, on a fused slot surface
+        (model.py:547-669): through K3 (geo bf16) with an input-including
+        position encoding, else through the K6 + K5 composition (geo f32);
+        on a grid-less fused surface, outside training with a hessian,
+        through K4 or K4j (geo bf16), or with a contraction or without an
+        input-including encoding through K1t (geo f32); on any other surface
+        (an unfused MLP, a hash grid) through vmap(jacfwd). On a slot
+        surface in training with compute_hessian, hessians [..., S_tap, 3]
+        come from the curvature taps through sdf_only."""
         spec = self.spec.surface
         if spec.use_numerical_gradients:
-            raise NotImplementedError("numerical SDF gradients are not ported")
+            return self._numerical_sdf_gradients(positions, schedules, train)
         grid = spec.surface_field.field.grid
-        if grid is None:
-            return self._fused_sdf_gradients(positions, train)
+        if grid is None or not isinstance(grid.encoding, SlotGridSpec):
+            mspec = spec.surface_field.field.mlp
+            if (grid is None and can_fuse(mspec) and mspec.out_activation in (None, "None")
+                    and not (train and spec.compute_hessian)):
+                return self._fused_sdf_gradients(positions)
+            return self._jacfwd_sdf_gradients(positions, schedules.active_level,
+                                              train and spec.compute_hessian)
         if not self._fused_slot():
             raise ValueError(
                 "slot-grid analytic SDF gradients need fused MLPs "
@@ -459,20 +530,29 @@ class MMSModel(nn.Module):
             lambda pos: self.sdf_only(pos, schedules.active_level, spec.surface.sampler_levels),
             spec.ray_sampler, generator, train,
         )
+
+        def region(fn, *args):
+            # remat (model.py:773, 780, 801): in training the region's
+            # activations are recomputed in the backward; no region draws
+            # from a generator, so the recompute sees the same numbers
+            if spec.remat and train:
+                return checkpoint(fn, *args, use_reentrant=False)
+            return fn(*args)
+
         background = None
         if spec.use_background:
             bg_rays = background_bounds(rays, mask, spec.scene_radius)
             bg_samples = spaced_sampling(bg_rays, spec.background_ray_sampler,
                                          generator=generator, train=train)
-            background = self._background_forward(bg_samples, segments, aligned)
+            background = region(self._background_forward, bg_samples, segments, aligned)
 
-        sdf, geo, gradients, hessians = self.sdf_gradients(
-            samples.start_positions(), schedules, train)
+        sdf, geo, gradients, hessians = region(self.sdf_gradients, samples.start_positions(),
+                                               schedules, train)
         norm = torch.linalg.vector_norm(gradients, dim=-1, keepdim=True)
         normals = gradients / norm.clamp_min(1e-12)
         inv_s = self.inv_s()
         weights = neus_weights(samples, sdf, gradients, inv_s, schedules.cos_anneal_ratio)
-        radiance = self._radiance_forward(samples, normals, geo, segments, aligned)
+        radiance = region(self._radiance_forward, samples, normals, geo, segments, aligned)
 
         outputs: Dict[str, torch.Tensor] = {}
         acc = weights.sum(-1, keepdim=True)

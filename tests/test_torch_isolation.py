@@ -84,7 +84,7 @@ def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
         assert '"ok"' not in out.stdout
 
 
-@pytest.mark.parametrize("method", ["grid_raw_tpu", "mlp_raw_tpu"])
+@pytest.mark.parametrize("method", ["grid_raw_tpu", "mlp_raw_tpu", "grid_raw", "mlp_raw"])
 def test_entry_points_raise_without_a_card(monkeypatch, method):
     cfg = method_configs()[method]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -109,8 +109,8 @@ def test_load_config_override_matches_jax():
     assert t.modalities == ("rgb", "mono") and t.datamanager.num_rays_per_modality == 64
     with pytest.raises(KeyError, match="unknown config key"):
         tconfig.load_config(method="grid_raw_tpu", overrides={"model": {"nope": 1}})
-    with pytest.raises(KeyError, match="not ported"):
-        tconfig.load_config(method="grid")
+    with pytest.raises(KeyError, match="unknown method"):
+        tconfig.load_config(method="grid_raw_nope")
 
 
 def test_model_takes_the_composition_route():
