@@ -124,9 +124,7 @@
    uncounted, for the two runs results.txt scores at their checkpoint's
    step: every view again through the plain versions on the card (it
    fails when a modality's PSNR through the kernels is more than 1.0 dB
-   below it), and view 0 with one kernel wrapper at a time through its
-   plain version, and with the SH encoding's matmuls rounded to bf16 as
-   the JAX package computes them on a TPU. (B) export_mesh of
+   below it). (B) export_mesh of
    rehearsal_grid_dense at 256^3: its first SDF chunk against K2f's plain
    version, one K2f launch a 262,144-point chunk, and the median radial
    error against the scene's sphere of radius 0.5, at most 2 grid
@@ -136,8 +134,25 @@
    every cadence fires once in 20 steps resuming from it, then launcher
    --mode eval; the resumed steps and the files written.
 
+5. (D) A scene from disk: synthetic_raw:views=12,size=96's raw 5-modality
+   scene written as 16-bit PNGs and meta_data.json by the port's
+   write_synthetic_scene into a temporary directory, loaded through
+   launcher.build_datasets (the port's PNG reader; the card's machine has
+   no OpenCV), every frame within one 16-bit step of the in-memory scene
+   and the cameras and masks equal; the host's decode of a 2048² 16-bit
+   frame with Sub rows (as cv2 writes) and with all five filters (the
+   anti-diagonal wavefront); launcher --mode train for 10 steps on
+   the directory, then --mode eval, K1, K2 and K3 launched; then the
+   bench-geometry training of step 3 on the disk scene's frames (rays/s,
+   busy ms a step). Then, as in step 3, VOLSDF_LABEL: grid_raw_tpu with
+   VolSDF, the box collider, random background colours in place of the
+   background field, and the fields group on RAdam, the camera poses on
+   Adam (the colours injected alike on the card and the CPU for the
+   comparisons), its view rendered once more with the near_far collider,
+   and one RAdam/Adam update on the card held against the CPU's.
+
 Prints each phase's seconds and the whole run's, one {"kernels": [...]}
-line (launches summed over the training runs and phases A-C, each counted
+line (launches summed over the training runs and phases A-D, each counted
 from 0), each
 path's rays/s, step time and busy share, and last the {"ok": true,
 "device": ...} line. Exits
@@ -3302,6 +3317,29 @@ def check_skip_edges(gen, dev, gspecs) -> None:
 # chunk and a training microbatch must agree with the CPU's to float32 summation order
 REFERENCE_LABELS = ("grid_raw", "mlp_raw", "grid", "grid_raw_grid_bg_unbalanced")
 
+# VolSDF, the box collider (ModelSpec's default aabb, the +-1 cube) and random background
+# colours, which take the background field's place (JAX tests "random" before a background
+# field), so the label has none: its parameters would get no gradient
+VOLSDF_BOX = {"model": {"surface": {"rendering": "volsdf"}, "collider_type": "box",
+                        "background_color": "random", "use_background": False}}
+VOLSDF_LABEL = "grid_raw_tpu with VolSDF, box collider, random background, radam"
+# VOLSDF_LABEL's optimizer groups (load_config's overrides cannot reach into the pairs): the
+# fields on RAdam at a constant learning rate, as under the 10 % warm-up the checked steps'
+# rates (1e-7 to 7e-7), RAdam's unnormalised first 5 updates and its r of 0.026 at updates 6
+# and 7 would move no weight-norm gain near 1 by an ulp; the camera poses on Adam. The label
+# runs after phases A-D, so the earlier phases keep their order.
+VOLSDF_OPTIMIZERS = {"fields": {"optimizer": "radam", "scheduler": None},
+                     "camera_poses": {"optimizer": "adam"}}
+# VOLSDF_LABEL's microbatch also runs through the plain versions on the card, and each gradient
+# group of the kernels is held within 1e-1 of those. Against the CPU its slot-table group is held
+# within VOLSDF_TABLE_TOL, twice the 1.442e-1 to 1.474e-1 that four runs read, every other group
+# within the bf16 labels' limits. The box collider clips rays to the grid's own bounds, so the
+# uniform samples of a ray that crosses the box face to face lie on the grid's cell planes, where
+# the last bit of a position picks the cell its gradient goes to; card and CPU compute the rays'
+# positions an ulp apart. Given the card's positions the CPU's table gradient equals the card's
+# bit for bit (chip_probes/volsdf_table_replay.py, box_cell_planes.py; PERF.md §6)
+VOLSDF_TABLE_TOL = 3e-1
+
 PER_CHUNK = {  # kernel launches of one 1024-ray eval chunk (derived in PERF.md)
     # every K1 forward call launches the pack of its weights, then the chain,
     # and so does every K2 call (its chain cut to the sdf column) and every
@@ -3331,6 +3369,9 @@ PER_CHUNK = {  # kernel launches of one 1024-ray eval chunk (derived in PERF.md)
                                                "fused_chain_adjoint": 1},
     # the reference methods run no kernel: f32 unfused MLPs and the plain hash grid
     **{label: {} for label in REFERENCE_LABELS},
+    # as grid_raw_tpu without the background's three K1 chains
+    VOLSDF_LABEL: {"fused_chain": 2, "fused_chain_pack": 7, "fused_slot_sdf_value": 4,
+                   "fused_slot_sdf_chain": 1},
 }
 
 NO_PE = {"model": {"surface": {"surface_field": {"use_position_encoding": False}}}}
@@ -3365,6 +3406,7 @@ CONFIGS = {  # label: (registered method, load_config overrides, environment of 
     "grid": ("confs/grid.yaml", None, {}),
     "grid_raw_grid_bg_unbalanced": ("grid_raw_grid_bg_unbalanced",
                                     {"datamanager": {"microbatch_rays": 512}}, {}),
+    VOLSDF_LABEL: ("grid_raw_tpu", VOLSDF_BOX, {}),
 }
 # The committed rehearsal runs whose checkpoints the card renders (phase A) are rehearsals.py's
 # catalog; for each, the CONFIGS label whose PER_CHUNK launches one of its eval chunks makes.
@@ -3392,7 +3434,22 @@ def load(label):
         cfg = load_config(path, overrides=overrides)
     else:
         cfg = load_config(method=method, overrides=overrides)
-    return dataclasses.replace(cfg, modalities=FIVE_MODALITIES)
+    groups = VOLSDF_OPTIMIZERS if label == VOLSDF_LABEL else {}
+    optimizers = tuple((g, dataclasses.replace(spec, **groups.get(g, {})))
+                       for g, spec in cfg.optimizers)
+    return dataclasses.replace(cfg, modalities=FIVE_MODALITIES, optimizers=optimizers)
+
+
+def fixed_background_colours(*models):
+    """The random background colours of `models` drawn from one seeded CPU generator by
+    shape, so a card model and a CPU model composite the same colours (their own seeded
+    generators differ by device)."""
+    def colours(mod, like, generator):
+        gen = torch.Generator().manual_seed(SEED + like.numel())
+        return torch.rand(like.shape, generator=gen).to(like)
+
+    for model in models:
+        model.random_background_color = colours
 
 
 @contextlib.contextmanager
@@ -3473,6 +3530,8 @@ def run_slice(dev, card, method):
     # one chunk again on the CPU through the plain versions
     cpu_model = MMSModel(cfg.model, device="cpu")
     cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    if cfg.model.background_color == "random":
+        fixed_background_colours(model, cpu_model)
     cpu_eval = evaluator_cls(cfg, cpu_model, dataset, dataset, device="cpu")
     from multimodalstudio_tpu_torch.data.sampler import dense_pixel_batch
 
@@ -3496,9 +3555,35 @@ def run_slice(dev, card, method):
     print(f"  chunk vs CPU plain: worst rel_l2 {worst:.3e} (tolerance {tol:g})")
     if not worst <= tol:
         fail(f"the card's render disagrees with the CPU plain render (rel_l2 > {tol:g})")
+    if cfg.model.collider_type == "box":
+        render_near_far(dev, cfg, model, dataset, state, evaluator_cls)
     profile_device(lambda: evaluator.render_view(state, dataset, "rgb", 0), "one rgb view",
                    1e3 * seconds / len(frames))
     return launches, n_rays / seconds
+
+
+def render_near_far(dev, cfg, model, dataset, state, evaluator_cls, near_far=(0.05, 4.0)):
+    """View 0 of rgb once more, the model's weights under the near_far collider: every
+    output finite."""
+    import dataclasses
+
+    import numpy as np
+
+    from multimodalstudio_tpu_torch.models.model import MMSModel
+
+    nf = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, collider_type="near_far",
+                                                            near_far=near_far))
+    nf_model = MMSModel(nf.model, device=dev)
+    nf_model.load_state_dict(model.state_dict())
+    t0 = time.perf_counter()
+    frames = evaluator_cls(nf, nf_model, dataset, dataset, device=dev).render_view(
+        state, dataset, "rgb", 0)
+    torch.cuda.synchronize()
+    bad = [k for k, v in frames.items() if not np.all(np.isfinite(v))]
+    print(f"  near_far collider {near_far}: rgb view 0 in {time.perf_counter() - t0:.2f} s, "
+          f"outputs {sorted(frames)} " + ("finite" if not bad else f"non-finite {bad}"))
+    if bad:
+        fail(f"the near_far collider's render has non-finite {bad}")
 
 
 # the device kernels of the hash grid's row gather (index_select's, which torch.gather's shares)
@@ -3514,9 +3599,11 @@ def profile_device(fn, label: str, ref_ms: float, top: int = 12, parts=None):
     backward), the device ms of the INDEX_KERNELS (its gather and scatter)
     are printed, and stored in `parts["index_ms"]` when given.
 
-    Only the device activity is recorded, and its events are summed by
-    kernel name in one pass: with the CPU ops too, parsing and averaging a
-    training step's events took 10-20 s a profile."""
+    Only the device activity is recorded, and its raw events are summed by
+    kernel name in one pass, without building the profiler's Python event
+    list: with the CPU ops too, parsing and averaging a training step's
+    events took 10-20 s a profile, and building the device events' list
+    alone 3-4 s."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3527,11 +3614,12 @@ def profile_device(fn, label: str, ref_ms: float, top: int = 12, parts=None):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     t1 = time.perf_counter()
+    events = ((e.name(), e.duration_ns() / 1e6) for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA)
     by_key = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            ms, n = by_key.get(e.key, (0.0, 0))
-            by_key[e.key] = (ms + e.device_time_total / 1e3, n + 1)
+    for key, ms_e in events:
+        ms, n = by_key.get(key, (0.0, 0))
+        by_key[key] = (ms + ms_e, n + 1)
     rows = [(ms, n, key) for key, (ms, n) in by_key.items() if ms > 0]
     index_ms = 0.0
     if any("indexFunc" in r[2] for r in rows):
@@ -3627,6 +3715,14 @@ PER_MICROBATCH = {  # kernel launches of one training microbatch (derived in PER
         "fused_chain_adjoint": 1, "fused_chain_adjoint_bwd": 1, "fused_chain_adjoint_wgrad": 1,
     },
     **{label: {} for label in REFERENCE_LABELS},
+    # as grid_raw_tpu without the background's three K1 chains
+    VOLSDF_LABEL: {
+        "fused_chain": 2, "fused_chain_pack": 8, "fused_chain_bwd": 2, "chain_wgrad": 2,
+        "fused_slot_sdf_value": 5, "fused_slot_sdf_value_bwd": 1,
+        "fused_slot_sdf_value_wgrad": 1,
+        "fused_slot_sdf_chain": 1, "fused_slot_sdf_chain_bwd": 1,
+        "fused_slot_sdf_chain_wgrad": 1,
+    },
 }
 
 
@@ -3650,7 +3746,7 @@ POSE_TOL = {"grid_raw_tpu": 1e-1, "mlp_raw_tpu": 3e-1, "grid_raw_tpu without PE"
             "mlp_raw_tpu with contraction": 3e-1, "mlp_raw_tpu in jvp mode": 3e-1,
             "grid_raw_tpu with split backward": 1e-1, "grid_raw_tpu with f32 table": 1e-1,
             "grid_raw_tpu with f32 table and split backward": 1e-1,
-            "grid_raw_tpu without PE, vertex layout": 3e-1,
+            "grid_raw_tpu without PE, vertex layout": 3e-1, VOLSDF_LABEL: 1e-1,
             **{label: 5e-2 for label in REFERENCE_LABELS}}
 
 
@@ -3667,14 +3763,15 @@ def _param_groups(named):
     return groups
 
 
-def timed_training(dev, card, method, steps=5):
+def timed_training(dev, card, method, steps=5, dataset=None):
     """Train `method` (a label of CONFIGS) at the bench geometry through
     train_steps: 2 warm-up steps, then `steps` timed ones, each checked for
     finite losses and gradients and for the parameter tensors it changed,
     and one profiled step. Returns (the run's objects with the names of the
     parameters a checked step changed, its stats: launches, rays/s, step
     ms, the peak device memory of the timed steps, busy share, busy ms,
-    device ops and index kernels' ms of the profiled step).
+    device ops and index kernels' ms of the profiled step). `dataset`
+    (default: the 10-view, 256 x 256 synthetic scene) is the one trained on.
     chip_ab.py --train times this alone, for a paired run of two commits."""
     from multimodalstudio_tpu_torch.cameras.camera_optimizer import init_camera_poses
     from multimodalstudio_tpu_torch.configs.methods import FIVE_MODALITIES
@@ -3689,8 +3786,9 @@ def timed_training(dev, card, method, steps=5):
     if (dm.num_rays_per_modality, dm.microbatch_rays, cfg.max_num_iterations) != (2048, 512, 100000):
         fail(f"{method} no longer has the bench geometry")
     microbatches = dm.num_rays_per_modality // dm.microbatch_rays
-    dataset = make_synthetic_dataset(FIVE_MODALITIES, num_views=10, height=256, width=256,
-                                     raw=dm.raw, device=dev)
+    if dataset is None:
+        dataset = make_synthetic_dataset(FIVE_MODALITIES, num_views=10, height=256, width=256,
+                                         raw=dm.raw, device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     model = MMSModel(cfg.model, device=dev).init(gen)
     num_cameras = {m: dataset.data[m].cameras.camera_to_worlds.shape[0] for m in FIVE_MODALITIES}
@@ -3761,7 +3859,9 @@ def run_training(dev, card, method, steps=5):
     reference labels the loss and each gradient group within max(F32_FLOOR,
     twice the CPU run's distance to itself with every parameter moved by
     1e-6), the noise-derived limit of the JAX comparisons in the tests, the
-    camera poses within max(POSE_TOL, that twice)."""
+    camera poses within max(POSE_TOL, that twice); VOLSDF_LABEL's also against
+    the plain versions on the card, its table against the CPU within
+    VOLSDF_TABLE_TOL."""
     import dataclasses
 
     from multimodalstudio_tpu_torch.configs.methods import FIVE_MODALITIES
@@ -3793,9 +3893,14 @@ def run_training(dev, card, method, steps=5):
         dm, num_rays_per_modality=64, microbatch_rays=0))
     batch = sample_pixel_batch(cache, gen, 64, FIVE_MODALITIES)
     sched = T.make_schedules(small, state.step)
+    random_colours = cfg.model.background_color == "random"
+    if random_colours:
+        fixed_background_colours(model)
     gpu = T.batch_loss_and_grads(small, model, cams, state.camera_poses, batch, state.step, sched)
     cpu_model = MMSModel(cfg.model, device="cpu")
     cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    if random_colours:
+        fixed_background_colours(cpu_model)
     cpu_cams = {m: dataclasses.replace(c, **{k: getattr(c, k).cpu() for k in
                                              ("fx", "fy", "cx", "cy", "camera_to_worlds")})
                 for m, c in cams.items()}
@@ -3816,6 +3921,11 @@ def run_training(dev, card, method, steps=5):
                                for k, v in cpu_model.state_dict().items()})
     moved = [T.batch_loss_and_grads(small, cpu_model, cpu_cams, cpu_poses, cpu_batch, state.step,
                                     sched)]
+    plain = None
+    if method == VOLSDF_LABEL:
+        with plain_kernel_calls():
+            plain = T.batch_loss_and_grads(small, model, cams, state.camera_poses, batch,
+                                           state.step, sched)
     # loose on the bf16 labels: importance samples move with bf16 noise, and
     # the card's sums run in other orders (atomics) than the CPU's
     rel = abs(float(gpu[0]) - float(cpu[0])) / abs(float(cpu[0]))
@@ -3838,15 +3948,52 @@ def run_training(dev, card, method, steps=5):
             tol = max(POSE_TOL[method] if keys is None else F32_FLOOR, 2 * cond)
         else:
             tol = POSE_TOL[method] if keys is None else 1e-1
+        if plain is not None:
+            on_card = torch.cat([g.reshape(-1).cpu() for g in
+                                 (plain[3]["camera_poses"].values() if keys is None
+                                  else [plain[3]["fields"][k] for k in keys])])
+            kern = rel_l2(flat[0], on_card)
+            print(f"  microbatch vs the plain versions on the card: gradient of {name} "
+                  f"rel_l2={kern:.3e} (tolerance {tol:.3g}); the plain versions, card vs CPU: "
+                  f"{rel_l2(on_card, flat[1]):.3e}")
+            if not kern <= tol:
+                worst = float("inf")
+            if keys is not None and any(k.endswith("table") for k in keys):
+                tol = VOLSDF_TABLE_TOL
         print(f"  microbatch vs CPU plain: gradient of {name} rel_l2={r:.3e} (tolerance {tol:.3g}; "
               f"the CPU run against itself with parameters moved by {move:g}: {cond:.3e})")
         if not (r <= tol and torch.isfinite(flat[0]).all()):
             worst = float("inf")
     if worst == float("inf"):
         fail("the card's training microbatch disagrees with the CPU plain versions")
+    if method == VOLSDF_LABEL:
+        check_update_on_the_cpu(cfg, model, state, gpu[3])
     if f32:
         stats["hash_grid"] = time_hash_grids(dev, card, cfg)
     return stats
+
+
+def check_update_on_the_cpu(cfg, model, state, grads, tol=1e-5):
+    """One optimizer update of the run's state on the card against the same update on the
+    CPU, each group within rel-L2 `tol` (both float32, the same operations)."""
+    from multimodalstudio_tpu_torch.engine import train as T
+
+    opt = T.make_optimizer(cfg)
+    cpu = lambda tree: {g: {k: v.detach().cpu() for k, v in d.items()}  # noqa: E731
+                        for g, d in tree.items()}
+    st = state.opt_state
+    card, _ = opt.update(grads, st, T.train_params(model, state.camera_poses))
+    host, _ = opt.update(cpu(grads), T.OptState(count=st.count, mu=cpu(st.mu), nu=cpu(st.nu)),
+                         cpu(T.train_params(model, state.camera_poses)))
+    kinds = {g: a.kind for g, a in opt.groups}
+    for g in card:
+        a = torch.cat([card[g][k].reshape(-1).cpu() for k in host[g]])
+        b = torch.cat([host[g][k].reshape(-1) for k in host[g]])
+        rel = rel_l2(a, b)
+        print(f"  update {st.count + 1} of {g} ({kinds[g]}) on the card vs the CPU: rel_l2={rel:.3e}"
+              f" (tolerance {tol:g})")
+        if not (rel <= tol and torch.isfinite(a).all()):
+            fail(f"the {kinds[g]} update of {g} on the card disagrees with the CPU's")
 
 
 def time_hash_grids(dev, card, cfg):
@@ -4094,40 +4241,6 @@ def load_rehearsal(dev, name, datasets):
 
 
 @contextlib.contextmanager
-def tpu_sh_rounding():
-    """The model's SH encoding of directions computed as the JAX package computes it on a
-    TPU: its flagships run matmul_precision 'default' (jax_default_matmul_precision
-    bfloat16, JAX configs/methods.py and engine/trainer.py), so each of the four matmuls
-    of sh_encoding_dense (JAX ops/encodings.py:115-122, not pinned to f32) takes its f32
-    inputs rounded to bf16 and sums in f32. JAX on the CPU ignores that precision, so the
-    CPU tests cannot see it; the rehearsal weights were trained under it."""
-    import multimodalstudio_tpu_torch.models.model as model_mod
-    from multimodalstudio_tpu_torch.ops.encodings import _sh_dense_coeffs
-
-    def rounded(t):
-        return t.to(torch.bfloat16).float()
-
-    def sh(directions, degree):
-        c0, c1, c2, c3, c4 = (torch.as_tensor(c, device=directions.device)
-                              for c in _sh_dense_coeffs(degree + 1))
-        lead = directions.shape[:-1]
-        d = directions.reshape(-1, 3)
-        m2 = (d[:, :, None] * d[:, None, :]).reshape(-1, 9)
-        m3 = (m2[:, :, None] * d[:, None, :]).reshape(-1, 27)
-        m4 = (m3[:, :, None] * d[:, None, :]).reshape(-1, 81)
-        out = c0[0] + sum(rounded(m) @ rounded(c) for m, c in
-                          ((d, c1), (m2, c2), (m3, c3), (m4, c4)))
-        return out.reshape(*lead, -1)
-
-    saved = model_mod.sh_encoding_dense
-    model_mod.sh_encoding_dense = sh
-    try:
-        yield
-    finally:
-        model_mod.sh_encoding_dense = saved
-
-
-@contextlib.contextmanager
 def all_eval_views():
     """MMS_EVAL_MAX_VIEWS unset while a render scores every eval view."""
     saved = os.environ.pop("MMS_EVAL_MAX_VIEWS", None)
@@ -4148,12 +4261,10 @@ def run_checkpoint(dev, card, name, datasets):
     RawEvaluator.render_all_eval_views at rendering_scale 1 in chunks of 4096, the launch
     counts, each modality's metrics beside the JAX package's eval of the same weights in
     the run's results.txt, and each view's mosaicked PSNR. Then, where results.txt scores
-    the same weights, uncounted witnesses of where a gap to JAX's eval lies: every eval view
-    again through the plain versions on the card (it fails when a modality's mosaicked PSNR
-    through the kernels is more than 1.0 dB below it, the limit held against JAX's), and view
-    0 of each modality with one wrapper at a time through its plain version, and with the SH
-    encoding rounded as JAX computes it on a TPU (tpu_sh_rounding). Returns (launches,
-    rays/s, metrics, max-abs errors of the central chunk's kernels)."""
+    the same weights, every eval view again through the plain versions on the card, an
+    uncounted witness of where a gap to JAX's eval lies (it fails when a modality's mosaicked
+    PSNR through the kernels is more than 1.0 dB below it, the limit held against JAX's).
+    Returns (launches, rays/s, metrics, max-abs errors of the central chunk's kernels)."""
     import rehearsals
     from multimodalstudio_tpu_torch.data.sampler import dense_pixel_batch
     from multimodalstudio_tpu_torch.engine.evaluator import RawEvaluator
@@ -4173,7 +4284,6 @@ def run_checkpoint(dev, card, name, datasets):
         ev._render_chunk(state, "rgb", datasets[1].data["rgb"].cameras,
                          batch.camera_indices[mid:mid + chunk], batch.pixel_coords[mid:mid + chunk])
     errs = check_recorded_calls(f"{name}, central eval chunk", calls)
-    used = sorted({c[0] for c in calls})
     del calls
 
     # each view's metrics as render_all_eval_views scores them
@@ -4249,17 +4359,6 @@ def run_checkpoint(dev, card, name, datasets):
         if not (np.isfinite(p) and k >= p - 1.0):
             fail(f"{name}: {mod} mosaicked PSNR through the kernels, {k:.4f}, is more than 1.0 dB "
                  f"below the plain versions' {p:.4f}")
-
-    t0 = time.perf_counter()
-    variants = [(f"{n} plain", plain_kernel_calls({n})) for n in used]
-    variants.append(("SH encoding rounded as JAX on a TPU", tpu_sh_rounding()))
-    print("  view 0 of each modality, mosaicked PSNR minus the kernels' render of it, with:")
-    for label, ctx in variants:
-        with ctx:
-            moved = {m: mosaicked_psnr(ev.view_metrics(ev.render_view(state, datasets[1], m, 0), m))
-                     - mosaicked_psnr(per_view[m][0]) for m in cfg.modalities}
-        print(f"    {label}: " + "  ".join(f"{m} {v:+.4f}" for m, v in moved.items()))
-    print(f"  ({time.perf_counter() - t0:.1f} s)")
     return launches, n_rays / seconds, results, errs
 
 
@@ -4365,11 +4464,13 @@ def run_entry_points(dev, card, root):
     t0 = time.perf_counter()
     launcher.main(["--mode", "train", *args, "--max_iterations", "10"])
     torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
     add_launches()
     first = checkpoints.latest_checkpoint_step(ckpts)
     ckpt = torch.load(checkpoints.checkpoint_path(ckpts, first), weights_only=True)
-    print(f"  launcher --mode train: 10 steps in {time.perf_counter() - t0:.1f} s, saved step "
-          f"{first} with optimizer state count {ckpt.get('opt_state', {}).get('count')}")
+    print(f"  launcher --mode train: 10 steps in {train_s:.1f} s ({10 * 2048 * 5 / train_s:.1f} "
+          f"rays/s with its set-up, {card}), saved step {first} with optimizer state count "
+          f"{ckpt.get('opt_state', {}).get('count')}")
     if first != 10 or ckpt.get("opt_state", {}).get("count") != 10:
         fail("launcher --mode train did not save a whole-state checkpoint at step 10")
 
@@ -4413,6 +4514,162 @@ def run_entry_points(dev, card, root):
     if not all(np.isfinite(v).all() for m in results.values() for v in m.values()):
         fail("launcher --mode eval gave non-finite metrics")
     return launches
+
+
+DISK_SCENE = dict(num_views=12, height=96, width=96)  # ENTRY_SCENE's geometry
+K123 = ("fused_chain", "fused_slot_sdf_value", "fused_slot_sdf_chain")
+CAPTURE_FRAME = 2048  # the side of a capture's 16-bit greyscale frame whose decode is timed
+
+
+def time_capture_decode(card, repeats=3):
+    """Host ms for read_png's decode of one CAPTURE_FRAME-square 16-bit greyscale frame
+    (a smooth image with noise, from SEED), median of `repeats`, for each way its rows may
+    be filtered: Sub on every row, as cv2.imwrite writes (running sums along the rows), and
+    the five filters in turn, as writers that choose each row's filter give (Average and
+    Paeth rows: the anti-diagonal wavefront). Each decode must return the frame."""
+    import numpy as np
+
+    from multimodalstudio_tpu_torch.utils.images import decode_png, encode_png16
+
+    n = CAPTURE_FRAME
+    y, x = np.mgrid[0:n, 0:n]
+    noise = np.random.default_rng(SEED).normal(scale=300.0, size=x.shape)
+    frame = (20000 + 9000 * np.sin(x / 97.0) * np.cos(y / 61.0) + noise).clip(0, 65535)
+    frame = frame.astype(np.uint16)
+    ms = {}
+    for name, kinds in (("sub", None), ("mixed", np.arange(n) % 5)):
+        blob = encode_png16(frame, kinds)
+        times = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            got = decode_png(blob)
+            times.append(time.perf_counter() - t0)
+            if not np.array_equal(got, frame):
+                fail(f"read_png's decode of the {name}-filtered capture frame differs")
+        ms[name] = 1e3 * float(np.median(times))
+    print(f"  a {n} x {n} 16-bit greyscale frame decodes in {ms['sub']:.1f} ms with Sub rows (as "
+          f"cv2 writes) and {ms['mixed']:.1f} ms with the five filters in turn (median of "
+          f"{repeats}; host; {card})")
+    return ms
+
+
+def run_disk_scene(dev, card, root):
+    """Phase D: ENTRY_SCENE's raw 5-modality scene written to `root` by the port's
+    write_synthetic_scene (16-bit PNGs, meta_data.json) and loaded through
+    launcher.build_datasets: every frame within one 16-bit step of the in-memory scene,
+    the cameras and mosaick masks equal; a capture-size frame's decode timed
+    (time_capture_decode); then launcher --mode train for 10 steps and
+    --mode eval on the directory, K1, K2 and K3 launched; then timed_training on the disk
+    scene's train split. Returns (the launches, the timed training's stats)."""
+    import numpy as np
+
+    from multimodalstudio_tpu_torch import launcher
+    from multimodalstudio_tpu_torch.configs.config import load_config
+    from multimodalstudio_tpu_torch.data.sampler import dense_pixel_batch
+    from multimodalstudio_tpu_torch.data.synthetic import (
+        make_synthetic_dataset,
+        write_synthetic_scene,
+    )
+    from multimodalstudio_tpu_torch.engine import checkpoints
+    from multimodalstudio_tpu_torch.ops.kernels import build
+
+    cfg = load_config(method="grid_raw_tpu")
+    mods = cfg.modalities
+    scene = os.path.join(root, "scene")
+    t0 = time.perf_counter()
+    write_synthetic_scene(scene, mods, raw=True, **DISK_SCENE)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train, evald = launcher.build_datasets(cfg, scene, device=dev)
+    load_s = time.perf_counter() - t0
+    n_frames = sum(d.num_frames(m) for d in (train, evald) for m in mods)
+    print(f"  wrote the scene in {write_s:.2f} s; launcher.build_datasets loaded {n_frames} frames "
+          f"in {load_s:.3f} s, {1e3 * load_s / n_frames:.2f} ms a frame (host; {card})")
+    decode_ms = time_capture_decode(card)
+
+    # the writer truncates to uint16 as the reference's does: one 16-bit step
+    limit, worst = 1.0 / 65535 + 1e-7, 0.0
+    for name, split in (("train", train), ("eval", evald)):
+        ids = [int(i) for i in split.data[mods[0]].frame_ids]
+        ref = make_synthetic_dataset(mods, raw=True, view_ids=ids, device=dev, **DISK_SCENE)
+        for m in mods:
+            d, r = split.data[m], ref.data[m]
+            if [int(i) for i in d.frame_ids] != ids:
+                fail(f"{name} split: {m} has views {list(d.frame_ids)}, not {ids}")
+            err = float(np.abs(d.images - r.images).max())
+            worst = max(worst, err)
+            same = all(torch.equal(getattr(d.cameras, k), getattr(r.cameras, k))
+                       for k in ("fx", "fy", "cx", "cy", "camera_to_worlds"))
+            same &= all(getattr(d.cameras, k) == getattr(r.cameras, k)
+                        for k in ("width", "height", "pixel_offset", "camera_type"))
+            same &= d.cameras.distortion_params is None and r.cameras.distortion_params is None
+            same &= (np.array_equal(d.mosaick_pattern, r.mosaick_pattern)
+                     and np.array_equal(d.mosaick_mask, r.mosaick_mask))
+            if not (d.images.shape == r.images.shape and err <= limit and same):
+                fail(f"{name} split, {m}: the disk scene differs from the in-memory one "
+                     f"(max |frame difference| {err:.3e}, limit {limit:.3e}; cameras and masks "
+                     f"{'equal' if same else 'differ'})")
+        across = all(np.array_equal(split.mosaick_masks_across[a][b], ref.mosaick_masks_across[a][b])
+                     for a in mods for b in mods)
+        if not across:
+            fail(f"{name} split: the masks across modalities differ")
+    print(f"  {train.num_frames(mods[0])} train and {evald.num_frames(mods[0])} eval views per "
+          f"modality; every frame within {worst:.3e} of the in-memory scene (limit {limit:.3e}); "
+          "cameras and mosaick masks equal")
+
+    out = os.path.join(root, "output")
+    args = ["--method", "grid_raw_tpu", "--scene", scene, "--version", "smoke", "--output", out,
+            "--device", str(dev)]
+    run = os.path.join(out, "scene", "grid_raw_tpu", "grid_raw_tpu", "smoke")
+    launches = {}
+
+    def add_launches():
+        for n, info in build.KERNELS.items():
+            launches[n] = launches.get(n, 0) + info.launches
+        build.reset_launch_counts()
+
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    launcher.main(["--mode", "train", *args, "--max_iterations", "10"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    add_launches()
+    saved = checkpoints.latest_checkpoint_step(os.path.join(run, "checkpoints"))
+    rays = 10 * cfg.datamanager.num_rays_per_modality * len(mods)
+    print(f"  launcher --mode train: 10 steps in {train_s:.2f} s, {rays / train_s:.1f} rays/s with "
+          f"its set-up (load, device cache, checkpoint), saved step {saved} ({card})")
+    if saved != 10:
+        fail("launcher --mode train on the scene directory did not save step 10")
+    t0 = time.perf_counter()
+    results = launcher.main(["--mode", "eval", *args])
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    add_launches()
+    scale = cfg.evaluator.rendering_scale
+    eval_rays = sum(dense_pixel_batch(evald, m, i, scale).pixel_coords.shape[0]
+                    for m in mods for i in range(evald.num_frames(m)))
+    with open(os.path.join(run, "results.txt")) as f:
+        newest = int(f.readline().split()[1])
+    print(f"  launcher --mode eval at step {newest}: {eval_rays} rays in {eval_s:.2f} s, "
+          f"{eval_rays / eval_s:.1f} rays/s with its set-up ({card}); "
+          + "; ".join(f"{m} psnr={v['psnr']:.3f}" for m, v in results.items()))
+    if newest != 10 or set(results) != set(mods):
+        fail("launcher --mode eval did not score every modality at step 10")
+    if not all(np.isfinite(v) for m in results.values() for v in m.values()):
+        fail("launcher --mode eval on the scene directory gave non-finite metrics")
+    print(f"  launches of the two calls: {launches}")
+    if not all(launches.get(k, 0) > 0 for k in K123):
+        fail(f"the disk run did not launch each of {K123}")
+
+    print("  the bench-geometry training (as grid_raw_tpu's) on the disk scene's train split:")
+    with config_env("grid_raw_tpu"):
+        _, stats = timed_training(dev, card, "grid_raw_tpu", dataset=train)
+    for n, c in stats["launches"].items():
+        launches[n] = launches.get(n, 0) + c
+    stats.update(load_s=load_s, frames=n_frames, decode_ms=decode_ms, launcher_train_s=train_s,
+                 launcher_rays_per_s=rays / train_s, eval_rays_per_s=eval_rays / eval_s)
+    return launches, stats
 
 
 def run_trained(dev, card):
@@ -4613,7 +4870,12 @@ def main() -> None:
         r = phase(f"{name} at ray-ordered positions", check_scatter_ray_order, gen, dev, spec)
         results[name]["err"] = max(results[name]["err"], r["err"])
     rays_per_s, train, launches = {}, {}, {}
-    for method in CONFIGS:
+
+    def add(counts):  # each run counts from 0
+        for name, count in counts.items():
+            launches[name] = launches.get(name, 0) + count
+
+    def run_label(method):
         with config_env(method):
             if method in SAME_RENDER:
                 print(f"render ({method}): that of {SAME_RENDER[method]}")
@@ -4623,13 +4885,23 @@ def main() -> None:
                 _, rays_per_s[method] = phase(f"render {method}", run_slice, dev, card, method)
             print(f"training ({method}):")
             train[method] = phase(f"training {method}", run_training, dev, card, method)
-        for name, count in train[method]["launches"].items():  # each run counts from 0
-            launches[name] = launches.get(name, 0) + count
-    # phases A-C: the trained checkpoints, the mesh and the entry points, each run from 0
+        add(train[method]["launches"])
+
+    for method in CONFIGS:
+        if method != VOLSDF_LABEL:
+            run_label(method)
+    # phases A-C: the trained checkpoints, the mesh and the entry points
     trained, rehearsal_rays, _ = phase("trained checkpoints and entry points", run_trained, dev,
                                        card)
-    for name, count in trained.items():
-        launches[name] = launches.get(name, 0) + count
+    add(trained)
+    # phase D: a scene from disk; then the labels that run last
+    import tempfile
+
+    print(f"scene from disk: {ENTRY_SCENE} written and loaded, launcher on the directory:")
+    with tempfile.TemporaryDirectory() as root:
+        disk_launches, disk = phase("scene from disk", run_disk_scene, dev, card, root)
+    add(disk_launches)
+    run_label(VOLSDF_LABEL)
 
     entries = []
     for name, r in results.items():
@@ -4652,6 +4924,13 @@ def main() -> None:
               f"memory {t['peak_gib']:.2f} GiB{index} ({card})")
     for name, r in rehearsal_rays.items():
         print(f"{name}: eval rays/s {r:.1f} at rendering_scale 1.0 ({card})")
+    print(f"scene from disk: load {disk['load_s']:.3f} s for {disk['frames']} frames "
+          f"({1e3 * disk['load_s'] / disk['frames']:.2f} ms a frame, host), a {CAPTURE_FRAME}² "
+          f"16-bit frame's decode {disk['decode_ms']['sub']:.1f} ms (Sub rows) and "
+          f"{disk['decode_ms']['mixed']:.1f} ms (mixed rows), launcher train "
+          f"{disk['launcher_rays_per_s']:.1f} rays/s and eval {disk['eval_rays_per_s']:.1f} rays/s "
+          f"with their set-up, bench-geometry train rays/s {disk['rays_per_s']:.1f}, step "
+          f"{disk['step_ms']:.2f} ms, busy {disk['busy_ms']:.2f} ms a step ({card})")
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s ({card})")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

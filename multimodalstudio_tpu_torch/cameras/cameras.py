@@ -46,6 +46,13 @@ class Cameras:
     def device(self) -> torch.device:
         return self.fx.device
 
+    def rescaled(self, scale: float) -> "Cameras":
+        """The intrinsics of a render at `scale` times the resolution
+        (cameras.py:54-64)."""
+        return dataclasses.replace(
+            self, fx=self.fx * scale, fy=self.fy * scale, cx=self.cx * scale,
+            cy=self.cy * scale, width=int(self.width * scale), height=int(self.height * scale))
+
 
 def generate_rays(
     cameras: Cameras,

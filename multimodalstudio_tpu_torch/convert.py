@@ -79,7 +79,9 @@ def _leaves(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
 def opt_state_from_jax(opt_state: Any, model: MMSModel) -> Dict[str, Any]:
     """The port's optimizer state from the reference's optax state
     (engine/train.py:53-98: clip_by_global_norm, then multi_transform of one
-    adamw per group): {"count": int, "mu": {"fields": {state-dict key:
+    adamw, adam or radam chain per group; each chain's first state holds
+    the moments, and adam's and radam's have no add_decayed_weights entry
+    after it): {"count": int, "mu": {"fields": {state-dict key:
     tensor}, "camera_poses": {modality: tensor}}, "nu": ...}, on the model's
     device, every leaf carried as float32 bit for bit. optax counts updates
     per group (and again in each group's schedule); the port keeps one

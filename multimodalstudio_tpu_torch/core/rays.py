@@ -82,3 +82,13 @@ def weights_from_alphas(alphas: torch.Tensor) -> torch.Tensor:
 def alphas_from_densities(deltas: torch.Tensor, densities: torch.Tensor) -> torch.Tensor:
     """alpha = 1 - exp(-delta * density), [N, S]."""
     return 1.0 - torch.exp(-deltas * densities)
+
+
+def weights_from_densities(deltas: torch.Tensor, densities: torch.Tensor) -> torch.Tensor:
+    """Exponential-transmittance weights [N, S]: alpha_i * exp(-sum_{j<i}
+    delta_j density_j) (rays.py:124-133)."""
+    delta_density = deltas * densities
+    alphas = 1.0 - torch.exp(-delta_density)
+    accum = torch.cat([torch.zeros_like(delta_density[:, :1]),
+                       torch.cumsum(delta_density[:, :-1], dim=-1)], dim=-1)
+    return alphas * torch.exp(-accum)

@@ -2,10 +2,14 @@
 lambertian sphere in the unit region of interest with a
 direction-dependent background, ray-traced analytically in all five
 modalities (rgb, mono, infrared, polarization, multispectral) and
-optionally mosaicked to raw single-channel frames."""
+optionally mosaicked to raw single-channel frames; `write_synthetic_scene`
+writes it to disk in the reference's meta_data.json layout, as 16-bit
+PNGs (utils/images.py, no OpenCV)."""
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -20,6 +24,7 @@ from multimodalstudio_tpu_torch.data.dataset import (
     build_mosaick_mask,
 )
 from multimodalstudio_tpu_torch.device import resolve_device
+from multimodalstudio_tpu_torch.utils.images import write_png16
 
 MOSAICK_PATTERNS = {
     "rgb": np.array([[1, 2], [0, 1]]),
@@ -156,3 +161,60 @@ def make_synthetic_dataset(
         raw=raw,
         mosaick_masks_across=masks_across,
     )
+
+
+def write_synthetic_scene(
+    out_dir: str,
+    modalities: Sequence[str] = ("rgb", "mono"),
+    num_views: int = 6,
+    height: int = 32,
+    width: int = 32,
+    raw: bool = False,
+) -> str:
+    """Write the scene to `out_dir` as the reference's writer does
+    (synthetic.py:196-248): modalities/<modality>/<view:04d>.png, 16-bit,
+    and the same meta_data.json. A PNG holds RGB(A); the reference hands
+    cv2 a non-raw rgb frame as BGR, which cv2 stores as the frame's own RGB,
+    and any other frame as it is, whose first and third channels cv2 swaps
+    on the way to the file, so the files here hold the same samples."""
+    ds = make_synthetic_dataset(modalities, num_views, height, width, raw=raw, device="cpu")
+    meta: dict = {
+        "worldtogt": np.eye(4).tolist(),
+        "undistorted": True,
+        "raw": bool(raw),
+        "pixel_offset": 0.5,
+        "scene_box": {"collider_type": "sphere", "radius": 1.0},
+        "modalities": {},
+    }
+    for mod in modalities:
+        d = ds.data[mod]
+        frames = []
+        mod_dir = os.path.join(out_dir, "modalities", mod)
+        os.makedirs(mod_dir, exist_ok=True)
+        for i, vid in enumerate(d.frame_ids):
+            fname = f"{int(vid):04d}.png"
+            img16 = (np.clip(d.images[i], 0, 1) * 65535.0).astype(np.uint16)
+            c = img16.shape[-1]
+            if c not in (1, 3, 4):
+                raise ValueError(f"{mod}: a PNG frame holds 1, 3 or 4 channels, not {c}")
+            if c > 1 and mod != "rgb":
+                img16 = img16[..., [2, 1, 0, 3][:c]]  # cv2's swap of B and R
+            write_png16(os.path.join(mod_dir, fname), img16)
+            c2w = np.concatenate([d.cameras.camera_to_worlds[i].numpy(), [[0, 0, 0, 1]]], axis=0)
+            frames.append({"frame_id": int(vid), "file_name": fname, "camtoworld": c2w.tolist()})
+        meta["modalities"][mod] = {
+            "fx": float(d.cameras.fx[0]),
+            "fy": float(d.cameras.fy[0]),
+            "cx": float(d.cameras.cx[0]),
+            "cy": float(d.cameras.cy[0]),
+            "width": width,
+            "height": height,
+            "camera_model": "PINHOLE",
+            "distortion_params": [0.0] * 6,
+            "mosaick_pattern": MOSAICK_PATTERNS[mod].tolist(),
+            "frames": frames,
+        }
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "meta_data.json"), "w") as f:
+        json.dump(meta, f)
+    return out_dir

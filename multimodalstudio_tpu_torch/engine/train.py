@@ -4,15 +4,16 @@ on tensors.
 A step renders each ray microbatch through the model, backpropagates its
 loss (the kernels' CUDA backwards on the card), sums the gradients and
 divides by the number of microbatches, then applies one update: global-norm
-clipping across both parameter groups, then AdamW per group with a
-scheduled learning rate. A step whose gradient is not finite leaves the
-parameters and the optimizer state, its count included, as they were.
+clipping across both parameter groups, then AdamW, Adam or RAdam per group
+with a scheduled learning rate. A step whose gradient is not finite leaves
+the parameters and the optimizer state, its count included, as they were.
 
 The optimizer is written out instead of using torch.optim, to keep optax's
 semantics (train.py:62-98): clipping scales by max_norm / norm only when
 norm >= max_norm, with no epsilon; the learning rate reads the number of
-updates applied so far; weight decay applies to every leaf; eps is added
-outside the square root.
+updates applied so far; AdamW's weight decay applies to every leaf, and
+Adam and RAdam have none; eps is added outside the square root; RAdam's
+rectification is optax.radam's, its length terms in float32.
 """
 
 from __future__ import annotations
@@ -42,8 +43,8 @@ Params = Dict[str, Dict[str, torch.Tensor]]  # {"fields": {...}, "camera_poses":
 
 @dataclasses.dataclass
 class OptState:
-    """AdamW state: the number of updates applied so far and the moments
-    of every leaf, keyed like the params."""
+    """Adam state (every group kind's): the number of updates applied so
+    far and the moments of every leaf, keyed like the params."""
 
     count: int
     mu: Params
@@ -78,25 +79,63 @@ def train_params(model: MMSModel, camera_poses: Dict[str, torch.Tensor]) -> Para
     return {"fields": dict(model.named_parameters()), "camera_poses": dict(camera_poses)}
 
 
+OPTIMIZERS = ("adamw", "adam", "radam")
+RADAM_THRESHOLD = 5.0  # optax.scale_by_radam's variance tractability threshold
+
+
+def pow_f32(base: float, n: int, device) -> torch.Tensor:
+    """base ** n in float32 by repeated squaring, as XLA raises a float to
+    an integer power (optax's bias corrections and RAdam's b2^t): torch's
+    pow differs by an ulp, which RAdam's rho_t, a difference of two
+    numbers near 2 / (1 - b2), magnifies."""
+    result = torch.ones((), dtype=torch.float32, device=device)
+    b = torch.tensor(base, dtype=torch.float32, device=device)
+    while n:
+        if n & 1:
+            result = result * b
+        b, n = b * b, n >> 1
+    return result
+
+
 @dataclasses.dataclass(frozen=True)
-class AdamW:
-    """optax.adamw with a scheduled learning rate: spec.lr * factor(count)."""
+class AdamGroup:
+    """optax.adamw, optax.adam or optax.radam (spec.optimizer) with a
+    scheduled learning rate: spec.lr * factor(count) (train.py:66-83)."""
 
     spec: OptimizerSpec
     max_iters: int
+
+    @property
+    def kind(self) -> str:
+        return self.spec.optimizer.lower()
 
     def learning_rate(self, count: int) -> float:
         if self.spec.scheduler is None:
             return self.spec.lr
         return self.spec.lr * self.spec.scheduler.factor(count, self.max_iters)
 
+    def radam_scale(self, count_inc: int, device) -> Optional[torch.Tensor]:
+        """RAdam's rectification r at the incremented count, as optax
+        computes it in float32, or None where rho_t < 5 and the update is
+        the bias-corrected first moment itself."""
+        b2 = self.spec.betas[1]
+        rho_inf = 2.0 / (1.0 - b2) - 1.0
+        f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=device)  # noqa: E731
+        b2t = pow_f32(b2, count_inc, device)
+        t = f32(count_inc)
+        rho = f32(rho_inf) - 2 * t * b2t / (1 - b2t)
+        if not bool(rho >= RADAM_THRESHOLD):
+            return None
+        return torch.sqrt((rho - 4.0) * (rho - 2.0) * rho_inf
+                          / (f32((rho_inf - 4.0) * (rho_inf - 2.0)) * rho))
+
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
-    """clip_by_global_norm(max_norm) over both groups, then one AdamW per
-    group (train.py:62-98)."""
+    """clip_by_global_norm(max_norm) over both groups, then one AdamW, Adam
+    or RAdam per group (train.py:62-98)."""
 
-    groups: Tuple[Tuple[str, AdamW], ...]
+    groups: Tuple[Tuple[str, AdamGroup], ...]
     max_norm: float
 
     def init(self, params: Params) -> OptState:
@@ -114,16 +153,22 @@ class Optimizer:
         for name, adam in self.groups:
             b1, b2 = adam.spec.betas
             # bias corrections in float32, as optax computes them
-            bc1 = 1.0 - torch.tensor(b1, dtype=torch.float32, device=g_norm.device) ** count_inc
-            bc2 = 1.0 - torch.tensor(b2, dtype=torch.float32, device=g_norm.device) ** count_inc
+            bc1 = 1.0 - pow_f32(b1, count_inc, g_norm.device)
+            bc2 = 1.0 - pow_f32(b2, count_inc, g_norm.device)
             lr = adam.learning_rate(state.count)
+            r = adam.radam_scale(count_inc, g_norm.device) if adam.kind == "radam" else None
             updates[name], mu[name], nu[name] = {}, {}, {}
             for key, g in grads[name].items():
                 g = torch.where(clip, g, (g / g_norm) * self.max_norm)
                 m = (1 - b1) * g + b1 * state.mu[name][key]
                 v = (1 - b2) * (g * g) + b2 * state.nu[name][key]
-                u = (m / bc1) / (torch.sqrt(v / bc2) + adam.spec.eps)
-                u = u + adam.spec.weight_decay * params[name][key].detach()
+                m_hat = m / bc1
+                if adam.kind == "radam" and r is None:  # rho_t < 5: no second moment
+                    u = m_hat
+                else:
+                    u = (m_hat if r is None else r * m_hat) / (torch.sqrt(v / bc2) + adam.spec.eps)
+                if adam.kind == "adamw":
+                    u = u + adam.spec.weight_decay * params[name][key].detach()
                 updates[name][key] = u * (-lr)
                 mu[name][key], nu[name][key] = m, v
         return updates, OptState(count=count_inc, mu=mu, nu=nu)
@@ -131,10 +176,10 @@ class Optimizer:
 
 def make_optimizer(config: TrainerConfig) -> Optimizer:
     for group in ("fields", "camera_poses"):
-        if config.optimizer_spec(group).optimizer.lower() != "adamw":
-            raise NotImplementedError("only the AdamW optimizer groups are ported")
+        if config.optimizer_spec(group).optimizer.lower() not in OPTIMIZERS:
+            raise ValueError(f"unknown optimizer {config.optimizer_spec(group).optimizer}")
     return Optimizer(
-        groups=tuple((g, AdamW(config.optimizer_spec(g), config.max_num_iterations))
+        groups=tuple((g, AdamGroup(config.optimizer_spec(g), config.max_num_iterations))
                      for g in ("fields", "camera_poses")),
         max_norm=config.optimizer_spec("fields").max_norm,
     )

@@ -6,14 +6,22 @@ launcher.py).
     python -m multimodalstudio_tpu_torch.launcher --mode eval \
         --method grid_raw_tpu --scene synthetic_raw:views=12,size=96 --version v1
 
+    python -m multimodalstudio_tpu_torch.launcher --mode train \
+        --method grid_raw --scene <scene directory> --version v1
+
 `--conf_path` takes a YAML file of leaf overrides whose `method` key
 selects the method (PyYAML is imported only then); `--method` alone needs
-no YAML. `--scene` is the built-in analytic scene, `synthetic` or
-`synthetic_raw`, with optional `:views=N,size=S,texfreq=F` (every 5th view
-held out for eval). Scene directories on disk are not ported yet. The run
-lives in <output>/<scene>/<method>/<conf>/<version>; a second call on the
-same directory resumes from its newest checkpoint. Runs on the card
-unless `--device cpu` is given.
+no YAML. `--scene` is a scene directory (meta_data.json and
+modalities/<modality>/<frames>, as the reference's preprocessing writes
+it; PNG or .npy frames, read without OpenCV), split by the config's
+`eval_indices_per_modality` or `eval_image_indices` (with
+`skip_indices_per_modality` dropped from training), or the built-in
+analytic scene, `synthetic` or `synthetic_raw`, with optional
+`:views=N,size=S,texfreq=F` (every 5th view held out for eval). The run
+lives in <output>/<scene name>/<method>/<conf>/<version>, the scene name
+being the directory's basename; a second call on the same directory
+resumes from its newest checkpoint. Runs on the card unless `--device
+cpu` is given.
 """
 
 from __future__ import annotations
@@ -26,13 +34,12 @@ from multimodalstudio_tpu_torch.configs.config import load_config, make_output_d
 
 
 def build_datasets(config, scene: str, device="cuda"):
-    """(train, eval) splits of the built-in synthetic scene
-    (launcher.py:27-60): views, size and texfreq from the scene string,
-    every view with i % 5 == 4 held out for eval."""
+    """(train, eval) splits of a scene (launcher.py:27-70): of a scene
+    directory by the config's eval and skip indices, or of the built-in
+    synthetic scene, views, size and texfreq from the scene string, every
+    view with i % 5 == 4 held out for eval."""
     if not scene.startswith("synthetic"):
-        raise NotImplementedError(
-            f"scene {scene!r}: loading scenes from disk is not ported yet (ROADMAP.md Queue 1, "
-            "`launcher.py` with the disk datasets); use synthetic or synthetic_raw[:views=..]")
+        return _disk_datasets(config, scene, device)
     from multimodalstudio_tpu_torch.data.synthetic import make_synthetic_dataset
 
     views, size, texfreq = 12, 96, 6.0
@@ -56,6 +63,28 @@ def build_datasets(config, scene: str, device="cuda"):
     return train, evald
 
 
+def _disk_datasets(config, scene: str, device):
+    """The splits of a scene directory (launcher.py:53-70): eval views per
+    modality if the config names them, else the shared eval ids (so the
+    config's eval_ratio is reached only without them, as in the
+    reference); skipped views leave training only."""
+    from multimodalstudio_tpu_torch.data import dataset as D
+
+    dm = config.datamanager
+    eval_per_mod = None
+    if dm.eval_indices_per_modality is not None:
+        eval_per_mod = dict(dm.eval_indices_per_modality)
+    train_idx, eval_idx = D.train_eval_indices(
+        scene, config.modalities, eval_image_indices=list(dm.eval_image_indices),
+        eval_indices_per_modality=eval_per_mod, eval_ratio=dm.eval_ratio)
+    if dm.skip_indices_per_modality is not None:
+        for mod, skips in dm.skip_indices_per_modality:
+            train_idx[mod] = [i for i in train_idx[mod] if i not in set(skips)]
+    train = D.load_dataset(scene, config.modalities, train_idx, raw=dm.raw, device=device)
+    evald = D.load_dataset(scene, config.modalities, eval_idx, raw=dm.raw, device=device)
+    return train, evald
+
+
 def resolve_model_channels(config, dataset):
     """Bind each modality's channel count from the dataset into the model
     spec (launcher.py:63-72)."""
@@ -70,7 +99,8 @@ def main(argv=None):
     parser.add_argument("--mode", choices=["train", "eval"], default="train")
     parser.add_argument("--conf_path", default=None, help="YAML config path")
     parser.add_argument("--method", default=None, help="method registry name")
-    parser.add_argument("--scene", required=True, help="'synthetic' or 'synthetic_raw[:opts]'")
+    parser.add_argument("--scene", required=True,
+                        help="scene directory, or 'synthetic' / 'synthetic_raw[:opts]'")
     parser.add_argument("--version", default=None, help="run version tag")
     parser.add_argument("--output", default="output", help="output root")
     parser.add_argument("--view_ids", type=int, nargs="*", default=None)
@@ -85,7 +115,8 @@ def main(argv=None):
     train_ds, eval_ds = build_datasets(config, args.scene, device=args.device)
     config = resolve_model_channels(config, train_ds)
 
-    scene_name = args.scene.split(":", 1)[0]
+    scene = args.scene.split(":", 1)[0] if args.scene.startswith("synthetic") else args.scene
+    scene_name = os.path.basename(os.path.normpath(scene)) or scene
     conf_name = (os.path.splitext(os.path.basename(args.conf_path))[0] if args.conf_path
                  else config.method_name)
     out_dir = make_output_dir(args.output, scene_name, config.method_name, conf_name,

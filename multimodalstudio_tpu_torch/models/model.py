@@ -53,6 +53,7 @@ from multimodalstudio_tpu_torch.core.rays import (
     RaySamples,
     alphas_from_densities,
     weights_from_alphas,
+    weights_from_densities,
 )
 from multimodalstudio_tpu_torch.device import resolve_device, set_reference_precision
 from multimodalstudio_tpu_torch.fields.components import (
@@ -69,14 +70,19 @@ from multimodalstudio_tpu_torch.fields.fields import (
     SDFFieldSpec,
 )
 from multimodalstudio_tpu_torch.fields.mlp import MLPSpec, can_fuse
-from multimodalstudio_tpu_torch.models.colliders import background_bounds, sphere_collide
+from multimodalstudio_tpu_torch.models.colliders import (
+    background_bounds,
+    box_collide,
+    near_far_collide,
+    sphere_collide,
+)
 from multimodalstudio_tpu_torch.models.samplers import (
     NeuSSamplerSpec,
     SpacedSamplerSpec,
     neus_sampling,
     spaced_sampling,
 )
-from multimodalstudio_tpu_torch.models.volume_rendering import neus_weights
+from multimodalstudio_tpu_torch.models.volume_rendering import laplace_density, neus_weights
 from multimodalstudio_tpu_torch.ops.encodings import sh_encoding_dense
 from multimodalstudio_tpu_torch.ops.kernels.fused_mlp import fused_chain
 from multimodalstudio_tpu_torch.ops.kernels.sdf_chain import fused_chain_adjoint, fused_sdf_chain
@@ -496,6 +502,16 @@ class MMSModel(nn.Module):
     def inv_s(self) -> torch.Tensor:
         return self.variance()[0]
 
+    def beta(self) -> torch.Tensor:
+        """VolSDF Laplace beta: |s| + beta_min (model.py:388-390)."""
+        return self.variance.s[0].abs() + self.spec.surface.beta_min
+
+    def random_background_color(self, mod: str, like: torch.Tensor,
+                                generator: torch.Generator) -> torch.Tensor:
+        """The escape colour of background_color="random": one uniform
+        value per ray and channel (model.py:850-851)."""
+        return torch.rand(like.shape, generator=generator, dtype=like.dtype, device=like.device)
+
     # --------------------------------------------------------------- forward
     def forward(
         self,
@@ -512,7 +528,10 @@ class MMSModel(nn.Module):
         accumulation and the hit mask, and in training also gradients,
         hessians and inv_s (model.py:829-832). Eval runs under no_grad;
         training draws the samplers' jitter from `generator` (none: no
-        jitter)."""
+        jitter). A random background colour is drawn from `generator` in
+        training, and in eval (or without one) from a generator seeded 0
+        on the model's device, as the reference's key(0)
+        (model.py:815-816)."""
         if not train:
             with torch.no_grad():
                 return self._render(rays, segments, schedules, False, aligned, None)
@@ -520,11 +539,12 @@ class MMSModel(nn.Module):
 
     def _render(self, rays, segments, schedules, train, aligned, generator):
         spec = self.spec
-        if spec.collider_type != "sphere":
-            raise NotImplementedError("only the sphere collider is ported")
-        if spec.surface.rendering != "neus":
-            raise NotImplementedError("only NeuS rendering is ported")
-        collided, mask = sphere_collide(rays, spec.scene_radius)
+        if spec.collider_type == "near_far":
+            collided, mask = near_far_collide(rays, *spec.near_far)
+        elif spec.collider_type == "box":
+            collided, mask = box_collide(rays, spec.aabb)
+        else:
+            collided, mask = sphere_collide(rays, spec.scene_radius)
         samples = neus_sampling(
             collided,
             lambda pos: self.sdf_only(pos, schedules.active_level, spec.surface.sampler_levels),
@@ -550,17 +570,24 @@ class MMSModel(nn.Module):
                                                schedules, train)
         norm = torch.linalg.vector_norm(gradients, dim=-1, keepdim=True)
         normals = gradients / norm.clamp_min(1e-12)
-        inv_s = self.inv_s()
-        weights = neus_weights(samples, sdf, gradients, inv_s, schedules.cos_anneal_ratio)
+        if spec.surface.rendering == "volsdf":  # model.py:785-791
+            inv_s = self.beta()  # reported as 1 / beta
+            density = laplace_density(sdf, inv_s, spec.surface.beta_min)
+            weights = weights_from_densities(samples.deltas, density)
+        else:
+            inv_s = self.inv_s()
+            weights = neus_weights(samples, sdf, gradients, inv_s, schedules.cos_anneal_ratio)
         radiance = region(self._radiance_forward, samples, normals, geo, segments, aligned)
 
         outputs: Dict[str, torch.Tensor] = {}
         acc = weights.sum(-1, keepdim=True)
         m = mask[:, None]
+        if spec.background_color == "random" and generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
         for mod, seg in self._iter_segments(segments, aligned):
             w, a, mm = weights[seg], acc[seg], m[seg]
             comp = (w[..., None] * radiance[mod]).sum(-2)
-            bg = self._background_color(mod, background, comp)
+            bg = self._background_color(mod, background, comp, generator)
             outputs[mod] = mm * (comp + bg * (1.0 - a)) + (1.0 - mm) * bg
         steps = (samples.starts + samples.ends) * 0.5
         depth = (weights * steps).sum(-1, keepdim=True).clamp(steps.min(), steps.max())
@@ -584,14 +611,16 @@ class MMSModel(nn.Module):
                 yield mod, slice(offset, offset + n)
                 offset += n
 
-    def _background_color(self, mod, background, like):
+    def _background_color(self, mod, background, like, generator):
+        """Escape radiance per ray (model.py:846-855): random before black,
+        so a random colour applies with or without a background field."""
         bgc = self.spec.background_color
         if bgc == "white":
             return torch.ones_like(like)
+        if bgc == "random":
+            return self.random_background_color(mod, like, generator)
         if bgc == "black" or background is None:
             return torch.zeros_like(like)
-        if bgc == "random":
-            raise NotImplementedError("random background colours are a training option")
         return background[mod]
 
     def _apply_heads(self, heads, feature, samples: RaySamples, segments, aligned):

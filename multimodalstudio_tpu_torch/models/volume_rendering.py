@@ -1,4 +1,5 @@
-"""NeuS volume rendering (JAX reference: models/volume_rendering.py)."""
+"""Volume rendering: NeuS sigmoid-CDF alphas, the VolSDF Laplace density
+and the NeuS logistic density (JAX reference: models/volume_rendering.py)."""
 
 from __future__ import annotations
 
@@ -25,3 +26,18 @@ def neus_alphas(ray_samples: RaySamples, sdf, gradients, inv_s, cos_anneal_ratio
 def neus_weights(ray_samples: RaySamples, sdf, gradients, inv_s, cos_anneal_ratio: float):
     """NeuS compositing weights [N, S]."""
     return weights_from_alphas(neus_alphas(ray_samples, sdf, gradients, inv_s, cos_anneal_ratio))
+
+
+def laplace_density(sdf: torch.Tensor, beta: torch.Tensor, beta_min: float = 1e-4) -> torch.Tensor:
+    """VolSDF Laplace-CDF density with b = |beta| + beta_min
+    (volume_rendering.py:68-71); the model's beta already holds beta_min
+    once, and the reference adds it here again."""
+    b = beta.abs() + beta_min
+    return (0.5 + 0.5 * torch.sign(sdf) * torch.expm1(-sdf.abs() / b)) / b
+
+
+def neus_s_density(sdf: torch.Tensor, inv_s: torch.Tensor) -> torch.Tensor:
+    """NeuS logistic density s e^{-s x} / (1 + e^{-s x})^2
+    (volume_rendering.py:74-79)."""
+    e = torch.exp(-sdf * inv_s)
+    return (inv_s * e) / (1.0 + e) ** 2

@@ -1,6 +1,6 @@
-"""Lens distortion: Newton undistortion on the camera plane
-(JAX reference: ops/distortion.py). Parameters are OpenCV-style
-[k1, k2, k3, k4, p1, p2]."""
+"""Lens distortion: Newton undistortion on the camera plane and the
+forward model it inverts (JAX reference: ops/distortion.py). Parameters
+are OpenCV-style [k1, k2, k3, k4, p1, p2]."""
 
 from __future__ import annotations
 
@@ -41,3 +41,16 @@ def radial_and_tangential_undistort(
         x = x + torch.where(ok, x_num / denom, torch.zeros_like(denom))
         y = y + torch.where(ok, y_num / denom, torch.zeros_like(denom))
     return torch.stack([x, y], dim=-1)
+
+
+def distort(coords: torch.Tensor, distortion_params: torch.Tensor) -> torch.Tensor:
+    """The forward OpenCV distortion of camera-plane coords [..., 2], the
+    map radial_and_tangential_undistort inverts (distortion.py:70-83)."""
+    x, y = coords[..., 0], coords[..., 1]
+    p = distortion_params
+    k1, k2, k3, k4, p1, p2 = (p[..., i] for i in range(6))
+    r = x * x + y * y
+    d = 1.0 + r * (k1 + r * (k2 + r * (k3 + r * k4)))
+    xd = d * x + 2.0 * p1 * x * y + p2 * (r + 2.0 * x * x)
+    yd = d * y + 2.0 * p2 * x * y + p1 * (r + 2.0 * y * y)
+    return torch.stack([xd, yd], dim=-1)

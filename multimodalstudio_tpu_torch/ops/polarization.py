@@ -35,6 +35,14 @@ def mueller_rotate(theta: torch.Tensor) -> torch.Tensor:
     return rows.reshape(*theta.shape, 3, 3)
 
 
+def mueller_linear_polarizer(theta: torch.Tensor) -> torch.Tensor:
+    """Mueller matrix of a linear polarizer at angle theta, [...] ->
+    [..., 3, 3] (polarization.py:48-55)."""
+    c, s = torch.cos(2.0 * theta), torch.sin(2.0 * theta)
+    rows = 0.5 * torch.stack([torch.ones_like(c), c, s, c, c * c, c * s, s, c * s, s * s], dim=-1)
+    return rows.reshape(*theta.shape, 3, 3)
+
+
 def align_polarization_filters(
     stokes: torch.Tensor, directions: torch.Tensor, up_directions: torch.Tensor
 ) -> torch.Tensor:

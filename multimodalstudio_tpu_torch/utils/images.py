@@ -1,13 +1,17 @@
-"""16-bit PNG files and the viridis colour map, on the standard library
-and numpy (JAX reference: engine/evaluator.py:240-296, 486-512, which write
-through OpenCV and colour depth maps through matplotlib; the card's
-machine has neither).
+"""PNG files and the viridis colour map, on the standard library and numpy
+(JAX reference: engine/evaluator.py:240-296, 486-512 and
+data/dataset.py:60-70, which write and read through OpenCV and colour
+depth maps through matplotlib; the card's machine has neither).
 
 `write_png16` writes what `cv2.imwrite` writes for a uint16 image: 16-bit
-greyscale for one channel, 16-bit RGB for three (`cv2` takes BGR in memory
-and stores RGB; this writer takes RGB). `viridis` is matplotlib's viridis
-map, its 256-entry table kept below as data, indexed as
-`Colormap.__call__` indexes a float input.
+greyscale for one channel, 16-bit RGB for three, RGBA for four (`cv2`
+takes BGR(A) in memory and stores RGB(A); this writer takes RGB(A)), Sub
+on every row as cv2 filters.
+`read_png` reads what `cv2.imread(path, cv2.IMREAD_UNCHANGED)` returns for
+an 8- or 16-bit greyscale, RGB or RGBA file: [H, W] greyscale, BGR and BGRA
+in cv2's channel order. `viridis` is matplotlib's viridis map, its
+256-entry table kept below as data, indexed as `Colormap.__call__` indexes
+a float input.
 """
 
 from __future__ import annotations
@@ -130,13 +134,37 @@ def viridis(x: np.ndarray) -> np.ndarray:
     return out
 
 
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+COLOR_CHANNELS = {0: 1, 2: 3, 6: 4}  # PNG colour type: samples per pixel (grey, RGB, RGBA)
+
+
 def _chunk(kind: bytes, data: bytes) -> bytes:
     return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data))
 
 
-def encode_png16(image: np.ndarray) -> bytes:
-    """PNG bytes of a uint16 image [H, W] or [H, W, 1] (greyscale) or
-    [H, W, 3] (RGB): big-endian samples, filter 0 on every row."""
+def filter_rows(rows: np.ndarray, bpp: int, kinds: np.ndarray) -> np.ndarray:
+    """PNG's filtered scanlines [H, 1 + R] (uint8) of H rows of R raw bytes
+    with bpp bytes a pixel, row i filtered by kinds[i] (0 None, 1 Sub, 2 Up,
+    3 Average, 4 Paeth) and led by its type. Every filter reads raw bytes
+    only, so all rows filter at once."""
+    raw = rows.astype(np.int16)
+    up = np.zeros_like(raw)
+    up[1:] = raw[:-1]
+    left = np.zeros_like(raw)
+    left[:, bpp:] = raw[:, :-bpp]
+    upleft = np.zeros_like(raw)
+    upleft[:, bpp:] = up[:, :-bpp]
+    k = np.asarray(kinds)[:, None]
+    pred = np.where(k == 1, left, np.where(k == 2, up, np.where(
+        k == 3, (left + up) >> 1, np.where(k == 4, _paeth(left, up, upleft), 0))))
+    return np.concatenate([k.astype(np.uint8), ((raw - pred) & 0xFF).astype(np.uint8)], axis=1)
+
+
+def encode_png16(image: np.ndarray, row_filters=None) -> bytes:
+    """PNG bytes of a uint16 image [H, W] or [H, W, 1] (greyscale), [H, W, 3]
+    (RGB) or [H, W, 4] (RGBA): big-endian samples, row i filtered by
+    row_filters[i] (`filter_rows`), by default Sub on every row, as
+    cv2.imwrite filters (OpenCV's default PNG filter)."""
     img = np.asarray(image)
     if img.dtype != np.uint16:
         raise TypeError(f"expected uint16, got {img.dtype}")
@@ -144,15 +172,16 @@ def encode_png16(image: np.ndarray) -> bytes:
         img = img[..., 0]
     if img.ndim == 2:
         color = 0
-    elif img.ndim == 3 and img.shape[-1] == 3:
-        color = 2
+    elif img.ndim == 3 and img.shape[-1] in COLOR_CHANNELS.values():
+        color = {3: 2, 4: 6}[img.shape[-1]]
     else:
-        raise ValueError(f"expected [H, W], [H, W, 1] or [H, W, 3], got {img.shape}")
+        raise ValueError(f"expected [H, W], [H, W, 1], [H, W, 3] or [H, W, 4], got {img.shape}")
     h, w = img.shape[:2]
     rows = np.ascontiguousarray(img.astype(">u2")).reshape(h, -1).view(np.uint8)
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()
+    kinds = np.ones(h, np.uint8) if row_filters is None else row_filters
+    raw = filter_rows(rows, 2 * COLOR_CHANNELS[color], kinds).tobytes()
     header = struct.pack(">IIBBBBB", w, h, 16, color, 0, 0, 0)
-    return (b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", header)
+    return (PNG_SIGNATURE + _chunk(b"IHDR", header)
             + _chunk(b"IDAT", zlib.compress(raw, 6)) + _chunk(b"IEND", b""))
 
 
@@ -164,3 +193,118 @@ def write_png16(path: str, image: np.ndarray) -> None:
 def to16(img: np.ndarray) -> np.ndarray:
     """[0, 1] floats to uint16, clipped (evaluator.py:255-256)."""
     return (np.clip(img, 0.0, 1.0) * 65535.0).astype(np.uint16)
+
+
+def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """The Paeth predictor of int16 arrays (PNG spec 9.4): the neighbour
+    nearest to a + b - c, ties to a, then b."""
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def unfilter(data: np.ndarray, filters: np.ndarray, bpp: int) -> np.ndarray:
+    """Undo PNG's row filters: data [H, R] filtered bytes of H rows of R
+    bytes, filters [H] each row's type (0 None, 1 Sub, 2 Up, 3 Average, 4
+    Paeth), bpp bytes per pixel. Returns the raw bytes [H, R] (uint8).
+
+    Without an Average or Paeth row, Sub rows are running sums and Up rows
+    follow row by row. Otherwise a byte depends on the byte bpp to its
+    left, the one above and the one above-left, so every pixel on one
+    anti-diagonal of the (row, pixel) grid follows from the two diagonals
+    before it: the decode takes H + W - 1 vector steps, on a skewed copy whose
+    entry d holds diagonal d - 1 (pixel (r, c) at [r + c + 1, r + 1]; the
+    zeros of entry 0 and of row 0 stand for the pixels left of and above
+    the image)."""
+    h, row_bytes = data.shape
+    if h == 0 or not filters.any():
+        return data.copy()
+    if int(filters.max()) > 4:
+        raise ValueError(f"unknown PNG row filter {int(filters.max())}")
+    w = row_bytes // bpp
+    if int(filters.max()) <= 2:
+        # no byte depends on its upper-left neighbour: a Sub row is a running sum along
+        # the row (uint8 wraps mod 256), an Up row the row above added, row by row
+        px = data.reshape(h, w, bpp)
+        out = np.where((filters == 1)[:, None, None], np.cumsum(px, axis=1, dtype=np.uint8), px)
+        for r in np.flatnonzero(filters == 2):
+            if r:
+                out[r] += out[r - 1]
+        return out.reshape(h, row_bytes)
+    r = np.arange(h)[:, None]
+    diag = r + np.arange(w)[None, :] + 1
+    filt = np.zeros((h + w, h + 1, bpp), np.int16)
+    filt[diag, r + 1] = data.reshape(h, w, bpp)
+    out = np.zeros_like(filt)
+    kind = filters.astype(np.int16)[:, None]
+    for d in range(1, h + w):
+        lo, hi = max(0, d - w), min(h, d)  # the rows with a pixel on this diagonal
+        rows = slice(lo + 1, hi + 1)
+        a = out[d - 1, rows]   # left, (r, c - 1)
+        b = out[d - 1, lo:hi]  # up, (r - 1, c)
+        c = out[d - 2, lo:hi]  # up-left, (r - 1, c - 1); entry -1 is never written
+        k = kind[lo:hi]
+        pred = np.where(k == 1, a, np.where(k == 2, b, np.where(
+            k == 3, (a + b) >> 1, np.where(k == 4, _paeth(a, b, c), 0))))
+        out[d, rows] = (filt[d, rows] + pred) & 0xFF
+    return out[diag, r + 1].reshape(h, row_bytes).astype(np.uint8)
+
+
+def decode_png(blob: bytes) -> np.ndarray:
+    """The image of a PNG file's bytes, as cv2.imdecode(..., IMREAD_UNCHANGED)
+    returns it: uint8 or uint16, [H, W] greyscale, [H, W, 3] BGR or
+    [H, W, 4] BGRA. Reads bit depths 8 and 16, colour types 0, 2 and 6, no
+    interlace; anything else raises naming the feature."""
+    if blob[:8] != PNG_SIGNATURE:
+        raise ValueError("not a PNG file (bad signature)")
+    pos, header, idat = 8, None, []
+    while pos + 12 <= len(blob):
+        (length,) = struct.unpack(">I", blob[pos:pos + 4])
+        kind = blob[pos + 4:pos + 8]
+        body = blob[pos + 8:pos + 8 + length]
+        (crc,) = struct.unpack(">I", blob[pos + 8 + length:pos + 12 + length])
+        if zlib.crc32(kind + body) != crc:
+            raise ValueError(f"PNG chunk {kind!r}: CRC mismatch")
+        pos += 12 + length
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"PLTE":
+            raise ValueError("palette PNG (colour type 3) is not supported")
+        elif kind == b"tRNS":
+            raise ValueError("PNG transparency chunk (tRNS) is not supported")
+        elif kind == b"IEND":
+            break
+    if header is None or not idat:
+        raise ValueError("PNG file has no IHDR or no IDAT chunk")
+    w, h, depth, color, compression, filter_method, interlace = header
+    if color not in COLOR_CHANNELS:
+        what = {3: "palette", 4: "grey with alpha"}.get(color, "unknown")
+        raise ValueError(f"{what} PNG (colour type {color}) is not supported")
+    if depth not in (8, 16):
+        raise ValueError(f"PNG bit depth {depth} is not supported (8 and 16 are)")
+    if interlace:
+        raise ValueError("interlaced PNG (Adam7) is not supported")
+    if compression or filter_method:
+        raise ValueError(f"PNG compression method {compression} / filter method "
+                         f"{filter_method} is not supported")
+    channels = COLOR_CHANNELS[color]
+    bpp = channels * depth // 8
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if raw.size != h * (1 + w * bpp):
+        raise ValueError(f"PNG data holds {raw.size} bytes, expected {h * (1 + w * bpp)}")
+    rows = raw.reshape(h, 1 + w * bpp)
+    data = unfilter(rows[:, 1:], rows[:, 0], bpp)
+    img = data.view(">u2").astype(np.uint16) if depth == 16 else data
+    img = img.reshape(h, w, channels)
+    if channels == 1:
+        return img[..., 0]
+    order = [2, 1, 0, 3][:channels]  # RGB(A) to cv2's BGR(A)
+    return np.ascontiguousarray(img[..., order])
+
+
+def read_png(path: str) -> np.ndarray:
+    """decode_png of a file."""
+    with open(path, "rb") as f:
+        return decode_png(f.read())

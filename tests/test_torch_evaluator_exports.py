@@ -290,7 +290,7 @@ def test_launcher_trains_saves_resumes_and_evaluates(tmp_path, monkeypatch):
     assert launcher.main(["--mode", "eval", *args, "--view_ids", "0", "4"]) == {}
     for vid in (0, 4):
         assert (run / "renders" / "step-000000002" / "rgb" / f"{vid:04d}_sheet.png").exists()
-    with pytest.raises(NotImplementedError, match="disk"):
+    with pytest.raises(FileNotFoundError, match="meta_data.json"):
         launcher.build_datasets(tiny, str(tmp_path), device="cpu")
 
 

@@ -67,7 +67,10 @@ def test_port_and_chip_smoke_import_no_jax(probe):
 def test_entry_point_modules_import_no_opencv_matplotlib_yaml_or_converter(probe):
     for name in ("engine.checkpoints", "engine.trainer", "engine.evaluator", "engine.mesh",
                  "launcher", "preprocessing.demosaick", "utils.images", "utils.meshio",
-                 "utils.writer", "utils.profiler", "convert"):
+                 "utils.writer", "utils.profiler", "convert", "data.dataset", "data.synthetic",
+                 "preprocessing.colmap", "preprocessing.metadata", "models.colliders",
+                 "models.volume_rendering", "engine.schedules", "ops.distortion",
+                 "ops.polarization"):
         assert f"multimodalstudio_tpu_torch.{name}" in probe["imported"], name
     assert _leaked(probe["modules"], NOT_AT_IMPORT) == []
 
@@ -314,3 +317,35 @@ def test_trainer_and_launcher_raise_without_a_card(monkeypatch):
     for n in (2, 8):
         with pytest.raises(NotImplementedError, match="n_devices"):
             Trainer(dataclasses.replace(cfg, n_devices=n), data, data, device="cpu")
+
+
+def test_scenes_on_disk_need_no_opencv(tmp_path, monkeypatch):
+    """The card's machine has no cv2: with `import cv2` failing, the port
+    still writes the synthetic scene, loads it and splits it through the
+    launcher (PNG frames through utils/images.py)."""
+    from multimodalstudio_tpu_torch import launcher
+    from multimodalstudio_tpu_torch.data.dataset import load_dataset
+    from multimodalstudio_tpu_torch.data.synthetic import write_synthetic_scene
+
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    with pytest.raises(ImportError):
+        import cv2  # noqa: F401
+    mods = ("rgb", "polarization", "mono")
+    scene = write_synthetic_scene(str(tmp_path / "scene"), mods, num_views=6, height=8, width=8,
+                                  raw=True)
+    ds = load_dataset(scene, mods, {m: [0, 3] for m in mods}, raw=True, device="cpu")
+    ref = make_synthetic_dataset(mods, num_views=6, height=8, width=8, raw=True, view_ids=[0, 3],
+                                 device="cpu")
+    for m in mods:  # the writer truncates to uint16, as the reference's does: one step
+        assert abs(ds.data[m].images - ref.data[m].images).max() <= 1 / 65535 + 1e-7
+    cfg = load_config(method="grid_raw_tpu", overrides={"datamanager": {
+        "eval_image_indices": [1, 4]}})
+    import dataclasses
+
+    train, evald = launcher.build_datasets(dataclasses.replace(cfg, modalities=mods), scene,
+                                           device="cpu")
+    assert list(train.data["rgb"].frame_ids) == [0, 2, 3, 5]
+    assert list(evald.data["mono"].frame_ids) == [1, 4]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_dataset(scene, mods, {m: [0] for m in mods}, raw=True)
