@@ -161,6 +161,7 @@ non-zero, printing no result, when a phase fails or no card is present.
 
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import statistics
@@ -4553,6 +4554,101 @@ def time_capture_decode(card, repeats=3):
     return ms
 
 
+SAMPLER_RAYS = 2048  # rays per modality of the host sampler's timed batch (the bench's)
+
+
+def time_host_sampler(card, dataset, repeats=10):
+    """Host ms of one 2048-ray x 5-modality batch's draws and gathers from `dataset`'s frames
+    (data/native.py::sample_pixels), the native sampler on the port's sampler's THREADS
+    against its plain numpy version, the median of `repeats` after one warm-up; the native
+    draws checked against the frames."""
+    from multimodalstudio_tpu_torch.data import native, sampler
+
+    def batch(plain):
+        for i, mod in enumerate(dataset.modalities):
+            d = dataset.data[mod]
+            out = native.sample_pixels(d.images, d.mosaick_mask, SAMPLER_RAYS, SEED + i,
+                                       d.cameras.pixel_offset, threads=sampler.THREADS,
+                                       plain=plain)
+        return out, d
+
+    ms = {}
+    for plain in (False, True):
+        batch(plain)
+        times = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            (fi, co, px, ch), d = batch(plain)
+            times.append(time.perf_counter() - t0)
+        ms["numpy" if plain else "native"] = 1e3 * float(np.median(times))
+        y, x = (co[:, 0] - 0.5).astype(np.int64), (co[:, 1] - 0.5).astype(np.int64)
+        if not (np.array_equal(px, d.images[fi, y, x]) and np.array_equal(ch, d.mosaick_mask[y, x])):
+            fail(f"the {'numpy' if plain else 'native'} sampler's pixels are not the frames'")
+    print(f"  host sampler, {SAMPLER_RAYS} rays x {len(dataset.modalities)} modalities from "
+          f"{dataset.num_frames(dataset.modalities[0])} frames of "
+          f"{dataset.data[dataset.modalities[0]].images.shape[1:]}: native {ms['native']:.3f} ms "
+          f"(sampler.THREADS = {sampler.THREADS}), numpy {ms['numpy']:.3f} ms (median of "
+          f"{repeats}; host; {card})")
+    return ms
+
+
+def score_disk_renders(dev, card, cfg, scene, run, train, evald):
+    """Phase D's paper metrics: the eval views of the trained run rendered at
+    rendering_scale 1.0 through the port's Trainer (eval from the run's checkpoint) and
+    exported, then scored by the port's evaluate_average_metrics on the scene directory;
+    every regime's PSNR, SSIM and LPIPS must be finite. LPIPS of one render on the card
+    within rel 1e-4 of the CPU's. Returns (the metrics, the LPIPS pair)."""
+    from multimodalstudio_tpu_torch import launcher
+    from multimodalstudio_tpu_torch.engine.trainer import Trainer
+    from multimodalstudio_tpu_torch.scripts import evaluate_average_metrics
+    from multimodalstudio_tpu_torch.utils.lpips import lpips
+
+    rp = dataclasses.replace
+    out = os.path.join(os.path.dirname(run), "scored")
+    os.makedirs(out, exist_ok=True)
+    ecfg = rp(launcher.resolve_model_channels(cfg, train),
+              load_dir=os.path.join(run, "checkpoints"),
+              evaluator=rp(cfg.evaluator, rendering_scale=1.0, export_mesh=False,
+                           export_poses=False))
+    trainer = Trainer(ecfg, train, evald, out, device=dev)
+    trainer.setup()
+    trainer.eval()
+    mods = list(cfg.modalities)
+    renders = os.path.join(out, "renders", f"step-{trainer.state.step:09d}")
+    views = [int(i) for i in evald.data[mods[0]].frame_ids]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):  # its JSON goes to metrics.json
+        metrics = evaluate_average_metrics.main(
+            ["--renders", renders, "--scene", scene, "--modalities", *mods, "--views",
+             *map(str, views), "--rendering_scale", "1.0", "--device", str(dev),
+             "--out", os.path.join(out, "metrics.json")])
+    score_s = time.perf_counter() - t0
+    regimes = ("mosaicked", "demosaicked", "rendered_demosaicked")
+    for m in mods:
+        for regime in regimes:
+            for metric in ("psnr", "ssim", "lpips"):
+                v = metrics[m].get(f"{metric}_{regime}")
+                if v is None or not np.isfinite(v):
+                    fail(f"evaluate_average_metrics: {m} {metric}_{regime} is {v}")
+    print(f"  evaluate_average_metrics on {len(views)} eval view(s) a modality at scale 1.0 in "
+          f"{score_s:.2f} s (LPIPS weights: {metrics['lpips_weights']}): " + "; ".join(
+              f"{m} psnr {metrics[m]['psnr_mosaicked']:.3f} / {metrics[m]['psnr_demosaicked']:.3f}"
+              f" / {metrics[m]['psnr_rendered_demosaicked']:.3f}, ssim "
+              f"{metrics[m]['ssim_mosaicked']:.4f}, lpips {metrics[m]['lpips_mosaicked']:.4f}"
+              for m in mods))
+    pred = np.load(os.path.join(renders, "rgb", "0000_render.npy"))
+    gt = evald.data["rgb"].images[0]
+    x0, x1 = pred[..., :3] * 2.0 - 1.0, np.repeat(gt, 3, -1) * 2.0 - 1.0
+    on_card = float(lpips(x0, x1, device=dev)[0])
+    on_cpu = float(lpips(x0, x1, device="cpu")[0])
+    rel = abs(on_card - on_cpu) / abs(on_cpu)
+    print(f"  LPIPS of the rgb render against its frame: card {on_card:.8f}, CPU {on_cpu:.8f}, "
+          f"rel {rel:.3e} (limit 1e-4)")
+    if rel > 1e-4:
+        fail("LPIPS on the card parts from the CPU's")
+    return metrics, (on_card, on_cpu, rel)
+
+
 def run_disk_scene(dev, card, root):
     """Phase D: ENTRY_SCENE's raw 5-modality scene written to `root` by the port's
     write_synthetic_scene (16-bit PNGs, meta_data.json) and loaded through
@@ -4661,6 +4757,10 @@ def run_disk_scene(dev, card, root):
     print(f"  launches of the two calls: {launches}")
     if not all(launches.get(k, 0) > 0 for k in K123):
         fail(f"the disk run did not launch each of {K123}")
+    build.reset_launch_counts()
+    metrics, lpips_pair = score_disk_renders(dev, card, cfg, scene, run, train, evald)
+    add_launches()
+    sampler_ms = time_host_sampler(card, train)
 
     print("  the bench-geometry training (as grid_raw_tpu's) on the disk scene's train split:")
     with config_env("grid_raw_tpu"):
@@ -4668,7 +4768,327 @@ def run_disk_scene(dev, card, root):
     for n, c in stats["launches"].items():
         launches[n] = launches.get(n, 0) + c
     stats.update(load_s=load_s, frames=n_frames, decode_ms=decode_ms, launcher_train_s=train_s,
-                 launcher_rays_per_s=rays / train_s, eval_rays_per_s=eval_rays / eval_s)
+                 launcher_rays_per_s=rays / train_s, eval_rays_per_s=eval_rays / eval_s,
+                 sampler_ms=sampler_ms, lpips=lpips_pair,
+                 paper_metrics={m: metrics[m]["lpips_mosaicked"] for m in cfg.modalities})
+    return launches, stats
+
+
+# phase E: data parallel over DP_RANKS processes on one card, over gloo (NCCL refuses two ranks
+# on one device); each collective raises after DP_COLLECTIVE_S, the ranks are ended after DP_RANKS_S
+DP_RANKS = 2
+DP_STEPS = 2  # data-parallel steps on one fixed global batch, held against one process
+DP_TRAINER_STEPS = 5
+DP_COLLECTIVE_S = 120
+DP_RANKS_S = 300
+DP_LABEL = "grid_raw_tpu"
+DP_DEVICE = "cuda:0"  # both ranks' device
+
+
+def dp_scene(dev):
+    from multimodalstudio_tpu_torch.configs.methods import FIVE_MODALITIES
+    from multimodalstudio_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    kw = dict(raw=True, device=dev, **DISK_SCENE)
+    views = DISK_SCENE["num_views"]
+    return (make_synthetic_dataset(FIVE_MODALITIES, view_ids=[i for i in range(views) if i % 5 != 4],
+                                   **kw),
+            make_synthetic_dataset(FIVE_MODALITIES, view_ids=[i for i in range(views) if i % 5 == 4],
+                                   **kw))
+
+
+# phase E(a)'s gradients: one process's at the ranks' N (microbatches of 256 rays: the same
+# sums in another order, and the L1 losses' signs where a residual's rounding moves with N)
+# within DP_HALF_TOL (rel-L2) of one process's at 512; the ranks' within max(DP_GRAD_FLOOR,
+# twice that distance) of one process's at 512
+DP_HALF_TOL = 1e-2
+DP_GRAD_FLOOR = 1e-5
+
+
+def dp_grad_step(cfg) -> int:
+    """The step of phase E(a)'s gradients: three quarters through the run, where every level
+    of the slot grid is live (at step 0 its gradient is zero)."""
+    return cfg.max_num_iterations * 3 // 4
+
+
+def _grad_groups(grads):
+    """One step's gradients (batch_loss_and_grads' fourth result) flattened by group on the
+    host: each parameter group of _param_groups, and the camera poses."""
+    out = {name: torch.cat([grads["fields"][k].reshape(-1).float().cpu() for k in keys])
+           for name, keys in _param_groups(grads["fields"]).items()}
+    out["camera_poses"] = torch.cat([g.reshape(-1).float().cpu()
+                                     for _, g in sorted(grads["camera_poses"].items())])
+    return out
+
+
+def dp_reference(dev, work):
+    """Phase E's inputs, saved to `work` for the ranks: grid_raw_tpu's seeded init with every
+    MLP kernel moved off its geometric init (whose zero feature columns zero the slot table's
+    gradient) and one global batch of 2048 rays per modality drawn on the card. Then the
+    one-process reference on the card, without jitter: the gradients of that batch at
+    dp_grad_step, with the configured 512-ray microbatches, with 256-ray ones (the ranks' N),
+    and from rank 0's rows of each microbatch alone (the gradient of a reduction that drops
+    rank 1's rows); and DP_STEPS steps on the batch. Returns a dict of those, on the host."""
+    from multimodalstudio_tpu_torch.cameras.camera_optimizer import init_camera_poses
+    from multimodalstudio_tpu_torch.configs.methods import FIVE_MODALITIES
+    from multimodalstudio_tpu_torch.data.device_cache import build_device_cache, sample_pixel_batch
+    from multimodalstudio_tpu_torch.engine import train as T
+    from multimodalstudio_tpu_torch.models.model import MMSModel
+    from multimodalstudio_tpu_torch.parallel.sharding import DataParallel, shard_batch
+
+    cfg = load(DP_LABEL)
+    train, _ = dp_scene(dev)
+    cams = {m: train.data[m].cameras for m in FIVE_MODALITIES}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model = MMSModel(cfg.model, device=dev).init(gen)
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            if k.endswith("kernel"):
+                p.add_(0.2 / p.shape[0] ** 0.5 * torch.randn(p.shape, generator=gen, device=dev))
+    num_cameras = {m: train.num_frames(m) for m in FIVE_MODALITIES}
+    poses = init_camera_poses(cfg.datamanager.camera_optimizer, FIVE_MODALITIES, num_cameras,
+                              device=dev)
+    batch = sample_pixel_batch(build_device_cache(train, device=dev), gen,
+                               cfg.datamanager.num_rays_per_modality, FIVE_MODALITIES)
+    torch.save({"model": {k: v.cpu() for k, v in model.state_dict().items()},
+                "poses": {m: p.detach().cpu() for m, p in poses.items()},
+                "batch": {m: {f.name: getattr(b, f.name).cpu() for f in dataclasses.fields(b)}
+                          for m, b in batch.items()}}, os.path.join(work, "inputs.pt"))
+    state = T.init_train_state(cfg, model, poses)
+    at = dp_grad_step(cfg)
+    sched = T.make_schedules(cfg, at)
+    dm = cfg.datamanager
+    rp = dataclasses.replace
+
+    def grads(config, rays):
+        return _grad_groups(T.batch_loss_and_grads(config, model, cams, state.camera_poses, rays,
+                                                   at, sched)[3])
+
+    micro = dm.microbatch_rays
+    rows0 = [shard_batch(T._slice(batch, i * micro, (i + 1) * micro), DataParallel(0, DP_RANKS))
+             for i in range(dm.num_rays_per_modality // micro)]
+    rows0 = {m: type(batch[m])(*(torch.cat([getattr(r[m], f.name) for r in rows0])
+                                 for f in dataclasses.fields(batch[m]))) for m in batch}
+    ref = {"grads": grads(cfg, batch),
+           "half": grads(rp(cfg, datamanager=rp(dm, microbatch_rays=micro // DP_RANKS)), batch),
+           "rank0_rows": grads(rp(cfg, datamanager=rp(
+               dm, num_rays_per_modality=dm.num_rays_per_modality // DP_RANKS,
+               microbatch_rays=micro // DP_RANKS)), rows0)}
+    step_fn = T.make_train_step(cfg, model, cams)
+    ref["losses"] = []
+    for _ in range(DP_STEPS):
+        state, aux = step_fn(state, batch)
+        ref["losses"].append(float(aux["losses"]["total_loss"]))
+    ref["params"] = {k: p.detach().cpu() for k, p in model.named_parameters()}
+    ref["poses"] = {m: p.detach().cpu() for m, p in state.camera_poses.items()}
+    return ref
+
+
+def dp_rank_main(work) -> None:
+    """One rank of phase E (`chip_smoke.py --dp-rank <work>`, the process group's environment
+    set by run_ranks): (a) the data-parallel gradients of the saved global batch, then DP_STEPS
+    data-parallel steps on it, jitter off; (b) the dry run's Trainer
+    (scripts/dist_dryrun_worker.py::train) at n_devices = DP_RANKS for DP_TRAINER_STEPS steps,
+    jitter on. Both on cuda:0 over gloo, with the libraries the parent built (none is built
+    here)."""
+    import torch.distributed as dist
+
+    from multimodalstudio_tpu_torch.configs.methods import FIVE_MODALITIES
+    from multimodalstudio_tpu_torch.data.sampler import PixelBatch
+    from multimodalstudio_tpu_torch.device import set_reference_precision
+    from multimodalstudio_tpu_torch.engine import train as T
+    from multimodalstudio_tpu_torch.models.model import MMSModel
+    from multimodalstudio_tpu_torch.ops.kernels import build
+    from multimodalstudio_tpu_torch.parallel import sharding
+    from multimodalstudio_tpu_torch.scripts import dist_dryrun_worker as worker
+    from multimodalstudio_tpu_torch.utils.writer import ITER_TRAIN_TIME
+
+    missing = [n for n in build.LIBRARIES if not build.library_path(n).exists()]
+    if missing:
+        fail(f"a rank found {missing} unbuilt: the ranks load the parent's libraries")
+    set_reference_precision()
+    if not sharding.initialize_distributed(backend="gloo", device=DP_DEVICE):
+        fail("phase E's rank is not in a group of several processes")
+    dev = sharding.bind_device(DP_DEVICE)
+    rank = sharding.process_index()
+    out = {}
+    try:
+        probe = torch.full((3,), float(rank + 1), device=dev)
+        dist.all_reduce(probe)
+        out["gloo_cuda"] = (str(probe.device), probe.cpu().tolist())
+
+        cfg = load(DP_LABEL)
+        train, evald = dp_scene(dev)
+        cams = {m: train.data[m].cameras for m in FIVE_MODALITIES}
+        inp = torch.load(os.path.join(work, "inputs.pt"), weights_only=True)
+        batch = {m: PixelBatch(**{k: v.to(dev) for k, v in b.items()})
+                 for m, b in inp["batch"].items()}
+        model = MMSModel(cfg.model, device=dev)
+        model.load_state_dict(inp["model"])
+        state = T.init_train_state(cfg, model, {m: p.to(dev) for m, p in inp["poses"].items()})
+        dp = sharding.DataParallel.current()
+        step_fn = T.make_train_step(cfg, model, cams, dp)
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        at = dp_grad_step(cfg)
+        grads = T.batch_loss_and_grads(cfg, model, cams, state.camera_poses, batch, at,
+                                       T.make_schedules(cfg, at), None, dp)[3]
+        losses = []
+        for _ in range(DP_STEPS):
+            state, aux = step_fn(state, batch)
+            losses.append(float(aux["losses"]["total_loss"]))
+        torch.cuda.synchronize()
+        out["a"] = {"grads": _grad_groups(grads), "losses": losses,
+                    "params": {k: p.detach().cpu() for k, p in model.named_parameters()},
+                    "poses": {m: p.detach().cpu() for m, p in state.camera_poses.items()},
+                    "launches": {n: i.launches for n, i in build.KERNELS.items()}}
+        del model, state, step_fn, grads
+
+        rp = dataclasses.replace
+        tcfg = rp(cfg, n_devices=DP_RANKS, max_num_iterations=DP_TRAINER_STEPS,
+                  steps_per_eval_batch=0, steps_per_eval_image=0, steps_per_eval_all_images=0,
+                  steps_per_save=0, steps_per_export_mesh=0, steps_per_export_poses=0,
+                  logging=rp(cfg.logging, steps_per_log=1, steps_per_flush_buffer=0,
+                             local_writer=False, vis="none"))
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        trainer, saves = worker.train(os.path.join(work, "run"), dev, tcfg, (train, evald))
+        torch.cuda.synchronize()
+        tensors = dict(trainer.model.named_parameters())
+        tensors.update({f"pose.{m}": p for m, p in trainer.state.camera_poses.items()})
+        out["b"] = {"step": trainer.state.step, "saves": len(saves),
+                    "loss": float(trainer.last_aux["losses"]["total_loss"]),
+                    "params": {k: t.detach().cpu() for k, t in tensors.items()},
+                    "step_s": list(trainer.writer.buffer.times[ITER_TRAIN_TIME]),
+                    "launches": {n: i.launches for n, i in build.KERNELS.items()}}
+        torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def nccl_all_reduce(dev) -> float:
+    """Phase E(c): a world-1 NCCL group on the card (the default backend of a CUDA device)
+    and one all-reduce; returns its ms."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from multimodalstudio_tpu_torch.scripts.dist_dryrun import free_port
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+                            rank=0, timeout=datetime.timedelta(seconds=DP_COLLECTIVE_S))
+    try:
+        x = torch.arange(1 << 20, device=dev, dtype=torch.float32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        if not torch.equal(x, torch.arange(1 << 20, device=dev, dtype=torch.float32)):
+            fail("a world-1 NCCL all-reduce changed its tensor")
+    finally:
+        dist.destroy_process_group()
+    return ms
+
+
+def dp_rank_command(rank, work):
+    return [sys.executable, os.path.abspath(__file__), "--dp-rank", work]
+
+
+def run_data_parallel(dev, card, work):
+    """Phase E: grid_raw_tpu at full width and the bench geometry (2048 rays per modality in
+    4 microbatches of 512), DP_RANKS processes on cuda:0 over gloo. (a) On one global batch
+    without jitter, against one process on the card: the all-reduced gradients, each group
+    (and the camera poses) within rel-L2 max(DP_GRAD_FLOOR, twice the distance between one
+    process's gradients at 256- and at 512-ray microbatches), that distance within
+    DP_HALF_TOL, the limit below what rank 0's rows alone give (a reduction that drops rank
+    1's; one left unscaled by 1 / world reads 1); then DP_STEPS data-parallel steps, the
+    losses within rtol 2e-3 and every parameter within atol 1e-3 (tests/test_parallel.py's
+    bounds, which two warm-up steps cannot fail alone); both ranks' gradients and parameters
+    equal bit for bit, every rank launching K1, K2 and K3 (each at 256 rays a modality a
+    microbatch); (b) the dry run's Trainer at n_devices = DP_RANKS through the environment
+    contract for DP_TRAINER_STEPS steps with jitter: the ranks equal bit for bit, the
+    checkpoint written by rank 0 alone, the global rays/s and step ms; (c) one all-reduce of a
+    world-1 NCCL group. Returns (the ranks' launches, stats)."""
+    from multimodalstudio_tpu_torch.scripts.dist_dryrun import run_ranks
+
+    ref = dp_reference(dev, work)
+    t0 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = run_ranks(lambda rank: dp_rank_command(rank, work), DP_RANKS, DP_RANKS_S,
+                      {"MMS_DIST_TIMEOUT": str(DP_COLLECTIVE_S)}, here)
+    ranks_s = time.perf_counter() - t0
+    for r, proc in enumerate(procs):
+        if proc.returncode != 0:
+            fail(f"phase E rank {r} exited {proc.returncode}:\n{proc.stdout[-6000:]}")
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=True)
+             for r in range(DP_RANKS)]
+    print(f"  {DP_RANKS} ranks on cuda:0 over gloo in {ranks_s:.1f} s; gloo all-reduced a CUDA "
+          f"tensor in place on {ranks[0]['gloo_cuda'][0]}: {ranks[0]['gloo_cuda'][1]}")
+    if ranks[0]["gloo_cuda"][1] != [3.0, 3.0, 3.0]:
+        fail(f"gloo's all-reduce of a CUDA tensor gave {ranks[0]['gloo_cuda']}")
+
+    a0 = ranks[0]["a"]
+    g_err, g_tol = {}, {}
+    for name, want in ref["grads"].items():
+        got, half = a0["grads"][name], ref["half"][name]
+        split = rel_l2(half, want)
+        g_err[name] = rel_l2(got, want)
+        g_tol[name] = max(DP_GRAD_FLOOR, 2 * split)
+        wrong = rel_l2(ref["rank0_rows"][name], want)
+        print(f"  (a) gradient of {name}: {DP_RANKS} ranks vs one process rel_l2={g_err[name]:.3e} "
+              f"(limit {g_tol[name]:.3e}), vs one process at 256-ray microbatches "
+              f"{rel_l2(got, half):.3e}; one process at 256 vs 512: {split:.3e} (limit "
+              f"{DP_HALF_TOL:g}); rank 0's rows alone would read {wrong:.3e}")
+        if not (want.norm() > 0 and torch.isfinite(got).all()):
+            fail(f"phase E(a): one process's gradient of {name} is zero or the ranks' not finite")
+        if not (split <= DP_HALF_TOL and g_err[name] <= g_tol[name]):
+            fail(f"phase E(a): the data-parallel gradient of {name} parts from one process's")
+        if not wrong > g_tol[name]:
+            fail(f"phase E(a): the limit of {name}'s gradient, {g_tol[name]:.3e}, would not see "
+                 "a reduction that drops rank 1's rows")
+    err = max(abs(x - y) / abs(y) for x, y in zip(a0["losses"], ref["losses"]))
+    p_err = max(float((a0["params"][k] - v).abs().max()) for k, v in ref["params"].items())
+    p_err = max(p_err, max(float((a0["poses"][m] - v).abs().max())
+                           for m, v in ref["poses"].items()))
+    print(f"  (a) {DP_STEPS} steps on one global batch: losses {a0['losses']} against one "
+          f"process's {ref['losses']} (max rel {err:.3e}, limit 2e-3); parameters within "
+          f"{p_err:.3e} (limit 1e-3)")
+    if err > 2e-3 or p_err > 1e-3:
+        fail("phase E(a): the data-parallel steps part from one process's")
+    launches, stats = {}, {}
+    for r, res in enumerate(ranks):
+        for part in ("a", "b"):
+            for n, c in res[part]["launches"].items():
+                launches[n] = launches.get(n, 0) + c
+        got = {k: res["a"]["launches"].get(k, 0) for k in K123}
+        print(f"  rank {r} launched {got} in (a)")
+        if not all(got.values()):
+            fail(f"phase E(a): rank {r} did not launch each of {K123}")
+        for part, key in (("a", "grads"), ("a", "params"), ("a", "poses"), ("b", "params")):
+            same = all(torch.equal(v, ranks[0][part][key][k]) for k, v in res[part][key].items())
+            if not same:
+                fail(f"phase E({part}): rank {r}'s {key} differ from rank 0's")
+
+    b0, b1 = ranks[0]["b"], ranks[1]["b"]
+    files = sorted(os.listdir(os.path.join(work, "run", "checkpoints")))
+    if (b0["saves"], b1["saves"]) != (1, 0) or files != [f"step-{DP_TRAINER_STEPS:09d}.pt"]:
+        fail(f"phase E(b): saves by rank {(b0['saves'], b1['saves'])}, checkpoints {files}")
+    if b0["step"] != b1["step"] or b0["loss"] != b1["loss"] or not np.isfinite(b0["loss"]):
+        fail(f"phase E(b): the ranks end at steps {b0['step']}, {b1['step']}, losses "
+             f"{b0['loss']}, {b1['loss']}")
+    step_ms = 1e3 * float(np.median(b0["step_s"][1:]))
+    n_rays = load(DP_LABEL).datamanager.num_rays_per_modality * 5
+    stats = dict(rays_per_s=n_rays / (step_ms / 1e3), step_ms=step_ms, ranks_s=ranks_s,
+                 loss_err=err, param_err=p_err, first_step_ms=1e3 * b0["step_s"][0],
+                 grad_err=g_err, grad_tol=g_tol)
+    print(f"  (b) Trainer at n_devices={DP_RANKS}: {DP_TRAINER_STEPS} steps, the ranks equal bit "
+          f"for bit, checkpoint {files} by rank 0 alone; global {stats['rays_per_s']:.1f} rays/s, "
+          f"step {step_ms:.2f} ms (median of steps 2-{DP_TRAINER_STEPS}; first "
+          f"{stats['first_step_ms']:.1f} ms; two ranks share one card: no gain; {card})")
+    stats["nccl_ms"] = nccl_all_reduce(dev)
+    print(f"  (c) a world-1 NCCL group on {dev}: one all-reduce of "
+          f"4 MiB in {stats['nccl_ms']:.2f} ms (host clock, first call)")
     return launches, stats
 
 
@@ -4902,6 +5322,11 @@ def main() -> None:
         disk_launches, disk = phase("scene from disk", run_disk_scene, dev, card, root)
     add(disk_launches)
     run_label(VOLSDF_LABEL)
+    # phase E: data parallel over two processes on the card
+    print(f"data parallel ({DP_LABEL}, {DP_RANKS} processes on cuda:0 over gloo):")
+    with tempfile.TemporaryDirectory() as root:
+        dp_launches, dp = phase("data parallel", run_data_parallel, dev, card, root)
+    add(dp_launches)
 
     entries = []
     for name, r in results.items():
@@ -4930,7 +5355,14 @@ def main() -> None:
           f"{disk['decode_ms']['mixed']:.1f} ms (mixed rows), launcher train "
           f"{disk['launcher_rays_per_s']:.1f} rays/s and eval {disk['eval_rays_per_s']:.1f} rays/s "
           f"with their set-up, bench-geometry train rays/s {disk['rays_per_s']:.1f}, step "
-          f"{disk['step_ms']:.2f} ms, busy {disk['busy_ms']:.2f} ms a step ({card})")
+          f"{disk['step_ms']:.2f} ms, busy {disk['busy_ms']:.2f} ms a step; host sampler "
+          f"{disk['sampler_ms']['native']:.3f} ms native, {disk['sampler_ms']['numpy']:.3f} ms numpy "
+          f"a {SAMPLER_RAYS}-ray x 5-modality batch; LPIPS card/CPU rel {disk['lpips'][2]:.3e} "
+          f"({card})")
+    print(f"data parallel: {DP_RANKS} ranks on one card, global train rays/s "
+          f"{dp['rays_per_s']:.1f}, step {dp['step_ms']:.2f} ms, {DP_STEPS} steps within "
+          f"{dp['loss_err']:.3e} (loss) and {dp['param_err']:.3e} (parameters) of one process, "
+          f"NCCL world-1 all-reduce {dp['nccl_ms']:.2f} ms ({card})")
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s ({card})")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4938,4 +5370,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == "--dp-rank":
+        dp_rank_main(sys.argv[2])
+    else:
+        main()

@@ -100,8 +100,10 @@ def restore(name: str, cfg=None):
 
     r = REHEARSALS[name]
     cfg = cfg or jax_config(name)
-    template = init_train_state(cfg, MMSModel(cfg.model), jax.random.key(0),
-                                {m: TRAIN_VIEWS for m in cfg.modalities})
+    # the template's values are overwritten: built as one compiled program, not op by op
+    model = MMSModel(cfg.model)
+    template = jax.jit(lambda key: init_train_state(
+        cfg, model, key, {m: TRAIN_VIEWS for m in cfg.modalities}))(jax.random.key(0))
     state, _ = checkpoints.load_checkpoint(os.path.join(r["run"], "checkpoints"), template,
                                            r["step"])
     return state

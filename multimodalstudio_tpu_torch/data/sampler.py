@@ -1,7 +1,7 @@
 """Pixel batches (JAX reference: data/sampler.py): uniform random training
-batches drawn on the host with numpy, and dense full-view batches. The
-training loop on the card samples on the device instead
-(data/device_cache.py)."""
+batches drawn on the host by the native sampler (data/native.py), and
+dense full-view batches. The training loop on the card samples on the
+device instead (data/device_cache.py)."""
 
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from multimodalstudio_tpu_torch.data import native
 from multimodalstudio_tpu_torch.data.dataset import MMSDataset
 
 
@@ -24,10 +25,19 @@ class PixelBatch:
     mosaick_channel: torch.Tensor  # [N] int32 (0 when not raw)
 
 
+# The native sampler's threads: fixed, so that a seed draws the same batch on every host
+# (every rank of a data-parallel run draws the same global batch and takes its rows). One
+# thread draws on the calling thread; a batch of the bench's 2048 rays x 5 modalities
+# starts no thread.
+THREADS = 1
+
+
 class UniformPixelSampler:
-    """Uniform random (frame, y, x) sampling per modality with numpy
-    (sampler.py:32-60, the numpy branch of data/native.py::sample_pixels):
-    one seed per modality per call from the sampler's generator."""
+    """Uniform random (frame, y, x) sampling per modality (sampler.py:32-60):
+    one seed per modality per call from the sampler's generator, drawn by
+    the native sampler, as the JAX package's is where its extension is
+    built, on THREADS threads (JAX's on one a CPU core: the same bytes on a
+    one-core host)."""
 
     def __init__(self, dataset: MMSDataset, num_rays_per_modality: int, seed: int = 0):
         self.dataset = dataset
@@ -38,20 +48,15 @@ class UniformPixelSampler:
         batch = {}
         for mod in self.dataset.modalities:
             d = self.dataset.data[mod]
-            n = self.num_rays
-            rng = np.random.default_rng(int(self.rng.integers(0, 2**62)))
-            f, h, w, _ = d.images.shape
-            fi = rng.integers(0, f, n).astype(np.int32)
-            yi = rng.integers(0, h, n)
-            xi = rng.integers(0, w, n)
-            coords = np.stack([yi, xi], -1).astype(np.float32) + d.cameras.pixel_offset
             mask = d.mosaick_mask if self.dataset.raw else None
-            chan = mask[yi, xi].astype(np.int32) if mask is not None else np.zeros(n, np.int32)
+            fi, coords, pixels, chan = native.sample_pixels(
+                d.images, mask, self.num_rays, int(self.rng.integers(0, 2**62)),
+                d.cameras.pixel_offset, threads=THREADS)
             dev = d.cameras.device
             batch[mod] = PixelBatch(
                 camera_indices=torch.as_tensor(fi, device=dev).long(),
                 pixel_coords=torch.as_tensor(coords, device=dev),
-                pixels=torch.as_tensor(np.ascontiguousarray(d.images[fi, yi, xi]), device=dev),
+                pixels=torch.as_tensor(np.ascontiguousarray(pixels), device=dev),
                 mosaick_channel=torch.as_tensor(chan, device=dev),
             )
         return batch

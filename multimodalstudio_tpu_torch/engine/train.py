@@ -14,6 +14,13 @@ norm >= max_norm, with no epsilon; the learning rate reads the number of
 updates applied so far; AdamW's weight decay applies to every leaf, and
 Adam and RAdam have none; eps is added outside the square root; RAdam's
 rectification is optax.radam's, its length terms in float32.
+
+Data parallel (`dp`, parallel/sharding.py): every rank holds the same
+global batch and runs its own contiguous rows of each microbatch; the
+summed gradients, the losses and each microbatch's per-modality MSE are
+averaged over the ranks in one all-reduce before the finite check and the
+clipping, and min_grad_norm is reduced with MIN, so every rank takes the
+same update and logs the one-process step's metrics.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from multimodalstudio_tpu_torch.engine.schedules import (
 )
 from multimodalstudio_tpu_torch.models.model import MMSModel, ScheduleState
 from multimodalstudio_tpu_torch.ops.math import psnr
+from multimodalstudio_tpu_torch.parallel.sharding import DataParallel, shard_batch
 
 Params = Dict[str, Dict[str, torch.Tensor]]  # {"fields": {...}, "camera_poses": {...}}
 
@@ -288,13 +296,16 @@ def _slice(batch: Dict[str, PixelBatch], start: int, stop: int) -> Dict[str, Pix
 
 def batch_loss_and_grads(config: TrainerConfig, model: MMSModel, cameras, camera_poses, batch,
                          step: int, schedules: ScheduleState,
-                         generator: Optional[torch.Generator] = None):
+                         generator: Optional[torch.Generator] = None,
+                         dp: Optional[DataParallel] = None):
     """Loss and gradients of one batch (train.py:285-349): one backward per
     microbatch of `microbatch_rays` rays per modality, gradients summed and
     divided by the number of microbatches, losses and metrics averaged
     (min_grad_norm included). Each microbatch's graph, the kernels'
-    residuals with it, is freed by its backward. Returns (total, losses,
-    metrics, grads) with grads keyed like train_params."""
+    residuals with it, is freed by its backward. With `dp`, this rank runs
+    its rows of each microbatch and the results are reduced over the ranks
+    (module docstring). Returns (total, losses, metrics, grads) with grads
+    keyed like train_params."""
     n = config.datamanager.num_rays_per_modality
     micro = config.datamanager.microbatch_rays
     m = 1 if micro <= 0 or micro >= n else n // micro
@@ -306,9 +317,9 @@ def batch_loss_and_grads(config: TrainerConfig, model: MMSModel, cameras, camera
     for group in params.values():
         for p in group.values():
             p.grad = None
-    totals, losses, metrics = [], {}, {}
+    totals, losses, metrics, mses = [], {}, {}, {}
     for i in range(m):
-        mb = _slice(batch, i * size, (i + 1) * size)
+        mb = shard_batch(_slice(batch, i * size, (i + 1) * size), dp)
         rays, segments = build_rays(config, camera_poses, cameras, mb)
         outputs = model(rays, segments, schedules, train=True, generator=generator)
         outputs = select_mosaick_channels(config, outputs, mb)
@@ -321,21 +332,49 @@ def batch_loss_and_grads(config: TrainerConfig, model: MMSModel, cameras, camera
             losses.setdefault(k, []).append(torch.as_tensor(v).detach())
         with torch.no_grad():
             for mod in config.modalities:
-                metrics.setdefault(f"psnr_{mod}", []).append(psnr(outputs[mod], targets[mod]))
+                if dp is None:
+                    metrics.setdefault(f"psnr_{mod}", []).append(psnr(outputs[mod], targets[mod]))
+                else:
+                    mses.setdefault(mod, []).append(((outputs[mod] - targets[mod]) ** 2).mean())
             if outputs.get("gradients") is not None:
                 g = outputs["gradients"]
                 metrics.setdefault("min_grad_norm", []).append(torch.sqrt((g * g).sum(-1).min()))
     grads = {name: {k: (p.grad / m if p.grad is not None else torch.zeros_like(p))
                     for k, p in group.items()} for name, group in params.items()}
-    mean = lambda vals: torch.stack([v.float().to(totals[0].device) for v in vals]).mean()  # noqa: E731
-    return (mean(totals), {k: mean(v) for k, v in losses.items()},
-            {k: mean(v) for k, v in metrics.items()}, grads)
+    dev = totals[0].device
+    stack = lambda vals: torch.stack([v.float().to(dev) for v in vals])  # noqa: E731
+    if dp is not None:
+        grads, totals, losses, metrics = _reduce_over_ranks(dp, grads, totals, losses, metrics,
+                                                            mses, stack)
+    return (stack(totals).mean(), {k: stack(v).mean() for k, v in losses.items()},
+            {k: stack(v).mean() for k, v in metrics.items()}, grads)
 
 
-def make_train_step(config: TrainerConfig, model: MMSModel, cameras: Dict[str, Cameras]):
+def _reduce_over_ranks(dp: DataParallel, grads, totals, losses, metrics, mses, stack):
+    """The mean over ranks of the gradients, of each microbatch's total and
+    losses and of its per-modality MSE (one all-reduce), each
+    microbatch's PSNR from its mean MSE, and its min_grad_norm's MIN."""
+    leaves = [(name, k) for name, group in grads.items() for k in group]
+    scalars = [(("total",), stack(totals))] + [(("loss", k), stack(v)) for k, v in losses.items()] \
+        + [(("mse", mod), stack(v)) for mod, v in mses.items()]
+    out = dp.all_reduce_mean([grads[n][k] for n, k in leaves] + [v for _, v in scalars])
+    grads = {name: dict(group) for name, group in grads.items()}
+    for (name, k), g in zip(leaves, out):
+        grads[name][k] = g
+    reduced = dict(zip([key for key, _ in scalars], out[len(leaves):]))
+    totals = list(reduced[("total",)])
+    losses = {k: list(reduced[("loss", k)]) for k in losses}
+    metrics = {f"psnr_{mod}": list(-10.0 * torch.log10(reduced[("mse", mod)].clamp_min(1e-12)))
+               for mod in mses} | {k: list(dp.all_reduce_min(stack(v))) for k, v in metrics.items()}
+    return grads, totals, losses, metrics
+
+
+def make_train_step(config: TrainerConfig, model: MMSModel, cameras: Dict[str, Cameras],
+                    dp: Optional[DataParallel] = None):
     """train_step(state, batch, generator=None) -> (state, aux): one
-    guarded update on a pixel batch; `generator` feeds the samplers'
-    jitter (none: no jitter). Updates the model and `state` in place."""
+    guarded update on a pixel batch (the global batch, with `dp`);
+    `generator` feeds the samplers' jitter (none: no jitter). Updates the
+    model and `state` in place."""
     opt = make_optimizer(config)
 
     def train_step(state: TrainState, batch: Dict[str, PixelBatch],
@@ -343,7 +382,7 @@ def make_train_step(config: TrainerConfig, model: MMSModel, cameras: Dict[str, C
         step = state.step
         total, losses, metrics, grads = batch_loss_and_grads(
             config, model, cameras, state.camera_poses, batch, step, make_schedules(config, step),
-            generator)
+            generator, dp)
         metrics["grads_finite"] = guarded_update(opt, grads, train_params(model, state.camera_poses),
                                                  state)
         state.step = step + 1
@@ -353,19 +392,24 @@ def make_train_step(config: TrainerConfig, model: MMSModel, cameras: Dict[str, C
     return train_step
 
 
-def make_train_steps(config: TrainerConfig, model: MMSModel, cameras: Dict[str, Cameras]):
-    """train_steps(state, cache, generator, k) -> (state, aux of the last
-    step): k steps, each drawing its pixel batch on the device from the
-    cache (train.py:352-405); the generator also feeds the samplers'
-    jitter."""
-    step_fn = make_train_step(config, model, cameras)
+def make_train_steps(config: TrainerConfig, model: MMSModel, cameras: Dict[str, Cameras],
+                     dp: Optional[DataParallel] = None):
+    """train_steps(state, cache, generator, k, model_generator=None) ->
+    (state, aux of the last step): k steps, each drawing its pixel batch on
+    the device from the cache (train.py:352-405). `generator` draws the
+    batches; the samplers' jitter comes from `model_generator`, or from
+    `generator` too where it is None (one process). With `dp`, every rank
+    seeds `generator` alike, so all draw the same global batch, and its
+    own `model_generator`, so that the shards' jitter is not correlated."""
+    step_fn = make_train_step(config, model, cameras, dp)
 
-    def train_steps(state: TrainState, cache: DeviceDataCache, generator: torch.Generator, k: int):
+    def train_steps(state: TrainState, cache: DeviceDataCache, generator: torch.Generator, k: int,
+                    model_generator: Optional[torch.Generator] = None):
         aux = None
         for _ in range(k):
             batch = sample_pixel_batch(cache, generator, config.datamanager.num_rays_per_modality,
                                        config.modalities)
-            state, aux = step_fn(state, batch, generator)
+            state, aux = step_fn(state, batch, model_generator or generator)
         return state, aux
 
     return train_steps

@@ -8,11 +8,19 @@ steps: with the device cache, each step draws its pixels on the card
 (`make_train_steps`, one torch.Generator seeded from `config.seed`),
 otherwise the host sampler feeds `make_train_step`. Between steps the host
 logs, evaluates, exports and saves on the configured cadences, and aborts
-on a non-finite loss naming the first bad step. Rays/s count
-num_rays_per_modality x modalities per step over the step's wall time.
+on a non-finite loss naming the first bad step. Rays/s count the global
+batch, num_rays_per_modality x modalities per step, over the step's wall
+time.
 
-One card only until the DDP slice: `n_devices` 0 or 1 means the one card,
-any other value raises.
+Data parallel over processes (parallel/sharding.py; JAX trainer.py:84-107):
+`n_devices` counts processes, 0 meaning the process group's world size (1
+without a group). Over more than one, each rank trains a replica on its
+own device (`rank_device`), every rank draws the same global batch and
+runs its rows of each microbatch, and the gradients are averaged in one
+all-reduce a step; the jitter comes from a generator of each rank's own.
+Rank 0 alone writes the writer's output, config.yaml, checkpoints,
+evaluations and exports; every rank restores the same checkpoint, and the
+others wait at a barrier where rank 0 ends a run.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from multimodalstudio_tpu_torch.engine.train import (
     make_train_steps,
 )
 from multimodalstudio_tpu_torch.models.model import MMSModel
+from multimodalstudio_tpu_torch.parallel import sharding
 from multimodalstudio_tpu_torch.utils.writer import (
     ITER_TRAIN_TIME,
     TEST_RAYS_PER_SEC,
@@ -63,11 +72,20 @@ class Trainer:
 
     def __init__(self, config: TrainerConfig, train_dataset: MMSDataset,
                  eval_dataset: MMSDataset, output_dir: Optional[str] = None, device="cuda"):
-        if config.n_devices not in (0, 1):
-            raise NotImplementedError(
-                f"n_devices={config.n_devices}: the port trains on one card until the "
-                "data-parallel slice (ROADMAP.md Queue 1, `parallel/sharding.py` as DDP)")
-        self.device = resolve_device(device)
+        world = sharding.world_size()
+        n_dev = config.n_devices if config.n_devices > 0 else world
+        if n_dev > 1 and n_dev != world:
+            raise ValueError(f"n_devices={config.n_devices} but the process group has "
+                             f"{world} processes (world size)")
+        n_rays, micro = (config.datamanager.num_rays_per_modality,
+                         config.datamanager.microbatch_rays)
+        if n_dev > 1 and n_rays % n_dev:
+            raise ValueError(f"num_rays_per_modality={n_rays} must divide n_devices={n_dev}")
+        if n_dev > 1 and micro > 0 and micro % n_dev:
+            raise ValueError(f"microbatch_rays={micro} must divide n_devices={n_dev}")
+        self.dp = sharding.DataParallel.current() if n_dev > 1 else None
+        self.is_main = sharding.is_main_process()
+        self.device = sharding.rank_device(resolve_device(device))
         set_reference_precision()
         self.config = config
         self.train_dataset = train_dataset
@@ -75,16 +93,23 @@ class Trainer:
         self.output_dir = output_dir
         self.step_start = 0
         self.loaded_from: Optional[str] = None
+        self.last_aux = None  # the losses and metrics of the last step trained
         np.random.seed(config.seed)
 
     def setup(self):
         config, dev = self.config, self.device
+        # the batches' draws (alike on every rank) and, with one process, the jitter
         self.generator = torch.Generator(device=dev).manual_seed(config.seed)
         self.model = MMSModel(config.model, device=dev).init(self.generator)
         self.cameras = {m: self.train_dataset.data[m].cameras for m in config.modalities}
         num_cameras = {m: self.train_dataset.num_frames(m) for m in config.modalities}
         poses = init_camera_poses(config.datamanager.camera_optimizer, config.modalities,
                                   num_cameras, device=dev)
+        self.model_generator = None  # each rank's jitter
+        if self.dp is not None:
+            sharding.replicate(list(self.model.parameters()) + list(poses.values()))
+            self.model_generator = torch.Generator(device=dev).manual_seed(
+                (config.seed + 1) * 1000 + self.dp.rank)
         self.state = init_train_state(config, self.model, poses)
         self.sampler = UniformPixelSampler(self.train_dataset,
                                            config.datamanager.num_rays_per_modality,
@@ -101,19 +126,20 @@ class Trainer:
             self.steps_per_call = self._fused_chunk()
             self.cache = build_device_cache(self.train_dataset, config.datamanager.quantize_cache,
                                             device=dev)
-            self.train_steps = make_train_steps(config, self.model, self.cameras)
+            self.train_steps = make_train_steps(config, self.model, self.cameras, self.dp)
         else:
-            self.train_step = make_train_step(config, self.model, self.cameras)
+            self.train_step = make_train_step(config, self.model, self.cameras, self.dp)
         self.eval_step = make_eval_batch_step(config, self.model, self.cameras)
 
         evaluator_cls = RawEvaluator if config.datamanager.raw else Evaluator
         self.evaluator = evaluator_cls(config, self.model, self.train_dataset, self.eval_dataset,
-                                       self.output_dir, device=dev)
+                                       self.output_dir if self.is_main else None, device=dev)
         self.writer = Writer(
             log_dir=self.output_dir,
-            use_tensorboard=config.logging.vis == "tensorboard" and bool(self.output_dir),
-            use_wandb=config.logging.vis == "wandb" and self.output_dir is not None,
-            use_local=config.logging.local_writer,
+            use_tensorboard=(config.logging.vis == "tensorboard" and bool(self.output_dir)
+                             and self.is_main),
+            use_wandb=config.logging.vis == "wandb" and self.output_dir is not None and self.is_main,
+            use_local=config.logging.local_writer and self.is_main,
             max_buffer_size=config.logging.max_buffer_size,
         )
 
@@ -124,11 +150,12 @@ class Trainer:
                 load_dir, self.model, self.state, config.load_step)
             if self.step_start:
                 self.loaded_from = checkpoints.checkpoint_path(load_dir, self.step_start - 1)
-            with open(os.path.join(self.output_dir, "config.yaml"), "w") as f:
-                f.write(config_to_string(config))
+            if self.is_main:
+                with open(os.path.join(self.output_dir, "config.yaml"), "w") as f:
+                    f.write(config_to_string(config))
 
         self.trace_profiler = None
-        if config.logging.enable_profiler and self.output_dir:
+        if config.logging.enable_profiler and self.output_dir and self.is_main:
             from multimodalstudio_tpu_torch.utils.profiler import TorchTraceProfiler
 
             self.trace_profiler = TorchTraceProfiler(self.output_dir, config.logging.profiler_steps)
@@ -157,8 +184,9 @@ class Trainer:
         return max(min(k, 100), 1)
 
     def _save(self):
-        checkpoints.save_checkpoint(self._ckpt_dir(), self.model, self.state,
-                                    self.config.save_only_latest_checkpoint)
+        if self.is_main:
+            checkpoints.save_checkpoint(self._ckpt_dir(), self.model, self.state,
+                                        self.config.save_only_latest_checkpoint)
 
     # ------------------------------------------------------------------ train
     def train(self):
@@ -173,6 +201,7 @@ class Trainer:
         if self.output_dir:
             self._save()
         self.writer.flush(self.config.max_num_iterations, self.config.max_num_iterations)
+        sharding.barrier()
 
     def _train_cached(self):
         """Device-cached loop: chunks of steps_per_call steps, each step
@@ -188,7 +217,8 @@ class Trainer:
             auxes = []
             with TimeWriter(self.writer, ITER_TRAIN_TIME, step, block=self.device) as t:
                 for _ in range(kc):
-                    self.state, aux = self.train_steps(self.state, self.cache, self.generator, 1)
+                    self.state, aux = self.train_steps(self.state, self.cache, self.generator, 1,
+                                                       self.model_generator)
                     auxes.append(aux)
             self.writer.buffer.times[ITER_TRAIN_TIME][-1] = t.duration / kc
             self.writer.put_time(TRAIN_RAYS_PER_SEC, kc * n_rays_step / t.duration, step)
@@ -196,6 +226,7 @@ class Trainer:
             # first non-finite step (trainer.py:264-271)
             self._aux_window = list(zip(range(start - len(prev_auxes), start + kc),
                                         prev_auxes + auxes))
+            self.last_aux = aux
             self._host_cadences(step + 1, aux)
             prev_auxes = auxes
             start += kc
@@ -208,10 +239,12 @@ class Trainer:
                 self.trace_profiler.maybe_start(step)
             batch = self.sampler.sample()
             with TimeWriter(self.writer, ITER_TRAIN_TIME, step, block=self.device) as t:
-                self.state, aux = self.train_step(self.state, batch, self.generator)
+                self.state, aux = self.train_step(self.state, batch,
+                                                  self.model_generator or self.generator)
             self.writer.put_time(TRAIN_RAYS_PER_SEC, n_rays_step / t.duration, step)
             if self.trace_profiler:
                 self.trace_profiler.maybe_stop(step)
+            self.last_aux = aux
             self._host_cadences(step + 1, aux)
 
     def _host_cadences(self, step: int, aux):
@@ -235,7 +268,8 @@ class Trainer:
                     f"total_loss is {total} at step {step} — aborting the run (last checkpoint "
                     f"is the newest saved step)\n  first non-finite step: {first_step}\n"
                     f"  losses: {comps}\n  metrics: {mets}")
-        self.eval_cadences(step)
+        if self.is_main:
+            self.eval_cadences(step)
         if self.output_dir and check_step(step, config.steps_per_save):
             self._save()
         if check_step(step, config.logging.steps_per_flush_buffer):
@@ -272,7 +306,11 @@ class Trainer:
     def eval(self, view_ids=None):
         """Full evaluation (trainer.py:392-410): every eval view, or the
         given (train or eval) view ids; then the mesh and poses when the
-        config exports them."""
+        config exports them. Rank 0's work: the other ranks wait for it and
+        return {}."""
+        if not self.is_main:
+            sharding.barrier()
+            return {}
         if view_ids:
             self.evaluator.render_specific_views(self.state, view_ids)
             results = {}
@@ -282,4 +320,5 @@ class Trainer:
             self.evaluator.export_mesh(self.state, int(self.state.step))
         if self.config.evaluator.export_poses:
             self.evaluator.export_poses(self.state, int(self.state.step))
+        sharding.barrier()
         return results

@@ -22,15 +22,24 @@ lives in <output>/<scene name>/<method>/<conf>/<version>, the scene name
 being the directory's basename; a second call on the same directory
 resumes from its newest checkpoint. Runs on the card unless `--device
 cpu` is given.
+
+Over several processes (one a card), set the process group's environment
+in each (parallel/sharding.py: MMS_COORDINATOR=host:port,
+MMS_NUM_PROCESSES, MMS_PROCESS_ID) and run the same command: the group is
+joined before anything touches a card, rank r trains on card r (or on the
+card `--device` names), and the config's n_devices (0: every process)
+splits each step's global batch over them.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
 import os
 
 from multimodalstudio_tpu_torch.configs.config import load_config, make_output_dir
+from multimodalstudio_tpu_torch.device import resolve_device
 
 
 def build_datasets(config, scene: str, device="cuda"):
@@ -108,24 +117,33 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
 
+    # join the process group before anything touches a card (launcher.py:107-113)
+    from multimodalstudio_tpu_torch.parallel import sharding
+
+    sharding.initialize_distributed(device=args.device)
+    device = sharding.bind_device(resolve_device(args.device))
+
     config = load_config(args.conf_path, method=args.method)
     if args.max_iterations:
         config = dataclasses.replace(config, max_num_iterations=args.max_iterations)
 
-    train_ds, eval_ds = build_datasets(config, args.scene, device=args.device)
+    train_ds, eval_ds = build_datasets(config, args.scene, device=device)
     config = resolve_model_channels(config, train_ds)
 
     scene = args.scene.split(":", 1)[0] if args.scene.startswith("synthetic") else args.scene
     scene_name = os.path.basename(os.path.normpath(scene)) or scene
     conf_name = (os.path.splitext(os.path.basename(args.conf_path))[0] if args.conf_path
                  else config.method_name)
-    out_dir = make_output_dir(args.output, scene_name, config.method_name, conf_name,
-                              args.version)
-    print(f"output dir: {out_dir}")
+    # one run directory for every rank: rank 0's clock names an unnamed version
+    version = args.version or sharding.broadcast_object(
+        datetime.datetime.now().strftime("%Y-%m-%d_%H%M%S"))
+    out_dir = make_output_dir(args.output, scene_name, config.method_name, conf_name, version)
+    if sharding.is_main_process():
+        print(f"output dir: {out_dir}")
 
     from multimodalstudio_tpu_torch.engine.trainer import Trainer
 
-    trainer = Trainer(config, train_ds, eval_ds, out_dir, device=args.device)
+    trainer = Trainer(config, train_ds, eval_ds, out_dir, device=device)
     trainer.setup()
     if args.mode == "train":
         trainer.train()

@@ -55,11 +55,10 @@ import multimodalstudio_tpu_torch.models.model as tmodel
 import multimodalstudio_tpu_torch.models.samplers as tsamplers
 from multimodalstudio_tpu_torch.convert import params_from_jax
 from multimodalstudio_tpu_torch.core.rays import RayBundle
-from multimodalstudio_tpu_torch.data.sampler import UniformPixelSampler
 from multimodalstudio_tpu_torch.data.synthetic import make_synthetic_dataset as tmake_dataset
 
 from test_torch_mlp_raw import _flatten, _unflatten, moved_runs, rel_l2
-from test_torch_train import _groups
+from test_torch_train import _groups, numpy_batch
 
 torch.set_num_threads(1)
 
@@ -199,7 +198,7 @@ def batch_run(c, seed):
     jcfg, tcfg = c["jcfg"], c["tcfg"]
     tds = tmake_dataset(MODS, **c["data"], device="cpu")
     state = ttrain.init_train_state(tcfg, model, c["state"]["camera_poses"], step=STEP)
-    tbatch = UniformPixelSampler(tds, tcfg.datamanager.num_rays_per_modality, seed=seed).sample()
+    tbatch = numpy_batch(tds, tcfg.datamanager.num_rays_per_modality, seed)
     jbatch = {m: JPixelBatch(
         camera_indices=jnp.asarray(b.camera_indices.numpy().astype(np.int32)),
         pixel_coords=jnp.asarray(b.pixel_coords.numpy()), pixels=jnp.asarray(b.pixels.numpy()),
@@ -299,7 +298,8 @@ def test_numerical_sdf_gradients_match_jax(grid_raw, taps):
     tsched = ttrain.make_schedules(tcfg, STEP)
     assert tsched.active_level == 3
     for train in (False, True):
-        ref = jm.sdf_gradients(grid_raw["params"]["model"], jnp.asarray(pos), jsched, train)
+        ref = jax.jit(lambda p, x: jm.sdf_gradients(p, x, jsched, train))(
+            grid_raw["params"]["model"], jnp.asarray(pos))
         got = tm.sdf_gradients(torch.from_numpy(pos), tsched, train=train)
         assert (got[3] is None) == (ref[3] is None) == (not train)
         for name, a, b in zip(("sdf", "geo", "grad", "hessian"), got, ref):

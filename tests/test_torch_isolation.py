@@ -64,6 +64,20 @@ def test_port_and_chip_smoke_import_no_jax(probe):
     assert _leaked(probe["modules"], FORBIDDEN) == []
 
 
+def test_data_parallel_lpips_scripts_and_native_import_no_jax(probe):
+    """The modules of data-parallel training, LPIPS, the port's scripts and the native
+    sampler's loader, and chip_smoke.py's phases D and E that drive them, stand alone."""
+    for name in ("parallel.sharding", "utils.lpips", "data.native", "scripts.dist_dryrun",
+                 "scripts.dist_dryrun_worker", "scripts.evaluate_average_metrics"):
+        assert f"multimodalstudio_tpu_torch.{name}" in probe["imported"], name
+    import chip_smoke
+
+    for fn in ("run_data_parallel", "dp_rank_main", "dp_reference", "nccl_all_reduce",
+               "score_disk_renders", "time_host_sampler"):
+        assert callable(getattr(chip_smoke, fn)), fn
+    assert _leaked(probe["modules"], FORBIDDEN + NOT_AT_IMPORT) == []
+
+
 def test_entry_point_modules_import_no_opencv_matplotlib_yaml_or_converter(probe):
     for name in ("engine.checkpoints", "engine.trainer", "engine.evaluator", "engine.mesh",
                  "launcher", "preprocessing.demosaick", "utils.images", "utils.meshio",
@@ -311,11 +325,11 @@ def test_trainer_and_launcher_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launcher.main(["--method", "grid_raw_tpu", "--scene", "synthetic_raw:views=2,size=4",
                        "--output", "unused"])
-    # one card until the data-parallel slice
+    # n_devices counts the processes of the group: without one, only 0 or 1
     import dataclasses
 
     for n in (2, 8):
-        with pytest.raises(NotImplementedError, match="n_devices"):
+        with pytest.raises(ValueError, match=f"n_devices={n} but the process group has 1 "):
             Trainer(dataclasses.replace(cfg, n_devices=n), data, data, device="cpu")
 
 

@@ -62,10 +62,9 @@ import multimodalstudio_tpu_torch.models.model as tmodel
 import multimodalstudio_tpu_torch.models.samplers as tsamplers
 from multimodalstudio_tpu_torch.convert import params_from_jax
 from multimodalstudio_tpu_torch.core.rays import RayBundle
-from multimodalstudio_tpu_torch.data.sampler import UniformPixelSampler
 from multimodalstudio_tpu_torch.data.synthetic import make_synthetic_dataset as tmake_dataset
 
-from test_torch_train import _groups
+from test_torch_train import _groups, numpy_batch
 
 torch.set_num_threads(1)
 
@@ -261,7 +260,7 @@ def batch_run(carried, seed):
     jcfg, tcfg = carried["jcfg"], carried["tcfg"]
     tds = tmake_dataset(MODS, **DATA, device="cpu")
     state = ttrain.init_train_state(tcfg, model, carried["state"]["camera_poses"], step=STEP)
-    tbatch = UniformPixelSampler(tds, tcfg.datamanager.num_rays_per_modality, seed=seed).sample()
+    tbatch = numpy_batch(tds, tcfg.datamanager.num_rays_per_modality, seed)
     jbatch = {m: JPixelBatch(
         camera_indices=jnp.asarray(b.camera_indices.numpy().astype(np.int32)),
         pixel_coords=jnp.asarray(b.pixel_coords.numpy()), pixels=jnp.asarray(b.pixels.numpy()),

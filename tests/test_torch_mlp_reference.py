@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import multimodalstudio_tpu.engine.train as jtrain
@@ -95,7 +96,8 @@ def test_jacfwd_sdf_gradients_match_jax(mlp_raw, hessian):
     else:
         jm, tm = mlp_raw["jm"], mlp_raw["model"]
     jsched = jtrain.make_schedules(mlp_raw["jcfg"], jnp.asarray(STEP))
-    ref = jm.sdf_gradients(mlp_raw["params"]["model"], jnp.asarray(pos), jsched, True)
+    ref = jax.jit(lambda p, x: jm.sdf_gradients(p, x, jsched, True))(
+        mlp_raw["params"]["model"], jnp.asarray(pos))
     got = tm.sdf_gradients(torch.from_numpy(pos), ttrain.make_schedules(mlp_raw["tcfg"], STEP),
                            train=True)
     assert (got[3] is None) == (ref[3] is None) == (not hessian)

@@ -20,10 +20,10 @@ import multimodalstudio_tpu.engine.train as jtrain
 from multimodalstudio_tpu_torch.cameras.camera_optimizer import init_camera_poses
 import multimodalstudio_tpu_torch.engine.train as ttrain
 import multimodalstudio_tpu_torch.models.model as tmodel
-from multimodalstudio_tpu_torch.data.sampler import UniformPixelSampler
 from multimodalstudio_tpu_torch.data.synthetic import make_synthetic_dataset as tmake_dataset
 
 from test_torch_grid_reference import MODS, STEP, configs, rel_l2
+from test_torch_train import numpy_batch
 from test_torch_mlp_reference import mlp_raw, positions, with_hessian  # noqa: F401
 
 torch.set_num_threads(1)
@@ -73,7 +73,7 @@ def test_remat_gives_the_same_gradients(conf):
     parameters: every gradient within rel-L2 1e-6."""
     _, tcfg = configs(conf, width=32)
     ds = tmake_dataset(MODS, num_views=3, height=8, width=8, raw=True, device="cpu")
-    batch = UniformPixelSampler(ds, tcfg.datamanager.num_rays_per_modality, seed=3).sample()
+    batch = numpy_batch(ds, tcfg.datamanager.num_rays_per_modality, 3)
     cams = {m: ds.data[m].cameras for m in MODS}
     gen = torch.Generator().manual_seed(0)
     runs = []

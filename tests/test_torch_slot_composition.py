@@ -68,12 +68,11 @@ import multimodalstudio_tpu_torch.ops.kernels.slot_grid as tslot
 from multimodalstudio_tpu_torch.cameras.camera_optimizer import init_camera_poses
 from multimodalstudio_tpu_torch.convert import params_from_jax
 from multimodalstudio_tpu_torch.core.rays import RayBundle
-from multimodalstudio_tpu_torch.data.sampler import UniformPixelSampler
 from multimodalstudio_tpu_torch.data.synthetic import make_synthetic_dataset as tmake_dataset
 from multimodalstudio_tpu_torch.ops.kernels import build
 
 from test_torch_mlp_raw import _unflatten, assert_gradients_match, moved_runs
-from test_torch_train import DATA, MODS, STEP, _perturbed, rel_l2, tiny
+from test_torch_train import DATA, MODS, STEP, _perturbed, numpy_batch, rel_l2, tiny
 
 torch.set_num_threads(1)
 
@@ -195,7 +194,7 @@ def slice_run(carried):
     jds, jm, model = carried["jds"], carried["jm"], carried["model"]
     tds = tmake_dataset(MODS, **DATA, device="cpu")
     state = ttrain.init_train_state(TCFG, model, carried["state"]["camera_poses"], step=STEP)
-    tbatch = UniformPixelSampler(tds, TCFG.datamanager.num_rays_per_modality, seed=5).sample()
+    tbatch = numpy_batch(tds, TCFG.datamanager.num_rays_per_modality, 5)
     jbatch = {m: JPixelBatch(
         camera_indices=jnp.asarray(b.camera_indices.numpy().astype(np.int32)),
         pixel_coords=jnp.asarray(b.pixel_coords.numpy()), pixels=jnp.asarray(b.pixels.numpy()),

@@ -23,6 +23,9 @@ rel-L2 <= 3e-2.
 """
 
 import dataclasses
+import functools
+
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -48,6 +51,7 @@ import multimodalstudio_tpu_torch.models.samplers as tsamplers
 import multimodalstudio_tpu_torch.ops.kernels.slot_grid as tslot
 from multimodalstudio_tpu_torch.convert import params_from_jax
 from multimodalstudio_tpu_torch.data.device_cache import build_device_cache, sample_pixel_batch
+from multimodalstudio_tpu_torch.data import native
 from multimodalstudio_tpu_torch.data.sampler import UniformPixelSampler
 from multimodalstudio_tpu_torch.data.synthetic import make_synthetic_dataset as tmake_dataset
 
@@ -302,6 +306,15 @@ def _perturbed(params, seed=0):
     return walk(params, ())
 
 
+def numpy_batch(dataset, num_rays, seed):
+    """UniformPixelSampler(dataset, num_rays, seed=seed).sample() with its draws made by the
+    sampler's plain version (data/native.py's numpy branch): the batches the comparisons
+    with JAX in these files were written on."""
+    plain = functools.partial(native.sample_pixels, plain=True)
+    with mock.patch.object(native, "sample_pixels", plain):
+        return UniformPixelSampler(dataset, num_rays, seed=seed).sample()
+
+
 @pytest.fixture(scope="module")
 def slice_run():
     """One batch through both packages' loss-and-gradient functions."""
@@ -316,7 +329,7 @@ def slice_run():
     model.load_state_dict(carried["model"])
     state = ttrain.init_train_state(TCFG, model, carried["camera_poses"], step=STEP)
 
-    tbatch = UniformPixelSampler(tds, TCFG.datamanager.num_rays_per_modality, seed=5).sample()
+    tbatch = numpy_batch(tds, TCFG.datamanager.num_rays_per_modality, 5)
     jbatch = {m: JPixelBatch(
         camera_indices=jnp.asarray(b.camera_indices.numpy().astype(np.int32)),
         pixel_coords=jnp.asarray(b.pixel_coords.numpy()), pixels=jnp.asarray(b.pixels.numpy()),
