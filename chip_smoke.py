@@ -151,8 +151,21 @@
    comparisons), its view rendered once more with the near_far collider,
    and one RAdam/Adam update on the card held against the CPU's.
 
+6. (E) Data parallel: grid_raw_tpu over two processes on the card
+   (run_data_parallel). (F) The entry scripts: scripts/profile_step.py in
+   its default environment (mlp_raw_tpu, 2048 rays, 1024-ray microbatches)
+   and with BENCH_GRID_* giving grid_raw_tpu capacity_base6's f32 table
+   (512-ray microbatches), each op_stats.json read back, its profiled
+   kernels and every wrapper's launches at PER_MICROBATCH's counts (K2f and
+   K3f, never the bf16 slot kernels, under the override); then
+   scripts/quality_check.py on grid_raw_tpu, rgb and mono, untrained (--steps
+   0) and after QUALITY_STEPS steps: finite metrics, K1-K3 launched, and
+   each modality's PSNR QUALITY_GAIN_DB over its untrained figure. The
+   capture preprocessing scripts need COLMAP and OpenCV, which the card's
+   machine lacks: they do not run here.
+
 Prints each phase's seconds and the whole run's, one {"kernels": [...]}
-line (launches summed over the training runs and phases A-D, each counted
+line (launches summed over the training runs and phases A-F, each counted
 from 0), each
 path's rays/s, step time and busy share, and last the {"ok": true,
 "device": ...} line. Exits
@@ -1309,6 +1322,52 @@ def check_sdf_chain_bwd(gen, dev):
         lambda: _launch_bwd(*kargs, packed), adjoint_rows(n, len(SDF_DIMS)),
         old_atomics(n, SDF_DIMS, SDF_KW["skip"]), res)
     return res
+
+
+# render samples of profile_step's default training microbatch: 1024 rays x 5 modalities x 64
+PROFILE_N = 1024 * 5 * 64
+
+
+def check_profile_microbatch(gen, dev, n=PROFILE_N):
+    """K4's training forward and backward (its gW stacks 2N rows) and K1's mlp_raw_tpu trunk
+    forward and backward at the render samples of profile_step's default microbatch, twice
+    the 512-ray checks' N. Returns the max-abs errors by wrapper."""
+    from multimodalstudio_tpu_torch.ops.kernels import fused_mlp, sdf_chain
+
+    ws, bs = random_chain(gen, SDF_DIMS, dev)
+    pos = torch.rand(n, 3, generator=gen, device=dev) * 2.2 - 1.1
+    with torch.no_grad():
+        out = sdf_chain.fused_sdf_chain(pos, ws, bs, **SDF_KW)
+        ref = sdf_chain.fused_sdf_chain_plain(pos, ws, bs, **SDF_KW)
+    errs = {"fused_sdf_chain": _compare_outputs(f"K4 training fwd N={n}", ("sdf", "geo", "grad"),
+                                                out, ref)}
+    del out, ref
+    gsdf = torch.randn(n, generator=gen, device=dev)
+    ggeo = (0.1 * torch.randn(n, 256, generator=gen, device=dev)).to(torch.bfloat16)
+    g3 = torch.randn(n, 3, generator=gen, device=dev)
+    got = sdf_chain._launch_bwd(pos, ws, bs, SDF_KW["skip"], SDF_KW["activation"], SDF_KW["beta"],
+                                sdf_chain.pe_scales(6, 0.0, 5.0), gsdf, ggeo, g3)
+    want = sdf_chain.fused_sdf_chain_bwd_plain(pos, ws, bs, gsdf, ggeo, g3, **SDF_KW)
+    torch.cuda.synchronize()
+    limits = _plain_conditioning(f"K4 bwd N={n}", CHAIN_GRADS, sdf_chain.fused_sdf_chain_bwd_plain,
+                                 lambda b: (pos, ws, b, gsdf, ggeo, g3), bs, SDF_KW, gen, dev, want)
+    errs["fused_sdf_chain_bwd"] = _compare_grads(f"K4 bwd N={n}", CHAIN_GRADS, got, want,
+                                                 tol=limits)
+    del got, want
+    ws, bs = random_chain(gen, TRUNK_DIMS, dev)
+    x = torch.rand(n, 285, generator=gen, device=dev) * 2 - 1
+    kw = dict(skip=(4,), activation="ReLU")
+    errs["fused_chain"] = _compare_outputs(
+        f"K1 mlp_raw_tpu trunk N={n}", ("y",), (fused_mlp.fused_chain(x, ws, bs, **kw),),
+        (fused_mlp.fused_chain_plain(x, ws, bs, **kw),))
+    x = x.to(torch.bfloat16)
+    gy = torch.randn(n, 256, generator=gen, device=dev).to(torch.bfloat16)
+    got = fused_mlp._launch_bwd(x, gy, ws, bs, (4,), "ReLU", 100.0)
+    want = fused_mlp.fused_chain_bwd_plain(x, gy, ws, bs, **kw)
+    torch.cuda.synchronize()
+    errs["fused_chain_bwd"] = _compare_grads(f"K1 bwd mlp_raw_tpu trunk N={n}", CHAIN_GRADS, got,
+                                             want)
+    return errs
 
 
 def check_sdf_chain_edges(gen, dev) -> None:
@@ -3453,11 +3512,19 @@ def fixed_background_colours(*models):
         model.random_background_color = colours
 
 
-@contextlib.contextmanager
 def config_env(label):
     """The environment of one label's phases, restored afterwards."""
-    env = CONFIGS[label][2]
+    return environment(CONFIGS[label][2])
+
+
+@contextlib.contextmanager
+def environment(env, cleared=()):
+    """The variables of `env` set and every other one that starts with a prefix in `cleared`
+    unset, all restored afterwards."""
     saved = {k: os.environ.get(k) for k in env}
+    saved.update({k: v for k, v in os.environ.items() if k.startswith(tuple(cleared))})
+    for k in saved:
+        os.environ.pop(k, None)
     os.environ.update(env)
     try:
         yield
@@ -3601,12 +3668,11 @@ def profile_device(fn, label: str, ref_ms: float, top: int = 12, parts=None):
     are printed, and stored in `parts["index_ms"]` when given.
 
     Only the device activity is recorded, and its raw events are summed by
-    kernel name in one pass, without building the profiler's Python event
-    list: with the CPU ops too, parsing and averaging a training step's
-    events took 10-20 s a profile, and building the device events' list
-    alone 3-4 s."""
-    from torch.autograd import DeviceType
+    kernel name in one pass (utils/profiler.py::device_op_stats), without
+    building the profiler's Python event list."""
     from torch.profiler import ProfilerActivity, profile
+
+    from multimodalstudio_tpu_torch.utils.profiler import device_op_stats
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -3615,13 +3681,8 @@ def profile_device(fn, label: str, ref_ms: float, top: int = 12, parts=None):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     t1 = time.perf_counter()
-    events = ((e.name(), e.duration_ns() / 1e6) for e in prof.profiler.kineto_results.events()
-              if e.device_type() == DeviceType.CUDA)
-    by_key = {}
-    for key, ms_e in events:
-        ms, n = by_key.get(key, (0.0, 0))
-        by_key[key] = (ms + ms_e, n + 1)
-    rows = [(ms, n, key) for key, (ms, n) in by_key.items() if ms > 0]
+    rows = [(op["self_ms"], op["count"], op["name"]) for op in device_op_stats(prof)
+            if op["self_ms"] > 0]
     index_ms = 0.0
     if any("indexFunc" in r[2] for r in rows):
         index_ms = sum(r[0] for r in rows if any(k in r[2] for k in INDEX_KERNELS))
@@ -4166,31 +4227,81 @@ def plain_kernel_calls(names=None):
     return wrappers_replaced(plain, names)
 
 
+def check_call(what, name, args, kw, out, tol=1e-2):
+    """Hold one call of a KERNEL_WRAPPERS wrapper (its args, kwargs and outputs) against its
+    plain version on the same inputs, each output within rel_l2 tol; returns the max-abs
+    error."""
+    kw = {k: v for k, v in kw.items() if k != "mode"}
+    with torch.no_grad():
+        ref = plain_version(name)(*args, **kw)
+    outs = out if isinstance(out, tuple) else (out,)
+    refs = ref if isinstance(ref, tuple) else (ref,)
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(outs, refs)):
+        a, b = a.detach().float(), b.float()
+        rel = rel_l2(a, b)
+        worst = max(worst, float((a - b).abs().max()))
+        if not (rel <= tol and torch.isfinite(a).all()):
+            fail(f"{what}: {name} output {i} (N={args[0].shape[0]}) disagrees with its plain "
+                 f"version on the same inputs: rel_l2={rel:.3e} (tolerance {tol:g})")
+    return worst
+
+
+def report_calls(what, counts, worst, tol):
+    """Print the checked calls by wrapper and their largest max-abs errors; fails if none."""
+    if not counts:
+        fail(f"{what}: no kernel was called")
+    print(f"  {what}: {sum(counts.values())} kernel calls held against their plain versions "
+          f"({counts}), each output within rel_l2 {tol:g}; max_abs " +
+          " ".join(f"{n}={e:.3e}" for n, e in worst.items()))
+
+
 def check_recorded_calls(what, calls, tol=1e-2):
     """Hold each recorded kernel call against its plain version on the same inputs; returns
     the largest max-abs error by wrapper."""
-    if not calls:
-        fail(f"{what}: no kernel was called")
-    worst = {}
+    worst, counts = {}, {}
     for name, args, kw, out in calls:
-        kw = {k: v for k, v in kw.items() if k != "mode"}
-        with torch.no_grad():
-            ref = plain_version(name)(*args, **kw)
-        outs = out if isinstance(out, tuple) else (out,)
-        refs = ref if isinstance(ref, tuple) else (ref,)
-        for i, (a, b) in enumerate(zip(outs, refs)):
-            a, b = a.float(), b.float()
-            rel = rel_l2(a, b)
-            err = float((a - b).abs().max())
-            worst[name] = max(worst.get(name, 0.0), err)
-            if not (rel <= tol and torch.isfinite(a).all()):
-                fail(f"{what}: {name} output {i} (N={args[0].shape[0]}) disagrees with its plain "
-                     f"version on the trained inputs: rel_l2={rel:.3e} (tolerance {tol:g})")
-    counts = {n: sum(c[0] == n for c in calls) for n in worst}
-    print(f"  {what}: {len(calls)} kernel calls held against their plain versions ({counts}), "
-          f"each output within rel_l2 {tol:g}; max_abs " +
-          " ".join(f"{n}={e:.3e}" for n, e in worst.items()))
+        worst[name] = max(worst.get(name, 0.0), check_call(what, name, args, kw, out, tol))
+        counts[name] = counts.get(name, 0) + 1
+    report_calls(what, counts, worst, tol)
     return worst
+
+
+@contextlib.contextmanager
+def first_step_checked(what, tol=1e-2):
+    """engine/train.py::make_train_steps wrapped for the block: the first call of each
+    train_steps it makes runs with every KERNEL_WRAPPERS call held, as it is made, against
+    its plain version on the same inputs (check_call; the plain runs launch nothing). Yields
+    the largest max-abs errors by wrapper, filled as the step runs."""
+    from multimodalstudio_tpu_torch.engine import train
+
+    make, worst, counts = train.make_train_steps, {}, {}
+
+    def checker(name, fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            worst[name] = max(worst.get(name, 0.0), check_call(what, name, args, kw, out, tol))
+            counts[name] = counts.get(name, 0) + 1
+            return out
+        return call
+
+    def checked_make(*args, **kw):
+        train_steps, first = make(*args, **kw), [True]
+
+        def steps(*a, **k):
+            if not first:
+                return train_steps(*a, **k)
+            first.clear()
+            with wrappers_replaced(checker):
+                return train_steps(*a, **k)
+        return steps
+
+    train.make_train_steps = checked_make
+    try:
+        yield worst
+    finally:
+        train.make_train_steps = make
+    report_calls(what, counts, worst, tol)
 
 
 def results_block(run, step):
@@ -5092,6 +5203,133 @@ def run_data_parallel(dev, card, work):
     return launches, stats
 
 
+# Phase F: the entry scripts of profiling and quality. Each profile: profile_step's environment,
+# the PER_MICROBATCH label whose launches its steps make, and its microbatches a step.
+PROFILES = {
+    "default (mlp_raw_tpu, 2048 rays, 1024-ray microbatches)": ({}, "mlp_raw_tpu", 2),
+    "grid_raw_tpu on capacity_base6's f32 table (BENCH_GRID_*), 512-ray microbatches": (
+        {"PROF_METHOD": "grid_raw_tpu", "PROF_MICROBATCH": "512", "BENCH_GRID_FEATS": "16",
+         "BENCH_GRID_ENTRIES": "512", "BENCH_GRID_DTYPE": "f32"},
+        "grid_raw_tpu with f32 table", 4),
+}
+# the device kernels (csrc/*, by their names in a profile, template arguments dropped) and the
+# wrappers whose launches run each of them once
+DEVICE_KERNELS = {
+    "k1_fwd_kernel": ("fused_chain",),
+    "k1_pack_kernel": ("fused_chain_pack",),
+    "k1_bwd_kernel": ("fused_chain_bwd",),
+    "k1_wgrad_kernel": ("chain_wgrad", "fused_sdf_chain_wgrad", "fused_slot_sdf_value_wgrad",
+                        "fused_slot_sdf_chain_wgrad"),
+    "adj_fwd_kernel": ("fused_sdf_chain", "fused_slot_sdf_chain", "fused_slot_sdf_chain_f32"),
+    "adj_bwd_pass_kernel": ("fused_sdf_chain_bwd",),
+    "slot_value_kernel": ("fused_slot_sdf_value", "fused_slot_sdf_value_f32"),
+    "slot_chain_pass_kernel": ("fused_slot_sdf_value_bwd", "fused_slot_sdf_value_f32_bwd",
+                               "fused_slot_sdf_chain_bwd", "fused_slot_sdf_chain_f32_bwd"),
+}
+QUALITY_ARGS = ["--method", "grid_raw_tpu", "--modalities", "rgb", "mono"]
+QUALITY_STEPS = 200
+QUALITY_GAIN_DB = 3.0  # the least PSNR gain of each modality over the untrained state (PERF.md)
+
+
+def device_kernel_counts(ops):
+    """The profiled count of each DEVICE_KERNELS kernel, over its template instantiations."""
+    import re
+
+    return {k: sum(op["count"] for op in ops if re.search(rf"(^|[ :]){k}[<(]", op["name"]))
+            for k in DEVICE_KERNELS}
+
+
+def run_profiles(gen, dev, card):
+    """scripts/profile_step.py on the card in each PROFILES environment (PROF_* and
+    BENCH_GRID_* from nowhere else): its op_stats.json must exist, the profiled steps' device
+    kernels come at PER_MICROBATCH's counts (per DEVICE_KERNELS), and its 6 steps' wrapper
+    launches at those counts, every other kernel at 0. Each profile's first step holds every
+    wrapper call it makes against the plain version (first_step_checked); before them, K4
+    and K1's trunk are held, backwards included, at the default profile's N
+    (check_profile_microbatch). Returns the launches, each profile's (busy ms, its top ops)
+    and the max-abs errors by wrapper."""
+    from multimodalstudio_tpu_torch.ops.kernels import build
+    from multimodalstudio_tpu_torch.scripts import profile_step
+
+    errs = check_profile_microbatch(gen, dev)
+    launches, found = {}, {}
+    for what, (env, label, microbatches) in PROFILES.items():
+        print(f"  profile_step, {what}:")
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        with environment(env, cleared=("PROF_", "BENCH_GRID_")), \
+                first_step_checked(f"profile_step ({what}), first step") as worst:
+            trace_dir = profile_step.main(["--device", str(dev)])
+        for n, e in worst.items():  # a slot wrapper on the f32 table launches K2f or K3f
+            n += "_f32" if env.get("BENCH_GRID_DTYPE") == "f32" and "slot" in n else ""
+            errs[n] = max(errs.get(n, 0.0), e)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {n: info.launches for n, info in build.KERNELS.items()}
+        for n, c in counts.items():
+            launches[n] = launches.get(n, 0) + c
+        path = os.path.join(trace_dir, "op_stats.json")
+        if not os.path.isfile(path):
+            fail(f"profile_step wrote no {path}")
+        with open(path) as f:
+            stats = json.load(f)
+        per = PER_MICROBATCH[label]
+        steps = profile_step.WARMUP_STEPS + profile_step.PROFILED_STEPS
+        want = {n: per.get(n, 0) * microbatches * steps for n in build.KERNELS}
+        wrong = {n: (counts[n], want[n]) for n in want if counts[n] != want[n]}
+        if wrong or stats["launches"] != {n: c for n, c in counts.items() if c}:
+            fail(f"profile_step ({what}): launches (counted, expected) {wrong}, op_stats "
+                 f"{stats['launches']}")
+        ops = device_kernel_counts(stats["ops"])
+        device = {k: (ops[k], sum(per.get(n, 0) for n in names) * microbatches * stats["steps"])
+                  for k, names in DEVICE_KERNELS.items()}
+        print(f"    {seconds:.1f} s; {stats['device']} busy {stats['busy_ms']:.3f} ms over "
+              f"{stats['steps']} profiled steps ({card}); device kernels (profiled, expected): "
+              + ", ".join(f"{k} {a}/{b}" for k, (a, b) in device.items() if a or b))
+        bad = {k: v for k, v in device.items() if v[0] != v[1]}
+        if bad:
+            fail(f"profile_step ({what}): device kernels (profiled, expected) {bad}")
+        found[what] = (stats["busy_ms"], stats["ops"][:12])
+    return launches, found, errs
+
+
+def run_quality(dev, card):
+    """scripts/quality_check.py on the card: QUALITY_ARGS untrained (--steps 0) and after
+    QUALITY_STEPS steps; every metric finite, K1-K3 launched (their backwards in training),
+    each modality's PSNR QUALITY_GAIN_DB over its untrained figure. Returns the launches and
+    both reports."""
+    from multimodalstudio_tpu_torch.ops.kernels import build
+    from multimodalstudio_tpu_torch.scripts import quality_check
+
+    launches, reports = {}, {}
+    for steps in (0, QUALITY_STEPS):
+        print(f"  quality_check {' '.join(QUALITY_ARGS)} --steps {steps}:")
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        reports[steps] = quality_check.main(QUALITY_ARGS + ["--steps", str(steps)])
+        torch.cuda.synchronize()
+        counts = {n: info.launches for n, info in build.KERNELS.items()}
+        for n, c in counts.items():
+            launches[n] = launches.get(n, 0) + c
+        print(f"    {time.perf_counter() - t0:.1f} s with its set-up ({card}); launches "
+              + ", ".join(f"{n} {c}" for n, c in counts.items() if c))
+        metrics = reports[steps]["metrics"]
+        if not metrics or not all(np.isfinite(v) for m in metrics.values() for v in m.values()):
+            fail(f"quality_check --steps {steps}: metrics {metrics}")
+        need = ["fused_chain", "fused_slot_sdf_value", "fused_slot_sdf_chain"]
+        if steps:
+            need += ["fused_chain_bwd", "fused_slot_sdf_value_bwd", "fused_slot_sdf_chain_bwd"]
+        if not all(counts[n] for n in need):
+            fail(f"quality_check --steps {steps} did not launch every one of {need}")
+    gains = {m: reports[QUALITY_STEPS]["metrics"][m]["psnr"] - reports[0]["metrics"][m]["psnr"]
+             for m in reports[0]["metrics"]}
+    print("  PSNR gain over the untrained state: " + ", ".join(
+        f"{m} {g:+.3f} dB" for m, g in gains.items()) + f" (at least {QUALITY_GAIN_DB} dB)")
+    if min(gains.values()) < QUALITY_GAIN_DB:
+        fail(f"quality_check: PSNR gains {gains} under {QUALITY_GAIN_DB} dB")
+    return launches, reports
+
+
 def run_trained(dev, card):
     """Phases A-C; returns the launches of their runs, summed, and the rehearsal renders'
     rays/s and max-abs errors against the plain versions by wrapper."""
@@ -5327,6 +5565,14 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as root:
         dp_launches, dp = phase("data parallel", run_data_parallel, dev, card, root)
     add(dp_launches)
+    # phase F: the entry scripts, the step profiler and the quality harness
+    print("entry scripts: profile_step and quality_check on the card:")
+    prof_launches, profiles, prof_errs = phase("step profiles", run_profiles, gen, dev, card)
+    add(prof_launches)
+    for name, e in prof_errs.items():
+        results[name]["err"] = max(results[name]["err"], e)
+    qc_launches, quality = phase("quality harness", run_quality, dev, card)
+    add(qc_launches)
 
     entries = []
     for name, r in results.items():
@@ -5363,6 +5609,14 @@ def main() -> None:
           f"{dp['rays_per_s']:.1f}, step {dp['step_ms']:.2f} ms, {DP_STEPS} steps within "
           f"{dp['loss_err']:.3e} (loss) and {dp['param_err']:.3e} (parameters) of one process, "
           f"NCCL world-1 all-reduce {dp['nccl_ms']:.2f} ms ({card})")
+    for what, (busy_ms, top) in profiles.items():
+        print(f"profile_step, {what}: busy {busy_ms:.3f} ms over 3 steps; top ops " + "; ".join(
+            f"{op['name'][:60]} {op['self_ms']:.3f} ms {op['count']}x" for op in top[:5])
+            + f" ({card})")
+    q0, q1 = quality[0], quality[QUALITY_STEPS]
+    print(f"quality_check: {q1['rays_per_sec']} train rays/s over {QUALITY_STEPS} steps; PSNR "
+          + ", ".join(f"{m} {q0['metrics'][m]['psnr']:.3f} -> {q1['metrics'][m]['psnr']:.3f} dB"
+                      for m in q1["metrics"]) + f" ({card})")
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s ({card})")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

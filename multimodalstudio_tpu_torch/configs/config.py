@@ -153,6 +153,22 @@ def _apply_overrides(obj: Any, overrides: Dict[str, Any]) -> Any:
     return dataclasses.replace(obj, **updates)
 
 
+def apply_env_grid_overrides(config: TrainerConfig, prefix: str = "BENCH_GRID_") -> TrainerConfig:
+    """The slot grid's geometry from the environment (config.py:190-222):
+    <prefix>FEATS (features per entry, 128 / (8 x FEATS) entries a row),
+    ENTRIES (rows per level), DTYPE (the table's, bf16 or f32), LEVELS and
+    MAXRES onto model.surface.surface_field.field.grid.encoding, every value
+    an int but DTYPE's. With none set the config comes back as it was."""
+    over = {k: os.environ[prefix + e] for k, e in (
+        ("feats", "FEATS"), ("rows_per_level", "ENTRIES"), ("table_dtype", "DTYPE"),
+        ("num_levels", "LEVELS"), ("max_res", "MAXRES")) if prefix + e in os.environ}
+    if not over:
+        return config
+    over = {k: (v if k == "table_dtype" else int(v)) for k, v in over.items()}
+    return _apply_overrides(config, {"model": {"surface": {"surface_field": {
+        "field": {"grid": {"encoding": over}}}}}})
+
+
 def load_config(conf_path: Optional[str] = None, method: Optional[str] = None,
                 overrides: Optional[Dict[str, Any]] = None) -> TrainerConfig:
     """A registered method's TrainerConfig with leaf overrides

@@ -163,7 +163,10 @@ def jax_run(tmp_path_factory):
     }
     tx = jtrain.make_optimizer(JCFG)
     update = jax.jit(lambda g, s: jtrain._guarded_update(tx, g, s, {}))
-    state = jtrain.TrainState(params=params, opt_state=tx.init(params), step=jnp.asarray(0))
+    # committed to the device, as the orbax restore's leaves are, so the update the tests
+    # make from the restored state reuses this compile (uncommitted, it compiled again: 12 s)
+    state = jax.device_put(jtrain.TrainState(params=params, opt_state=tx.init(params),
+                                             step=jnp.asarray(0)), jax.devices()[0])
     for scale in (0.3, 3.0):  # the second clips
         params, opt = update(_jax_grads(state.params, rng, scale), state)
         state = jtrain.TrainState(params=params, opt_state=opt, step=state.step + 1)

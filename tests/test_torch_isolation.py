@@ -78,6 +78,23 @@ def test_data_parallel_lpips_scripts_and_native_import_no_jax(probe):
     assert _leaked(probe["modules"], FORBIDDEN + NOT_AT_IMPORT) == []
 
 
+def test_entry_scripts_import_no_jax_or_opencv_and_need_a_card(probe, monkeypatch):
+    """The capture preprocessing scripts import OpenCV inside main (the card's machine has
+    none); the step profiler and the quality harness refuse to run without a card unless
+    asked for the CPU."""
+    from multimodalstudio_tpu_torch.scripts import profile_step, quality_check
+
+    for name in ("preprocess_custom_dataset", "preprocess_mmsdata", "profile_step",
+                 "quality_check"):
+        assert f"multimodalstudio_tpu_torch.scripts.{name}" in probe["imported"], name
+    assert _leaked(probe["modules"], FORBIDDEN + NOT_AT_IMPORT) == []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        profile_step.main([])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        quality_check.main(["--steps", "0", "--scene", "synthetic_raw:views=2,size=4"])
+
+
 def test_entry_point_modules_import_no_opencv_matplotlib_yaml_or_converter(probe):
     for name in ("engine.checkpoints", "engine.trainer", "engine.evaluator", "engine.mesh",
                  "launcher", "preprocessing.demosaick", "utils.images", "utils.meshio",

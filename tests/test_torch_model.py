@@ -91,10 +91,33 @@ JCFG = tiny(jmethods, jmodel, jsamplers, jslot)
 TCFG = tiny(tmethods, tmodel, tsamplers, tslot)
 
 
+def compiled_init(init, key):
+    """A JAX model's init(key) compiled as one program (dispatched op by op, the tiny
+    model's init took 22-38 s here; compiled, 5-8 s), its dicts in the
+    insertion order of the op-by-op init, which the seeded noise of the
+    perturbations walks (a compiled program returns its dicts sorted). The
+    values equal the op-by-op init's but for one ulp (1.5e-8) in the SDF
+    head's last kernel, whose geometric init XLA fuses."""
+    order = {}
+
+    def keys(node):
+        return {k: keys(v) for k, v in node.items()} if isinstance(node, dict) else None
+
+    def traced(k):
+        params = init(k)
+        order["keys"] = keys(params)
+        return params
+
+    def reorder(node, ks):
+        return node if ks is None else {k: reorder(node[k], sub) for k, sub in ks.items()}
+
+    return reorder(jax.jit(traced)(key), order["keys"])
+
+
 def perturbed_params(seed=0):
     """JAX init, then every leaf moved by seeded numpy noise."""
     rng = np.random.default_rng(seed)
-    params = jmodel.MMSModel(JCFG.model).init(jax.random.key(seed))
+    params = compiled_init(jmodel.MMSModel(JCFG.model).init, jax.random.key(seed))
 
     def walk(node, path):
         if isinstance(node, dict):

@@ -348,14 +348,24 @@ def test_dryrun_worker_ranks_agree(group):
     assert np.isfinite(r0["loss"]) and (r0["loss"], r0["digest"]) == (r1["loss"], r1["digest"])
 
 
-def test_a_rank_that_fails_ends_the_others():
+def test_a_rank_that_fails_ends_the_others(tmp_path):
     import time
 
     from multimodalstudio_tpu_torch.scripts.dist_dryrun import run_ranks
 
-    code = ("import os, sys, time; r = int(os.environ['MMS_PROCESS_ID']); "
-            "print('rank', r, os.environ['MMS_NUM_PROCESSES'], flush=True); "
-            "sys.exit(3) if r == 1 else time.sleep(60)")
+    # rank 1 fails only once rank 0 has printed: on a loaded host rank 0 could
+    # otherwise be killed before its first line
+    ready = str(tmp_path / "rank0_printed")
+    code = f"""import os, sys, time
+r = int(os.environ['MMS_PROCESS_ID'])
+print('rank', r, os.environ['MMS_NUM_PROCESSES'], flush=True)
+if r == 0:
+    open({ready!r}, 'w').close()
+    time.sleep(60)
+while not os.path.exists({ready!r}):
+    time.sleep(0.01)
+sys.exit(3)
+"""
     t0 = time.monotonic()
     done = run_ranks(lambda rank: [sys.executable, "-c", code], 2, 50.0)
     assert time.monotonic() - t0 < 30

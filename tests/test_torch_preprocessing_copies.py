@@ -59,6 +59,39 @@ def rotmat_to_qvec(r):
                      (r[1, 0] - r[0, 1]) / (4 * w)])
 
 
+def write_text_model(root, camera_lines, images, points):
+    """COLMAP's text model in `root`: cameras.txt of `camera_lines`,
+    images.txt of `images`, (name, camera id, c2w) in OpenGL axes, their
+    world-to-camera poses in COLMAP's, every second image given one 2D
+    point, and points3D.txt of `points`."""
+    with open(root / "cameras.txt", "w") as f:
+        f.write("# Camera list\n")
+        f.writelines(line + "\n" for line in camera_lines)
+    lines = ["# Image list", "#   POINTS2D[] as (X, Y, POINT3D_ID)"]
+    for image_id, (name, camera_id, c2w) in enumerate(images, start=1):
+        r_c2w = c2w[:3, :3] @ RUB2RDF
+        r = r_c2w.T
+        t = -r @ c2w[:3, 3]
+        q = rotmat_to_qvec(r)
+        lines.append(f"{image_id} {' '.join(f'{v:.12g}' for v in q)} "
+                     f"{' '.join(f'{v:.12g}' for v in t)} {camera_id} {name}")
+        lines.append("1.0 2.0 -1" if image_id % 2 == 0 else "")
+    (root / "images.txt").write_text("\n".join(lines) + "\n")
+    with open(root / "points3D.txt", "w") as f:
+        f.write("# 3D point list\n")
+        for i, p in enumerate(points):
+            f.write(f"{i + 1} {p[0]:.9g} {p[1]:.9g} {p[2]:.9g} 128 128 128 0.5 1 2\n")
+
+
+def sphere_and_far_cluster():
+    """Points on a sphere of radius 0.5 and a far cluster."""
+    rng = np.random.default_rng(0)
+    sphere = rng.normal(size=(400, 3))
+    sphere = 0.5 * sphere / np.linalg.norm(sphere, axis=-1, keepdims=True)
+    far = rng.normal(size=(150, 3)) * 0.05 + np.array([6.0, 0.0, 0.0])
+    return np.concatenate([sphere, far])
+
+
 @pytest.fixture(scope="module")
 def model_dir(tmp_path_factory):
     """COLMAP's text model of the synthetic scene: one camera per modality
@@ -66,33 +99,15 @@ def model_dir(tmp_path_factory):
     named <view>.png, and points on the sphere plus a far cluster."""
     root = tmp_path_factory.mktemp("colmap")
     ds = jmake_dataset(MODS, num_views=6, height=16, width=20, raw=True)
-    with open(root / "cameras.txt", "w") as f:
-        f.write("# Camera list\n")
-        f.write("1 OPENCV 20 16 24.0 24.0 10.0 8.0 0.01 -0.002 0.001 0.0005\n")
-        f.write("2 PINHOLE 20 16 24.0 24.0 10.0 8.0\n")
-    lines = ["# Image list", "#   POINTS2D[] as (X, Y, POINT3D_ID)"]
-    image_id = 1
+    images = []
     for ci, mod in enumerate(MODS):
         c2ws = np.asarray(ds.data[mod].cameras.camera_to_worlds, np.float64)
         for vid, c2w in zip(ds.data[mod].frame_ids, c2ws):
-            r_c2w = c2w[:3, :3] @ RUB2RDF
-            r = r_c2w.T
-            t = -r @ c2w[:3, 3]
-            q = rotmat_to_qvec(r)
             name = f"{mod}\\{int(vid):04d}.png" if ci else f"{int(vid):04d}.png"
-            lines.append(f"{image_id} {' '.join(f'{v:.12g}' for v in q)} "
-                         f"{' '.join(f'{v:.12g}' for v in t)} {ci + 1} {name}")
-            lines.append("1.0 2.0 -1" if vid % 2 else "")
-            image_id += 1
-    (root / "images.txt").write_text("\n".join(lines) + "\n")
-    rng = np.random.default_rng(0)
-    sphere = rng.normal(size=(400, 3))
-    sphere = 0.5 * sphere / np.linalg.norm(sphere, axis=-1, keepdims=True)
-    far = rng.normal(size=(150, 3)) * 0.05 + np.array([6.0, 0.0, 0.0])
-    with open(root / "points3D.txt", "w") as f:
-        f.write("# 3D point list\n")
-        for i, p in enumerate(np.concatenate([sphere, far])):
-            f.write(f"{i + 1} {p[0]:.9g} {p[1]:.9g} {p[2]:.9g} 128 128 128 0.5 1 2\n")
+            images.append((name, ci + 1, c2w))
+    write_text_model(root, ["1 OPENCV 20 16 24.0 24.0 10.0 8.0 0.01 -0.002 0.001 0.0005",
+                            "2 PINHOLE 20 16 24.0 24.0 10.0 8.0"],
+                     images, sphere_and_far_cluster())
     return root, ds
 
 

@@ -55,6 +55,8 @@ from multimodalstudio_tpu_torch.data import native
 from multimodalstudio_tpu_torch.data.sampler import UniformPixelSampler
 from multimodalstudio_tpu_torch.data.synthetic import make_synthetic_dataset as tmake_dataset
 
+from test_torch_model import compiled_init
+
 torch.set_num_threads(1)
 
 MODS = ("rgb", "polarization", "mono")
@@ -318,18 +320,25 @@ def numpy_batch(dataset, num_rays, seed):
 @pytest.fixture(scope="module")
 def slice_run():
     """One batch through both packages' loss-and-gradient functions."""
+    return run_slice()
+
+
+def run_slice(sample=numpy_batch, seed=5):
+    """The batch `sample(dataset, rays, seed)` draws through both packages'
+    loss-and-gradient functions."""
     jds = jmake_dataset(MODS, **DATA)
     tds = tmake_dataset(MODS, **DATA, device="cpu")
     num_cameras = {m: jds.data[m].cameras.camera_to_worlds.shape[0] for m in MODS}
     jm = jmodel.MMSModel(JCFG.model)
-    jstate = jtrain.init_train_state(JCFG, jm, jax.random.key(0), num_cameras)
+    with mock.patch.object(jm, "init", functools.partial(compiled_init, jm.init)):
+        jstate = jtrain.init_train_state(JCFG, jm, jax.random.key(0), num_cameras)
     jstate = jstate.replace(params=_perturbed(jstate.params))
     model = tmodel.MMSModel(TCFG.model, device="cpu")
     carried = params_from_jax(jax.tree.map(np.asarray, jstate.params), model)
     model.load_state_dict(carried["model"])
     state = ttrain.init_train_state(TCFG, model, carried["camera_poses"], step=STEP)
 
-    tbatch = numpy_batch(tds, TCFG.datamanager.num_rays_per_modality, 5)
+    tbatch = sample(tds, TCFG.datamanager.num_rays_per_modality, seed)
     jbatch = {m: JPixelBatch(
         camera_indices=jnp.asarray(b.camera_indices.numpy().astype(np.int32)),
         pixel_coords=jnp.asarray(b.pixel_coords.numpy()), pixels=jnp.asarray(b.pixels.numpy()),
